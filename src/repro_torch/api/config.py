@@ -1,7 +1,8 @@
 """Run configuration and trace/result value types (PyTorch port).
 
-The fields of ``repro/api/config.py`` that the ported ``mpbcfw`` path
-reads; a later slice adds the rest with the engines that consume them.
+The fields of ``repro/api/config.py`` that the ported ``mpbcfw`` and
+``mpbcfw-async`` paths read; a later slice adds the rest with the engines
+that consume them.
 """
 from __future__ import annotations
 
@@ -46,6 +47,7 @@ class TraceRow:
     cache_hit_rate: float = 0.0   # fraction of blocks with >= 1 plane
     planes_evicted: int = 0       # TTL + LRU evictions this iteration
     oracle_share: float = 1.0     # modeled share of time in the exact pass
+    oracle_overlap: float = 0.0   # async: hidden share of the oracle time
 
 
 @dataclass

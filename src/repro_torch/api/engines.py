@@ -5,13 +5,16 @@ An engine owns the passes of one optimizer family and is driven by
 ``outer_iteration``, ``continue_passes``, ``read_stats``, ``evaluate``
 and ``extract``, plus a :class:`~repro_torch.core.selection.SyncLedger`.
 
-This slice ports :class:`FusedEngine` as ``mpbcfw``.  Every other
-algorithm name raises :class:`~repro_torch.api.errors.UnsupportedConfigError`
-(not yet ported).
+Ported: :class:`FusedEngine` as ``mpbcfw`` and :class:`AsyncEngine` as
+``mpbcfw-async``.  Every other algorithm name raises
+:class:`~repro_torch.api.errors.UnsupportedConfigError` (not yet ported).
 """
 from __future__ import annotations
 
 from typing import Callable, Dict
+
+import numpy as np
+import torch
 
 from ..core import mpbcfw
 from ..core.averaging import extract as extract_average
@@ -65,10 +68,119 @@ class FusedEngine:
         return w, w_avg
 
 
+class AsyncEngine(FusedEngine):
+    """Pipelined single-device engine (``mpbcfw-async``).
+
+    Two programs per outer iteration, with no host sync between them: the
+    exact oracle of every block at the stale iteration-entry ``w``
+    (:func:`repro_torch.core.mpbcfw.async_oracle_program`) and the
+    eviction, fold-in and approximate passes on the current state
+    (:func:`repro_torch.core.mpbcfw.async_cache_program`).  On CUDA the
+    oracle program runs on a side stream, the counterpart of JAX's async
+    dispatch:
+
+      * it reads a snapshot ``w`` made on the main stream before the cache
+        program mutates ``phi`` in place, after the side stream waits for
+        the main one;
+      * its planes are folded on the main stream in the next iteration,
+        after the main stream waits on an event recorded behind the
+        oracle; ``record_stream`` tells the caching allocator about both
+        cross-stream uses;
+      * the kernels launch on the current stream, so the oracle's Viterbi
+        launch happens inside ``torch.cuda.stream(side)``.
+
+    On the CPU the two programs run one after the other.  The ledger
+    carries the modeled oracle overlap (``TraceRow.oracle_overlap``), read
+    in the same sync as the stats.  ``outcome_fn(iteration, k) -> (k,)
+    bool`` injects oracle arrivals (stragglers); None means all arrive.
+    """
+
+    def __init__(self, problem: SSVMProblem, lam: float):
+        super().__init__(problem, lam)
+        self.outcome_fn = None
+        self._overlap_pending = None
+        self._it = 0
+        self._side = None           # the oracle's CUDA stream
+        self._oracle_ready = None   # event behind the in-flight oracle
+
+    def init_state(self, cap: int) -> mpbcfw.AsyncMPState:
+        return mpbcfw.init_async_state(self.problem, cap)
+
+    def _done_mask(self, k: int) -> np.ndarray:
+        self._it += 1
+        if self.outcome_fn is None:
+            return np.ones((k,), bool)
+        return np.asarray(self.outcome_fn(self._it, k), dtype=bool
+                          ).reshape(k)
+
+    def _dispatch_oracle(self, phi: torch.Tensor, perm):
+        w = weights_of(phi, self.lam)          # a snapshot: phi mutates
+        if w.device.type != "cuda":
+            return mpbcfw.async_oracle_program(self.problem, w, perm)
+        main = torch.cuda.current_stream(w.device)
+        if self._side is None:
+            self._side = torch.cuda.Stream(w.device)
+        side = self._side
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            ids, planes = mpbcfw.async_oracle_program(self.problem, w, perm)
+            ready = torch.cuda.Event()
+            ready.record(side)
+        w.record_stream(side)
+        planes.record_stream(main)
+        self._oracle_ready = ready
+        return ids, planes
+
+    def outer_iteration(self, state, perm, perms, clock, *, ttl: int):
+        mp, pending = state.mp, state.pending
+        if self._oracle_ready is not None:
+            # The fold below reads the previous oracle's planes.
+            torch.cuda.current_stream(mp.inner.phi.device).wait_event(
+                self._oracle_ready)
+        self.ledger.dispatched()
+        ids, planes = self._dispatch_oracle(mp.inner.phi, perm)
+        self.ledger.dispatched()
+        mp2, clock2, stats = mpbcfw.async_cache_program(
+            mp, pending, perms, clock, lam=self.lam, ttl=ttl,
+            ledger=self.ledger)
+        new_pending = mpbcfw.PendingOracle(
+            ids=ids, planes=planes, done=self._done_mask(len(ids)),
+            live=True)
+        # Overlap accounting, on the device until read_stats: the oracle
+        # program's modeled time is the slope clock's exact-pass constant
+        # (clock.t), the cache program's the approximate phase's advance;
+        # min(oracle, cache) of it is hidden by the pipeline.
+        self._overlap_pending = (
+            clock.t, torch.minimum(clock.t, clock2.t - clock.t))
+        return (mpbcfw.AsyncMPState(mp=mp2, pending=new_pending), clock2,
+                stats)
+
+    def continue_passes(self, state, perms, clock):
+        self.ledger.dispatched()
+        mp2, clock2, stats = mpbcfw.multi_approx_pass(
+            state.mp, perms, clock, lam=self.lam, ledger=self.ledger)
+        return state._replace(mp=mp2), clock2, stats
+
+    def read_stats(self, stats):
+        pend, self._overlap_pending = self._overlap_pending, None
+        if pend is None:
+            return self.ledger.sync(stats)
+        st, total, hidden = self.ledger.sync((stats, pend[0], pend[1]))
+        self.ledger.overlapped(float(total), float(hidden))
+        return st
+
+    def evaluate(self, state):
+        return super().evaluate(state.mp)
+
+    def extract(self, state):
+        return super().extract(state.mp)
+
+
 EngineFactory = Callable[[SSVMProblem, RunConfig], FusedEngine]
 
 _REGISTRY: Dict[str, EngineFactory] = {
     "mpbcfw": lambda problem, cfg: FusedEngine(problem, cfg.lam),
+    "mpbcfw-async": lambda problem, cfg: AsyncEngine(problem, cfg.lam),
 }
 
 

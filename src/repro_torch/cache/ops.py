@@ -7,15 +7,18 @@ index tensors: indexing with a 0-d CUDA tensor would call ``.item()`` and
 block the host inside a pass.  Block indices come from the host
 permutation and are Python ints.
 
-Scoring goes through :func:`repro_torch.kernels.ops.plane_scores`.
-Invalid slots score :data:`NEG_INF` so they never win an argmax.
+Scoring goes through :func:`repro_torch.kernels.ops.plane_scores` (one
+block) and :func:`repro_torch.kernels.ops.plane_select` (many blocks at
+one ``w``).  Invalid slots score :data:`NEG_INF` so they never win an
+argmax.
 """
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
+from ..core.types import index_tensor
 from ..kernels import ops as kops
 from .state import CacheLayout, PlaneCache
 
@@ -71,9 +74,9 @@ def insert(cache: PlaneCache, i: int, plane: torch.Tensor,
 
 def mark_active(cache: PlaneCache, i: int, slot: torch.Tensor,
                 it: int) -> PlaneCache:
-    """Record that block ``i``'s ``slot`` ((1,) index) was returned by an
-    oracle call at outer iteration ``it``."""
-    cache.last_active[i].index_fill_(0, slot.reshape(1), it)
+    """Record that block ``i``'s ``slot`` ((1,) int64 or int32 index) was
+    returned by an oracle call at outer iteration ``it``."""
+    cache.last_active[i].index_fill_(0, slot.reshape(1).long(), it)
     return cache
 
 
@@ -83,9 +86,60 @@ def evict_stale(cache: PlaneCache, it: int, ttl: int) -> PlaneCache:
     return cache
 
 
+def gather(cache: PlaneCache, ids) -> PlaneCache:
+    """Sub-cache of the rows in ``ids``: a copy of shape ``(len(ids), cap,
+    ...)``, so later updates of either cache do not reach the other.  The
+    batched fallback does not call this: :func:`approx_oracle_all` takes
+    ``rows`` and reads the selected rows in place."""
+    idx = index_tensor(ids, cache.planes.device)
+    return PlaneCache(planes=cache.planes[idx], valid=cache.valid[idx],
+                      last_active=cache.last_active[idx])
+
+
+def flat_view(cache: PlaneCache
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(P (n*cap, d), b (n*cap,), valid (n*cap,))``: views of the whole
+    cache in the ``plane_scores`` kernel's operand layout."""
+    n, cap, d1 = cache.planes.shape
+    flat = cache.planes.reshape(n * cap, d1)
+    return flat[:, :-1], flat[:, -1], cache.valid.reshape(n * cap)
+
+
 def sizes(cache: PlaneCache) -> torch.Tensor:
     """Per-block working-set sizes (paper Fig. 5 telemetry)."""
     return cache.valid.sum(dim=1)
+
+
+def score_all(cache: PlaneCache, w: torch.Tensor) -> torch.Tensor:
+    """Masked scores of every cached plane at one ``w``: ``(n, cap)``,
+    invalid slots :data:`NEG_INF`.  One ``plane_scores`` launch over
+    :func:`flat_view`; for telemetry, the hot path selects through
+    :func:`approx_oracle_all`."""
+    p, b, valid = flat_view(cache)
+    scores = kops.plane_scores(p, w, b)
+    return torch.where(valid, scores, torch.full_like(scores, NEG_INF)
+                       ).reshape(cache.valid.shape)
+
+
+def approx_oracle_all(cache: PlaneCache, w: torch.Tensor,
+                      rows: Optional[torch.Tensor] = None):
+    """Batched approximate oracle: the best cached plane of each block in
+    ``rows`` (int64 tensor, default every block) at one shared ``w``.
+
+    One ``plane_select`` launch, which reads the selected rows in place.
+    Returns ``(planes (k, d+1), slots (k,) int32, scores (k,))``; a block
+    with an empty set gets the zero plane, slot 0 and score 0 (the
+    ground-truth plane).
+    """
+    best, slots = kops.plane_select(cache.planes[:, :, :-1], w,
+                                    cache.planes[:, :, -1], cache.valid,
+                                    rows=rows)
+    if rows is None:
+        rows = torch.arange(cache.valid.shape[0], device=cache.valid.device)
+    empty = ~cache.valid[rows].any(dim=1)
+    planes = cache.planes[rows, slots.long()]
+    planes.masked_fill_(empty[:, None], 0.0)
+    return planes, slots, best.masked_fill_(empty, 0.0)
 
 
 def approx_oracle(cache: PlaneCache, i: int, w: torch.Tensor

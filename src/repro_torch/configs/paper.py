@@ -2,7 +2,7 @@
 
 A copy of ``repro/configs/paper.py``: the full-size scenarios and the
 CI-sized ``SMALL`` stand-ins.  The port trains the chain scenario
-(``OCR``, ``SMALL["ocr"]``) in this slice; the others are listed so the
+(``OCR``, ``SMALL["ocr"]``) so far; the others are listed so the
 two packages name the same configurations.
 """
 from dataclasses import dataclass

@@ -9,6 +9,9 @@ in the reference's ``MPState`` layout (``inner.phi_i``, ``inner.phi``,
 fetched to the host mid-run, with a part-filled cache, can then be run
 forward by both packages from the same point.  :func:`mp_state_to_numpy`
 goes the other way, into a flat dict of the same field names.
+:func:`async_state_from_numpy` and :func:`async_state_to_numpy` do the
+same for the pipelined engine's ``AsyncMPState``: the ``mp`` fields plus
+the pending buffer ``pending.{ids, planes, done, live}``.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ import numpy as np
 import torch
 
 from .cache.state import PlaneCache
-from .core.mpbcfw import MPState
+from .core.mpbcfw import AsyncMPState, MPState, PendingOracle
 from .core.oracles import chain
 from .core.types import AveragingState, BCFWState, SSVMProblem
 
@@ -63,6 +66,28 @@ def mp_state_to_numpy(mp: MPState) -> Dict[str, Any]:
             "bar_approx": host(mp.avg.bar_approx),
             "k_exact": mp.avg.k_exact, "k_approx": mp.avg.k_approx,
             "outer_it": mp.outer_it}
+
+
+def async_state_from_numpy(tree: Any, device) -> AsyncMPState:
+    """The port's pipelined state from a reference ``AsyncMPState`` of
+    numpy arrays.  The pending ``ids`` and ``done`` stay host arrays."""
+    p = tree.pending
+    return AsyncMPState(
+        mp=mp_state_from_numpy(tree.mp, device),
+        pending=PendingOracle(
+            ids=np.array(p.ids, dtype=np.int64),
+            planes=_t(p.planes, torch.float32, torch.device(device)),
+            done=np.array(p.done, dtype=bool), live=bool(p.live)))
+
+
+def async_state_to_numpy(state: AsyncMPState) -> Dict[str, Any]:
+    """:func:`mp_state_to_numpy` of ``state.mp``, with the pending buffer
+    under ``"pending"`` (``ids``, ``planes``, ``done``, ``live``)."""
+    p = state.pending
+    return {**mp_state_to_numpy(state.mp), "pending": {
+        "ids": np.array(p.ids, dtype=np.int64),
+        "planes": p.planes.detach().cpu().numpy(),
+        "done": np.array(p.done, dtype=bool), "live": bool(p.live)}}
 
 
 def problem_from_numpy(features: np.ndarray, labels: np.ndarray,

@@ -1,0 +1,138 @@
+"""Tau-nice MP-BCFW: oracles at a shared stale ``w``, sequential fold-in
+(PyTorch port of ``repro/core/distributed.py``).
+
+Sample ``tau`` distinct blocks, evaluate their max-oracles at the same
+stale ``w``, then fold the returned planes in one at a time with exact
+line search at the current ``phi``.  Every returned plane is a genuine
+data plane whatever ``w`` produced it, so each fold is monotone in F.
+
+Straggler mitigation (:mod:`repro_torch.ft`): a host ``done`` mask marks
+the oracle results that arrived in time; a missing block folds its best
+cached plane instead, from one batched :func:`fallback_planes` call over
+all sampled blocks (one ``plane_select`` launch that reads the sampled
+rows of the cache in place).
+
+The fold updates the state in place and branches on the host, per block,
+on ``done`` (a numpy bool array) and ``live`` (a Python bool): the
+reference's ``jnp.where`` over both branches becomes one branch taken.
+The fused ``shard_map`` epoch of ``repro.shard`` is not ported (ROADMAP
+A10); :func:`host_tau_nice_pass` is the single-device chunk loop.
+"""
+from __future__ import annotations
+
+from typing import TYPE_CHECKING, Any, Optional
+
+import numpy as np
+import torch
+
+from .. import cache as plane_cache
+from .averaging import update_average
+from .bcfw import block_update
+from .ssvm import weights_of
+from .types import SSVMProblem, block_ids as host_blocks, index_tensor
+
+if TYPE_CHECKING:
+    from .mpbcfw import MPState
+
+
+def gather_examples(problem: SSVMProblem, block_ids):
+    """The examples of ``block_ids`` as one batch (copies)."""
+    device = next(iter(problem.data.values())).device
+    idx = index_tensor(block_ids, device)
+    return {k: v[idx] for k, v in problem.data.items()}
+
+
+def parallel_oracles(problem: SSVMProblem, w: torch.Tensor, block_ids,
+                     mesh: Optional[Any] = None) -> torch.Tensor:
+    """The max-oracles of ``block_ids`` at one shared ``w``: one batched
+    oracle call, ``(tau, d+1)`` planes."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "parallel_oracles over a mesh: multi-device execution is not "
+            "ported yet (ROADMAP A10)")
+    return problem.oracle(w, gather_examples(problem, block_ids))
+
+
+def fallback_planes(ws, block_ids, w: torch.Tensor):
+    """Best cached plane of every sampled block at one shared stale ``w``.
+
+    Returns ``(planes (tau, d+1), slots (tau,) int32, scores (tau,))`` from
+    one :func:`repro_torch.cache.approx_oracle_all` call that reads the
+    sampled rows in place (the reference gathers a sub-cache first).  A
+    block with an empty cache gets the zero (ground-truth) plane and slot
+    0, which still gives a monotone fold step.  Re-exported as
+    ``repro_torch.ft.fallback_planes``.
+    """
+    rows = index_tensor(block_ids, ws.planes.device)
+    return plane_cache.approx_oracle_all(ws, w, rows=rows)
+
+
+def fold_planes(mp: MPState, block_ids, planes: torch.Tensor,
+                fb_planes: Optional[torch.Tensor],
+                fb_slots: Optional[torch.Tensor], done, lam: float, *,
+                live: Optional[bool] = None) -> MPState:
+    """Fold ``tau`` candidate planes into the dual state, in order.
+
+    Block ``block_ids[b]`` folds its oracle plane ``planes[b]`` when
+    ``done[b]`` (and caches it), else its fallback ``fb_planes[b]`` (and
+    marks its slot ``fb_slots[b]`` active; an empty cache marks slot 0,
+    as the reference does).  Each step is an exact line search at the
+    current ``phi``, then an exact-track averaging step.  ``n_exact``
+    counts the arrived blocks and ``n_approx`` the others.
+
+    ``done`` is a host bool array and ``live`` a host bool: ``live=False``
+    returns ``mp`` unchanged (the pipeline's first iteration has nothing
+    to fold).  The fallback arguments may be None when every block
+    arrived.  The reference's choice of scatter strategy (``CacheLayout
+    .fold_scatter``) has no counterpart: the port folds in place.
+    """
+    if live is not None and not live:
+        return mp
+    ids = host_blocks(block_ids)
+    done = np.asarray(done, dtype=bool).reshape(-1)
+    if done.shape[0] != len(ids):
+        raise ValueError(f"fold_planes: {done.shape[0]} done flags for "
+                         f"{len(ids)} blocks")
+    st, ws, av = mp.inner, mp.cache, mp.avg
+    for b, i in enumerate(ids):
+        if done[b]:
+            st, _ = block_update(st, i, planes[b], lam)
+            ws = plane_cache.insert(ws, i, planes[b], mp.outer_it)
+        else:
+            st, _ = block_update(st, i, fb_planes[b], lam)
+            ws = plane_cache.mark_active(ws, i, fb_slots[b:b + 1],
+                                         mp.outer_it)
+        av = update_average(av, st.phi, exact=True)
+    n_ok = int(done.sum())
+    st = st._replace(n_exact=st.n_exact + n_ok,
+                     n_approx=st.n_approx + len(ids) - n_ok)
+    return mp._replace(inner=st, cache=ws, avg=av)
+
+
+def tau_chunk(problem: SSVMProblem, mp: MPState, ids, ok,
+              lam: float) -> MPState:
+    """One tau-nice chunk: the oracles of ``ids`` at the chunk's stale
+    ``w``, the batched cached fallback at the same ``w``, and the fold."""
+    w = weights_of(mp.inner.phi, lam)
+    planes = parallel_oracles(problem, w, ids)
+    fbp, fbs, _ = fallback_planes(mp.cache, ids, w)
+    return fold_planes(mp, ids, planes, fbp, fbs, ok, lam)
+
+
+def host_tau_nice_pass(problem: SSVMProblem, mp: MPState, perm, lam: float,
+                       tau: int, done=None) -> MPState:
+    """One tau-nice epoch over ``perm``: ``n // tau`` chunks in order.
+
+    ``done`` is an optional ``(n // tau, tau)`` host bool array of oracle
+    arrivals per chunk (default: all arrive).
+    """
+    perm = np.asarray(perm).reshape(-1)
+    n = perm.shape[0]
+    if tau < 1 or n % tau:
+        raise ValueError(f"host_tau_nice_pass: perm length {n} is not a "
+                         f"multiple of tau={tau}")
+    for c in range(n // tau):
+        ids = perm[c * tau:(c + 1) * tau]
+        ok = np.ones((tau,), bool) if done is None else done[c]
+        mp = tau_chunk(problem, mp, ids, ok, lam)
+    return mp

@@ -16,11 +16,15 @@ exactly as in the reference, and the host reads its continue flag once
 per approximate pass: one counted host sync per pass, where the
 reference has none (ROADMAP C).
 
+The pipelined variant (``mpbcfw-async``) splits an outer iteration into
+an oracle program and a cache program (:func:`async_oracle_program`,
+:func:`async_cache_program`); see the section at the end of this module.
+
 State tensors are updated in place (see :mod:`repro_torch.core.types`).
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -29,10 +33,11 @@ from .. import cache as plane_cache
 from ..cache import CacheLayout, PlaneCache
 from .averaging import init_averaging, update_average
 from .bcfw import block_update
+from .distributed import fallback_planes, fold_planes, parallel_oracles
 from .selection import SyncLedger, slope_continue_t
 from .ssvm import dual_value, init_state, weights_of
 from .types import (ApproxBatchStats, AveragingState, BCFWState, ObsMetrics,
-                    SlopeClock, SSVMProblem)
+                    SlopeClock, SSVMProblem, block_ids)
 
 
 class MPState(NamedTuple):
@@ -49,16 +54,11 @@ def _example(problem: SSVMProblem, i: int):
     return {k: v[i:i + 1] for k, v in problem.data.items()}
 
 
-def _blocks(perm) -> Sequence[int]:
-    """Block ids of a host permutation (numpy array, list or CPU tensor)."""
-    return [int(i) for i in np.asarray(perm).reshape(-1)]
-
-
 def exact_pass(problem: SSVMProblem, mp: MPState, perm,
                lam: float) -> MPState:
     """Paper Alg. 3 step 3: BCFW pass with the real oracle + plane caching."""
     st, c, av = mp.inner, mp.cache, mp.avg
-    blocks = _blocks(perm)
+    blocks = block_ids(perm)
     for i in blocks:
         w = weights_of(st.phi, lam)
         phi_hat = problem.oracle(w, _example(problem, i))[0]
@@ -74,7 +74,7 @@ def approx_pass(problem: Optional[SSVMProblem], mp: MPState, perm,
     """Paper Alg. 3 step 4: BCFW pass against the cached planes only."""
     del problem  # the approximate pass never touches the data
     st, c, av = mp.inner, mp.cache, mp.avg
-    blocks = _blocks(perm)
+    blocks = block_ids(perm)
     for i in blocks:
         w = weights_of(st.phi, lam)
         phi_hat, slot, _ = plane_cache.approx_oracle(c, i, w)
@@ -205,3 +205,111 @@ def init_mp_state(problem: SSVMProblem, cap: Union[int, CacheLayout],
                                           device),
                    avg=init_averaging(problem.d, device),
                    outer_it=0)
+
+
+# ---------------------------------------------------------------------------
+# Pipelined MP-BCFW (``mpbcfw-async``): two programs per outer iteration.
+#
+#   * :func:`async_oracle_program` -- the exact max-oracle of every block,
+#     all at the stale iteration-entry ``w``: one batched oracle call, so
+#     the chain oracle decodes all n blocks in one Viterbi launch.
+#   * :func:`async_cache_program` -- eviction, the monotone fold-in of the
+#     *previous* iteration's oracle results (straggler blocks fold their
+#     best cached plane instead, from one batched ``plane_select``), and
+#     the slope-ruled batch of approximate passes.
+#
+# Neither reads the other's outputs, so on CUDA the engine runs the oracle
+# on a side stream while the cache program runs on the main one; their
+# results meet in the next iteration's pending buffer.
+# ---------------------------------------------------------------------------
+
+
+class PendingOracle(NamedTuple):
+    """Oracle results dispatched at iteration t and folded at t+1.
+
+    Attributes:
+      ids:    (k,) int64 host array: the blocks whose oracles ran.
+      planes: (k, d+1) float32 tensor: their planes at the stale ``w``.
+      done:   (k,) bool host array: the result arrived by its deadline;
+              a missed block folds its cached fallback (``repro_torch.ft``).
+      live:   False until the first dispatch: nothing folds.
+    """
+
+    ids: np.ndarray
+    planes: torch.Tensor
+    done: np.ndarray
+    live: bool
+
+
+class AsyncMPState(NamedTuple):
+    """Pipelined MP-BCFW state: the MP-BCFW state and the pending buffer."""
+
+    mp: MPState
+    pending: PendingOracle
+
+    @property
+    def inner(self) -> BCFWState:
+        """The wrapped dual state, so ``state.inner.phi`` and
+        ``state.inner.n_exact`` read alike for every engine's state."""
+        return self.mp.inner
+
+
+def init_pending(n: int, d: int, device) -> PendingOracle:
+    """Empty pending buffer (``live=False``: nothing folds)."""
+    return PendingOracle(
+        ids=np.zeros((n,), np.int64),
+        planes=torch.zeros((n, d + 1), dtype=torch.float32, device=device),
+        done=np.zeros((n,), bool), live=False)
+
+
+def init_async_state(problem: SSVMProblem, cap: Union[int, CacheLayout],
+                     device=None) -> AsyncMPState:
+    mp = init_mp_state(problem, cap, device)
+    return AsyncMPState(mp=mp, pending=init_pending(
+        problem.n, problem.d, mp.inner.phi.device))
+
+
+def async_oracle_program(problem: SSVMProblem, w: torch.Tensor, perm
+                         ) -> Tuple[np.ndarray, torch.Tensor]:
+    """The oracle half of the pipelined iteration.
+
+    The exact max-oracle of every block of ``perm`` at the one stale ``w``
+    (the caller's snapshot of the iteration-entry weights): one batched
+    oracle call over the gathered examples.  Reads nothing the cache
+    program writes.  Returns ``(ids, planes)``.
+    """
+    ids = np.asarray(perm, np.int64).reshape(-1)
+    return ids, parallel_oracles(problem, w, ids)
+
+
+def async_cache_program(mp: MPState, pending: PendingOracle, perms,
+                        clock: SlopeClock, *, lam: float, ttl: int,
+                        ledger: Optional[SyncLedger] = None):
+    """The cache half of the pipelined iteration.
+
+    TTL eviction, the fold-in of ``pending`` (straggler blocks fold their
+    best cached plane at the *current* ``w``, batched), then the
+    slope-ruled approximate passes: :func:`outer_iteration` with the exact
+    pass replaced by the fold.  ``clock.f0`` is seeded before the fold,
+    so the slope rule's chord includes its gain.  Returns ``(mp, clock,
+    stats)``.
+    """
+    occ0 = mp.cache.occupancy                 # before eviction
+    mp = begin_iteration(mp, ttl)
+    occ1 = mp.cache.occupancy                 # after eviction
+    clock = clock._replace(f0=dual_value(mp.inner.phi, lam))
+    fbp = fbs = None
+    if pending.live:
+        w = weights_of(mp.inner.phi, lam)
+        fbp, fbs, _ = fallback_planes(mp.cache, pending.ids, w)
+    mp = fold_planes(mp, pending.ids, pending.planes, fbp, fbs,
+                     pending.done, lam, live=pending.live)
+    occ2 = mp.cache.occupancy                 # after the fold's inserts
+    mp, clock, stats = multi_approx_pass(mp, perms, clock, lam=lam,
+                                         ledger=ledger)
+    # Eviction accounting (cf. outer_iteration): the fold inserts one plane
+    # per arrived block (fallbacks only refresh activity), when live.
+    n_inserts = int(np.sum(pending.done)) if pending.live else 0
+    metrics = stats.metrics._replace(ttl_evicted=occ0 - occ1,
+                                     lru_evicted=occ1 + n_inserts - occ2)
+    return mp, clock, stats._replace(metrics=metrics)

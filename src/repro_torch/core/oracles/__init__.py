@@ -1,1 +1,1 @@
-"""Structured max-oracles as OracleSpecs (this slice: the chain task)."""
+"""Structured max-oracles as OracleSpecs (ported so far: the chain task)."""

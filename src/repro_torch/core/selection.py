@@ -97,11 +97,18 @@ class SyncLedger:
     Counts device->host round-trips (``host_syncs``) and program
     dispatches; ``collectives`` stays 0 on one device.  Only :meth:`sync`
     blocks.
+
+    The pipelined engine also charges its oracle-overlap accounting here
+    (:meth:`overlapped`): modeled oracle seconds issued and the part
+    hidden behind the concurrent cache program.  Those two fields are not
+    part of :meth:`counts`.
     """
 
     host_syncs: int = 0
     collectives: int = 0
     dispatches: int = 0
+    oracle_time_total: float = 0.0
+    oracle_time_hidden: float = 0.0
 
     def counts(self) -> tuple:
         """Snapshot ``(host_syncs, collectives, dispatches)``."""
@@ -118,6 +125,13 @@ class SyncLedger:
 
     def dispatched(self, n: int = 1) -> None:
         self.dispatches += n
+
+    def overlapped(self, total: float, hidden: float) -> None:
+        """Charge one iteration's oracle overlap: ``total`` modeled oracle
+        seconds, of which ``hidden`` (clipped to ``[0, total]``) ran
+        behind the cache program."""
+        self.oracle_time_total += float(total)
+        self.oracle_time_hidden += float(min(max(hidden, 0.0), total))
 
 
 @dataclass

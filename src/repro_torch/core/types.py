@@ -16,8 +16,9 @@ ints, so reading them never waits for the device.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, List, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 
@@ -103,3 +104,16 @@ class ApproxBatchStats(NamedTuple):
     more: bool        # the rule still wanted another pass
     ws_total: Any     # ()   i32  total cached planes on entry
     metrics: Optional[ObsMetrics] = None
+
+
+def block_ids(perm) -> List[int]:
+    """Block ids of a host permutation (numpy array, list or CPU tensor)."""
+    return [int(i) for i in np.asarray(perm).reshape(-1)]
+
+
+def index_tensor(ids, device) -> torch.Tensor:
+    """Block ids (numpy array, list or tensor) as an int64 tensor on
+    ``device``."""
+    if isinstance(ids, torch.Tensor):
+        return ids.to(device=device, dtype=torch.int64)
+    return torch.as_tensor(np.asarray(ids, np.int64), device=device)

@@ -16,19 +16,21 @@ whole-sequence :func:`viterbi_decode`, which fuses the step with its scan.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import plane_scores as _ps
+from . import plane_select as _psel
 from . import ref
 from . import viterbi as _vit
 
-# The one invalid-slot score sentinel: loses every argmax, and is exactly
-# representable in float32.
-INVALID_SCORE = -1e30  # repro: allow[R001] the port's own sentinel home
+# The one invalid-slot score sentinel (defined in :mod:`.ref`, whose plain
+# versions mask with it).
+INVALID_SCORE = ref.INVALID_SCORE
 
-_KERNELS = {"plane_scores": _ps, "viterbi_decode": _vit}
+_KERNELS = {"plane_scores": _ps, "plane_select": _psel,
+            "viterbi_decode": _vit}
 
 
 def plane_scores(planes: torch.Tensor, w: torch.Tensor,
@@ -37,6 +39,20 @@ def plane_scores(planes: torch.Tensor, w: torch.Tensor,
     if planes.device.type == "cpu":
         return ref.plane_scores_ref(planes, w, offsets)
     return _ps.plane_scores(planes, w, offsets)
+
+
+def plane_select(planes: torch.Tensor, w: torch.Tensor,
+                 offsets: torch.Tensor, valid: torch.Tensor,
+                 rows: Optional[torch.Tensor] = None,
+                 neg: float = INVALID_SCORE
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Best valid slot per cache row of ``(n, cap, d)`` planes, rows
+    ``rows`` (int64, default all): ``(best (k,) float32, idx (k,)
+    int32)``, first maximum on ties; ``(neg, 0)`` for a row with no valid
+    slot."""
+    if planes.device.type == "cpu":
+        return ref.plane_select_ref(planes, w, offsets, valid, rows, neg)
+    return _psel.plane_select(planes, w, offsets, valid, rows, neg=neg)
 
 
 def viterbi_decode(unary: torch.Tensor, trans: torch.Tensor,

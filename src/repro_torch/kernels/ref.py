@@ -6,7 +6,13 @@ tests and ``chip_smoke.py`` hold the CUDA kernels against them.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+# The one invalid-slot score sentinel: loses every argmax, and is exactly
+# representable in float32.  Re-exported as ``kernels.ops.INVALID_SCORE``.
+INVALID_SCORE = -1e30  # repro: allow[R001] the port's own sentinel home
 
 
 def plane_scores_ref(planes: torch.Tensor, w: torch.Tensor,
@@ -19,6 +25,28 @@ def plane_scores_ref(planes: torch.Tensor, w: torch.Tensor,
     is reduced the same way, as in the kernel.
     """
     return (planes * w).sum(dim=1) + offsets
+
+
+def plane_select_ref(planes: torch.Tensor, w: torch.Tensor,
+                     offsets: torch.Tensor, valid: torch.Tensor,
+                     rows: Optional[torch.Tensor] = None,
+                     neg: float = INVALID_SCORE):
+    """Fused score-and-select: ``planes (n, cap, d)``, ``offsets`` and
+    ``valid (n, cap)``, over the rows ``rows`` (int64, default all).
+
+    Returns ``(best (k,) float32, idx (k,) int32)``: the best valid slot's
+    score and the first slot attaining it; a row with no valid slot gives
+    ``(neg, 0)`` (``repro/kernels/ref.py::plane_select_ref``).  Scores go
+    through :func:`plane_scores_ref` on the flattened ``(k*cap, d)`` rows,
+    so they are bit-equal to the per-block approximate oracle's.
+    """
+    if rows is not None:
+        planes, offsets, valid = planes[rows], offsets[rows], valid[rows]
+    k, cap, d = planes.shape
+    scores = plane_scores_ref(planes.reshape(k * cap, d), w,
+                              offsets.reshape(k * cap)).reshape(k, cap)
+    masked = torch.where(valid, scores, torch.full_like(scores, neg))
+    return masked.amax(dim=1), masked.argmax(dim=1).to(torch.int32)
 
 
 def viterbi_step_ref(m: torch.Tensor, trans: torch.Tensor):

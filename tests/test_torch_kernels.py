@@ -21,6 +21,7 @@ from repro.kernels import ref as jax_ref
 from repro.kernels import viterbi as jax_vit
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import plane_scores as t_ps
+from repro_torch.kernels import plane_select as t_psel
 from repro_torch.kernels import viterbi as t_vit
 
 TOL = dict(rtol=3e-5, atol=3e-5)
@@ -145,7 +146,12 @@ def test_cpu_tensors_take_the_plain_path_without_launching():
     u, t, m = _viterbi_case(0, 2, 5, 3)
     ops.viterbi_decode(torch.from_numpy(u), torch.from_numpy(t),
                        torch.from_numpy(m))
-    assert ops.launch_counts() == {"plane_scores": 0, "viterbi_decode": 0}
+    stack = torch.from_numpy(_planes(2, 12, 8)[0]).reshape(3, 4, 9)
+    ops.plane_select(stack[..., :-1], torch.from_numpy(w), stack[..., -1],
+                     torch.ones((3, 4), dtype=torch.bool),
+                     rows=torch.tensor([2, 0]))
+    assert ops.launch_counts() == {"plane_scores": 0, "plane_select": 0,
+                                   "viterbi_decode": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -159,7 +165,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         t_vit.viterbi_decode(torch.from_numpy(u), torch.from_numpy(t),
                              torch.from_numpy(m))
+    stack = tb.reshape(2, 2, 9)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_psel.plane_select(stack[..., :-1], torch.from_numpy(w),
+                            stack[..., -1], torch.ones((2, 2), dtype=bool),
+                            neg=ops.INVALID_SCORE)
     assert t_ps.launches == 0 and t_vit.launches == 0
+    assert t_psel.launches == 0
 
 
 def test_viterbi_label_limit_fits_shared_memory():
