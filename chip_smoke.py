@@ -31,8 +31,23 @@ Phases, one JSON line each:
   8. profile_async -- the fold step and the side-stream oracle program on
                  the trained state: host ms per folded block, device busy
                  share, and whether kernels on the two streams overlapped.
-  9. kernels line, the card's name and power limit, and the result line
+  9. parity_lm -- the LM substrate on the card against the port on the
+                 CPU: reduced OLMoE in float32, same weights and tokens;
+                 backbone features, one decode step's logits, and a
+                 3-iteration SSVM-head Solver run.
+ 10. main_lm  -- OLMoE-1B-7B at its published width (16 layers, d_model
+                 2048, 64 experts top-8, random weights from a seed): the
+                 Server answers 8 requests, then the SSVM head trains on
+                 backbone features of the example's tagging task (n=1024,
+                 L=32, 5 tags), each with launch counts reset just before
+                 and read just after; then profile_lm traces 8 decode
+                 rounds and one feature pass (device busy share, device
+                 time by kernel).
+ 11. kernels line, the card's name and power limit, and the result line
      ``{"ok": true, "device": {...}}`` last.
+
+The kernel phase also holds moe_ffn and flash_attention against their
+plain versions, at the LM paths' shapes and at ragged ones.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line.  It needs a CUDA device and the repository's ``src`` tree beside it.
@@ -50,6 +65,8 @@ ROOT = Path(__file__).resolve().parent
 TOL = 3e-5                      # kernel vs plain: |err| <= TOL*(1+|ref|)
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, data sheet
 FP32_FLOPS = 67e12              # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12             # H100 SXM bf16 tensor cores, dense
+BF16_REL_L2 = 2e-2              # kernel vs plain at bf16 (they round apart)
 
 # The full-size OCR chain scenario (configs/paper.py::OCR) and the run.
 OCR = dict(n=6877, f=128, num_labels=26, mean_len=8, max_len=14, seed=0)
@@ -57,6 +74,16 @@ RUN = dict(algo="mpbcfw", cap=64, ttl=10, max_iters=3, approx_batch=8,
            max_approx_passes=8)
 RUN_ASYNC = dict(RUN, algo="mpbcfw-async")
 ORACLE_COST, PLANE_COST = 0.3, 1e-4
+
+# The LM paths: OLMoE-1B-7B serving, and the SSVM head on its features.
+LM_ARCH = "olmoe-1b-7b"
+SERVE = dict(slots=4, max_seq=256, requests=8, prompt_len=4, max_new=16)
+HEAD = dict(n=1024, L=32, tags=5)
+# The example's RunConfig (cap=16, CostModel(oracle_cost=0.5)) with depth
+# cut to fit the smoke: 3 outer iterations, at most 8 approximate passes.
+HEAD_RUN = dict(algo="mpbcfw", max_iters=3, cap=16, approx_batch=8,
+                max_approx_passes=8)
+HEAD_ORACLE_COST = 0.5
 
 
 def emit(phase: str, **fields) -> None:
@@ -68,9 +95,10 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def bound_ms(nbytes: float, ops: float):
-    """Least time for the work: bytes over HBM rate vs fp32 ops over peak."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+def bound_ms(nbytes: float, ops: float, flops: float = FP32_FLOPS):
+    """Least time for the work: bytes over HBM rate vs ops over the peak
+    rate of their type (fp32 by default)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -655,6 +683,437 @@ def phase_profile_async(torch, solver, n_fold: int = 512):
          top_device_us=[[k[:60], v] for k, v in top])
 
 
+def rel_l2(torch, got, want) -> float:
+    got, want = got.float(), want.float()
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want))
+
+
+def close_bf16(torch, got, want, what: str):
+    """bf16 kernel vs the same arithmetic in fp32 with the kernel's
+    roundings.  The intermediate the kernel rounds to bf16 (h, or p) is
+    summed from products in another order than the emulation's, so ~0.1 %
+    of its values round to the neighbouring bf16 value, and each such flip
+    moves a whole output row by ulp(h) |wd|: relative L2 within one bf16
+    unit roundoff (2^-9), each value within 4 bf16 ulps of the row scale."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    rms = float(want.pow(2).mean().sqrt())
+    rel = rel_l2(torch, got, want)
+    check(rel <= 2.0 ** -9, f"{what}: relative L2 {rel} against the "
+          "emulated roundings")
+    check(bool((err <= 2.0 ** -5 * (want.abs() + rms)).all()),
+          f"{what}: max err {float(err.max())} against the emulated "
+          "roundings")
+    return float(err.max())
+
+
+def moe_ffn_emulated(torch, xs, wg, wu, wd):
+    """moe_ffn with the kernel's roundings, in fp32 products: g and u in
+    fp32, h rounded to wd's type, y rounded to xs's type."""
+    F = torch.nn.functional
+    g = torch.bmm(xs.float(), wg.float())
+    u = torch.bmm(xs.float(), wu.float())
+    h = (F.silu(g) * u).to(wd.dtype).float()
+    return torch.bmm(h, wd.float()).to(xs.dtype)
+
+
+def check_moe_ffn(torch, gen):
+    """The grouped expert FFN against its plain version: the backbone's and
+    the decode's shapes in bf16, ragged shapes in f32 and bf16."""
+    from repro_torch.kernels import moe_ffn as kmoe
+    from repro_torch.kernels import ops, ref
+    F = torch.nn.functional
+
+    def inputs(E, C, D, Fd, dtype):
+        xs = torch.randn((E, C, D), generator=gen, device="cuda")
+        w = [torch.randn(s, generator=gen, device="cuda") * 0.02
+             for s in ((E, D, Fd), (E, D, Fd), (E, Fd, D))]
+        return [t.to(dtype) for t in (xs, *w)]
+
+    def compare(E, C, D, Fd, dtype):
+        args = inputs(E, C, D, Fd, dtype)
+        got = ops.moe_ffn(*args)
+        want = ref.moe_ffn_ref(*args)
+        torch.cuda.synchronize()
+        what = f"moe_ffn {E}x{C}x{D}x{Fd} {str(dtype)[6:]}"
+        check(got.shape == want.shape and got.dtype == want.dtype, what)
+        if dtype == torch.float32:
+            err = (got - want).abs()
+            check(bool((err <= 2e-4 * (1 + want.abs())).all()),
+                  f"{what}: max err {float(err.max())}")
+            return args, {"max_abs_err": float(err.max())}
+        emu = close_bf16(torch, got, moe_ffn_emulated(torch, *args), what)
+        rel = rel_l2(torch, got, want)
+        check(rel <= BF16_REL_L2, f"{what}: relative L2 {rel} vs the plain "
+              "bf16 einsums")
+        return args, {"max_abs_err": float((got.float() - want.float())
+                                           .abs().max()),
+                      "rel_l2_vs_plain": rel, "max_abs_err_emulated": emu}
+
+    ragged = {}
+    for shape in ((3, 130, 128, 300), (2, 8, 64, 32), (2, 40, 64, 2000),
+                  (5, 3, 96, 72), (2, 70, 100, 4000)):
+        for dtype in (torch.float32, torch.bfloat16):
+            ragged[f"{'x'.join(map(str, shape))}_{str(dtype)[6:]}"] = \
+                compare(*shape, dtype)[1]
+    out = {}
+    for name, shape, calls in (("backbone", (64, 5120, 2048, 1024), 3),
+                               ("decode", (64, 1, 2048, 1024), 20)):
+        E, C, D, Fd = shape
+        args, errs = compare(*shape, torch.bfloat16)
+        xs, wg, wu, wd = args
+
+        def library(k):
+            g, u = torch.bmm(xs, wg), torch.bmm(xs, wu)
+            return torch.bmm(F.silu(g) * u, wd)
+        nbytes = 2 * (2 * E * C * D + 3 * E * D * Fd)
+        bms, by = bound_ms(nbytes, 6.0 * E * C * D * Fd, BF16_FLOPS)
+        out[name] = dict(
+            shape=list(shape), plan=list(kmoe.plan(C, Fd, xs.dtype)),
+            ms=time_ms(torch, lambda k: ops.moe_ffn(*args), calls, warmup=1),
+            plain_ms=time_ms(torch, lambda k: ref.moe_ffn_ref(*args), calls,
+                             warmup=1),
+            library_ms=time_ms(torch, library, calls, warmup=1),
+            bound_ms=bms, bound_by=by, **errs)
+        del args, xs, wg, wu, wd
+        torch.cuda.empty_cache()
+    emit("kernel", name="moe_ffn", dtype="bf16", paths=out,
+         ragged=ragged, library="torch.bmm x3 + silu (bf16)",
+         tolerance="f32: |err| <= 2e-4 (1+|ref|) vs plain; bf16: relative "
+         "L2 <= 2^-9 and |err| <= 2^-5 (|ref|+rms) vs the emulated "
+         "roundings, relative L2 <= 2e-2 vs plain")
+    main = out["backbone"]
+    return dict(name="moe_ffn", route="cuda",
+                source="src/repro_torch/kernels/csrc/moe_ffn.cu",
+                replaces="src/repro/kernels/moe_ffn.py:47",
+                max_abs_err=main["max_abs_err"],
+                rel_l2_vs_plain=main["rel_l2_vs_plain"],
+                max_abs_err_emulated=main["max_abs_err_emulated"],
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"],
+                decode={k: out["decode"][k] for k in
+                        ("ms", "plain_ms", "library_ms", "bound_ms",
+                         "bound_by", "max_abs_err")})
+
+
+def flash_emulated(torch, q, k, v):
+    """Causal attention with the kernel's roundings for S <= 64 (one k
+    block): fp32 scores, p = exp(s - rowmax) rounded to v's type for p.v,
+    the unrounded sum as the normaliser.  (B, S, H, D), kv heads = H."""
+    D = q.shape[-1]
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * (1.0 / D ** 0.5)
+    S = q.shape[1]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    s = s.masked_fill(~mask, -3.0e38)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.matmul(e.to(v.dtype).float(), vf) / e.sum(dim=-1, keepdim=True)
+    return o.transpose(1, 2).to(q.dtype)
+
+
+def check_flash_attention(torch, gen):
+    """Causal flash attention against its plain version: the backbone's
+    (B, S, H, D) = (1024, 32, 16, 128) bf16 layout, ragged S, grouped kv
+    heads, strided views, (BH, S, D), f32 and bf16."""
+    from repro_torch.kernels import ops, ref
+    F = torch.nn.functional
+
+    def compare(q, k, v, what):
+        got = ops.flash_attention(q, k, v)
+        want = ref.flash_attention_ref(q, k, v)
+        torch.cuda.synchronize()
+        check(got.shape == q.shape and got.dtype == q.dtype, what)
+        err = float((got.float() - want.float()).abs().max())
+        if q.dtype == torch.float32:
+            check(bool(((got - want).abs() <= 3e-4 * (1 + want.abs())).all()),
+                  f"{what}: max err {err}")
+            return {"max_abs_err": err}
+        rel = rel_l2(torch, got, want)
+        check(rel <= BF16_REL_L2, f"{what}: relative L2 {rel} vs plain")
+        res = {"max_abs_err": err, "rel_l2_vs_plain": rel}
+        if q.shape[1] <= 64 and q.dim() == 4 and k.shape[2] == q.shape[2]:
+            res["max_abs_err_emulated"] = close_bf16(
+                torch, got, flash_emulated(torch, q, k, v), what)
+        return res
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    ragged = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype)[6:]
+        q, k, v = (rand(2, 200, 4, 128, dtype=dtype) for _ in range(3))
+        ragged[f"2x200x4x128_{tag}"] = compare(q, k, v, f"S=200 {tag}")
+        q = rand(3, 77, 8, 64, dtype=dtype)
+        k, v = (rand(3, 77, 2, 64, dtype=dtype) for _ in range(2))
+        ragged[f"gqa_3x77x8:2x64_{tag}"] = compare(q, k, v, f"gqa {tag}")
+        qkv = rand(2, 50, 3, 6, 16, dtype=dtype)       # strided views
+        ragged[f"views_2x50x6x16_{tag}"] = compare(
+            qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], f"views {tag}")
+        q, k, v = (rand(5, 130, 32, dtype=dtype) for _ in range(3))
+        ragged[f"bh_5x130x32_{tag}"] = compare(q, k, v, f"(BH,S,D) {tag}")
+        q, k, v = (rand(4, 64, 2, 128, dtype=dtype) for _ in range(3))
+        ragged[f"4x64x2x128_{tag}"] = compare(q, k, v, f"S=64 {tag}")
+
+    B, S, H, D = 1024, 32, 16, 128
+    q, k, v = (rand(B, S, H, D, dtype=torch.bfloat16) for _ in range(3))
+    errs = compare(q, k, v, f"{B}x{S}x{H}x{D} bf16")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    nbytes = 4 * 2 * B * S * H * D
+    ops_n = 2 * 2 * B * H * D * S * (S + 1) / 2
+    bms, by = bound_ms(nbytes, ops_n, BF16_FLOPS)
+    ms = time_ms(torch, lambda i: ops.flash_attention(q, k, v), 20)
+    plain_ms = time_ms(torch, lambda i: ref.flash_attention_ref(q, k, v), 5)
+    library_ms = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), 20)
+    emit("kernel", name="flash_attention", shape=[B, S, H, D], dtype="bf16",
+         ragged=ragged, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+         library="scaled_dot_product_attention(is_causal=True)",
+         bound_ms=bms, bound_by=by, tolerance="f32: |err| <= 3e-4 (1+|ref|) "
+         "vs plain; bf16: relative L2 <= 2^-9 and |err| <= 2^-5 (|ref|+rms) "
+         "vs the emulated roundings (S <= 64), relative L2 <= 2e-2 vs "
+         "plain", **errs)
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:75",
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=library_ms, **errs)
+
+
+def phase_parity_lm(torch):
+    """Reduced OLMoE in float32 on the card vs the port on the CPU, from
+    the same weights and tokens: backbone features and one decode step's
+    logits within 1e-4 (1+|ref|), and a 3-iteration SSVM-head Solver run
+    with the same schedule and duals within rtol 1e-4."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.api import CostModel, RunConfig, Solver
+    from repro_torch.kernels import ops
+    from repro_torch.models import common, registry
+    from repro_torch.trainer.ssvm_head import (backbone_chain_problem,
+                                               tagging_task)
+    cfg = dataclasses.replace(configs.reduced_config(LM_ARCH),
+                              dtype=torch.float32)
+    gen = torch.Generator("cpu")
+    gen.manual_seed(0)
+    params = {"cpu": common.init_params(registry.param_specs(cfg), gen,
+                                        "cpu")}
+    params["cuda"] = common.tree_map(lambda t: t.cuda(), params["cpu"])
+    n, L, tags = 48, 12, HEAD["tags"]
+    tok, gold, mask = tagging_task(cfg.vocab_size, n, L, tags)
+    feats, logits, traces = {}, {}, {}
+    ops.reset_launch_counts()
+    for dev in ("cuda", "cpu"):
+        prob = backbone_chain_problem(cfg, params[dev], tok, gold, mask,
+                                      tags, device=dev)
+        feats[dev] = prob.data["x"].cpu()
+        cache = registry.init_cache(cfg, 4, 16, dev)
+        lg, _ = registry.decode_step(params[dev], cfg, cache,
+                                     torch.from_numpy(tok[:4, :1]).to(dev), 0)
+        logits[dev] = lg.cpu()
+        traces[dev] = Solver(prob, RunConfig(
+            lam=1.0 / n, cost_model=CostModel(oracle_cost=HEAD_ORACLE_COST),
+            **HEAD_RUN)).run().trace
+    launches = ops.launch_counts()
+    for what, got, want in (("features", feats["cuda"], feats["cpu"]),
+                            ("decode logits", logits["cuda"],
+                             logits["cpu"])):
+        err = (got - want).abs()
+        check(bool((err <= 1e-4 * (1 + want.abs())).all()),
+              f"parity_lm: {what} max err {float(err.max())}")
+    rows = []
+    for g, c in zip(traces["cuda"], traces["cpu"]):
+        check((g.n_exact, g.n_approx, g.approx_passes)
+              == (c.n_exact, c.n_approx, c.approx_passes),
+              f"parity_lm: schedule differs at iteration {g.iteration}")
+        for f in ("dual", "primal"):
+            a, b = getattr(g, f), getattr(c, f)
+            check(abs(a - b) <= 1e-4 * abs(b) + 1e-7,
+                  f"parity_lm: {f} {a} vs {b} at iteration {g.iteration}")
+        rows.append([g.dual, c.dual, g.primal, c.primal, g.approx_passes])
+    check(launches["moe_ffn"] > 0 and launches["flash_attention"] > 0,
+          f"parity_lm: LM kernels not launched ({launches})")
+    emit("parity_lm", arch=cfg.name, reduced=True, dtype="float32", n=n, L=L,
+         features_max_abs_err=float((feats["cuda"] - feats["cpu"])
+                                    .abs().max()),
+         logits_max_abs_err=float((logits["cuda"] - logits["cpu"])
+                                  .abs().max()),
+         rows=rows, launches=launches)
+
+
+def phase_main_lm(torch):
+    """OLMoE-1B-7B at its published width on the card: the Server answers
+    8 requests, then the SSVM head trains on the backbone's features."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.api import CostModel, RunConfig, Solver
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import common, registry
+    from repro_torch.trainer.ssvm_head import (backbone_chain_problem,
+                                               tagging_task)
+    cfg = configs.get_config(LM_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator("cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = common.init_params(registry.param_specs(cfg), gen, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in common.leaves(params))
+    check(n_params == cfg.param_count(), f"{n_params} parameters")
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in common.leaves(params))
+
+    # 1. Serve.
+    server = Server(cfg, params, slots=SERVE["slots"],
+                    max_seq=SERVE["max_seq"])
+    rng = np.random.RandomState(0)
+    reqs = [Request(i, rng.randint(0, cfg.vocab_size,
+                                   size=SERVE["prompt_len"]),
+                    SERVE["max_new"]) for i in range(SERVE["requests"])]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = server.serve(reqs)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_launches = ops.launch_counts()
+    tokens_out = sum(len(r.out) for r in done)
+    check(len(done) == SERVE["requests"], f"served {len(done)} requests")
+    check(all(len(r.out) == SERVE["max_new"] and
+              all(0 <= t < cfg.vocab_size for t in r.out) for r in done),
+          "generated tokens out of range or missing")
+    check(serve_launches["moe_ffn"] == cfg.num_layers * server.rounds,
+          f"moe_ffn launches {serve_launches['moe_ffn']} in "
+          f"{server.rounds} rounds")
+    logits, _ = registry.decode_step(
+        params, cfg, server.cache,
+        torch.from_numpy(server.tokens).cuda(), server.pos)
+    check(logits.shape == (SERVE["slots"], 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "decode logits not finite")
+    rounds = server.rounds
+    del server, logits
+    torch.cuda.empty_cache()
+
+    # 2. The SSVM head on backbone features.
+    n, L, tags = HEAD["n"], HEAD["L"], HEAD["tags"]
+    tok, gold, mask = tagging_task(cfg.vocab_size, n, L, tags)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    problem = backbone_chain_problem(cfg, params, tok, gold, mask, tags)
+    torch.cuda.synchronize()
+    feature_s = time.perf_counter() - t0
+    feature_launches = ops.launch_counts()
+    x = problem.data["x"]
+    check(tuple(x.shape) == (n, L, cfg.d_model) and x.dtype == torch.float32
+          and bool(torch.isfinite(x).all()), "features not finite")
+    check(problem.d == tags * cfg.d_model + tags * tags, f"d {problem.d}")
+    check(feature_launches["moe_ffn"] == cfg.num_layers and
+          feature_launches["flash_attention"] == cfg.num_layers,
+          f"feature pass launches {feature_launches}")
+    solver = Solver(problem, RunConfig(
+        lam=1.0 / n, cost_model=CostModel(oracle_cost=HEAD_ORACLE_COST),
+        **HEAD_RUN))
+    torch.cuda.synchronize()
+    walls, rows = [], []
+    rows_iter = solver.iterate()
+    while True:
+        t0 = time.perf_counter()
+        row = next(rows_iter, None)
+        torch.cuda.synchronize()
+        if row is None:
+            break
+        walls.append(time.perf_counter() - t0)
+        rows.append(row)
+        emit("main_lm_row", wall_s=walls[-1], **row.__dict__)
+    head_launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(len(rows) == HEAD_RUN["max_iters"], f"{len(rows)} iterations ran")
+    prev = -float("inf")
+    for r in rows:
+        check(r.dual >= prev, f"dual decreased at iteration {r.iteration}")
+        check(r.gap >= -1e-5 * abs(r.primal),
+              f"negative gap {r.gap} at iteration {r.iteration}")
+        check(math.isfinite(r.dual) and math.isfinite(r.primal),
+              f"non-finite objective at iteration {r.iteration}")
+        prev = r.dual
+    check(rows[-1].n_exact == n * len(rows), f"n_exact {rows[-1].n_exact}")
+    check(head_launches["plane_scores"] >= rows[-1].n_approx and
+          head_launches["viterbi_decode"] >= rows[-1].n_exact,
+          f"head launches {head_launches}")
+    emit("main_lm", arch=cfg.name, params=n_params, param_bytes=param_bytes,
+         init_s=init_s, serve=dict(
+             slots=SERVE["slots"], max_seq=SERVE["max_seq"],
+             requests=len(done), rounds=rounds,
+             tokens=tokens_out, seconds=serve_s,
+             tokens_per_s=tokens_out / serve_s, launches=serve_launches),
+         head=dict(n=n, L=L, tags=tags, d=problem.d, feature_s=feature_s,
+                   feature_launches=feature_launches,
+                   iterations=len(rows), wall_s_per_iteration=walls,
+                   n_exact=rows[-1].n_exact, n_approx=rows[-1].n_approx,
+                   launches=head_launches),
+         max_memory_allocated=peak)
+    del solver, problem, x
+    profile_lm(torch, cfg, params, tok)
+    both = {k: serve_launches[k] + head_launches[k] for k in serve_launches}
+    return both, {"main_lm_serve": serve_launches,
+                  "main_lm_head": head_launches}
+
+
+def traced(torch, fn):
+    """Wall ms of ``fn()`` under torch.profiler, device busy share (device
+    time of all kernels and copies / wall time) and device us by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_kernel = {}
+    for e in dev:
+        by_kernel[e.name] = (by_kernel.get(e.name, 0.0)
+                             + e.time_range.elapsed_us())
+    busy_us = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return dict(wall_ms=1e3 * wall, device_events=len(dev),
+                device_busy_share=(busy_us * 1e-6 / wall) if dev else None,
+                top_device_us=[[k[:60], v] for k, v in top])
+
+
+def profile_lm(torch, cfg, params, tok):
+    """Where the LM cells' time goes, on the full-size model: 8 decode
+    rounds of a fresh 4-slot Server, and one backbone feature pass over
+    the head's 1024 x 32 tokens, each under torch.profiler."""
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import registry
+    server = Server(cfg, params, slots=SERVE["slots"],
+                    max_seq=SERVE["max_seq"])
+    for i in range(SERVE["slots"]):
+        server.add(Request(i, tok[i, :SERVE["prompt_len"]], 64))
+    server.decode_round()                     # warm
+    decode = traced(torch, lambda: [server.decode_round()
+                                    for _ in range(8)])
+    decode["rounds"] = 8
+    del server
+    model = registry.module_for(cfg)
+    tokens = torch.from_numpy(tok).long().cuda()
+
+    def features():
+        x, pos = model._embed_inputs(params, cfg, {"tokens": tokens})
+        model.backbone(params, cfg, x, pos)
+    emit("profile_lm", arch=cfg.name, decode_round=decode,
+         feature_pass=traced(torch, features))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -679,7 +1138,10 @@ def main() -> int:
     masks = torch.from_numpy(data[2]).cuda()
     kernels = [check_plane_scores(torch, gen),
                check_viterbi(torch, gen, masks),
-               check_plane_select(torch, gen)]
+               check_plane_select(torch, gen),
+               check_moe_ffn(torch, gen),
+               check_flash_attention(torch, gen)]
+    torch.cuda.empty_cache()
     phase_parity(torch)
     launches, solver = phase_main(torch, data)
     phase_profile(torch, solver)
@@ -689,11 +1151,16 @@ def main() -> int:
     launches_async, solver = phase_main_async(torch, data)
     phase_profile_async(torch, solver)
     del solver
-    # Each kernel's launches on the path it was ported for; both counts
-    # stand beside them.
+    torch.cuda.empty_cache()
+    phase_parity_lm(torch)
+    launches_lm, lm_paths = phase_main_lm(torch)
+    # Each kernel's launches on the path it was ported for; every path's
+    # counts stand beside them.
     path_of = {"plane_scores": "main", "viterbi_decode": "main",
-               "plane_select": "main_async"}
-    by_path = {"main": launches, "main_async": launches_async}
+               "plane_select": "main_async", "moe_ffn": "main_lm",
+               "flash_attention": "main_lm"}
+    by_path = {"main": launches, "main_async": launches_async,
+               "main_lm": launches_lm, **lm_paths}
     for k in kernels:
         k["launches"] = by_path[path_of[k["name"]]][k["name"]]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}

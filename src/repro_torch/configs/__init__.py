@@ -1,1 +1,40 @@
-"""The paper's experimental scenarios."""
+"""Model configs of the ported architectures (one module per arch) and the
+paper's scenarios (:mod:`.paper`).
+
+A copy of ``repro/configs/__init__.py``'s ``get_config`` and
+``reduced_config``, with ``ARCHS`` limited to the archs whose families
+the port runs: OLMoE-1B-7B (MoE) and qwen2-0.5b (dense, the backbone of
+``examples/ssvm_head.py``).
+"""
+import dataclasses
+import importlib
+
+ARCHS = {
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "qwen2-0.5b": "qwen2_0_5b",
+}
+
+
+def get_config(name: str):
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; ported: {sorted(ARCHS)}")
+    mod = importlib.import_module(f"repro_torch.configs.{ARCHS[name]}")
+    return mod.CONFIG
+
+
+def reduced_config(name: str):
+    """CI-sized config of the same family: every structural feature (MoE,
+    GQA, qkv bias, tied embeddings) at a small width, depth and vocab; the
+    reference's rule."""
+    cfg = get_config(name)
+    kw = dict(
+        num_layers=min(cfg.num_layers, 4), d_model=64, num_heads=4,
+        num_kv_heads=min(cfg.num_kv_heads, 2) if cfg.num_kv_heads
+        < cfg.num_heads else 4,
+        head_dim=16 if cfg.head_dim else 0, d_ff=96 if cfg.d_ff else 0,
+        vocab_size=128,
+    )
+    if cfg.moe:
+        kw.update(num_experts=8, experts_per_token=2, moe_d_ff=32,
+                  first_dense_layers=min(cfg.first_dense_layers, 1))
+    return dataclasses.replace(cfg, **kw)

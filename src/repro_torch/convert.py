@@ -12,6 +12,8 @@ goes the other way, into a flat dict of the same field names.
 :func:`async_state_from_numpy` and :func:`async_state_to_numpy` do the
 same for the pipelined engine's ``AsyncMPState``: the ``mp`` fields plus
 the pending buffer ``pending.{ids, planes, done, live}``.
+:func:`lm_params_from_numpy` and :func:`lm_params_to_numpy` carry an LM's
+parameter tree (a nested dict, the reference's layout) across.
 """
 from __future__ import annotations
 
@@ -88,6 +90,37 @@ def async_state_to_numpy(state: AsyncMPState) -> Dict[str, Any]:
         "ids": np.array(p.ids, dtype=np.int64),
         "planes": p.planes.detach().cpu().numpy(),
         "done": np.array(p.done, dtype=bool), "live": bool(p.live)}}
+
+
+def lm_params_from_numpy(tree: Any, cfg, device) -> Dict[str, Any]:
+    """The port's parameters from a reference parameter tree of numpy
+    arrays (``jax.device_get(params)``), in each spec's dtype on ``device``.
+
+    JAX's bfloat16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
+    ``torch.from_numpy`` rejects; they go through float32, which holds
+    every bfloat16 value exactly, and are cast back."""
+    from .models import registry
+    specs = registry.param_specs(cfg)
+
+    def walk(spec, leaf, path):
+        if isinstance(spec, dict):
+            if not isinstance(leaf, dict) or set(leaf) != set(spec):
+                raise ValueError(f"lm_params_from_numpy: keys at {path!r} "
+                                 "differ from the config's specs")
+            return {k: walk(spec[k], leaf[k], f"{path}/{k}") for k in spec}
+        a = np.asarray(leaf)
+        if tuple(a.shape) != tuple(spec.shape):
+            raise ValueError(f"lm_params_from_numpy: {path} has shape "
+                             f"{a.shape}, the spec {spec.shape}")
+        return _t(a.astype(np.float32), spec.dtype, torch.device(device))
+    return walk(specs, tree, "")
+
+
+def lm_params_to_numpy(params: Any) -> Any:
+    """The parameter tree as float32 numpy arrays (exact for bfloat16)."""
+    if isinstance(params, dict):
+        return {k: lm_params_to_numpy(v) for k, v in params.items()}
+    return params.detach().float().cpu().numpy()
 
 
 def problem_from_numpy(features: np.ndarray, labels: np.ndarray,

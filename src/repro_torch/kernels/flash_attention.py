@@ -1,0 +1,92 @@
+"""CUDA kernel wrapper: causal flash attention (the backbone's prefill
+attention).
+
+Replaces ``repro/kernels/flash_attention.py::flash_attention``.  The
+kernel (``csrc/flash_attention.cu``) runs the TPU kernel's streaming
+softmax (fp32 running max, sum and accumulator; ``p`` rounded to ``v``'s
+type before ``p.v``; ``acc / max(l, 1e-30)``), one CTA per (batch x head,
+64 query rows, or 32 for S <= 32), k/v blocks up to the diagonal only.
+It reads q, k, v and writes the output in the model's ``(B, S, H, hd)``
+layout through strides, with grouped kv heads read in place.
+Memory-bound at the backbone's shape.  See the source for the design.
+
+This module always launches the kernel: :mod:`repro_torch.kernels.ops`
+routes CPU tensors to the plain version before they reach it.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import _build
+
+# Kernel launches since the last reset (repro_torch.kernels.ops).
+launches = 0
+
+MAX_HEAD_DIM = 128
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SIGNATURE = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
+    [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
+
+
+def _lib():
+    lib = _build.load("flash_attention")
+    fn = lib.flash_attention_launch
+    if fn.argtypes is None:
+        fn.argtypes = _SIGNATURE
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Causal attention over ``(B, S, H, D)`` q and ``(B, S, K, D)`` k, v
+    (K divides H; head h reads kv head ``h // (H // K)``), or ``(BH, S,
+    D)`` q, k, v.  Unit stride over D, any other strides; float32 or
+    bfloat16; D <= 128.  Returns a contiguous tensor of q's shape."""
+    global launches
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention kernel needs CUDA tensors, got "
+                         f"{q.device}")
+    if q.dim() not in (3, 4) or k.dim() != q.dim() or v.shape != k.shape:
+        raise ValueError("flash_attention: q (B, S, H, D) with k, v "
+                         "(B, S, K, D), or q, k, v (BH, S, D)")
+    q4, k4, v4 = ((t.unsqueeze(2) for t in (q, k, v)) if q.dim() == 3
+                  else (q, k, v))
+    B, S, H, D = q4.shape
+    K = k4.shape[2]
+    if (k4.shape[0], k4.shape[1], k4.shape[3]) != (B, S, D) or H % K:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k/v "
+                         f"{tuple(k.shape)} disagree")
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {D} > {MAX_HEAD_DIM}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention: dtype {q.dtype} (float32 or "
+                         "bfloat16)")
+    for name, t in (("q", q4), ("k", k4), ("v", v4)):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash_attention: {name} must be {q.dtype} "
+                             f"on {q.device}")
+        if D > 1 and t.stride(3) != 1:
+            raise ValueError(f"flash_attention: {name} needs unit stride "
+                             "over the head dim")
+    if q.device.index != torch.cuda.current_device():
+        raise ValueError(f"flash_attention: tensors on {q.device}, but the "
+                         f"current device is {torch.cuda.current_device()}")
+    o4 = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    out = o4.squeeze(2) if q.dim() == 3 else o4
+    if B * S * H * D == 0:
+        return out
+    if sm_scale is None:
+        sm_scale = 1.0 / (D ** 0.5)
+    strides = (ctypes.c_longlong * 12)(*(
+        s for t in (q4, k4, v4, o4) for s in t.stride()[:3]))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _lib().flash_attention_launch(
+        _DTYPES[q.dtype], q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
+        o4.data_ptr(), B, H, K, S, D, strides, float(sm_scale), stream)
+    launches += 1
+    _build.check(rc, "flash_attention")
+    return out

@@ -20,6 +20,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from . import flash_attention as _fa
+from . import moe_ffn as _moe
 from . import plane_scores as _ps
 from . import plane_select as _psel
 from . import ref
@@ -30,7 +32,8 @@ from . import viterbi as _vit
 INVALID_SCORE = ref.INVALID_SCORE
 
 _KERNELS = {"plane_scores": _ps, "plane_select": _psel,
-            "viterbi_decode": _vit}
+            "viterbi_decode": _vit, "moe_ffn": _moe,
+            "flash_attention": _fa}
 
 
 def plane_scores(planes: torch.Tensor, w: torch.Tensor,
@@ -62,6 +65,25 @@ def viterbi_decode(unary: torch.Tensor, trans: torch.Tensor,
     if unary.device.type == "cpu":
         return ref.viterbi_decode_ref(unary, trans, mask)
     return _vit.viterbi_decode(unary, trans, mask)
+
+
+def moe_ffn(xs: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+            wd: torch.Tensor) -> torch.Tensor:
+    """Grouped SwiGLU expert FFN: ``xs (E, C, D)``, ``wg``/``wu (E, D,
+    F)``, ``wd (E, F, D)`` -> ``(E, C, D)`` in ``xs``'s dtype."""
+    if xs.device.type == "cpu":
+        return ref.moe_ffn_ref(xs, wg, wu, wd)
+    return _moe.moe_ffn(xs, wg, wu, wd)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Causal attention over ``(BH, S, D)`` q, k, v, or ``(B, S, H, D)`` q
+    with ``(B, S, K, D)`` k, v (K divides H: grouped kv heads), in q's
+    dtype and shape."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, sm_scale)
+    return _fa.flash_attention(q, k, v, sm_scale)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -9,6 +9,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 # The one invalid-slot score sentinel: loses every argmax, and is exactly
 # representable in float32.  Re-exported as ``kernels.ops.INVALID_SCORE``.
@@ -85,3 +86,41 @@ def viterbi_decode_ref(unary: torch.Tensor, trans: torch.Tensor,
         y = backs[l].gather(1, y[:, None].long())[:, 0].long()
         labels[:, l] = y.to(torch.int32)
     return labels
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Causal softmax attention over ``(BH, S, D)`` q, k, v
+    (``repro/kernels/ref.py::flash_attention_ref``): scores in the input
+    type, then float32 with masked entries at :data:`INVALID_SCORE`; the
+    output in q's type.  A ``(B, S, H, D)`` q with ``(B, S, K, D)`` k, v
+    (grouped kv heads, K divides H) runs as ``(B*H, S, D)`` with each kv
+    head repeated H/K times, and returns ``(B, S, H, D)``."""
+    if q.dim() == 4:
+        B, S, H, D = q.shape
+        rep = H // k.shape[2]
+
+        def heads(t, r):
+            return (t.repeat_interleave(r, dim=2).transpose(1, 2)
+                    .reshape(B * H, S, D))
+        o = flash_attention_ref(heads(q, 1), heads(k, rep), heads(v, rep),
+                                sm_scale)
+        return o.reshape(B, H, S, D).transpose(1, 2).contiguous()
+    bh, s, d = q.shape
+    if sm_scale is None:
+        sm_scale = 1.0 / (d ** 0.5)
+    scores = torch.bmm(q, k.transpose(1, 2)).float() * sm_scale
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    scores = torch.where(mask, scores, torch.full_like(scores, INVALID_SCORE))
+    p = torch.softmax(scores, dim=-1)
+    return torch.bmm(p, v.float()).to(q.dtype)
+
+
+def moe_ffn_ref(xs: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                wd: torch.Tensor) -> torch.Tensor:
+    """Grouped SwiGLU expert FFN (``repro/kernels/ref.py::moe_ffn_ref``):
+    ``xs (E, C, D)``, ``wg``/``wu (E, D, F)``, ``wd (E, F, D)``; products
+    in the input type, as the reference's einsums."""
+    g = torch.bmm(xs, wg)
+    u = torch.bmm(xs, wu)
+    return torch.bmm(F.silu(g) * u, wd).to(xs.dtype)

@@ -411,6 +411,11 @@ def test_port_never_imports_jax_or_the_reference_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in files[:-1]}
+    assert {"models/moe.py", "models/attention.py", "models/transformer.py",
+            "kernels/moe_ffn.py", "kernels/flash_attention.py",
+            "trainer/ssvm_head.py", "launch/serve.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

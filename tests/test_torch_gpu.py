@@ -196,3 +196,187 @@ def test_async_solver_on_card_matches_cpu_run(cuda):
         assert_allclose(g.dual, c.dual, rtol=1e-4)
         assert_allclose(g.primal, c.primal, rtol=1e-4)
         assert_allclose(g.oracle_overlap, c.oracle_overlap, rtol=1e-6)
+
+
+# -- the LM kernels (moe_ffn, flash_attention) --------------------------------
+
+def _lm(a, dtype, device):
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        device=device, dtype=dtype)
+
+
+def _moe_case(E, C, D, F, seed):
+    r = np.random.RandomState(seed)
+    return [r.randn(E, C, D), 0.1 * r.randn(E, D, F), 0.1 * r.randn(E, D, F),
+            0.1 * r.randn(E, F, D)]
+
+
+def _close_to_emulation(got, want):
+    """bf16 kernel vs its roundings emulated in fp32: the intermediate it
+    rounds to bf16 (h, or p) is summed in another order, so ~0.1 % of it
+    rounds to the neighbouring bf16 value and moves its output row by
+    ulp(h) |wd|: relative L2 <= 2^-9, each value within 4 bf16 ulps of
+    the row scale."""
+    got, want = got.float().cpu(), want.float().cpu()
+    assert _rel_l2(got, want) <= 2.0 ** -9
+    rms = float(want.pow(2).mean().sqrt())
+    assert bool(((got - want).abs() <= 2.0 ** -5 * (want.abs() + rms)).all())
+
+
+def _rel_l2(got, want):
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).norm() / want.norm())
+
+
+# Tensor-core path (bf16) at 32 and 64 rows, vector and scalar loads; the
+# fp32-FMA path (float32, and bf16 with an F too wide for the tensor-core
+# tiles) at 8 and 32 rows.
+MOE_SHAPES = [(2, 8, 64, 32), (3, 130, 128, 300), (64, 1, 256, 128),
+              (2, 40, 64, 2000), (5, 3, 96, 72), (2, 70, 100, 4000),
+              (3, 200, 64, 128)]
+
+
+@pytest.mark.parametrize("E,C,D,F", MOE_SHAPES)
+def test_moe_ffn_kernel_matches_plain_in_f32(cuda, E, C, D, F):
+    args = _moe_case(E, C, D, F, E + C + F)
+    before = ops.launch_counts()["moe_ffn"]
+    got = ops.moe_ffn(*(_lm(a, torch.float32, cuda) for a in args))
+    assert ops.launch_counts()["moe_ffn"] == before + 1
+    want = ref.moe_ffn_ref(*(_lm(a, torch.float32, "cpu") for a in args))
+    assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("E,C,D,F", MOE_SHAPES)
+def test_moe_ffn_kernel_rounds_as_the_tpu_kernel_in_bf16(cuda, E, C, D, F):
+    """fp32 g and u, h rounded to bf16, fp32 sums of h wd, y in bf16."""
+    args = [_lm(a, torch.bfloat16, cuda)
+            for a in _moe_case(E, C, D, F, E * C + F)]
+    got = ops.moe_ffn(*args)
+    assert got.dtype == torch.bfloat16
+    xs, wg, wu, wd = (a.float() for a in args)
+    g, u = torch.bmm(xs, wg), torch.bmm(xs, wu)
+    h = (torch.nn.functional.silu(g) * u).bfloat16().float()
+    _close_to_emulation(got, torch.bmm(h, wd).bfloat16())
+    assert _rel_l2(got, ref.moe_ffn_ref(*args)) <= 2e-2
+
+
+def _attn_case(shape, kv_heads, seed, dtype, device):
+    r = np.random.RandomState(seed)
+    q = r.randn(*shape)
+    kv_shape = shape if len(shape) == 3 else shape[:2] + (kv_heads,
+                                                          shape[3])
+    k, v = r.randn(*kv_shape), r.randn(*kv_shape)
+    return [_lm(a, dtype, device) for a in (q, k, v)]
+
+
+# 64-row blocks (S > 32) and 32-row blocks (S <= 32), (BH, S, D) and
+# (B, S, H, D) with grouped kv heads.
+ATTN_CASES = [((1, 64, 32), 0), ((2, 200, 64), 0), ((4, 128, 128), 0),
+              ((2, 200, 4, 128), 4), ((3, 77, 8, 64), 2), ((2, 33, 14, 64), 2),
+              ((1, 1, 2, 16), 1), ((2, 32, 4, 128), 2), ((3, 20, 2, 64), 1)]
+
+
+@pytest.mark.parametrize("shape,kv_heads", ATTN_CASES)
+def test_flash_attention_kernel_matches_plain_in_f32(cuda, shape, kv_heads):
+    q, k, v = _attn_case(shape, kv_heads, sum(shape), torch.float32, "cpu")
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda))
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert got.shape == q.shape
+    assert_allclose(got.cpu().numpy(), ref.flash_attention_ref(q, k, v)
+                    .numpy(), rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("shape,kv_heads", ATTN_CASES)
+def test_flash_attention_kernel_in_bf16(cuda, shape, kv_heads):
+    q, k, v = _attn_case(shape, kv_heads, 1 + sum(shape), torch.bfloat16,
+                         cuda)
+    got = ops.flash_attention(q, k, v)
+    assert got.dtype == torch.bfloat16
+    assert _rel_l2(got, ref.flash_attention_ref(q, k, v)) <= 2e-2
+
+
+def test_flash_attention_kernel_rounds_p_as_the_tpu_kernel(cuda):
+    """One k block (S <= 64): p = exp(s - rowmax) rounded to bf16 before
+    p.v, the unrounded sum as the normaliser."""
+    q, k, v = _attn_case((3, 64, 4, 128), 4, 9, torch.bfloat16, cuda)
+    got = ops.flash_attention(q, k, v)
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+    s = torch.matmul(qf, kf.transpose(-1, -2)) / 128 ** 0.5
+    s = s.masked_fill(~torch.ones((64, 64), dtype=torch.bool,
+                                  device=cuda).tril(), -3e38)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.matmul(e.bfloat16().float(), vf) / e.sum(dim=-1, keepdim=True)
+    _close_to_emulation(got, o.transpose(1, 2).bfloat16())
+
+
+def test_flash_attention_kernel_reads_strided_views(cuda):
+    qkv = torch.randn((2, 50, 3, 6, 16), device=cuda)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    got = ops.flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q.contiguous(), k.contiguous(),
+                                   v.contiguous())
+    assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+
+
+def test_lm_kernels_refuse_what_they_cannot_hold(cuda):
+    x = torch.zeros((1, 4, 2, 129), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(x, x, x)
+    x = torch.zeros((1, 4, 6, 16), device=cuda)
+    with pytest.raises(ValueError, match="disagree"):
+        ops.flash_attention(x, x[:, :, :4], x[:, :, :4])
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.flash_attention(x.half(), x.half(), x.half())
+    xs = torch.zeros((2, 3, 4), device=cuda)
+    w = torch.zeros((2, 4, 30000), device=cuda)
+    with pytest.raises(ValueError, match="too wide"):
+        ops.moe_ffn(xs, w, w, torch.zeros((2, 30000, 4), device=cuda))
+    w = torch.zeros((2, 5, 4), device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.moe_ffn(xs, w, w, torch.zeros((2, 5, 4), device=cuda))
+    with pytest.raises(ValueError, match="must be"):
+        ops.moe_ffn(xs, w.contiguous().bfloat16(), w.contiguous(),
+                    torch.zeros((2, 5, 4), device=cuda))
+
+
+def test_gqa_forward_on_card_raises_for_unported_attention(cuda):
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import attention, common, registry
+    cfg = dataclasses.replace(configs.reduced_config("qwen2-0.5b"),
+                              dtype=torch.float32)
+    gen = torch.Generator(cuda)
+    params = common.init_params(registry.param_specs(cfg), gen, cuda)
+    p = {k: v[0] for k, v in params["layers"]["attn"].items()}
+    x = torch.randn((2, 5, cfg.d_model), device=cuda)
+    pos = torch.arange(5, device=cuda)[None].expand(2, 5)
+    assert attention.gqa_forward(p, x, pos, cfg).shape == x.shape
+    for bad in (dict(sliding_window=3), dict(attn_score_dtype="bf16"),
+                dict(attn_impl="stub")):
+        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+            attention.gqa_forward(p, x, pos, dataclasses.replace(cfg, **bad))
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen2-0.5b"])
+def test_reduced_model_on_card_matches_cpu(cuda, arch):
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import common, registry, transformer
+    cfg = dataclasses.replace(configs.reduced_config(arch),
+                              dtype=torch.float32)
+    gen = torch.Generator("cpu")
+    gen.manual_seed(0)
+    cpu = common.init_params(registry.param_specs(cfg), gen, "cpu")
+    gpu = common.tree_map(lambda t: t.to(cuda), cpu)
+    tok = torch.from_numpy(np.random.RandomState(0).randint(0, 128, (6, 20)))
+    ops.reset_launch_counts()
+    feats = []
+    for params, dev in ((gpu, cuda), (cpu, "cpu")):
+        x, pos = transformer._embed_inputs(params, cfg,
+                                           {"tokens": tok.to(dev)})
+        feats.append(transformer.backbone(params, cfg, x, pos).cpu())
+    assert_allclose(feats[0].numpy(), feats[1].numpy(), rtol=1e-4, atol=1e-4)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == cfg.num_layers
+    assert counts["moe_ffn"] == (cfg.num_layers if cfg.moe else 0)

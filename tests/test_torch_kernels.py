@@ -20,6 +20,8 @@ from repro.kernels import plane_scores as jax_ps
 from repro.kernels import ref as jax_ref
 from repro.kernels import viterbi as jax_vit
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import flash_attention as t_fa
+from repro_torch.kernels import moe_ffn as t_moe
 from repro_torch.kernels import plane_scores as t_ps
 from repro_torch.kernels import plane_select as t_psel
 from repro_torch.kernels import viterbi as t_vit
@@ -150,8 +152,13 @@ def test_cpu_tensors_take_the_plain_path_without_launching():
     ops.plane_select(stack[..., :-1], torch.from_numpy(w), stack[..., -1],
                      torch.ones((3, 4), dtype=torch.bool),
                      rows=torch.tensor([2, 0]))
+    ops.moe_ffn(torch.ones((2, 3, 4)), torch.ones((2, 4, 5)),
+                torch.ones((2, 4, 5)), torch.ones((2, 5, 4)))
+    q = torch.ones((3, 6, 4))
+    ops.flash_attention(q, q, q)
     assert ops.launch_counts() == {"plane_scores": 0, "plane_select": 0,
-                                   "viterbi_decode": 0}
+                                   "viterbi_decode": 0, "moe_ffn": 0,
+                                   "flash_attention": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -170,8 +177,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         t_psel.plane_select(stack[..., :-1], torch.from_numpy(w),
                             stack[..., -1], torch.ones((2, 2), dtype=bool),
                             neg=ops.INVALID_SCORE)
+    x = torch.ones((2, 3, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        t_moe.moe_ffn(x, x.transpose(1, 2).contiguous(),
+                      x.transpose(1, 2).contiguous(), x)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_fa.flash_attention(x, x, x)
     assert t_ps.launches == 0 and t_vit.launches == 0
     assert t_psel.launches == 0
+    assert t_moe.launches == 0 and t_fa.launches == 0
 
 
 def test_viterbi_label_limit_fits_shared_memory():
