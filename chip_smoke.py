@@ -31,11 +31,23 @@ Phases, one JSON line each:
   8. profile_async -- the fold step and the side-stream oracle program on
                  the trained state: host ms per folded block, device busy
                  share, and whether kernels on the two streams overlapped.
-  9. parity_lm -- the LM substrate on the card against the port on the
+  9. parity_gram -- mpbcfw-gram (the Sec-3.5 multi-step scheme) on the
+                 card against the CPU on the CI-sized OCR scenario.
+ 10. main_gram -- mpbcfw-gram on the full-size OCR scenario (cap=64,
+                 gram_steps=10), 2 outer iterations of one pass each,
+                 launch counts reset just before; then the gram kernel
+                 recomputes every block's Gram matrix and the cache's
+                 incrementally kept leaf is held against it; profile_gram
+                 times gram block updates on the trained state.
+ 11. resume   -- mpbcfw-gram on the card, CI-sized OCR: 2 iterations, save,
+                 restore, 2 more, bit for bit against 4 uninterrupted ones.
+ 12. parity_specs -- the multiclass and graph scenarios (SMALL usps and
+                 horseseg), mpbcfw on the card against the CPU.
+ 13. parity_lm -- the LM substrate on the card against the port on the
                  CPU: reduced OLMoE in float32, same weights and tokens;
                  backbone features, one decode step's logits, and a
                  3-iteration SSVM-head Solver run.
- 10. main_lm  -- OLMoE-1B-7B at its published width (16 layers, d_model
+ 14. main_lm  -- OLMoE-1B-7B at its published width (16 layers, d_model
                  2048, 64 experts top-8, random weights from a seed): the
                  Server answers 8 requests, then the SSVM head trains on
                  backbone features of the example's tagging task (n=1024,
@@ -43,11 +55,13 @@ Phases, one JSON line each:
                  and read just after; then profile_lm traces 8 decode
                  rounds and one feature pass (device busy share, device
                  time by kernel).
- 11. kernels line, the card's name and power limit, and the result line
+ 15. kernels line, the card's name and power limit, and the result line
      ``{"ok": true, "device": {...}}`` last.
 
 The kernel phase also holds moe_ffn and flash_attention against their
-plain versions, at the LM paths' shapes and at ragged ones.
+plain versions, at the LM paths' shapes and at ragged ones, and the gram
+kernel at a ragged shape, at one cache block read in place and at a
+flattened 64-block working set.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line.  It needs a CUDA device and the repository's ``src`` tree beside it.
@@ -73,7 +87,12 @@ OCR = dict(n=6877, f=128, num_labels=26, mean_len=8, max_len=14, seed=0)
 RUN = dict(algo="mpbcfw", cap=64, ttl=10, max_iters=3, approx_batch=8,
            max_approx_passes=8)
 RUN_ASYNC = dict(RUN, algo="mpbcfw-async")
+# The Sec-3.5 path: depth cut to 2 outer iterations of one approximate
+# pass each (a gram pass is ~50 s of host-launched block steps at this n).
+RUN_GRAM = dict(algo="mpbcfw-gram", cap=64, ttl=10, gram_steps=10,
+                max_iters=2, approx_batch=1, max_approx_passes=1)
 ORACLE_COST, PLANE_COST = 0.3, 1e-4
+GRAM_RTOL, GRAM_ATOL = 3e-5, 3e-4  # |err| <= RTOL |p_a| |p_b| + ATOL
 
 # The LM paths: OLMoE-1B-7B serving, and the SSVM head on its features.
 LM_ARCH = "olmoe-1b-7b"
@@ -321,34 +340,90 @@ def check_plane_select(torch, gen):
                 two_step_ms=two_step_ms, library_note=note)
 
 
-def phase_parity(torch):
-    """The port on the card vs the port on the CPU (plain versions), on the
-    CI-sized OCR scenario: same schedule, duals within rtol 1e-4."""
-    from repro_torch.api import CostModel, RunConfig, Solver
-    from repro_torch.configs.paper import SMALL
-    from repro_torch.core.oracles import chain
-    from repro_torch.data.synthetic import ocr_like
-    sc = SMALL["ocr"]
-    X, Y, M = ocr_like(n=sc.n, f=sc.f, num_labels=sc.num_classes,
-                       mean_len=sc.mean_len, max_len=sc.max_len, seed=0)
-    traces = {}
-    for dev in ("cuda", "cpu"):
-        cfg = RunConfig(lam=1.0 / sc.n, max_iters=3, cap=16, approx_batch=4,
-                        max_approx_passes=6,
-                        cost_model=CostModel(sc.oracle_cost, sc.plane_cost))
-        prob = chain.make_problem(X, Y, M, sc.num_classes, device=dev)
-        traces[dev] = Solver(prob, cfg).run().trace
+def compare_traces(what: str, traces) -> list:
+    """Card vs CPU traces of one run: the same schedule, duals and primals
+    within rtol 1e-4.  Returns the rows compared."""
     rows = []
+    check(len(traces["cuda"]) == len(traces["cpu"]),
+          f"{what}: {len(traces['cuda'])} vs {len(traces['cpu'])} rows")
     for g, c in zip(traces["cuda"], traces["cpu"]):
         check((g.n_exact, g.n_approx, g.approx_passes)
               == (c.n_exact, c.n_approx, c.approx_passes),
-              f"parity: schedule differs at iteration {g.iteration}")
+              f"{what}: schedule differs at iteration {g.iteration}")
         for f in ("dual", "primal"):
             a, b = getattr(g, f), getattr(c, f)
             check(abs(a - b) <= 1e-4 * abs(b) + 1e-7,
-                  f"parity: {f} {a} vs {b} at iteration {g.iteration}")
+                  f"{what}: {f} {a} vs {b} at iteration {g.iteration}")
         rows.append([g.dual, c.dual, g.primal, c.primal, g.approx_passes])
-    emit("parity", scenario="SMALL[ocr]", rows=rows)
+    return rows
+
+
+def small_problem(name: str, device: str):
+    """The CI-sized scenario ``SMALL[name]`` on ``device``."""
+    from repro_torch.configs.paper import SMALL
+    from repro_torch.core.oracles import chain, graph, multiclass
+    from repro_torch.data import synthetic
+    sc = SMALL[name]
+    if sc.kind == "multiclass":
+        x, y = synthetic.usps_like(n=sc.n, f=sc.f, num_classes=sc.num_classes)
+        return sc, multiclass.make_problem(x, y, sc.num_classes,
+                                           device=device)
+    if sc.kind == "graph":
+        arrays = synthetic.horseseg_like(n=sc.n, grid=sc.grid, f=sc.f)
+        return sc, graph.make_problem(*arrays, num_sweeps=sc.oracle_sweeps,
+                                      device=device)
+    X, Y, M = synthetic.ocr_like(n=sc.n, f=sc.f, num_labels=sc.num_classes,
+                                 mean_len=sc.mean_len, max_len=sc.max_len,
+                                 seed=0)
+    return sc, chain.make_problem(X, Y, M, sc.num_classes, device=device)
+
+
+def small_run(name: str, device: str, algo: str, max_iters: int = 3):
+    from repro_torch.api import CostModel, RunConfig, Solver
+    sc, prob = small_problem(name, device)
+    return prob, Solver(prob, RunConfig(
+        lam=1.0 / sc.n, algo=algo, max_iters=max_iters, cap=16,
+        approx_batch=4, max_approx_passes=6,
+        cost_model=CostModel(sc.oracle_cost, sc.plane_cost)))
+
+
+def phase_parity(torch):
+    """The port on the card vs the port on the CPU (plain versions), on the
+    CI-sized OCR scenario: same schedule, duals within rtol 1e-4."""
+    traces = {dev: small_run("ocr", dev, "mpbcfw")[1].run().trace
+              for dev in ("cuda", "cpu")}
+    emit("parity", scenario="SMALL[ocr]",
+         rows=compare_traces("parity", traces))
+
+
+def drive(torch, solver, phase: str):
+    """Run ``solver`` to its end, each row timed to a device sync and
+    emitted as ``<phase>_row``, then check the rows: all ``max_iters`` ran,
+    the dual never decreased, gap >= -1e-5 |primal|, finite objectives.
+    Returns ``(rows, walls)``."""
+    walls, rows = [], []
+    rows_iter = solver.iterate()
+    while True:
+        t0 = time.perf_counter()
+        row = next(rows_iter, None)
+        torch.cuda.synchronize()
+        if row is None:
+            break
+        walls.append(time.perf_counter() - t0)
+        rows.append(row)
+        emit(f"{phase}_row", wall_s=walls[-1], **row.__dict__)
+    check(len(rows) == solver.cfg.max_iters,
+          f"{phase}: {len(rows)} iterations ran")
+    prev = -float("inf")
+    for r in rows:
+        check(r.dual >= prev, f"{phase}: dual decreased at iteration "
+              f"{r.iteration}")
+        check(r.gap >= -1e-5 * abs(r.primal),
+              f"{phase}: negative gap {r.gap} at iteration {r.iteration}")
+        check(math.isfinite(r.dual) and math.isfinite(r.primal),
+              f"{phase}: non-finite objective at iteration {r.iteration}")
+        prev = r.dual
+    return rows, walls
 
 
 def phase_main(torch, data):
@@ -365,29 +440,9 @@ def phase_main(torch, data):
                                           plane_cost=PLANE_COST), **RUN))
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    walls, rows = [], []
-    rows_iter = solver.iterate()
-    while True:
-        t0 = time.perf_counter()
-        row = next(rows_iter, None)
-        torch.cuda.synchronize()
-        if row is None:
-            break
-        walls.append(time.perf_counter() - t0)
-        rows.append(row)
-        emit("main_row", wall_s=walls[-1], **row.__dict__)
+    rows, walls = drive(torch, solver, "main")
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-
-    check(len(rows) == RUN["max_iters"], f"{len(rows)} iterations ran")
-    prev = -float("inf")
-    for r in rows:
-        check(r.dual >= prev, f"dual decreased at iteration {r.iteration}")
-        check(r.gap >= -1e-5 * abs(r.primal),
-              f"negative gap {r.gap} at iteration {r.iteration}")
-        check(math.isfinite(r.dual) and math.isfinite(r.primal),
-              f"non-finite objective at iteration {r.iteration}")
-        prev = r.dual
     last = rows[-1]
     check(last.n_exact == n * len(rows), f"n_exact {last.n_exact}")
     check(launches["plane_scores"] >= last.n_approx,
@@ -531,31 +586,12 @@ def phase_main_async(torch, data):
     solver.engine.outcome_fn = outcome
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    walls, rows = [], []
-    rows_iter = solver.iterate()
-    while True:
-        t0 = time.perf_counter()
-        row = next(rows_iter, None)
-        torch.cuda.synchronize()
-        if row is None:
-            break
-        walls.append(time.perf_counter() - t0)
-        rows.append(row)
-        emit("main_async_row", wall_s=walls[-1], **row.__dict__)
+    rows, walls = drive(torch, solver, "main_async")
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-
-    check(len(rows) == RUN_ASYNC["max_iters"], f"{len(rows)} iterations ran")
-    prev = -float("inf")
     for r in rows:
-        check(r.dual >= prev, f"dual decreased at iteration {r.iteration}")
-        check(r.gap >= -1e-5 * abs(r.primal),
-              f"negative gap {r.gap} at iteration {r.iteration}")
-        check(math.isfinite(r.dual) and math.isfinite(r.primal),
-              f"non-finite objective at iteration {r.iteration}")
         check(r.dispatches == 2 and r.host_syncs == 1 + r.approx_passes,
               f"sync contract at iteration {r.iteration}")
-        prev = r.dual
     last = rows[-1]
     folded = masks[:len(rows) - 1]        # the last dispatch is not folded
     arrived = int(sum(m.sum() for m in folded))
@@ -882,6 +918,222 @@ def check_flash_attention(torch, gen):
                 library_ms=library_ms, **errs)
 
 
+def gram_close(torch, got, want, what: str):
+    """Gram entries within 3e-5 |p_a| |p_b| + 3e-4 (two fp32 sums of d
+    products in different orders), norms from ``want``'s diagonal; returns
+    the largest error over that allowance's scale."""
+    norms = want.diagonal(dim1=-2, dim2=-1).clamp_min(0).sqrt()
+    allow = GRAM_RTOL * norms[..., :, None] * norms[..., None, :] + GRAM_ATOL
+    err = (got - want).abs()
+    check(bool((err <= allow).all()),
+          f"{what}: {int((err > allow).sum())} entries beyond tolerance, "
+          f"max err {float(err.max())}")
+    return float(err.max())
+
+
+def check_gram(torch, gen):
+    """B4 against its plain version at a ragged shape, at one cache block
+    read in place (a (64, 4004) view of a (64, 4005) buffer) and at a
+    flattened 64-block working set (4096, 4004): entries within the gram
+    tolerance, G exactly equal to its transpose.  Timed at the two larger
+    shapes beside the plain version, cuBLAS and the bound."""
+    from repro_torch.kernels import _build, ops, ref
+    d = 4004
+
+    def case(n, dd, strided):
+        buf = torch.randn((n, dd + 1 if strided else dd), generator=gen,
+                          device="cuda")
+        P = buf[:, :dd] if strided else buf
+        got = ops.gram(P)
+        want = ref.gram_ref(P)
+        torch.cuda.synchronize()
+        check(torch.equal(got, got.T), f"gram {n}x{dd}: G != G^T")
+        return P, gram_close(torch, got, want, f"gram {n}x{dd}")
+
+    errs = {}
+    for n, dd, strided in ((33, 200, False), (64, d, True),
+                           (4096, d, True)):
+        P, errs[f"{n}x{dd}"] = case(n, dd, strided)
+    timing = {}
+    for n in (64, 4096):
+        P = torch.randn((n, d + 1), generator=gen, device="cuda")[:, :d]
+        calls = 200 if n == 64 else 10
+        # G is symmetric: n(n+1)/2 distinct entries of 2d flops each.
+        bms, by = bound_ms(4.0 * (n * d + n * n), float(n * (n + 1) * d))
+        timing[n] = dict(
+            ms=time_ms(torch, lambda k: ops.gram(P), calls),
+            plain_ms=time_ms(torch, lambda k: ref.gram_ref(P), calls),
+            library_ms=time_ms(torch, lambda k: torch.mm(P, P.T), calls),
+            bound_ms=bms, bound_by=by)
+    ptxas = [ln.strip() for ln in _build.build_log("gram").splitlines()
+             if "registers" in ln or "spill" in ln]
+    emit("kernel", name="gram", max_abs_err=errs,
+         timing={f"{n}x{d}": t for n, t in timing.items()},
+         library="torch.mm(P, P.T), allow_tf32=False", ptxas=ptxas,
+         tolerance="|err| <= 3e-5 |p_a| |p_b| + 3e-4, G == G^T exactly")
+    t = timing[64]
+    return dict(name="gram", route="cuda",
+                source="src/repro_torch/kernels/csrc/gram.cu",
+                replaces="src/repro/kernels/gram.py:34",
+                shape=[64, d], max_abs_err=max(errs.values()), ms=t["ms"],
+                plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], library_ms=t["library_ms"],
+                at_4096=timing[4096])
+
+
+def phase_parity_gram(torch):
+    """mpbcfw-gram on the card vs the CPU on SMALL["ocr"]: the same
+    schedule, duals within rtol 1e-4."""
+    traces = {dev: small_run("ocr", dev, "mpbcfw-gram")[1].run().trace
+              for dev in ("cuda", "cpu")}
+    emit("parity_gram", scenario="SMALL[ocr]",
+         rows=compare_traces("parity_gram", traces))
+
+
+def phase_main_gram(torch, data):
+    """The Sec-3.5 path at full size (RUN_GRAM), then B4 recomputes every
+    block's Gram matrix and holds the cache's incrementally kept leaf
+    against it on the valid x valid entries (the reference's invariant)."""
+    from repro_torch.api import CostModel, RunConfig, Solver
+    from repro_torch.core.oracles import chain
+    from repro_torch.kernels import ops
+    X, Y, M = data
+    n = OCR["n"]
+    problem = chain.make_problem(X, Y, M, OCR["num_labels"], device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    solver = Solver(problem, RunConfig(
+        lam=1.0 / n, cost_model=CostModel(oracle_cost=ORACLE_COST,
+                                          plane_cost=PLANE_COST),
+        **RUN_GRAM))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rows, walls = drive(torch, solver, "main_gram")
+    run_launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for r in rows:
+        check(r.host_syncs == 1 + r.approx_passes,
+              f"sync contract at iteration {r.iteration}")
+    last = rows[-1]
+    passes = sum(r.approx_passes for r in rows)
+    check(passes > 0, "no gram pass ran")
+    check(last.n_exact == n * len(rows), f"n_exact {last.n_exact}")
+    check(last.n_approx == n * RUN_GRAM["gram_steps"] * passes,
+          f"n_approx {last.n_approx}")
+    # Per block: a and b of each gram block update, the Gram row of each
+    # insert; the evaluation sweep decodes n chains in one launch.
+    check(run_launches["plane_scores"] == 2 * n * passes + n * len(rows),
+          f"plane_scores launches {run_launches['plane_scores']}")
+    # One B=1 decode per exact step, one B=n sweep per evaluation.
+    check(run_launches["viterbi_decode"] == (n + 1) * len(rows),
+          f"viterbi launches {run_launches['viterbi_decode']}")
+    w = solver.result().w
+    check(w.shape == (4004,) and all(map(math.isfinite, w.tolist())),
+          "weights not finite")
+
+    # B4 recomputes G_i = P_i P_i^T for every block.
+    cache = solver.state.cache
+    t0 = time.perf_counter()
+    full = torch.empty_like(cache.gram)
+    for i in range(n):
+        full[i] = ops.gram(cache.planes[i, :, :-1])
+    torch.cuda.synchronize()
+    recompute_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    check(launches["gram"] == n, f"gram launches {launches['gram']}")
+    check(torch.equal(full, full.transpose(1, 2)), "recomputed G not "
+          "symmetric")
+    both = cache.valid[:, :, None] & cache.valid[:, None, :]
+    kept = torch.where(both, cache.gram, full)
+    gram_err = gram_close(torch, kept, full, "main_gram: cache gram leaf")
+    emit("main_gram", scenario="OCR", n=n, d=problem.d, cap=RUN_GRAM["cap"],
+         gram_steps=RUN_GRAM["gram_steps"], iterations=len(rows),
+         wall_s_per_iteration=walls,
+         approx_passes=[r.approx_passes for r in rows],
+         max_memory_allocated=peak, n_exact=last.n_exact,
+         n_approx=last.n_approx, run_launches=run_launches,
+         launches=launches, valid_pairs=int(both.sum()),
+         gram_leaf_max_abs_err=gram_err, recompute_s=recompute_s)
+    return launches, solver
+
+
+def phase_profile_gram(torch, solver, blocks: int = 128):
+    """Host and device time of gram block updates on the trained state:
+    ``blocks`` blocks timed untraced, then traced."""
+    import numpy as np
+    from repro_torch.core.gram import approx_pass_gram
+    mp, lam = solver.state, solver.cfg.lam
+    steps = solver.cfg.gram_steps
+    ids = np.arange(blocks)
+
+    def run():
+        approx_pass_gram(mp.inner, mp.cache, mp.avg, ids, mp.outer_it, lam,
+                         steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    untraced = time.perf_counter() - t0
+    tr = traced(torch, run)
+    emit("profile_gram", scenario="OCR", blocks=blocks, gram_steps=steps,
+         ms_per_block=1e3 * untraced / blocks,
+         traced_ms_per_block=tr["wall_ms"] / blocks,
+         device_ops_per_block=tr["device_events"] / blocks, **tr)
+
+
+def phase_resume(torch):
+    """mpbcfw-gram on the card, SMALL["ocr"]: 4 uninterrupted iterations
+    against 2, save, restore, 2 more; traces and weights bit for bit."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.api import Solver
+    from repro_torch.checkpoint import CheckpointManager
+    prob, full = small_run("ocr", "cuda", "mpbcfw-gram", max_iters=4)
+    full_rows = full.run().trace
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        mgr = CheckpointManager(tmp)
+        _, head = small_run("ocr", "cuda", "mpbcfw-gram", max_iters=4)
+        it = head.iterate()
+        rows = [next(it) for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = head.save(mgr)
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = sum(p.stat().st_size
+                         for p in Path(tmp).rglob("*") if p.is_file())
+        t0 = time.perf_counter()
+        tail = Solver.restore(prob, head.cfg, mgr)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        rows += list(tail.iterate())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(step == 2 and len(rows) == len(full_rows) == 4,
+          f"resume: step {step}, {len(rows)} rows")
+    for a, b in zip(rows, full_rows):
+        check(dataclasses.asdict(a) == dataclasses.asdict(b),
+              f"resume: iteration {b.iteration} differs from the "
+              f"uninterrupted run: {a} vs {b}")
+    ra, rb = tail.result(), full.result()
+    check(bool((ra.w == rb.w).all() and (ra.w_avg == rb.w_avg).all()),
+          "resume: weights differ from the uninterrupted run")
+    emit("resume", scenario="SMALL[ocr]", algo="mpbcfw-gram",
+         checkpoint_bytes=ckpt_bytes, save_s=save_s, restore_s=restore_s,
+         bitwise=True, duals=[r.dual for r in rows])
+
+
+def phase_parity_specs(torch):
+    """The multiclass and graph scenarios, mpbcfw on the card vs the CPU,
+    3 iterations: the same schedule, duals within rtol 1e-4."""
+    for name in ("usps", "horseseg"):
+        traces = {dev: small_run(name, dev, "mpbcfw")[1].run().trace
+                  for dev in ("cuda", "cpu")}
+        emit("parity_specs", scenario=f"SMALL[{name}]",
+             rows=compare_traces(f"parity_specs {name}", traces))
+
+
 def phase_parity_lm(torch):
     """Reduced OLMoE in float32 on the card vs the port on the CPU, from
     the same weights and tokens: backbone features and one decode step's
@@ -923,16 +1175,7 @@ def phase_parity_lm(torch):
         err = (got - want).abs()
         check(bool((err <= 1e-4 * (1 + want.abs())).all()),
               f"parity_lm: {what} max err {float(err.max())}")
-    rows = []
-    for g, c in zip(traces["cuda"], traces["cpu"]):
-        check((g.n_exact, g.n_approx, g.approx_passes)
-              == (c.n_exact, c.n_approx, c.approx_passes),
-              f"parity_lm: schedule differs at iteration {g.iteration}")
-        for f in ("dual", "primal"):
-            a, b = getattr(g, f), getattr(c, f)
-            check(abs(a - b) <= 1e-4 * abs(b) + 1e-7,
-                  f"parity_lm: {f} {a} vs {b} at iteration {g.iteration}")
-        rows.append([g.dual, c.dual, g.primal, c.primal, g.approx_passes])
+    rows = compare_traces("parity_lm", traces)
     check(launches["moe_ffn"] > 0 and launches["flash_attention"] > 0,
           f"parity_lm: LM kernels not launched ({launches})")
     emit("parity_lm", arch=cfg.name, reduced=True, dtype="float32", n=n, L=L,
@@ -1020,28 +1263,9 @@ def phase_main_lm(torch):
         lam=1.0 / n, cost_model=CostModel(oracle_cost=HEAD_ORACLE_COST),
         **HEAD_RUN))
     torch.cuda.synchronize()
-    walls, rows = [], []
-    rows_iter = solver.iterate()
-    while True:
-        t0 = time.perf_counter()
-        row = next(rows_iter, None)
-        torch.cuda.synchronize()
-        if row is None:
-            break
-        walls.append(time.perf_counter() - t0)
-        rows.append(row)
-        emit("main_lm_row", wall_s=walls[-1], **row.__dict__)
+    rows, walls = drive(torch, solver, "main_lm")
     head_launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    check(len(rows) == HEAD_RUN["max_iters"], f"{len(rows)} iterations ran")
-    prev = -float("inf")
-    for r in rows:
-        check(r.dual >= prev, f"dual decreased at iteration {r.iteration}")
-        check(r.gap >= -1e-5 * abs(r.primal),
-              f"negative gap {r.gap} at iteration {r.iteration}")
-        check(math.isfinite(r.dual) and math.isfinite(r.primal),
-              f"non-finite objective at iteration {r.iteration}")
-        prev = r.dual
     check(rows[-1].n_exact == n * len(rows), f"n_exact {rows[-1].n_exact}")
     check(head_launches["plane_scores"] >= rows[-1].n_approx and
           head_launches["viterbi_decode"] >= rows[-1].n_exact,
@@ -1140,7 +1364,8 @@ def main() -> int:
                check_viterbi(torch, gen, masks),
                check_plane_select(torch, gen),
                check_moe_ffn(torch, gen),
-               check_flash_attention(torch, gen)]
+               check_flash_attention(torch, gen),
+               check_gram(torch, gen)]
     torch.cuda.empty_cache()
     phase_parity(torch)
     launches, solver = phase_main(torch, data)
@@ -1152,15 +1377,23 @@ def main() -> int:
     phase_profile_async(torch, solver)
     del solver
     torch.cuda.empty_cache()
+    phase_parity_gram(torch)
+    launches_gram, solver = phase_main_gram(torch, data)
+    phase_profile_gram(torch, solver)
+    del solver
+    torch.cuda.empty_cache()
+    phase_resume(torch)
+    phase_parity_specs(torch)
     phase_parity_lm(torch)
     launches_lm, lm_paths = phase_main_lm(torch)
     # Each kernel's launches on the path it was ported for; every path's
     # counts stand beside them.
     path_of = {"plane_scores": "main", "viterbi_decode": "main",
                "plane_select": "main_async", "moe_ffn": "main_lm",
-               "flash_attention": "main_lm"}
+               "flash_attention": "main_lm", "gram": "main_gram"}
     by_path = {"main": launches, "main_async": launches_async,
-               "main_lm": launches_lm, **lm_paths}
+               "main_gram": launches_gram, "main_lm": launches_lm,
+               **lm_paths}
     for k in kernels:
         k["launches"] = by_path[path_of[k["name"]]][k["name"]]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}

@@ -1,8 +1,9 @@
 """Run configuration and trace/result value types (PyTorch port).
 
-The fields of ``repro/api/config.py`` that the ported ``mpbcfw`` and
-``mpbcfw-async`` paths read; a later slice adds the rest with the engines
-that consume them.
+The fields of ``repro/api/config.py`` that the ported ``mpbcfw``,
+``mpbcfw-gram`` and ``mpbcfw-async`` paths read; a later slice adds the
+rest with the engines that consume them (``mesh`` with the
+multi-device engines, ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ class RunConfig:
     max_iters: int = 50
     max_approx_passes: int = 1000   # M (paper: large; slope rule governs)
     approx_batch: int = 64  # approximate passes per batch
+    gram_steps: int = 10    # repeats per block for the Sec-3.5 scheme
     seed: int = 0
     cost_model: Optional["CostModel"] = None  # None => wall clock
     gap_tol: Optional[float] = None   # stop once duality gap <= gap_tol

@@ -5,17 +5,21 @@ An engine owns the passes of one optimizer family and is driven by
 ``outer_iteration``, ``continue_passes``, ``read_stats``, ``evaluate``
 and ``extract``, plus a :class:`~repro_torch.core.selection.SyncLedger`.
 
-Ported: :class:`FusedEngine` as ``mpbcfw`` and :class:`AsyncEngine` as
+Ported: :class:`FusedEngine` as ``mpbcfw`` and, with the Sec-3.5 Gram
+blocks in its plane cache, as ``mpbcfw-gram``; :class:`AsyncEngine` as
 ``mpbcfw-async``.  Every other algorithm name raises
 :class:`~repro_torch.api.errors.UnsupportedConfigError` (not yet ported).
+The engines' states are NamedTuples of tensors, which
+:class:`repro_torch.checkpoint.CheckpointManager` saves as they are.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from ..cache import CacheLayout
 from ..core import mpbcfw
 from ..core.averaging import extract as extract_average
 from ..core.selection import SyncLedger
@@ -28,20 +32,28 @@ class FusedEngine:
     """Single-device MP-BCFW engine (:func:`repro_torch.core.mpbcfw
     .outer_iteration`).  ``outer_iteration`` enqueues the iteration's
     device work; the slope rule's per-pass flag reads and ``read_stats``
-    are the host syncs, all counted on ``ledger``."""
+    are the host syncs, all counted on ``ledger``.  A ``gram_steps``
+    count keeps Gram blocks in the plane cache, which switches the
+    approximate passes to the Sec-3.5 scheme, ``gram_steps`` updates per
+    block."""
 
-    def __init__(self, problem: SSVMProblem, lam: float):
+    def __init__(self, problem: SSVMProblem, lam: float, *,
+                 gram_steps: Optional[int] = None):
         self.problem = problem
         self.lam = float(lam)
+        self.gram_steps = gram_steps
+        self.use_gram = gram_steps is not None
         self.ledger = SyncLedger()
 
     def init_state(self, cap: int) -> mpbcfw.MPState:
-        return mpbcfw.init_mp_state(self.problem, cap)
+        return mpbcfw.init_mp_state(
+            self.problem, CacheLayout(cap=cap, gram=self.use_gram))
 
     def outer_iteration(self, mp, perm, perms, clock, *, ttl: int):
         self.ledger.dispatched()
         return mpbcfw.outer_iteration(self.problem, mp, perm, perms, clock,
                                       lam=self.lam, ttl=ttl,
+                                      steps=self.gram_steps,
                                       ledger=self.ledger)
 
     def continue_passes(self, mp, perms, clock):
@@ -49,6 +61,7 @@ class FusedEngine:
         runs more than ``approx_batch`` passes)."""
         self.ledger.dispatched()
         return mpbcfw.multi_approx_pass(mp, perms, clock, lam=self.lam,
+                                        steps=self.gram_steps,
                                         ledger=self.ledger)
 
     def read_stats(self, stats):
@@ -180,6 +193,8 @@ EngineFactory = Callable[[SSVMProblem, RunConfig], FusedEngine]
 
 _REGISTRY: Dict[str, EngineFactory] = {
     "mpbcfw": lambda problem, cfg: FusedEngine(problem, cfg.lam),
+    "mpbcfw-gram": lambda problem, cfg: FusedEngine(
+        problem, cfg.lam, gram_steps=cfg.gram_steps),
     "mpbcfw-async": lambda problem, cfg: AsyncEngine(problem, cfg.lam),
 }
 

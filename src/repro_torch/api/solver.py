@@ -21,10 +21,18 @@ cache program on the ledger; the loop reports the hidden share as
 Time comes from a :class:`~repro_torch.core.selection.CostModel` (virtual
 clock, deterministic) or from the wall clock, with the evaluation sweep
 (:func:`evaluate_objectives`, n oracle calls) excluded from every reading.
-The port has no checkpoint and no recorder yet.
+
+:meth:`Solver.save` and :meth:`Solver.restore` checkpoint the engine state
+with the host control loop's state (iteration, last row, RNG stream,
+clock, slope-rule calibration) through :class:`repro_torch.checkpoint
+.CheckpointManager`, in the reference's format: a resumed run continues
+bit for bit, and a checkpoint of either package resumes in the other.
+The port has no recorder and no metrics registry yet (ROADMAP A9): the
+manifest's ``metrics`` is written empty and ignored on load.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from contextlib import contextmanager
 from typing import Callable, Iterable, Iterator, List, Optional
@@ -32,6 +40,7 @@ from typing import Callable, Iterable, Iterator, List, Optional
 import numpy as np
 import torch
 
+from ..checkpoint import CheckpointManager
 from ..core import mpbcfw
 from ..core.selection import CostModel, attribute_wall_time
 from ..core.ssvm import dual_value, primal_value, weights_of
@@ -124,23 +133,41 @@ def _draw_perms(rng: np.random.RandomState, n: int, k: int) -> np.ndarray:
     return np.stack([rng.permutation(n) for _ in range(k)])
 
 
+def _rng_state_to_json(rng: np.random.RandomState) -> list:
+    name, keys, pos, has_gauss, cached = rng.get_state()
+    return [name, [int(x) for x in keys], int(pos), int(has_gauss),
+            float(cached)]
+
+
+def _rng_state_from_json(state: list):
+    name, keys, pos, has_gauss, cached = state
+    return (name, np.asarray(keys, np.uint32), int(pos), int(has_gauss),
+            float(cached))
+
+
 class Solver:
     """SSVM training facade: ``Solver(problem, cfg).run()``.
 
     :meth:`iterate` streams one :class:`TraceRow` per outer iteration
     until a stopping criterion fires; :meth:`run` drains it and returns a
-    :class:`RunResult`.
+    :class:`RunResult`; :meth:`save` and :meth:`restore` checkpoint and
+    resume.  With ``checkpoint`` and ``checkpoint_every > 0`` the loop
+    saves after every ``checkpoint_every``-th iteration, off the clock.
     """
 
     def __init__(self, problem: SSVMProblem, cfg: RunConfig, *,
                  stop: Iterable[StoppingCriterion] = (),
-                 callbacks: Iterable[Callback] = ()):
+                 callbacks: Iterable[Callback] = (),
+                 checkpoint: Optional[CheckpointManager] = None,
+                 checkpoint_every: int = 0):
         factory = engine_factory(cfg.algo)
         validate_config(cfg)
         self.problem = problem
         self.cfg = cfg
         self.engine = factory(problem, cfg)
         self.callbacks = list(callbacks)
+        self.checkpoint = checkpoint
+        self.checkpoint_every = int(checkpoint_every)
         self.stop_criteria: List[StoppingCriterion] = [
             MaxIters(cfg.max_iters)]
         if cfg.gap_tol is not None:
@@ -168,6 +195,11 @@ class Solver:
     def state(self):
         return self._state
 
+    @property
+    def iteration(self) -> int:
+        """Index of the next outer iteration to run."""
+        return self._it
+
     def result(self) -> RunResult:
         w, w_avg = self.engine.extract(self._state)
         return RunResult(trace=list(self.trace), w=w, w_avg=w_avg)
@@ -194,6 +226,10 @@ class Solver:
             self._it += 1
             for cb in self.callbacks:
                 cb(self, row)
+            if (self.checkpoint is not None and self.checkpoint_every > 0
+                    and self._it % self.checkpoint_every == 0):
+                with self._clock.exclude():
+                    self.save(self.checkpoint)
             yield row
 
     def _iterate_multipass(self) -> Iterator[TraceRow]:
@@ -284,3 +320,89 @@ class Solver:
                 cache_hit_rate=int(met.nonempty_blocks) / n,
                 planes_evicted=int(met.ttl_evicted) + int(met.lru_evicted),
                 oracle_share=oracle_share, oracle_overlap=oracle_overlap)
+
+    # -- checkpoint / resume ------------------------------------------------
+
+    def save(self, manager: Optional[CheckpointManager] = None,
+             step: Optional[int] = None) -> int:
+        """Checkpoint the engine state and the control loop's host state
+        under ``step`` (default: the current iteration); returns it.  The
+        ``extra`` keys are the reference's, legacy flat keys included."""
+        manager = manager or self.checkpoint
+        if manager is None:
+            raise ValueError("no CheckpointManager: pass one to save() or "
+                             "to the Solver constructor")
+        step = self._it if step is None else int(step)
+        extra = {
+            "algo": self.cfg.algo,
+            "iteration": self._it,
+            # Stopping criteria read the previous row before the first
+            # resumed iteration.
+            "last_row": (dataclasses.asdict(self._last_row)
+                         if self._last_row is not None else None),
+            "rng_state": _rng_state_to_json(self._rng),
+            "clock_now": self._clock.now(),
+            # JSON round-trips Python floats exactly.
+            "calibration": {
+                "est_exact": self._est_exact,
+                "est_plane": self._est_plane,
+                "wall_x": list(self._wall_x),
+                "wall_y": list(self._wall_y),
+            },
+            "est_exact": self._est_exact,
+            "est_plane": self._est_plane,
+            "wall_x": self._wall_x,
+            "wall_y": self._wall_y,
+        }
+        manager.save(step, self._state, extra=extra, metrics={})
+        return step
+
+    @classmethod
+    def restore(cls, problem: SSVMProblem, cfg: RunConfig,
+                manager: CheckpointManager, step: Optional[int] = None,
+                **solver_kwargs) -> "Solver":
+        """A solver resumed from a checkpoint (default: the latest step)
+        at the saved iteration, RNG stream and clock.  Under a CostModel
+        the rest of the run is bit for bit the uninterrupted one."""
+        solver = cls(problem, cfg, **solver_kwargs)
+        if step is None:
+            step = manager.latest_step()
+        manifest = manager.load_manifest(step)
+        extra = manifest.get("extra", {})
+        if extra.get("algo") not in (None, cfg.algo):
+            raise ValueError(
+                f"checkpoint was saved by algo={extra['algo']!r}, "
+                f"cannot resume as {cfg.algo!r}")
+        solver._state, _ = manager.restore(solver._state, step)
+        solver._it = int(extra.get("iteration", manifest["step"]))
+        if extra.get("last_row") is not None:
+            solver._last_row = TraceRow(**{
+                k: v for k, v in extra["last_row"].items()
+                if k in _TRACE_FIELDS})
+        if "rng_state" in extra:
+            solver._rng.set_state(_rng_state_from_json(extra["rng_state"]))
+        now = float(extra.get("clock_now", 0.0))
+        clock = solver._clock
+        if clock.cm is not None:
+            clock.cm.now = now
+        else:
+            # Resume the elapsed wall time; iterate() must not re-anchor.
+            clock._wall0 = time.perf_counter() - now
+            clock._excluded = 0.0
+            clock._started = True
+        cal = extra.get("calibration") or {
+            "est_exact": extra.get("est_exact", solver._est_exact),
+            "est_plane": extra.get("est_plane", solver._est_plane),
+            "wall_x": extra.get("wall_x", []),
+            "wall_y": extra.get("wall_y", []),
+        }
+        solver._est_exact = float(cal["est_exact"])
+        solver._est_plane = float(cal["est_plane"])
+        solver._wall_x = [float(x) for x in cal.get("wall_x", [])]
+        solver._wall_y = [float(y) for y in cal.get("wall_y", [])]
+        return solver
+
+
+# A reference checkpoint's last row also has the gap-policy columns, which
+# the port's TraceRow does not carry yet (ROADMAP A6).
+_TRACE_FIELDS = frozenset(f.name for f in dataclasses.fields(TraceRow))

@@ -10,7 +10,9 @@ permutation and are Python ints.
 Scoring goes through :func:`repro_torch.kernels.ops.plane_scores` (one
 block) and :func:`repro_torch.kernels.ops.plane_select` (many blocks at
 one ``w``).  Invalid slots score :data:`NEG_INF` so they never win an
-argmax.
+argmax.  The Gram rows of a ``CacheLayout(gram=True)`` cache are inner
+products of one block's rows with one vector, :func:`row_dots`: the same
+per-row reduction as the scores, so equal rows get bit-equal entries.
 """
 from __future__ import annotations
 
@@ -34,10 +36,6 @@ def init(layout: Union[CacheLayout, int], n: int, d: int,
     """Empty cache for ``n`` blocks of ``(d+1)``-planes on ``device``."""
     if not isinstance(layout, CacheLayout):
         layout = CacheLayout(cap=int(layout))
-    if layout.gram:
-        raise NotImplementedError(
-            "CacheLayout(gram=True): the Sec-3.5 Gram scheme is not ported "
-            "yet (ROADMAP A5)")
     if layout.track_gap:
         raise NotImplementedError(
             "CacheLayout(track_gap=True): per-block gap tracking is not "
@@ -50,7 +48,17 @@ def init(layout: Union[CacheLayout, int], n: int, d: int,
                            device=device),
         valid=torch.zeros((n, cap), dtype=torch.bool, device=device),
         last_active=torch.full((n, cap), -1, dtype=torch.int32,
-                               device=device))
+                               device=device),
+        gram=(torch.zeros((n, cap, cap), dtype=torch.float32, device=device)
+              if layout.gram else None))
+
+
+def row_dots(rows: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``<rows[r], v>`` for ``(k, d)`` rows (any row stride) and a ``(d,)``
+    unit-stride ``v``: one ``plane_scores`` launch with zero offsets, each
+    row reduced alike (a ``@`` matvec can round equal rows apart)."""
+    zero = torch.zeros((1,), dtype=rows.dtype, device=rows.device)
+    return kops.plane_scores(rows, v, zero.expand(rows.shape[0]))
 
 
 def _lru_slot(cache: PlaneCache, i: int) -> torch.Tensor:
@@ -64,11 +72,19 @@ def _lru_slot(cache: PlaneCache, i: int) -> torch.Tensor:
 def insert(cache: PlaneCache, i: int, plane: torch.Tensor,
            it: int) -> PlaneCache:
     """Insert ``plane`` into block ``i``, evicting LRU if full; the slot is
-    marked active at outer iteration ``it``."""
+    marked active at outer iteration ``it``.
+
+    With Gram blocks, the slot's row and column are refreshed with the
+    inner products of the new plane and all ``cap`` slots of the block,
+    stale ones included (``repro/cache/ops.py::insert``)."""
     slot = _lru_slot(cache, i)
     cache.planes[i].index_copy_(0, slot, plane.reshape(1, -1))
     cache.valid[i].index_fill_(0, slot, True)
     cache.last_active[i].index_fill_(0, slot, it)
+    if cache.gram is not None:
+        row = row_dots(cache.planes[i, :, :-1], plane[:-1].contiguous())
+        cache.gram[i].index_copy_(0, slot, row[None, :])
+        cache.gram[i].index_copy_(1, slot, row[:, None])
     return cache
 
 
@@ -77,6 +93,14 @@ def mark_active(cache: PlaneCache, i: int, slot: torch.Tensor,
     """Record that block ``i``'s ``slot`` ((1,) int64 or int32 index) was
     returned by an oracle call at outer iteration ``it``."""
     cache.last_active[i].index_fill_(0, slot.reshape(1).long(), it)
+    return cache
+
+
+def mark_active_where(cache: PlaneCache, i: int, won: torch.Tensor,
+                      it: int) -> PlaneCache:
+    """Stamp ``it`` on every slot of block ``i`` where the ``(cap,)`` bool
+    ``won`` holds (the multi-step pass's per-slot win flags)."""
+    cache.last_active[i].masked_fill_(won, it)
     return cache
 
 
@@ -93,7 +117,8 @@ def gather(cache: PlaneCache, ids) -> PlaneCache:
     ``rows`` and reads the selected rows in place."""
     idx = index_tensor(ids, cache.planes.device)
     return PlaneCache(planes=cache.planes[idx], valid=cache.valid[idx],
-                      last_active=cache.last_active[idx])
+                      last_active=cache.last_active[idx],
+                      gram=None if cache.gram is None else cache.gram[idx])
 
 
 def flat_view(cache: PlaneCache

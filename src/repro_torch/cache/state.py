@@ -1,15 +1,16 @@
 """Value types of the device-resident plane cache (PyTorch port).
 
-:class:`PlaneCache` owns the paper's cached working sets (Sec. 3.3-3.4):
-the dense ``(n, cap, d+1)`` plane ring, the ``valid`` occupancy mask and
-the ``last_active`` activity clock behind LRU eviction and the TTL rule.
-:class:`CacheLayout` is its configuration.  The operations in
+:class:`PlaneCache` owns the paper's cached working sets (Sec. 3.3-3.5):
+the dense ``(n, cap, d+1)`` plane ring, the ``valid`` occupancy mask, the
+``last_active`` activity clock behind LRU eviction and the TTL rule, and,
+when the Sec-3.5 scheme is on, the per-block Gram matrices, refreshed on
+insertion.  :class:`CacheLayout` is its configuration.  The operations in
 :mod:`repro_torch.cache.ops` update the tensors in place.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -22,11 +23,16 @@ class PlaneCache(NamedTuple):
       valid:       (n, cap) bool slot occupancy.
       last_active: (n, cap) int32 outer iteration at which the slot's plane
                    was last returned by an oracle call (-1: never).
+      gram:        (n, cap, cap) float32 per-block Gram matrices
+                   ``G[i, a, b] = <phi_a*, phi_b*>`` (paper Sec. 3.5), or
+                   None when the layout does not keep them.  A slot's row
+                   and column are refreshed when a plane lands in it.
     """
 
     planes: torch.Tensor
     valid: torch.Tensor
     last_active: torch.Tensor
+    gram: Optional[torch.Tensor] = None
 
     @property
     def occupancy(self) -> torch.Tensor:
@@ -43,9 +49,9 @@ class PlaneCache(NamedTuple):
 class CacheLayout:
     """Plane-cache configuration.
 
-    ``gram`` (the Sec-3.5 Gram blocks) and ``track_gap`` (the per-block gap
-    vector of the gap policies) are not ported yet; :func:`repro_torch
-    .cache.ops.init` raises for them.
+    ``gram`` keeps the Sec-3.5 Gram blocks in the cache.  ``track_gap``
+    (the per-block gap vector of the gap policies) is not ported yet;
+    :func:`repro_torch.cache.ops.init` raises for it.
     """
 
     cap: int = 64

@@ -1,0 +1,4 @@
+"""repro_torch.checkpoint: atomic checkpoints in the reference's format."""
+from .manager import CheckpointManager, flatten  # noqa: F401
+
+__all__ = ["CheckpointManager", "flatten"]

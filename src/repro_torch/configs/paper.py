@@ -1,9 +1,9 @@
 """The paper's experimental scenarios (Sec. 4 / appendix).
 
 A copy of ``repro/configs/paper.py``: the full-size scenarios and the
-CI-sized ``SMALL`` stand-ins.  The port trains the chain scenario
-(``OCR``, ``SMALL["ocr"]``) so far; the others are listed so the
-two packages name the same configurations.
+CI-sized ``SMALL`` stand-ins.  The port trains all three (multiclass
+``core/oracles/multiclass.py``, chain ``chain.py``, graph ``graph.py``,
+with their data from ``data/synthetic.py``).
 """
 from dataclasses import dataclass
 

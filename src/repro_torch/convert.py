@@ -3,7 +3,8 @@
 :func:`mp_state_from_numpy` turns an MP-BCFW state held as numpy arrays,
 in the reference's ``MPState`` layout (``inner.phi_i``, ``inner.phi``,
 ``inner.n_exact``, ``inner.n_approx``, ``cache.planes``, ``cache.valid``,
-``cache.last_active``, ``avg.bar_exact``, ``avg.bar_approx``,
+``cache.last_active``, ``cache.gram`` (None without Gram blocks),
+``avg.bar_exact``, ``avg.bar_approx``,
 ``avg.k_exact``, ``avg.k_approx``, ``outer_it``), into the port's
 :class:`~repro_torch.core.mpbcfw.MPState` on a device.  A reference state
 fetched to the host mid-run, with a part-filled cache, can then be run
@@ -37,10 +38,10 @@ def mp_state_from_numpy(tree: Any, device) -> MPState:
     """The port's state from a reference ``MPState`` of numpy arrays."""
     f32, dev = torch.float32, torch.device(device)
     inner, cache, avg = tree.inner, tree.cache, tree.avg
-    if getattr(cache, "gram", None) is not None or \
-            getattr(cache, "gap", None) is not None:
-        raise NotImplementedError("gram and gap cache fields are not ported "
-                                  "yet (ROADMAP A5, A6)")
+    if getattr(cache, "gap", None) is not None:
+        raise NotImplementedError("the gap cache field is not ported yet "
+                                  "(ROADMAP A6)")
+    gram = getattr(cache, "gram", None)
     return MPState(
         inner=BCFWState(phi_i=_t(inner.phi_i, f32, dev),
                         phi=_t(inner.phi, f32, dev),
@@ -48,7 +49,8 @@ def mp_state_from_numpy(tree: Any, device) -> MPState:
                         n_approx=int(inner.n_approx)),
         cache=PlaneCache(planes=_t(cache.planes, f32, dev),
                          valid=_t(cache.valid, torch.bool, dev),
-                         last_active=_t(cache.last_active, torch.int32, dev)),
+                         last_active=_t(cache.last_active, torch.int32, dev),
+                         gram=None if gram is None else _t(gram, f32, dev)),
         avg=AveragingState(bar_exact=_t(avg.bar_exact, f32, dev),
                            bar_approx=_t(avg.bar_approx, f32, dev),
                            k_exact=int(avg.k_exact),
@@ -64,6 +66,8 @@ def mp_state_to_numpy(mp: MPState) -> Dict[str, Any]:
             "n_exact": mp.inner.n_exact, "n_approx": mp.inner.n_approx,
             "planes": host(mp.cache.planes), "valid": host(mp.cache.valid),
             "last_active": host(mp.cache.last_active),
+            "gram": (None if mp.cache.gram is None
+                     else host(mp.cache.gram)),
             "bar_exact": host(mp.avg.bar_exact),
             "bar_approx": host(mp.avg.bar_approx),
             "k_exact": mp.avg.k_exact, "k_approx": mp.avg.k_approx,

@@ -16,6 +16,12 @@ exactly as in the reference, and the host reads its continue flag once
 per approximate pass: one counted host sync per pass, where the
 reference has none (ROADMAP C).
 
+A cache with Gram blocks (``CacheLayout(gram=True)``, engine
+``mpbcfw-gram``) switches the approximate passes to the Sec-3.5
+multi-step scheme (:mod:`repro_torch.core.gram`); its insertions refresh
+the Gram rows inside :func:`repro_torch.cache.ops.insert`.  A gram pass
+syncs as a plain one does: once, on the slope rule's flag.
+
 The pipelined variant (``mpbcfw-async``) splits an outer iteration into
 an oracle program and a cache program (:func:`async_oracle_program`,
 :func:`async_cache_program`); see the section at the end of this module.
@@ -34,6 +40,7 @@ from ..cache import CacheLayout, PlaneCache
 from .averaging import init_averaging, update_average
 from .bcfw import block_update
 from .distributed import fallback_planes, fold_planes, parallel_oracles
+from .gram import approx_pass_gram
 from .selection import SyncLedger, slope_continue_t
 from .ssvm import dual_value, init_state, weights_of
 from .types import (ApproxBatchStats, AveragingState, BCFWState, ObsMetrics,
@@ -136,13 +143,17 @@ def slope_batched_loop(carry, perms, clock: SlopeClock, *,
 
 
 def multi_approx_pass(mp: MPState, perms, clock: SlopeClock, *, lam: float,
+                      steps: Optional[int] = None,
                       ledger: Optional[SyncLedger] = None,
                       run_all: bool = False
                       ) -> Tuple[MPState, SlopeClock, ApproxBatchStats]:
     """Up to ``len(perms)`` approximate passes under the slope rule.
 
     A stopped loop runs no further pass, so the result equals exactly
-    ``passes_run`` sequential :func:`approx_pass` applications.
+    ``passes_run`` sequential :func:`approx_pass` applications.  A cache
+    with Gram blocks runs :func:`repro_torch.core.gram.approx_pass_gram`
+    instead, ``steps`` updates per block (required there, unread without
+    Gram blocks).
     """
     ledger = SyncLedger() if ledger is None else ledger
     f_entry = dual_value(mp.inner.phi, lam)
@@ -152,8 +163,18 @@ def multi_approx_pass(mp: MPState, perms, clock: SlopeClock, *, lam: float,
     cost = clock.plane_cost * torch.clamp_min(total_planes, 1).to(
         torch.float32)
 
+    use_gram = mp.cache.gram is not None
+    if use_gram and steps is None:
+        raise ValueError("a cache with Gram blocks needs the step count")
+
     def step(state: MPState, perm):
-        state = approx_pass(None, state, perm, lam)
+        if use_gram:
+            inner, cache, avg = approx_pass_gram(
+                state.inner, state.cache, state.avg, perm, state.outer_it,
+                lam, steps)
+            state = state._replace(inner=inner, cache=cache, avg=avg)
+        else:
+            state = approx_pass(None, state, perm, lam)
         return state, dual_value(state.inner.phi, lam)
 
     mp, t, stats = slope_batched_loop(
@@ -168,10 +189,12 @@ def multi_approx_pass(mp: MPState, perms, clock: SlopeClock, *, lam: float,
 
 def outer_iteration(problem: SSVMProblem, mp: MPState, perm, perms,
                     clock: SlopeClock, *, lam: float, ttl: int,
+                    steps: Optional[int] = None,
                     ledger: Optional[SyncLedger] = None,
                     run_all: bool = False):
     """One MP-BCFW outer iteration: TTL eviction, the exact pass, and the
-    slope-ruled batch of approximate passes.
+    slope-ruled batch of approximate passes (``steps`` per block with Gram
+    blocks).
 
     ``clock.f0`` is re-seeded on the device from the dual at iteration
     entry; the host supplies ``clock.t`` (the modeled exact-pass cost) and
@@ -184,7 +207,8 @@ def outer_iteration(problem: SSVMProblem, mp: MPState, perm, perms,
     mp = exact_pass(problem, mp, perm, lam)
     occ2 = mp.cache.occupancy                 # after the insert scan
     mp, clock, stats = multi_approx_pass(mp, perms, clock, lam=lam,
-                                         ledger=ledger, run_all=run_all)
+                                         steps=steps, ledger=ledger,
+                                         run_all=run_all)
     # Eviction accounting, on the device: TTL dropped occ0-occ1 planes;
     # the exact pass inserted one plane per visited block, so the LRU
     # overwrites are the inserts that did not grow the cache.
@@ -196,7 +220,8 @@ def outer_iteration(problem: SSVMProblem, mp: MPState, perm, perms,
 
 def init_mp_state(problem: SSVMProblem, cap: Union[int, CacheLayout],
                   device=None) -> MPState:
-    """Fresh MP-BCFW state on ``device`` (default: where the data lives)."""
+    """Fresh MP-BCFW state on ``device`` (default: where the data lives);
+    ``cap`` is a capacity or a :class:`CacheLayout` (Gram blocks on/off)."""
     if device is None:
         device = next(iter(problem.data.values())).device
     layout = cap if isinstance(cap, CacheLayout) else CacheLayout(cap=int(cap))

@@ -1,1 +1,2 @@
-"""Structured max-oracles as OracleSpecs (ported so far: the chain task)."""
+"""Structured max-oracles as OracleSpecs: the multiclass, chain and graph
+tasks of the paper's three scenarios."""

@@ -93,18 +93,20 @@ def resolve_device(device: Optional[Any]) -> torch.device:
     return dev
 
 
+def to_device(a, dtype, device: torch.device) -> torch.Tensor:
+    """A numpy array or tensor as a contiguous ``dtype`` tensor on
+    ``device`` (the specs' ``make_problem`` inputs)."""
+    if isinstance(a, np.ndarray):
+        a = torch.from_numpy(np.ascontiguousarray(a))
+    return a.to(device=device, dtype=dtype).contiguous()
+
+
 def make_problem(features, labels, mask, num_labels: int, *,
                  device: Optional[Any] = None) -> SSVMProblem:
     """features: (n, L, f); labels: (n, L) int; mask: (n, L) bool, as numpy
     arrays or tensors.  ``device`` defaults to CUDA."""
     dev = resolve_device(device)
-
-    def put(a, dtype):
-        if isinstance(a, np.ndarray):
-            a = torch.from_numpy(np.ascontiguousarray(a))
-        return a.to(device=dev, dtype=dtype).contiguous()
-
-    data = {"x": put(features, torch.float32),
-            "y": put(labels, torch.int32),
-            "mask": put(mask, torch.bool)}
+    data = {"x": to_device(features, torch.float32, dev),
+            "y": to_device(labels, torch.int32, dev),
+            "mask": to_device(mask, torch.bool, dev)}
     return build_problem(ChainSpec(num_labels), data)

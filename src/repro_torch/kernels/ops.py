@@ -21,6 +21,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import flash_attention as _fa
+from . import gram as _gram
 from . import moe_ffn as _moe
 from . import plane_scores as _ps
 from . import plane_select as _psel
@@ -33,7 +34,7 @@ INVALID_SCORE = ref.INVALID_SCORE
 
 _KERNELS = {"plane_scores": _ps, "plane_select": _psel,
             "viterbi_decode": _vit, "moe_ffn": _moe,
-            "flash_attention": _fa}
+            "flash_attention": _fa, "gram": _gram}
 
 
 def plane_scores(planes: torch.Tensor, w: torch.Tensor,
@@ -56,6 +57,14 @@ def plane_select(planes: torch.Tensor, w: torch.Tensor,
     if planes.device.type == "cpu":
         return ref.plane_select_ref(planes, w, offsets, valid, rows, neg)
     return _psel.plane_select(planes, w, offsets, valid, rows, neg=neg)
+
+
+def gram(planes: torch.Tensor) -> torch.Tensor:
+    """``G[a, b] = <planes[a], planes[b]>``: ``(N, d)`` float32 planes (any
+    row stride) -> ``(N, N)`` float32, exactly symmetric on CUDA."""
+    if planes.device.type == "cpu":
+        return ref.gram_ref(planes)
+    return _gram.gram(planes)
 
 
 def viterbi_decode(unary: torch.Tensor, trans: torch.Tensor,

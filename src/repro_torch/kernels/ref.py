@@ -50,6 +50,12 @@ def plane_select_ref(planes: torch.Tensor, w: torch.Tensor,
     return masked.amax(dim=1), masked.argmax(dim=1).to(torch.int32)
 
 
+def gram_ref(planes: torch.Tensor) -> torch.Tensor:
+    """``G[a, b] = <planes[a], planes[b]>`` for ``(N, d)`` planes
+    (``repro/kernels/ref.py::gram_ref``)."""
+    return planes @ planes.T
+
+
 def viterbi_step_ref(m: torch.Tensor, trans: torch.Tensor):
     """One max-plus step: ``m (B, C)``, ``trans (C, C)`` or ``(B, C, C)``.
 

@@ -134,7 +134,7 @@ def test_plane_select_custom_neg_and_cpu_launches_nothing():
     assert (best == -7.0).all() and (idx == 0).all()
     assert ops.launch_counts() == {"plane_scores": 0, "plane_select": 0,
                                    "viterbi_decode": 0, "moe_ffn": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0, "gram": 0}
 
 
 # ---------------------------------------------------------------------------

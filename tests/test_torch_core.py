@@ -279,8 +279,11 @@ def test_approx_oracle_matches_jax(d):
 
 
 def test_unported_cache_layouts_raise():
-    with pytest.raises(NotImplementedError, match="A5"):
-        tcache.init(CacheLayout(cap=4, gram=True), 2, 3, "cpu")
+    """The Gram leaf is ported (its shape here, its rows in
+    tests/test_torch_gram.py); the gap vector still raises."""
+    c = tcache.init(CacheLayout(cap=4, gram=True), 2, 3, "cpu")
+    assert c.gram.shape == (2, 4, 4) and c.gram.dtype == torch.float32
+    assert tcache.init(CacheLayout(cap=4), 2, 3, "cpu").gram is None
     with pytest.raises(NotImplementedError, match="A6"):
         tcache.init(CacheLayout(cap=4, track_gap=True), 2, 3, "cpu")
 

@@ -198,6 +198,55 @@ def test_async_solver_on_card_matches_cpu_run(cuda):
         assert_allclose(g.oracle_overlap, c.oracle_overlap, rtol=1e-6)
 
 
+# -- the gram kernel and the mpbcfw-gram path ---------------------------------
+
+@pytest.mark.parametrize("n,d,strided", [(1, 1, False), (4, 32, False),
+                                         (33, 200, False), (65, 127, True),
+                                         (64, 4004, True), (130, 33, True)])
+def test_gram_kernel_matches_plain(cuda, n, d, strided):
+    """Ragged n and d, and row-strided views read in place: entries within
+    3e-5 |p_a| |p_b| + 3e-4 of the plain product, G == G^T exactly."""
+    r = np.random.RandomState(n + d)
+    buf = torch.from_numpy(r.randn(n, d + 1 if strided else d).astype(
+        np.float32)).to(cuda)
+    P = buf[:, :d]
+    before = ops.launch_counts()["gram"]
+    got = ops.gram(P)
+    assert ops.launch_counts()["gram"] == before + 1
+    assert torch.equal(got, got.T)
+    want = ref.gram_ref(P.cpu())
+    norms = want.diagonal().sqrt()
+    allow = 3e-5 * norms[:, None] * norms[None, :] + 3e-4
+    assert bool(((got.cpu() - want).abs() <= allow).all())
+
+
+def test_gram_kernel_refuses_what_it_cannot_hold(cuda):
+    from repro_torch.kernels import gram as t_gram
+    with pytest.raises(ValueError, match="unit-stride"):
+        t_gram.gram(torch.zeros((4, 8), device=cuda).T)
+    with pytest.raises(ValueError, match="float32"):
+        t_gram.gram(torch.zeros((4, 8), dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError, match="CUDA"):
+        t_gram.gram(torch.zeros((4, 8)))
+
+
+def test_gram_solver_on_card_matches_cpu_run(cuda):
+    X, Y, M = ocr_like(n=24, f=8, num_labels=5, mean_len=6, max_len=8,
+                       seed=1)
+    traces = []
+    for dev in (cuda, "cpu"):
+        cfg = RunConfig(lam=1 / 24, algo="mpbcfw-gram", max_iters=3, cap=8,
+                        approx_batch=4, max_approx_passes=6,
+                        cost_model=CostModel(0.3, 1e-3))
+        traces.append(Solver(chain.make_problem(X, Y, M, 5, device=dev),
+                             cfg).run().trace)
+    for g, c in zip(*traces):
+        assert (g.n_exact, g.n_approx, g.approx_passes) == (
+            c.n_exact, c.n_approx, c.approx_passes)
+        assert_allclose(g.dual, c.dual, rtol=1e-4)
+        assert_allclose(g.primal, c.primal, rtol=1e-4)
+
+
 # -- the LM kernels (moe_ffn, flash_attention) --------------------------------
 
 def _lm(a, dtype, device):

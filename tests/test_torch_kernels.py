@@ -21,6 +21,7 @@ from repro.kernels import ref as jax_ref
 from repro.kernels import viterbi as jax_vit
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import flash_attention as t_fa
+from repro_torch.kernels import gram as t_gram
 from repro_torch.kernels import moe_ffn as t_moe
 from repro_torch.kernels import plane_scores as t_ps
 from repro_torch.kernels import plane_select as t_psel
@@ -156,9 +157,10 @@ def test_cpu_tensors_take_the_plain_path_without_launching():
                 torch.ones((2, 4, 5)), torch.ones((2, 5, 4)))
     q = torch.ones((3, 6, 4))
     ops.flash_attention(q, q, q)
+    ops.gram(tb[:, :-1])
     assert ops.launch_counts() == {"plane_scores": 0, "plane_select": 0,
                                    "viterbi_decode": 0, "moe_ffn": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0, "gram": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -183,8 +185,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                       x.transpose(1, 2).contiguous(), x)
     with pytest.raises(ValueError, match="CUDA"):
         t_fa.flash_attention(x, x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        t_gram.gram(tb[:, :-1])
     assert t_ps.launches == 0 and t_vit.launches == 0
-    assert t_psel.launches == 0
+    assert t_psel.launches == 0 and t_gram.launches == 0
     assert t_moe.launches == 0 and t_fa.launches == 0
 
 

@@ -283,7 +283,7 @@ def test_solver_stopping_criteria_and_callbacks():
 
 
 @pytest.mark.parametrize("algo,match", [("bcfw", "not yet ported"),
-                                        ("mpbcfw-gram", "not yet ported"),
+                                        ("mpbcfw-avg", "not yet ported"),
                                         ("mpbcfw-shard", "not yet ported"),
                                         ("nope", "not yet ported")])
 def test_unported_algorithms_raise(algo, match):
