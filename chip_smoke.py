@@ -3,42 +3,51 @@
 
     python3 chip_smoke.py
 
-Phases, one JSON line each:
+Phases, one JSON line each (seconds on an H100 in brackets):
 
   1. build    -- compile the kernels in ``src/repro_torch/kernels/csrc`` with
-                 nvcc for sm_90a (one process per source, in parallel).
+                 nvcc for sm_90a (one process per source, in parallel) [~8].
   2. kernels  -- each kernel against its plain PyTorch version on the card,
                  at the main paths' shapes and at ragged ones, then timed
                  with CUDA events beside its plain version, its bound and
                  (where one exists) a single PyTorch call computing the same
-                 function: plane_scores, viterbi_decode, plane_select.
+                 function: plane_scores, viterbi_decode, plane_select,
+                 moe_ffn, flash_attention, gram, and approx_pass (one
+                 whole approximate pass per launch, both modes, against
+                 the eager per-block loop) [~60].
   3. parity   -- a short Solver run of the port on the card against the same
                  run on the CPU (plain versions), on the CI-sized OCR
                  scenario.
   4. main     -- the main path: Solver + mpbcfw on the full-size OCR chain
                  scenario (n=6877, f=128, C=26, d=4004, cap=64), 3 outer
-                 iterations, with every kernel launch counted.
-  5. profile  -- where the main path's time goes: one exact-pass and one
-                 approximate-pass window on the trained state, timed plain
-                 and then under torch.profiler (device busy share, kernels
-                 per block step, device time by kernel).
+                 iterations of up to 8 approximate passes, each pass one
+                 approx_pass launch gated on the device, one host sync per
+                 iteration, with every kernel launch counted [~35].
+  5. profile  -- where the main path's time goes: an exact-pass window and
+                 one whole approximate pass on the trained state, timed
+                 plain and then under torch.profiler (device busy share,
+                 kernels per block step, device time by kernel); the pass
+                 kernel's full-pass time beside the eager loop's [~20].
   6. parity_async  -- mpbcfw-async on the card against the CPU on the
                  CI-sized OCR scenario, with the same straggler mask.
   7. main_async    -- the pipelined path: Solver + mpbcfw-async on the
                  full-size OCR scenario, 3 outer iterations, oracle
                  arrivals from repro_torch.ft (stragglers fold their cached
-                 fallback), launch counts reset just before, read just after.
-  8. profile_async -- the fold step and the side-stream oracle program on
-                 the trained state: host ms per folded block, device busy
-                 share, and whether kernels on the two streams overlapped.
+                 fallback), launch counts reset just before, read just after
+                 [~10].
+  8. profile_async -- the fold step, 2 gated passes and the side-stream
+                 oracle program on the trained state: host ms per folded
+                 block, device busy share, and whether kernels on the two
+                 streams overlapped [~5].
   9. parity_gram -- mpbcfw-gram (the Sec-3.5 multi-step scheme) on the
                  card against the CPU on the CI-sized OCR scenario.
  10. main_gram -- mpbcfw-gram on the full-size OCR scenario (cap=64,
-                 gram_steps=10), 2 outer iterations of one pass each,
-                 launch counts reset just before; then the gram kernel
-                 recomputes every block's Gram matrix and the cache's
-                 incrementally kept leaf is held against it; profile_gram
-                 times gram block updates on the trained state.
+                 gram_steps=10) at the main cell's settings (3 outer
+                 iterations of up to 8 passes), launch counts reset just
+                 before; then the gram kernel recomputes every block's Gram
+                 matrix and the cache's incrementally kept leaf is held
+                 against it; profile_gram times a whole gram pass and the
+                 eager recurrences [~60].
  11. resume   -- mpbcfw-gram on the card, CI-sized OCR: 2 iterations, save,
                  restore, 2 more, bit for bit against 4 uninterrupted ones.
  12. parity_specs -- the multiclass and graph scenarios (SMALL usps and
@@ -52,16 +61,12 @@ Phases, one JSON line each:
                  Server answers 8 requests, then the SSVM head trains on
                  backbone features of the example's tagging task (n=1024,
                  L=32, 5 tags), each with launch counts reset just before
-                 and read just after; then profile_lm traces 8 decode
-                 rounds and one feature pass (device busy share, device
-                 time by kernel).
+                 and read just after [~15]; routing holds the first and
+                 last MoE layers' routing at full width, card against CPU
+                 [~5]; then profile_lm traces 8 decode rounds and one
+                 feature pass (device busy share, device time by kernel).
  15. kernels line, the card's name and power limit, and the result line
      ``{"ok": true, "device": {...}}`` last.
-
-The kernel phase also holds moe_ffn and flash_attention against their
-plain versions, at the LM paths' shapes and at ragged ones, and the gram
-kernel at a ragged shape, at one cache block read in place and at a
-flattened 64-block working set.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line.  It needs a CUDA device and the repository's ``src`` tree beside it.
@@ -77,6 +82,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 TOL = 3e-5                      # kernel vs plain: |err| <= TOL*(1+|ref|)
+REPEATS = 20                    # approx_pass relaunches that must agree
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, data sheet
 FP32_FLOPS = 67e12              # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12             # H100 SXM bf16 tensor cores, dense
@@ -87,10 +93,9 @@ OCR = dict(n=6877, f=128, num_labels=26, mean_len=8, max_len=14, seed=0)
 RUN = dict(algo="mpbcfw", cap=64, ttl=10, max_iters=3, approx_batch=8,
            max_approx_passes=8)
 RUN_ASYNC = dict(RUN, algo="mpbcfw-async")
-# The Sec-3.5 path: depth cut to 2 outer iterations of one approximate
-# pass each (a gram pass is ~50 s of host-launched block steps at this n).
-RUN_GRAM = dict(algo="mpbcfw-gram", cap=64, ttl=10, gram_steps=10,
-                max_iters=2, approx_batch=1, max_approx_passes=1)
+# The Sec-3.5 path at the main cell's settings: up to 8 gram passes per
+# iteration, so the slope rule decides on this engine at full size.
+RUN_GRAM = dict(RUN, algo="mpbcfw-gram", gram_steps=10)
 ORACLE_COST, PLANE_COST = 0.3, 1e-4
 GRAM_RTOL, GRAM_ATOL = 3e-5, 3e-4  # |err| <= RTOL |p_a| |p_b| + ATOL
 
@@ -340,6 +345,174 @@ def check_plane_select(torch, gen):
                 two_step_ms=two_step_ms, library_note=note)
 
 
+def approx_pass_work(valid, perm, d: int, steps=None):
+    """(bytes, ops) one approximate pass over ``perm`` needs with this
+    cache's valid slots: each visited block's valid planes read once, its
+    phi_i row read and written, its validity bytes, one activity stamp and
+    its id, phi and the average in and out; in the Sec-3.5 mode also the
+    valid x valid part of its Gram leaf.  Operations: 2d per valid plane
+    scored (twice that for a and b in the Sec-3.5 mode), ~10 (d+1) per
+    block for the line search, update and average (~14 (d+1) and 2 (d+1)
+    per valid plane mixed in the Sec-3.5 mode)."""
+    v = valid[perm].sum(dim=1).double()
+    nv, nblk, d1 = float(v.sum()), perm.numel(), d + 1
+    cap = valid.shape[1]
+    nbytes = (4.0 * nv * d1 + 8.0 * nblk * d1 + nblk * cap + 12.0 * nblk
+              + 16.0 * d1)
+    if steps is None:
+        ops_n = 2.0 * d * nv + 10.0 * d1 * nblk
+    else:
+        nbytes += 4.0 * float((v * v).sum())
+        ops_n = (6.0 * d * nv + 14.0 * d1 * nblk
+                 + 20.0 * steps * float(v.sum()))
+    return nbytes, ops_n
+
+
+def _approx_state(torch, gen, n, cap, d, steps, p_valid=2.0 / 64):
+    """A synthetic cache of ``n`` blocks (unit-scale scores, empty blocks,
+    duplicate planes), phi_i = half of slot 0, phi their sum."""
+    planes = torch.randn((n, cap, d + 1), generator=gen, device="cuda") \
+        / math.sqrt(d)
+    valid = torch.rand((n, cap), generator=gen, device="cuda") < p_valid
+    valid[:, 0] |= torch.rand((n,), generator=gen, device="cuda") < 0.8
+    valid[::17] = False                         # blocks with no plane
+    if cap > 40:                                # duplicate planes: ties
+        planes[1::5, 40] = planes[1::5, 10]
+        valid[1::5, 10] = valid[1::5, 40] = True
+    phi_i = 0.5 * planes[:, 0].clone()
+    state = dict(phi=phi_i.sum(0), phi_i=phi_i,
+                 bar=0.1 * torch.randn((d + 1,), generator=gen,
+                                       device="cuda"),
+                 last=torch.zeros((n, cap), dtype=torch.int32,
+                                  device="cuda"))
+    gram = (torch.bmm(planes[..., :-1], planes[..., :-1].transpose(1, 2))
+            if steps else None)
+    return planes, valid, gram, state
+
+
+def _pass_close(torch, got, want, what):
+    """One pass, kernel vs plain: activity stamps equal, phi, phi_i and
+    the average within TOL (1 + |ref|).  Returns the largest error."""
+    check(torch.equal(got["last"], want["last"]),
+          f"{what}: {int((got['last'] != want['last']).sum())} activity "
+          "stamps differ (an argmax slot moved)")
+    errs = []
+    for k in ("phi", "phi_i", "bar"):
+        err = (got[k] - want[k]).abs()
+        check(bool((err <= TOL * (1 + want[k].abs())).all()),
+              f"{what}: {k} max err {float(err.max())}")
+        errs.append(float(err.max()))
+    return max(errs)
+
+
+def check_approx_pass(torch, gen):
+    """The pass kernel against its plain version (the eager per-block
+    loop) in both modes: one pass over 512 full-size OCR blocks (d = 4004,
+    cap = 64) of a synthetic cache, and one pass plus a 4-pass run_all
+    batch on SMALL ocr states trained on the card.  One pass: activity
+    stamps equal, phi, phi_i and the average within TOL (1 + |ref|); a
+    batch: duals within rtol 1e-4.  REPEATS more launches from the same
+    state must give the same bits.  Timed at 512 blocks beside the plain
+    version and the bound; the main path's full-pass times come from
+    phase_profile.  ~20 s."""
+    from repro_torch.core import mpbcfw
+    from repro_torch.core.ssvm import dual_value
+    from repro_torch.kernels import ops
+    lam = 1.0 / OCR["n"]
+    errs, timing = {}, {}
+    for steps in (None, 10):
+        mode = "plain" if steps is None else "gram"
+        planes, valid, gram, state = _approx_state(torch, gen, 512, 64, 4004,
+                                                   steps)
+        perm = torch.randperm(512, generator=gen, device="cuda")
+        kw = dict(lam=lam, k0=7000, outer_it=5, gram=gram, steps=steps)
+
+        def run(fn, st):
+            fn(st["phi"], st["phi_i"], st["bar"], planes, valid, st["last"],
+               perm, **kw)
+        got = {k: v.clone() for k, v in state.items()}
+        want = {k: v.clone() for k, v in state.items()}
+        run(ops.approx_pass, got)
+        run(mpbcfw.eager_pass, want)
+        torch.cuda.synchronize()
+        errs[f"512x64x4004_{mode}"] = _pass_close(torch, got, want,
+                                                  f"approx_pass 512 {mode}")
+        # A pass is deterministic: the same launch from the same state
+        # gives the same bits (resume's bit-for-bit guarantee needs it).
+        for _ in range(REPEATS):
+            again = {k: v.clone() for k, v in state.items()}
+            run(ops.approx_pass, again)
+            check(all(torch.equal(again[k], got[k]) for k in got),
+                  f"approx_pass 512 {mode}: a repeated launch differs")
+        off = {k: v.clone() for k, v in state.items()}
+        ops.approx_pass(off["phi"], off["phi_i"], off["bar"], planes, valid,
+                        off["last"], perm,
+                        go=torch.zeros((), dtype=torch.bool, device="cuda"),
+                        **kw)
+        torch.cuda.synchronize()
+        check(all(torch.equal(off[k], state[k]) for k in state),
+              f"approx_pass {mode}: a false flag changed the state")
+        tmp = {k: v.clone() for k, v in state.items()}
+        nbytes, ops_n = approx_pass_work(valid, perm, 4004, steps)
+        bms, by = bound_ms(nbytes, ops_n)
+        timing[mode] = dict(
+            blocks=512, valid_planes=int(valid[perm].sum()),
+            ms=time_ms(torch, lambda k: run(ops.approx_pass, tmp), 10),
+            plain_ms=time_ms(torch, lambda k: run(mpbcfw.eager_pass, tmp),
+                             1, warmup=1),
+            bound_ms=bms, bound_by=by)
+        del planes, valid, gram
+    for algo in ("mpbcfw", "mpbcfw-gram"):
+        _, solver = small_run("ocr", "cuda", algo, max_iters=2)
+        solver.run()
+        steps = solver.cfg.gram_steps if algo == "mpbcfw-gram" else None
+        mp, slam = solver.state, solver.cfg.lam
+        c = mp.cache
+        perms = torch.stack([torch.randperm(mp.inner.phi_i.shape[0],
+                                            generator=gen, device="cuda")
+                             for _ in range(4)])
+        base = dict(phi=mp.inner.phi, phi_i=mp.inner.phi_i,
+                    bar=mp.avg.bar_approx, last=c.last_active)
+        got = {k: v.clone() for k, v in base.items()}
+        want = {k: v.clone() for k, v in base.items()}
+        duals, first = {"kernel": [], "plain": []}, {}
+        for who, st, fn in (("kernel", got, ops.approx_pass),
+                            ("plain", want, mpbcfw.eager_pass)):
+            for k in range(4):
+                fn(st["phi"], st["phi_i"], st["bar"], c.planes, c.valid,
+                   st["last"], perms[k], lam=slam,
+                   k0=mp.avg.k_approx + k * perms.shape[1],
+                   outer_it=mp.outer_it, gram=c.gram, steps=steps)
+                duals[who].append(float(dual_value(st["phi"], slam)))
+                if k == 0:
+                    first[who] = {kk: v.clone() for kk, v in st.items()}
+        errs[f"small_ocr_{algo}"] = _pass_close(
+            torch, first["kernel"], first["plain"],
+            f"approx_pass SMALL {algo}")
+        for a, b in zip(duals["kernel"], duals["plain"]):
+            check(abs(a - b) <= 1e-4 * abs(b) + 1e-7,
+                  f"approx_pass SMALL {algo} run_all: dual {a} vs {b}")
+        errs[f"small_ocr_{algo}_run_all_duals"] = duals
+        del solver, mp
+    torch.cuda.empty_cache()
+    emit("kernel", name="approx_pass", timing_512_blocks=timing,
+         max_abs_err={k: v for k, v in errs.items()
+                      if not k.endswith("duals")},
+         run_all_duals={k: v for k, v in errs.items()
+                        if k.endswith("duals")},
+         library_ms=None, library_note="no single PyTorch call runs a "
+         "BCFW pass; the plain version is the eager per-block loop",
+         tolerance="one pass: activity stamps equal, |err| <= 3e-5 "
+         "(1+|ref|); 4-pass run_all: duals within rtol 1e-4")
+    return dict(name="approx_pass", route="cuda",
+                source="src/repro_torch/kernels/csrc/approx_pass.cu",
+                replaces="src/repro/core/mpbcfw.py:99 (approx_pass, a "
+                "lax.scan; no pallas_call)",
+                max_abs_err=max(v for k, v in errs.items()
+                                if not k.endswith("duals")),
+                library_ms=None, at_512_blocks=timing)
+
+
 def compare_traces(what: str, traces) -> list:
     """Card vs CPU traces of one run: the same schedule, duals and primals
     within rtol 1e-4.  Returns the rows compared."""
@@ -426,6 +599,15 @@ def drive(torch, solver, phase: str):
     return rows, walls
 
 
+def check_syncs(phase: str, rows, dispatches: int):
+    """The reference's contract: ``dispatches`` program dispatches and one
+    host sync per iteration (no overflow batch at these settings)."""
+    for r in rows:
+        check(r.dispatches == dispatches and r.host_syncs == 1,
+              f"{phase}: {r.dispatches} dispatches, {r.host_syncs} host "
+              f"syncs at iteration {r.iteration}")
+
+
 def phase_main(torch, data):
     from repro_torch.api import CostModel, RunConfig, Solver
     from repro_torch.core.oracles import chain
@@ -444,10 +626,17 @@ def phase_main(torch, data):
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     last = rows[-1]
+    check_syncs("main", rows, dispatches=1)
     check(last.n_exact == n * len(rows), f"n_exact {last.n_exact}")
-    check(launches["plane_scores"] >= last.n_approx,
-          f"plane_scores launches {launches['plane_scores']} < n_approx "
-          f"{last.n_approx}")
+    passes = sum(r.approx_passes for r in rows)
+    check(last.n_approx == n * passes, f"n_approx {last.n_approx}")
+    # One gated pass launch per queued pass, run or stopped; the plain
+    # cache has no Gram rows, so plane_scores is not on this path.
+    check(launches["approx_pass"] == RUN["approx_batch"] * len(rows)
+          and passes > 0, f"approx_pass launches {launches['approx_pass']} "
+          f"for {passes} passes")
+    check(launches["plane_scores"] == 0,
+          f"plane_scores launches {launches['plane_scores']}")
     check(launches["viterbi_decode"] >= last.n_exact,
           f"viterbi launches {launches['viterbi_decode']} < n_exact "
           f"{last.n_exact}")
@@ -464,52 +653,56 @@ def phase_main(torch, data):
     return launches, solver
 
 
-def phase_profile(torch, solver, n_exact: int = 256, n_approx: int = 1024):
-    """Host and device time of the two passes on the trained state: each
-    window is timed untraced, then traced.  Busy share = device time of
-    all kernels and copies / the traced window's wall time."""
+def phase_profile(torch, solver, n_exact: int = 256):
+    """Where the main path's time goes, on the trained state: an exact-pass
+    window of ``n_exact`` blocks and one whole approximate pass (one
+    approx_pass launch over all n blocks), each timed untraced, then
+    traced (busy share = device time of all kernels and copies / the
+    traced window's wall time).  Then the pass kernel's time per full pass
+    with CUDA events beside the plain version's (the eager per-block loop,
+    one pass, ~3-6 s) and the bound on this state's valid slots: the
+    numbers of the kernels line.  ~20 s."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import mpbcfw
+    from repro_torch.core.types import index_tensor
+    from repro_torch.kernels import ops
     problem, lam = solver.problem, solver.cfg.lam
-    mp = solver.state
-    passes = {
-        "exact": (n_exact, lambda m, blocks: mpbcfw.exact_pass(
-            problem, m, blocks, lam)),
-        "approx": (n_approx, lambda m, blocks: mpbcfw.approx_pass(
-            None, m, blocks, lam)),
+    mp, n = solver.state, solver.problem.n
+    perm = np.random.RandomState(2).permutation(n)
+    windows = {
+        "exact": (n_exact, lambda: mpbcfw.exact_pass(
+            problem, mp, np.arange(n_exact), lam)),
+        "approx": (n, lambda: mpbcfw.approx_pass(None, mp, perm, lam)),
     }
     out = {}
-    for name, (count, run) in passes.items():
-        blocks = np.arange(count)
+    for name, (count, run) in windows.items():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        mp = run(mp, blocks)
+        run()
         torch.cuda.synchronize()
         untraced = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            mp = run(mp, blocks)
-            torch.cuda.synchronize()
-            traced = time.perf_counter() - t0
-        dev = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-        by_kernel = {}
-        for e in dev:
-            by_kernel[e.name] = (by_kernel.get(e.name, 0.0)
-                                 + e.time_range.elapsed_us())
-        busy_us = sum(by_kernel.values())
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-        out[name] = dict(
-            blocks=count, ms_per_block=1e3 * untraced / count,
-            traced_ms_per_block=1e3 * traced / count,
-            device_events=len(dev),
-            device_ops_per_block=len(dev) / count,
-            device_us_per_block=busy_us / count,
-            device_busy_share=(busy_us * 1e-6 / traced) if dev else None,
-            top_device_us=[[k[:60], v] for k, v in top])
-    emit("profile", scenario="OCR", **out)
+        tr = traced(torch, run)
+        out[name] = dict(blocks=count, ms_per_block=1e3 * untraced / count,
+                         traced_ms_per_block=tr["wall_ms"] / count,
+                         device_ops_per_block=tr["device_events"] / count,
+                         device_us_per_block=tr["device_us"] / count, **tr)
+    c = mp.cache
+    ids = index_tensor(perm, "cuda")
+
+    def one(fn):
+        fn(mp.inner.phi, mp.inner.phi_i, mp.avg.bar_approx, c.planes,
+           c.valid, c.last_active, ids, lam=lam, k0=mp.avg.k_approx,
+           outer_it=mp.outer_it)
+    nbytes, ops_n = approx_pass_work(c.valid, ids, problem.d)
+    bms, by = bound_ms(nbytes, ops_n)
+    timing = dict(blocks=n, valid_planes=int(c.valid.sum()),
+                  ms=time_ms(torch, lambda k: one(ops.approx_pass),
+                             3, warmup=1),
+                  plain_ms=time_ms(torch, lambda k: one(mpbcfw.eager_pass),
+                                   1, warmup=0),
+                  bound_ms=bms, bound_by=by)
+    emit("profile", scenario="OCR", approx_pass_full=timing, **out)
+    return timing
 
 
 def phase_parity_async(torch):
@@ -589,9 +782,7 @@ def phase_main_async(torch, data):
     rows, walls = drive(torch, solver, "main_async")
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    for r in rows:
-        check(r.dispatches == 2 and r.host_syncs == 1 + r.approx_passes,
-              f"sync contract at iteration {r.iteration}")
+    check_syncs("main_async", rows, dispatches=2)
     last = rows[-1]
     folded = masks[:len(rows) - 1]        # the last dispatch is not folded
     arrived = int(sum(m.sum() for m in folded))
@@ -607,7 +798,9 @@ def phase_main_async(torch, data):
     check(launches["viterbi_decode"] == 2 * len(rows),
           f"viterbi launches {launches['viterbi_decode']} (one oracle "
           "program and one evaluation sweep per iteration)")
-    check(launches["plane_scores"] == approx_steps,
+    check(launches["approx_pass"] == RUN_ASYNC["approx_batch"] * len(rows),
+          f"approx_pass launches {launches['approx_pass']}")
+    check(launches["plane_scores"] == 0,
           f"plane_scores launches {launches['plane_scores']}")
     w = solver.result().w
     check(w.shape == (4004,) and all(map(math.isfinite, w.tolist())),
@@ -655,19 +848,22 @@ def _stream_overlap_us(events):
 
 
 def phase_profile_async(torch, solver, n_fold: int = 512):
-    """The fold step and the oracle program on the trained pipelined state:
-    one engine iteration with no approximate pass, whose pending buffer is
+    """The fold step, the approximate passes and the oracle program on the
+    trained pipelined state: one engine iteration whose pending buffer is
     cut to ``n_fold`` blocks, so it folds those blocks (and scores their
-    fallback) on the main stream while the oracle program for all n blocks
-    runs on the side stream.  Timed untraced, then under torch.profiler."""
+    fallback) and queues 2 gated passes on the main stream while the
+    oracle program for all n blocks runs on the side stream.  Timed
+    untraced, then under torch.profiler: do kernels of the two streams
+    ever run at once (ROADMAP C4)?  ~5 s."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import mpbcfw
     from repro_torch.core.ssvm import weights_of
     engine, problem, lam = solver.engine, solver.problem, solver.cfg.lam
     n = problem.n
-    perm = np.random.RandomState(1).permutation(n)
-    no_passes = np.zeros((0, n), np.int64)
+    rng = np.random.RandomState(1)
+    perm = rng.permutation(n)
+    passes = np.stack([rng.permutation(n) for _ in range(2)])
     clock = mpbcfw.make_slope_clock(0.0, 0.0, ORACLE_COST * n, PLANE_COST,
                                     "cuda")
 
@@ -676,9 +872,9 @@ def phase_profile_async(torch, solver, n_fold: int = 512):
         cut = state._replace(pending=p._replace(
             ids=p.ids[:n_fold], planes=p.planes[:n_fold],
             done=p.done[:n_fold]))
-        state, _, stats = engine.outer_iteration(cut, perm, no_passes,
+        state, _, stats = engine.outer_iteration(cut, perm, passes,
                                                  clock, ttl=RUN["ttl"])
-        engine.read_stats(stats)
+        state = engine.count_passes(state, engine.read_stats(stats))
         torch.cuda.synchronize()
         return state
 
@@ -708,7 +904,8 @@ def phase_profile_async(torch, solver, n_fold: int = 512):
                              + e.time_range.elapsed_us())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     emit("profile_async", scenario="OCR", folded_blocks=n_fold,
-         oracle_blocks=n, window_ms=1e3 * untraced,
+         approx_passes_queued=len(passes), oracle_blocks=n,
+         window_ms=1e3 * untraced,
          ms_per_folded_block=1e3 * untraced / n_fold,
          traced_ms_per_folded_block=1e3 * traced / n_fold,
          oracle_program_ms=oracle_ms, device_events=len(dev),
@@ -806,7 +1003,7 @@ def check_moe_ffn(torch, gen):
         nbytes = 2 * (2 * E * C * D + 3 * E * D * Fd)
         bms, by = bound_ms(nbytes, 6.0 * E * C * D * Fd, BF16_FLOPS)
         out[name] = dict(
-            shape=list(shape), plan=list(kmoe.plan(C, Fd, xs.dtype)),
+            shape=list(shape), plan=list(kmoe.plan(C, D, Fd, xs.dtype)),
             ms=time_ms(torch, lambda k: ops.moe_ffn(*args), calls, warmup=1),
             plain_ms=time_ms(torch, lambda k: ref.moe_ffn_ref(*args), calls,
                              warmup=1),
@@ -1011,19 +1208,19 @@ def phase_main_gram(torch, data):
     rows, walls = drive(torch, solver, "main_gram")
     run_launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    for r in rows:
-        check(r.host_syncs == 1 + r.approx_passes,
-              f"sync contract at iteration {r.iteration}")
+    check_syncs("main_gram", rows, dispatches=1)
     last = rows[-1]
     passes = sum(r.approx_passes for r in rows)
     check(passes > 0, "no gram pass ran")
     check(last.n_exact == n * len(rows), f"n_exact {last.n_exact}")
     check(last.n_approx == n * RUN_GRAM["gram_steps"] * passes,
           f"n_approx {last.n_approx}")
-    # Per block: a and b of each gram block update, the Gram row of each
-    # insert; the evaluation sweep decodes n chains in one launch.
-    check(run_launches["plane_scores"] == 2 * n * passes + n * len(rows),
+    # The Gram row of each insert; the gram passes score inside the pass
+    # kernel, one launch per queued pass.
+    check(run_launches["plane_scores"] == n * len(rows),
           f"plane_scores launches {run_launches['plane_scores']}")
+    check(run_launches["approx_pass"] == RUN_GRAM["approx_batch"] * len(rows),
+          f"approx_pass launches {run_launches['approx_pass']}")
     # One B=1 decode per exact step, one B=n sweep per evaluation.
     check(run_launches["viterbi_decode"] == (n + 1) * len(rows),
           f"viterbi launches {run_launches['viterbi_decode']}")
@@ -1058,27 +1255,46 @@ def phase_main_gram(torch, data):
 
 
 def phase_profile_gram(torch, solver, blocks: int = 128):
-    """Host and device time of gram block updates on the trained state:
-    ``blocks`` blocks timed untraced, then traced."""
+    """The Sec-3.5 pass on the trained state: one whole gram pass (one
+    approx_pass launch over all n blocks) timed untraced, then traced,
+    then with CUDA events beside its bound; and the plain version (the
+    eager recurrences, ~550 small ops per block) over ``blocks`` blocks.
+    ~5 s."""
     import numpy as np
-    from repro_torch.core.gram import approx_pass_gram
-    mp, lam = solver.state, solver.cfg.lam
+    from repro_torch.core import mpbcfw
+    from repro_torch.core.types import index_tensor
+    mp, lam, n = solver.state, solver.cfg.lam, solver.problem.n
     steps = solver.cfg.gram_steps
-    ids = np.arange(blocks)
+    ids = index_tensor(np.random.RandomState(3).permutation(n), "cuda")
 
     def run():
-        approx_pass_gram(mp.inner, mp.cache, mp.avg, ids, mp.outer_it, lam,
-                         steps)
+        mpbcfw.run_pass(mp, ids, lam, steps)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run()
     torch.cuda.synchronize()
     untraced = time.perf_counter() - t0
     tr = traced(torch, run)
-    emit("profile_gram", scenario="OCR", blocks=blocks, gram_steps=steps,
-         ms_per_block=1e3 * untraced / blocks,
-         traced_ms_per_block=tr["wall_ms"] / blocks,
-         device_ops_per_block=tr["device_events"] / blocks, **tr)
+    c = mp.cache
+    nbytes, ops_n = approx_pass_work(c.valid, ids, solver.problem.d, steps)
+    bms, by = bound_ms(nbytes, ops_n)
+    ms = time_ms(torch, lambda k: run(), 3, warmup=0)
+    sub = ids[:blocks].contiguous()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mpbcfw.eager_pass(mp.inner.phi, mp.inner.phi_i, mp.avg.bar_approx,
+                      c.planes, c.valid, c.last_active, sub, lam=lam,
+                      k0=mp.avg.k_approx, outer_it=mp.outer_it, gram=c.gram,
+                      steps=steps)
+    torch.cuda.synchronize()
+    plain_block_ms = 1e3 * (time.perf_counter() - t0) / blocks
+    emit("profile_gram", scenario="OCR", blocks=n, gram_steps=steps,
+         pass_ms=1e3 * untraced, ms_per_block=1e3 * untraced / n,
+         traced_ms_per_block=tr["wall_ms"] / n,
+         device_ops_per_block=tr["device_events"] / n,
+         approx_pass_gram_full=dict(ms=ms, bound_ms=bms, bound_by=by,
+                                    valid_planes=int(c.valid.sum())),
+         plain_blocks=blocks, plain_ms_per_block=plain_block_ms, **tr)
 
 
 def phase_resume(torch):
@@ -1267,8 +1483,9 @@ def phase_main_lm(torch):
     head_launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     check(rows[-1].n_exact == n * len(rows), f"n_exact {rows[-1].n_exact}")
-    check(head_launches["plane_scores"] >= rows[-1].n_approx and
-          head_launches["viterbi_decode"] >= rows[-1].n_exact,
+    check_syncs("main_lm", rows, dispatches=1)
+    check(head_launches["approx_pass"] == HEAD_RUN["approx_batch"] * len(rows)
+          and head_launches["viterbi_decode"] >= rows[-1].n_exact,
           f"head launches {head_launches}")
     emit("main_lm", arch=cfg.name, params=n_params, param_bytes=param_bytes,
          init_s=init_s, serve=dict(
@@ -1283,6 +1500,8 @@ def phase_main_lm(torch):
                    launches=head_launches),
          max_memory_allocated=peak)
     del solver, problem, x
+    routing = compare_routing(torch, cfg, params, tok)
+    emit("routing", arch=cfg.name, **routing)
     profile_lm(torch, cfg, params, tok)
     both = {k: serve_launches[k] + head_launches[k] for k in serve_launches}
     return both, {"main_lm_serve": serve_launches,
@@ -1309,8 +1528,60 @@ def traced(torch, fn):
     busy_us = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     return dict(wall_ms=1e3 * wall, device_events=len(dev),
+                device_us=busy_us,
                 device_busy_share=(busy_us * 1e-6 / wall) if dev else None,
                 top_device_us=[[k[:60], v] for k, v in top])
+
+
+def compare_routing(torch, cfg, params, tok, layers=(0, -1)):
+    """MoE routing at full width, the card against the CPU (ROADMAP C5): a
+    backbone pass over the head's 1024 x 32 tokens records the router
+    inputs of the first and last MoE layers on the card; the CPU then
+    routes the same inputs with the same router weights.  Counts, per
+    layer, the (expert, token) slots kept on one side and not the other,
+    the tokens whose top-k expert set differs, and the largest router
+    logit difference.  ~5 s."""
+    from repro_torch.models import moe, registry
+    seen = []
+    route = moe.route
+
+    def record(p, xf, c):
+        seen.append((p["router"], xf))
+        return route(p, xf, c)
+    model = registry.module_for(cfg)
+    tokens = torch.from_numpy(tok).long().cuda()
+    moe.route = record
+    try:
+        with torch.no_grad():
+            x, pos = model._embed_inputs(params, cfg, {"tokens": tokens})
+            model.backbone(params, cfg, x, pos)
+    finally:
+        moe.route = route
+    out = {"layers": len(seen)}
+    for li in layers:
+        router, xf = seen[li]
+        ev_g, ei_g = route({"router": router}, xf, cfg)
+        ev_c, ei_c = route({"router": router.cpu()}, xf.cpu(), cfg)
+        T, E = xf.shape[0], cfg.num_experts
+
+        def kept(ev, ei):
+            m = torch.zeros((E, T), dtype=torch.bool)
+            rows = torch.arange(E)[:, None].expand_as(ei)
+            m[rows[ev > 0], ei[ev > 0]] = True
+            return m
+        kg, kc = kept(ev_g.cpu(), ei_g.cpu()), kept(ev_c, ei_c)
+        lg = torch.matmul(xf.float(), router).cpu()
+        lc = torch.matmul(xf.cpu().float(), router.cpu())
+        k = cfg.experts_per_token
+        tg, tc = moe.top_k(lg, k)[1].sort(dim=-1)[0], \
+            moe.top_k(lc, k)[1].sort(dim=-1)[0]
+        out[f"layer_{li % len(seen)}"] = dict(
+            tokens=T, kept_slots=int(kc.sum()),
+            kept_differ=int((kg ^ kc).sum()),
+            topk_sets_differ=int((tg != tc).any(dim=-1).sum()),
+            router_logit_max_abs_diff=float((lg - lc).abs().max()))
+    del seen
+    return out
 
 
 def profile_lm(torch, cfg, params, tok):
@@ -1365,11 +1636,17 @@ def main() -> int:
                check_plane_select(torch, gen),
                check_moe_ffn(torch, gen),
                check_flash_attention(torch, gen),
-               check_gram(torch, gen)]
+               check_gram(torch, gen),
+               check_approx_pass(torch, gen)]
     torch.cuda.empty_cache()
     phase_parity(torch)
     launches, solver = phase_main(torch, data)
-    phase_profile(torch, solver)
+    # The pass kernel's numbers at the main path's shape: a whole pass
+    # over the trained full-size state.
+    full = phase_profile(torch, solver)
+    kernels[-1].update(shape=[full["blocks"], RUN["cap"], solver.problem.d],
+                       **{k: full[k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by", "valid_planes")})
     del solver
     torch.cuda.empty_cache()
     phase_parity_async(torch)
@@ -1388,9 +1665,10 @@ def main() -> int:
     launches_lm, lm_paths = phase_main_lm(torch)
     # Each kernel's launches on the path it was ported for; every path's
     # counts stand beside them.
-    path_of = {"plane_scores": "main", "viterbi_decode": "main",
+    path_of = {"plane_scores": "main_gram", "viterbi_decode": "main",
                "plane_select": "main_async", "moe_ffn": "main_lm",
-               "flash_attention": "main_lm", "gram": "main_gram"}
+               "flash_attention": "main_lm", "gram": "main_gram",
+               "approx_pass": "main"}
     by_path = {"main": launches, "main_async": launches_async,
                "main_gram": launches_gram, "main_lm": launches_lm,
                **lm_paths}

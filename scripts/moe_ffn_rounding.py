@@ -23,14 +23,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 from repro_torch.kernels import moe_ffn as kmoe  # noqa: E402
 
 
-def launch(mma: bool, bc: int, xs, wg, wu, wd):
+def launch(wgmma: bool, bc: int, xs, wg, wu, wd):
     """The kernel on a chosen path (the wrapper picks the tensor cores for
     bf16 on its own)."""
     y = torch.empty_like(xs)
     E, C, D = xs.shape
+    F = wg.shape[2]
+    h = torch.empty((E, C, F), dtype=xs.dtype, device=xs.device)
     rc = kmoe._lib().moe_ffn_launch(
-        1, int(mma), bc, xs.data_ptr(), wg.data_ptr(), wu.data_ptr(),
-        wd.data_ptr(), y.data_ptr(), E, C, D, wg.shape[2],
+        1, int(wgmma), bc, xs.data_ptr(), wg.data_ptr(), wu.data_ptr(),
+        wd.data_ptr(), y.data_ptr(), h.data_ptr(), E, C, D, F,
         torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"moe_ffn launch failed: cudaError {rc}")
@@ -73,9 +75,9 @@ def main() -> int:
                                                         wu.float())
     h = (silu(g) * u).bfloat16().float()
     pre = torch.bmm(h, wd.float())
-    for mma, bc in ((True, 64), (False, 32)):
-        report(f"y, {'tensor cores' if mma else 'fp32 FMA'} vs emulation",
-               launch(mma, bc, xs, wg, wu, wd), pre)
+    for wgmma, bc in ((True, kmoe.WGMMA_ROWS), (False, 32)):
+        report(f"y, {'tensor cores' if wgmma else 'fp32 FMA'} vs emulation",
+               launch(wgmma, bc, xs, wg, wu, wd), pre)
     # wd = identity: y = h, the first phase alone.
     n = 1024
     xs2, wg2, wu2 = (t[:, :, :n].contiguous() if t is xs
@@ -83,9 +85,9 @@ def main() -> int:
     eye = torch.eye(n, device="cuda").bfloat16().expand(E, n, n).contiguous()
     hpre = silu(torch.bmm(xs2.float(), wg2.float())) * torch.bmm(
         xs2.float(), wu2.float())
-    for mma, bc in ((True, 64), (False, 32)):
-        report(f"h (identity wd), {'tensor cores' if mma else 'fp32 FMA'} "
-               "vs emulation", launch(mma, bc, xs2, wg2, wu2, eye), hpre)
+    for wgmma, bc in ((True, kmoe.WGMMA_ROWS), (False, 32)):
+        report(f"h (identity wd), {'tensor cores' if wgmma else 'fp32 FMA'} "
+               "vs emulation", launch(wgmma, bc, xs2, wg2, wu2, eye), hpre)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)

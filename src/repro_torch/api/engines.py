@@ -2,8 +2,9 @@
 
 An engine owns the passes of one optimizer family and is driven by
 :class:`repro_torch.api.Solver` through a fixed seam: ``init_state``,
-``outer_iteration``, ``continue_passes``, ``read_stats``, ``evaluate``
-and ``extract``, plus a :class:`~repro_torch.core.selection.SyncLedger`.
+``outer_iteration``, ``continue_passes``, ``read_stats``,
+``count_passes``, ``evaluate`` and ``extract``, plus a
+:class:`~repro_torch.core.selection.SyncLedger`.
 
 Ported: :class:`FusedEngine` as ``mpbcfw`` and, with the Sec-3.5 Gram
 blocks in its plane cache, as ``mpbcfw-gram``; :class:`AsyncEngine` as
@@ -31,11 +32,12 @@ from .errors import UnsupportedConfigError
 class FusedEngine:
     """Single-device MP-BCFW engine (:func:`repro_torch.core.mpbcfw
     .outer_iteration`).  ``outer_iteration`` enqueues the iteration's
-    device work; the slope rule's per-pass flag reads and ``read_stats``
-    are the host syncs, all counted on ``ledger``.  A ``gram_steps``
-    count keeps Gram blocks in the plane cache, which switches the
-    approximate passes to the Sec-3.5 scheme, ``gram_steps`` updates per
-    block."""
+    device work, the slope-gated approximate passes included, without a
+    host read; ``read_stats`` is the one host sync per dispatch, counted
+    on ``ledger``, and ``count_passes`` then charges the passes that ran
+    to the state's host counters.  A ``gram_steps`` count keeps Gram
+    blocks in the plane cache, which switches the approximate passes to
+    the Sec-3.5 scheme, ``gram_steps`` updates per block."""
 
     def __init__(self, problem: SSVMProblem, lam: float, *,
                  gram_steps: Optional[int] = None):
@@ -53,19 +55,23 @@ class FusedEngine:
         self.ledger.dispatched()
         return mpbcfw.outer_iteration(self.problem, mp, perm, perms, clock,
                                       lam=self.lam, ttl=ttl,
-                                      steps=self.gram_steps,
-                                      ledger=self.ledger)
+                                      steps=self.gram_steps)
 
     def continue_passes(self, mp, perms, clock):
         """Overflow batch of approximate passes (only when an iteration
         runs more than ``approx_batch`` passes)."""
         self.ledger.dispatched()
         return mpbcfw.multi_approx_pass(mp, perms, clock, lam=self.lam,
-                                        steps=self.gram_steps,
-                                        ledger=self.ledger)
+                                        steps=self.gram_steps)
 
     def read_stats(self, stats):
         return self.ledger.sync(stats)
+
+    def count_passes(self, mp, st):
+        """The state with its host counters charged for the passes that
+        ``st`` (stats already read) says ran."""
+        return mpbcfw.count_passes(mp, int(st.passes_run), st.blocks,
+                                   self.gram_steps)
 
     def evaluate(self, mp):
         """``(primal, dual, primal)``: ``mpbcfw`` reports no averaged
@@ -154,8 +160,7 @@ class AsyncEngine(FusedEngine):
         ids, planes = self._dispatch_oracle(mp.inner.phi, perm)
         self.ledger.dispatched()
         mp2, clock2, stats = mpbcfw.async_cache_program(
-            mp, pending, perms, clock, lam=self.lam, ttl=ttl,
-            ledger=self.ledger)
+            mp, pending, perms, clock, lam=self.lam, ttl=ttl)
         new_pending = mpbcfw.PendingOracle(
             ids=ids, planes=planes, done=self._done_mask(len(ids)),
             live=True)
@@ -171,8 +176,11 @@ class AsyncEngine(FusedEngine):
     def continue_passes(self, state, perms, clock):
         self.ledger.dispatched()
         mp2, clock2, stats = mpbcfw.multi_approx_pass(
-            state.mp, perms, clock, lam=self.lam, ledger=self.ledger)
+            state.mp, perms, clock, lam=self.lam)
         return state._replace(mp=mp2), clock2, stats
+
+    def count_passes(self, state, st):
+        return state._replace(mp=super().count_passes(state.mp, st))
 
     def read_stats(self, stats):
         pend, self._overlap_pending = self._overlap_pending, None

@@ -1,20 +1,23 @@
 """The :class:`Solver` facade: the MP-BCFW control loop (PyTorch port).
 
-It drives the ported engines, ``mpbcfw`` and ``mpbcfw-async``
-(:mod:`repro_torch.api.engines`), through one seam.  The loop draws the
-block permutations from ``np.random.RandomState(cfg.seed)`` in exactly
-the reference's order (``repro/api/solver.py``): per outer iteration one
-permutation for the exact pass, then ``min(approx_batch,
-max_approx_passes)`` for the approximate batch, used or not, then one
-more batch per overflow continuation.  The same seed therefore gives both
+It drives the ported engines, ``mpbcfw``, ``mpbcfw-gram`` and
+``mpbcfw-async`` (:mod:`repro_torch.api.engines`), through one seam.
+The loop draws the block permutations from
+``np.random.RandomState(cfg.seed)`` in exactly the reference's order
+(``repro/api/solver.py``): per outer iteration one permutation for the
+exact pass, then ``min(approx_batch, max_approx_passes)`` for the
+approximate batch, used or not, then one more batch per overflow
+continuation.  The same seed therefore gives both
 packages the same block schedule.
 
-Sync accounting: the engine reads the slope rule's continue flag once per
-approximate pass and the iteration's telemetry once, all counted on its
+Sync accounting: the approximate passes are gated on the device by the
+slope rule, so the engine reads each dispatch's telemetry once and
+nothing else, counted on its
 :class:`~repro_torch.core.selection.SyncLedger` and reported in
-``TraceRow.host_syncs`` (1 + passes run).  The reference holds one sync
-per iteration; the gap is logged in ROADMAP C.  The pipelined engine
-(``mpbcfw-async``) also charges the modeled oracle time it hid behind its
+``TraceRow.host_syncs``: one per dispatch, as in the reference.  After
+that read the engine charges the passes that ran to the state's host
+counters (``count_passes``).  The pipelined engine (``mpbcfw-async``)
+also charges the modeled oracle time it hid behind its
 cache program on the ledger; the loop reports the hidden share as
 ``TraceRow.oracle_overlap`` and credits it back to a CostModel clock.
 
@@ -258,6 +261,7 @@ class Solver:
             mp, clock_dev, stats = engine.outer_iteration(
                 mp, perm, perms, clock_dev, ttl=cfg.ttl)
             st = engine.read_stats(stats)
+            mp = engine.count_passes(mp, st)
             met = st.metrics
             ws_total = int(st.ws_total)
             planes_all = [int(x) for x in st.planes[:st.passes_run]]
@@ -268,6 +272,7 @@ class Solver:
                 mp, clock_dev, stats = engine.continue_passes(mp, perms,
                                                               clock_dev)
                 st = engine.read_stats(stats)
+                mp = engine.count_passes(mp, st)
                 planes_all += [int(x) for x in st.planes[:st.passes_run]]
             led1 = engine.ledger.counts()
             ovl_total = engine.ledger.oracle_time_total - ovl0[0]

@@ -16,12 +16,17 @@ Recurrences (phi' = phi + g(phi_h - phi_i); phi_i' = (1-g) phi_i + g phi_h):
 with h the argmax plane.  phi_i' is materialized from the convex-combination
 coefficients with one (cap, d+1) product, and phi' - phi_i' = phi - phi_i.
 
-The reference scans the steps inside one XLA program.  Here the steps are
-a Python loop of device operations: the argmax stays a (1,) index tensor
-and every scalar a 0-d tensor, so a block enqueues its work without
-blocking the host.  ``a`` and ``b`` come from :func:`repro_torch.cache
-.row_dots` (the ``plane_scores`` kernel on CUDA), which reduces equal rows
-alike, so duplicate cached planes tie and the first one wins.
+The reference scans the steps inside one XLA program.  Here
+:func:`multi_step_block_update` is a Python loop of device operations (the
+argmax stays a (1,) index tensor and every scalar a 0-d tensor, so a block
+enqueues its work without blocking the host); it is the block step of the
+``approx_pass`` kernel's plain version
+(:func:`repro_torch.core.mpbcfw.eager_pass`), and on CUDA a whole pass of
+it is one launch of that kernel (:func:`repro_torch.core.mpbcfw.run_pass`
+with ``steps``).  ``a`` and ``b`` come from :func:`repro_torch.cache.
+row_dots` (the ``plane_scores`` kernel on CUDA), which reduces equal rows
+alike, so duplicate cached planes tie and the first one wins; the kernel
+scores in the same order.
 """
 from __future__ import annotations
 
@@ -30,9 +35,7 @@ from typing import Tuple
 import torch
 
 from .. import cache as plane_cache
-from ..cache import NEG_INF, PlaneCache
-from .averaging import update_average
-from .types import AveragingState, BCFWState, block_ids
+from ..cache import NEG_INF
 
 
 def multi_step_block_update(planes_i: torch.Tensor, valid_i: torch.Tensor,
@@ -90,24 +93,3 @@ def multi_step_block_update(planes_i: torch.Tensor, valid_i: torch.Tensor,
     new_phi_i = beta0 * phi_i + beta @ planes_i
     new_phi = phi + (new_phi_i - phi_i)  # phi - phi_i is invariant
     return new_phi_i, new_phi, won
-
-
-def approx_pass_gram(inner: BCFWState, cache: PlaneCache,
-                     avg: AveragingState, perm, outer_it: int, lam: float,
-                     steps: int):
-    """An approximate pass of the multi-step scheme over the blocks of the
-    host permutation ``perm``: ``steps`` updates per block, one activity
-    update and one averaging step after them.  ``cache`` carries Gram
-    blocks.  Updates in place; returns ``(inner, cache, avg)``."""
-    blocks = block_ids(perm)
-    for i in blocks:
-        phi_i = inner.phi_i[i]
-        new_phi_i, new_phi, won = multi_step_block_update(
-            cache.planes[i], cache.valid[i], cache.gram[i], inner.phi,
-            phi_i, lam, steps)
-        inner.phi.copy_(new_phi)
-        phi_i.copy_(new_phi_i)
-        cache = plane_cache.mark_active_where(cache, i, won, outer_it)
-        avg = update_average(avg, inner.phi, exact=False)
-    inner = inner._replace(n_approx=inner.n_approx + steps * len(blocks))
-    return inner, cache, avg

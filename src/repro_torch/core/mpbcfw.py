@@ -8,19 +8,22 @@ The algorithm interleaves
     (``H~_i(w) = max_{phi in W_i} <phi, [w 1]>``), costing O(|W_i| d) each.
 
 The reference fuses one outer iteration into one XLA program
-(``lax.scan`` over blocks, ``lax.while_loop`` over passes).  Here a pass
-is a host loop over the blocks of the host permutation; every step is
-device work enqueued without blocking (no ``.item()``: slots stay index
-tensors).  The slope rule (Sec. 3.4) is computed on the device in float32
-exactly as in the reference, and the host reads its continue flag once
-per approximate pass: one counted host sync per pass, where the
-reference has none (ROADMAP C).
+(``lax.scan`` over blocks, ``lax.while_loop`` over passes).  Here the
+exact pass is a host loop over the blocks of the host permutation, every
+step device work enqueued without blocking (no ``.item()``: slots stay
+index tensors).  An approximate pass is one launch of the ``approx_pass``
+kernel over a device permutation (on the CPU its plain version,
+:func:`eager_pass`), and a batch of passes is enqueued
+whole: each pass is gated on the device by the slope rule's flag (Sec.
+3.4), computed in float32 exactly as in the reference.  Nothing is read
+on the host until the engine reads the batch's stats: one sync per
+dispatch, as in the reference.
 
 A cache with Gram blocks (``CacheLayout(gram=True)``, engine
 ``mpbcfw-gram``) switches the approximate passes to the Sec-3.5
-multi-step scheme (:mod:`repro_torch.core.gram`); its insertions refresh
-the Gram rows inside :func:`repro_torch.cache.ops.insert`.  A gram pass
-syncs as a plain one does: once, on the slope rule's flag.
+multi-step scheme (:mod:`repro_torch.core.gram`, the same kernel in its
+other mode); its insertions refresh the Gram rows inside
+:func:`repro_torch.cache.ops.insert`.
 
 The pipelined variant (``mpbcfw-async``) splits an outer iteration into
 an oracle program and a cache program (:func:`async_oracle_program`,
@@ -37,14 +40,15 @@ import torch
 
 from .. import cache as plane_cache
 from ..cache import CacheLayout, PlaneCache
+from ..kernels import ops as kops
 from .averaging import init_averaging, update_average
 from .bcfw import block_update
 from .distributed import fallback_planes, fold_planes, parallel_oracles
-from .gram import approx_pass_gram
-from .selection import SyncLedger, slope_continue_t
+from .gram import multi_step_block_update
+from .selection import slope_continue_t
 from .ssvm import dual_value, init_state, weights_of
 from .types import (ApproxBatchStats, AveragingState, BCFWState, ObsMetrics,
-                    SlopeClock, SSVMProblem, block_ids)
+                    SlopeClock, SSVMProblem, block_ids, index_tensor)
 
 
 class MPState(NamedTuple):
@@ -76,21 +80,91 @@ def exact_pass(problem: SSVMProblem, mp: MPState, perm,
     return MPState(inner=st, cache=c, avg=av, outer_it=mp.outer_it)
 
 
+def eager_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,
+               planes: torch.Tensor, valid: torch.Tensor,
+               last_active: torch.Tensor, perm: torch.Tensor, *, lam: float,
+               k0: int, outer_it: int, gram: Optional[torch.Tensor] = None,
+               steps: Optional[int] = None,
+               go: Optional[torch.Tensor] = None) -> None:
+    """One approximate pass over the blocks of ``perm``, in place, as a
+    loop of per-block device ops: the plain version of the ``approx_pass``
+    kernel (:func:`repro_torch.kernels.ops.approx_pass`, same arguments),
+    which runs the same pass in one launch.
+
+    Without ``steps``, each block takes its best cached plane at
+    ``w = -phi*/lam`` (:func:`repro_torch.cache.ops.approx_oracle`), the
+    exact line search step (:func:`repro_torch.core.bcfw.block_update`)
+    and marks the plane active at ``outer_it``; with ``steps`` (and the
+    Gram leaf) it runs the Sec-3.5 recurrences
+    (:func:`repro_torch.core.gram.multi_step_block_update`) and stamps the
+    planes they picked.  After each block, one averaging step of ``bar``
+    with ``k = k0 + position``.  A false ``go`` flag leaves everything
+    untouched (on the CPU reading it is no device sync).  The host
+    counters are the caller's (:func:`count_passes`).
+    """
+    if go is not None and not bool(go):
+        return
+    cache = PlaneCache(planes=planes, valid=valid, last_active=last_active,
+                       gram=gram)
+    st = BCFWState(phi_i=phi_i, phi=phi, n_exact=0, n_approx=0)
+    avg = AveragingState(bar_exact=bar, bar_approx=bar, k_exact=0,
+                         k_approx=int(k0))
+    for i in block_ids(perm.cpu()):
+        if steps is None:
+            w = weights_of(phi, lam)
+            phi_hat, slot, _ = plane_cache.approx_oracle(cache, i, w)
+            block_update(st, i, phi_hat, lam)
+            # A plane is "active" if the (approximate) oracle returned it.
+            plane_cache.mark_active(cache, i, slot, outer_it)
+        else:
+            new_phi_i, new_phi, won = multi_step_block_update(
+                planes[i], valid[i], gram[i], phi, phi_i[i], lam, steps)
+            phi.copy_(new_phi)
+            phi_i[i].copy_(new_phi_i)
+            plane_cache.mark_active_where(cache, i, won, outer_it)
+        avg = update_average(avg, phi, exact=False)
+    if avg.bar_approx is not bar:
+        bar.copy_(avg.bar_approx)
+
+
+def run_pass(mp: MPState, perm: torch.Tensor, lam: float,
+             steps: Optional[int] = None, *, k0: Optional[int] = None,
+             go: Optional[torch.Tensor] = None) -> None:
+    """One approximate pass over the blocks of ``perm`` (an int64 tensor on
+    the state's device), in place: one ``approx_pass`` kernel launch on
+    CUDA, its plain version :func:`eager_pass` on the CPU.  ``steps`` runs
+    the Sec-3.5 scheme over the cache's Gram blocks.  ``k0`` is the
+    averaging count at pass start (default: the state's); a false ``go``
+    flag makes the pass a no-op.  The host counters are left to the caller
+    (:func:`count_passes`)."""
+    c = mp.cache
+    fn = eager_pass if mp.inner.phi.device.type == "cpu" else kops.approx_pass
+    fn(mp.inner.phi, mp.inner.phi_i, mp.avg.bar_approx, c.planes, c.valid,
+       c.last_active, perm, lam=lam,
+       k0=mp.avg.k_approx if k0 is None else k0, outer_it=mp.outer_it,
+       gram=c.gram if steps is not None else None, steps=steps, go=go)
+
+
+def count_passes(mp: MPState, passes: int, blocks: int,
+                 steps: Optional[int] = None) -> MPState:
+    """Charge ``passes`` approximate passes of ``blocks`` blocks to the
+    host counters: ``steps`` (1 by default) approximate oracle calls and
+    one averaging step per block."""
+    calls = passes * blocks
+    return mp._replace(
+        inner=mp.inner._replace(
+            n_approx=mp.inner.n_approx + calls * (steps or 1)),
+        avg=mp.avg._replace(k_approx=mp.avg.k_approx + calls))
+
+
 def approx_pass(problem: Optional[SSVMProblem], mp: MPState, perm,
                 lam: float) -> MPState:
-    """Paper Alg. 3 step 4: BCFW pass against the cached planes only."""
+    """Paper Alg. 3 step 4: BCFW pass against the cached planes only, over
+    the blocks of the host permutation ``perm`` (:func:`run_pass`)."""
     del problem  # the approximate pass never touches the data
-    st, c, av = mp.inner, mp.cache, mp.avg
-    blocks = block_ids(perm)
-    for i in blocks:
-        w = weights_of(st.phi, lam)
-        phi_hat, slot, _ = plane_cache.approx_oracle(c, i, w)
-        st, _ = block_update(st, i, phi_hat, lam)
-        # A plane is "active" if the (approximate) oracle returned it.
-        c = plane_cache.mark_active(c, i, slot, mp.outer_it)
-        av = update_average(av, st.phi, exact=False)
-    st = st._replace(n_approx=st.n_approx + len(blocks))
-    return MPState(inner=st, cache=c, avg=av, outer_it=mp.outer_it)
+    ids = index_tensor(perm, mp.inner.phi.device)
+    run_pass(mp, ids, lam)
+    return count_passes(mp, 1, ids.numel())
 
 
 def begin_iteration(mp: MPState, ttl: int) -> MPState:
@@ -108,54 +182,71 @@ def make_slope_clock(t0, f0, t, plane_cost, device) -> SlopeClock:
                       plane_cost=f32(plane_cost))
 
 
-def slope_batched_loop(carry, perms, clock: SlopeClock, *,
+def slope_batched_loop(n_batch: int, clock: SlopeClock, *,
                        step: Callable, f_entry: torch.Tensor,
                        cost: torch.Tensor, planes_per_pass: torch.Tensor,
-                       ledger: SyncLedger, run_all: bool = False):
-    """Up to ``len(perms)`` passes governed by the slope rule.
+                       run_all: bool = False):
+    """Up to ``n_batch`` passes governed by the slope rule, with no host
+    read: the reference's ``lax.while_loop`` unrolled into gated passes.
 
-    ``step(carry, perm) -> (carry, f_new)`` runs one pass.  The rule is
-    the reference's float32 arithmetic on device tensors (``t + cost``
-    accumulated in float32); the host reads the continue flag once per
-    pass through ``ledger``.  ``run_all`` disables the rule (no reads).
-    Returns ``(carry, t_end, stats)``.
+    ``step(k, more) -> f_new`` runs pass ``k`` in place when the ()
+    bool device flag ``more`` holds (and is a no-op otherwise) and returns
+    the dual after it.  Every pass of the batch is enqueued; the flag
+    ``more`` is the reference's loop condition, on the device: once the
+    rule says stop, the later passes do nothing and their telemetry stays
+    zero.  The rule is the reference's float32 arithmetic (``t + cost``
+    accumulated in float32).  ``run_all`` disables the rule.  Returns
+    ``(t_end, stats)``; ``stats.passes_run`` and ``stats.more`` are device
+    tensors, read with the rest of the stats in the caller's one sync.
     """
-    n_batch = len(perms)
     dev = f_entry.device
     duals = torch.zeros((n_batch,), dtype=torch.float32, device=dev)
     times = torch.zeros((n_batch,), dtype=torch.float32, device=dev)
     planes = torch.zeros((n_batch,), dtype=torch.int32, device=dev)
-    t, f, k, more = clock.t, f_entry, 0, True
-    while more and k < n_batch:
-        carry, f_new = step(carry, perms[k])
+    passes_run = torch.zeros((), dtype=torch.int32, device=dev)
+    more = torch.ones((), dtype=torch.bool, device=dev)
+    t, f = clock.t, f_entry
+    for k in range(n_batch):
+        f_new = step(k, more)
         t_new = t + cost
-        cont = slope_continue_t(clock.f0, clock.t0, f, t, f_new, t_new)
-        duals[k] = f_new
-        times[k] = t_new
-        planes[k] = planes_per_pass
-        t, f, k = t_new, f_new, k + 1
-        more = True if run_all else bool(ledger.sync(cont))
+        if run_all:
+            cont = torch.ones((), dtype=torch.bool, device=dev)
+        else:
+            cont = slope_continue_t(clock.f0, clock.t0, f, t, f_new, t_new)
+        # Only where pass k ran: the reference's loop never reaches it.
+        duals[k] = torch.where(more, f_new, duals[k])
+        times[k] = torch.where(more, t_new, times[k])
+        planes[k] = torch.where(more, planes_per_pass, planes[k])
+        t = torch.where(more, t_new, t)
+        f = torch.where(more, f_new, f)
+        passes_run = passes_run + more.to(torch.int32)
+        more = more & cont
     stats = ApproxBatchStats(
         duals=duals, times=times, planes=planes,
-        ran=torch.arange(n_batch, device=dev) < k, passes_run=k,
-        f_entry=f_entry, more=more, ws_total=planes_per_pass)
-    return carry, t, stats
+        ran=torch.arange(n_batch, device=dev) < passes_run,
+        passes_run=passes_run, f_entry=f_entry, more=more,
+        ws_total=planes_per_pass)
+    return t, stats
 
 
 def multi_approx_pass(mp: MPState, perms, clock: SlopeClock, *, lam: float,
                       steps: Optional[int] = None,
-                      ledger: Optional[SyncLedger] = None,
                       run_all: bool = False
                       ) -> Tuple[MPState, SlopeClock, ApproxBatchStats]:
-    """Up to ``len(perms)`` approximate passes under the slope rule.
+    """Up to ``len(perms)`` approximate passes under the slope rule, with
+    no host read.
 
-    A stopped loop runs no further pass, so the result equals exactly
-    ``passes_run`` sequential :func:`approx_pass` applications.  A cache
-    with Gram blocks runs :func:`repro_torch.core.gram.approx_pass_gram`
-    instead, ``steps`` updates per block (required there, unread without
-    Gram blocks).
+    Each pass is one gated :func:`run_pass` (one ``approx_pass`` launch on
+    CUDA): a stopped loop runs no further pass, so the state equals
+    exactly ``passes_run`` sequential :func:`approx_pass` applications.
+    The pass ``k`` of the batch starts at the averaging count ``k_approx +
+    k n``, which the host knows without reading the device, since passes
+    run in order.  The host counters ``n_approx`` and ``k_approx`` are
+    left for :func:`count_passes` once the stats are read
+    (``FusedEngine.count_passes``).  A cache with Gram blocks runs the
+    Sec-3.5 scheme, ``steps`` updates per block (required there, unread
+    without Gram blocks).
     """
-    ledger = SyncLedger() if ledger is None else ledger
     f_entry = dual_value(mp.inner.phi, lam)
     # Approximate passes never insert or evict planes, so the per-pass
     # cost, Theta(sum_i |W_i|), is constant across the batch.
@@ -166,32 +257,28 @@ def multi_approx_pass(mp: MPState, perms, clock: SlopeClock, *, lam: float,
     use_gram = mp.cache.gram is not None
     if use_gram and steps is None:
         raise ValueError("a cache with Gram blocks needs the step count")
+    dev_perms = index_tensor(perms, f_entry.device)
+    blocks = dev_perms.shape[-1] if len(perms) else 0
 
-    def step(state: MPState, perm):
-        if use_gram:
-            inner, cache, avg = approx_pass_gram(
-                state.inner, state.cache, state.avg, perm, state.outer_it,
-                lam, steps)
-            state = state._replace(inner=inner, cache=cache, avg=avg)
-        else:
-            state = approx_pass(None, state, perm, lam)
-        return state, dual_value(state.inner.phi, lam)
+    def step(k: int, go: torch.Tensor):
+        run_pass(mp, dev_perms[k], lam, steps if use_gram else None,
+                 k0=mp.avg.k_approx + k * blocks, go=go)
+        return dual_value(mp.inner.phi, lam)
 
-    mp, t, stats = slope_batched_loop(
-        mp, perms, clock, step=step, f_entry=f_entry, cost=cost,
-        planes_per_pass=total_planes, ledger=ledger, run_all=run_all)
+    t, stats = slope_batched_loop(
+        len(perms), clock, step=step, f_entry=f_entry, cost=cost,
+        planes_per_pass=total_planes, run_all=run_all)
     zero = torch.zeros((), dtype=torch.int32, device=f_entry.device)
     metrics = ObsMetrics(ttl_evicted=zero, lru_evicted=zero,
                          occupancy=total_planes,
                          nonempty_blocks=mp.cache.nonempty_blocks)
-    return mp, clock._replace(t=t), stats._replace(metrics=metrics)
+    return mp, clock._replace(t=t), stats._replace(metrics=metrics,
+                                                   blocks=blocks)
 
 
 def outer_iteration(problem: SSVMProblem, mp: MPState, perm, perms,
                     clock: SlopeClock, *, lam: float, ttl: int,
-                    steps: Optional[int] = None,
-                    ledger: Optional[SyncLedger] = None,
-                    run_all: bool = False):
+                    steps: Optional[int] = None, run_all: bool = False):
     """One MP-BCFW outer iteration: TTL eviction, the exact pass, and the
     slope-ruled batch of approximate passes (``steps`` per block with Gram
     blocks).
@@ -207,8 +294,7 @@ def outer_iteration(problem: SSVMProblem, mp: MPState, perm, perms,
     mp = exact_pass(problem, mp, perm, lam)
     occ2 = mp.cache.occupancy                 # after the insert scan
     mp, clock, stats = multi_approx_pass(mp, perms, clock, lam=lam,
-                                         steps=steps, ledger=ledger,
-                                         run_all=run_all)
+                                         steps=steps, run_all=run_all)
     # Eviction accounting, on the device: TTL dropped occ0-occ1 planes;
     # the exact pass inserted one plane per visited block, so the LRU
     # overwrites are the inserts that did not grow the cache.
@@ -308,8 +394,7 @@ def async_oracle_program(problem: SSVMProblem, w: torch.Tensor, perm
 
 
 def async_cache_program(mp: MPState, pending: PendingOracle, perms,
-                        clock: SlopeClock, *, lam: float, ttl: int,
-                        ledger: Optional[SyncLedger] = None):
+                        clock: SlopeClock, *, lam: float, ttl: int):
     """The cache half of the pipelined iteration.
 
     TTL eviction, the fold-in of ``pending`` (straggler blocks fold their
@@ -330,8 +415,7 @@ def async_cache_program(mp: MPState, pending: PendingOracle, perms,
     mp = fold_planes(mp, pending.ids, pending.planes, fbp, fbs,
                      pending.done, lam, live=pending.live)
     occ2 = mp.cache.occupancy                 # after the fold's inserts
-    mp, clock, stats = multi_approx_pass(mp, perms, clock, lam=lam,
-                                         ledger=ledger)
+    mp, clock, stats = multi_approx_pass(mp, perms, clock, lam=lam)
     # Eviction accounting (cf. outer_iteration): the fold inserts one plane
     # per arrived block (fallbacks only refresh activity), when live.
     n_inserts = int(np.sum(pending.done)) if pending.live else 0

@@ -90,20 +90,24 @@ class ObsMetrics(NamedTuple):
 class ApproxBatchStats(NamedTuple):
     """Telemetry of one batch of approximate passes.
 
-    Entries past ``passes_run`` are zero.  ``passes_run`` and ``more`` are
-    host values: the port's pass loop reads the continue flag after every
-    pass (see :func:`repro_torch.core.mpbcfw.slope_batched_loop`).
+    Entries past ``passes_run`` are zero.  As in the reference,
+    ``passes_run`` and ``more`` are device values, read with the rest in
+    the batch's one host sync (see
+    :func:`repro_torch.core.mpbcfw.slope_batched_loop`); ``blocks`` is a
+    host int, the blocks per pass, which the host counters are charged
+    with after that sync (:func:`repro_torch.core.mpbcfw.count_passes`).
     """
 
     duals: Any        # (B,) f32  dual value after pass k
     times: Any        # (B,) f32  slope-clock time after pass k
     planes: Any       # (B,) i32  cached planes scored by pass k
     ran: Any          # (B,) bool pass k executed (prefix mask)
-    passes_run: int   # number of executed passes
+    passes_run: Any   # ()   i32  number of executed passes
     f_entry: Any      # ()   f32  dual on entry (after the exact pass)
-    more: bool        # the rule still wanted another pass
+    more: Any         # ()   bool the rule still wanted another pass
     ws_total: Any     # ()   i32  total cached planes on entry
     metrics: Optional[ObsMetrics] = None
+    blocks: int = 0   # blocks per pass (host)
 
 
 def block_ids(perm) -> List[int]:

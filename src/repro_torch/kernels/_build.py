@@ -25,7 +25,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("plane_scores", "plane_select", "viterbi", "moe_ffn",
-           "flash_attention", "gram")
+           "flash_attention", "gram", "approx_pass")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -17,30 +17,39 @@
 // 1024) reads all experts' weights, 805 MB for 0.8 GFLOP: bytes, about
 // 0.24 ms at 3.35 TB/s.
 //
-// Design: one CTA of 256 threads per (expert, tile of BC capacity rows),
-// the C tiles of one expert adjacent in the grid so that they share its
-// weights in L2.  Like the TPU kernel, the (C, F) activations never reach
-// device memory:
-//   phase 1: for each 64-wide F tile, g and u of the BC rows accumulate
-//            over D chunks staged in shared memory; h is rounded and kept
-//            in shared memory for the whole F (BC x F, 128 KB at BC = 64,
-//            F = 1024 in bf16);
-//   phase 2: for each 64-wide D tile, y accumulates over F chunks of wd
-//            staged in shared memory, and is written straight to y.
-// No atomics and no (C, D) fp32 accumulator anywhere.  Ragged C, D and F
-// are masked in the loads and stores.  Two paths share that structure:
-//   - bf16 on the tensor cores (the model path): wmma 16 x 16 x 16 bf16
-//     tiles with fp32 accumulators, BC = 64 (32 when C <= 32, the decode
-//     shape), 64-deep chunks fetched into registers one chunk ahead;
-//   - fp32 FMAs in registers (float32, and a bf16 F too wide for the
-//     tensor-core tiles), BC = 32 (8 when C is small or F wide), 32-deep
-//     chunks.
-// Both round as the TPU kernel does.  Later work: wgmma with TMA-fed
-// multi-stage rings, and keeping an expert's weights on chip across its C
-// tiles (each CTA re-reads them from L2 today).
+// Two paths.
+//
+// bf16 with D and F multiples of 8 (the model path): two warp-specialised
+// GEMM launches on the tensor cores.
+//   phase 1: g and u of a 128 x 128 tile of (capacity rows, F) over D,
+//            h = silu(g) * u rounded to bf16 and written to a (E, C, F)
+//            scratch in device memory;
+//   phase 2: y of a 128 x 256 tile of (capacity rows, D) over F, from h.
+// The TPU kernel keeps h on chip; here it makes one round trip through
+// device memory (0.67 GB each way at the backbone shape, ~0.4 ms), and in
+// exchange every weight tile read from L2 feeds 128 rows, twice the rows of
+// the fused design this replaces, whose CTAs each re-read their expert's
+// 12.6 MB of weights for 64 rows.  Each CTA is three warpgroups: one
+// producer thread keeps a 4-stage ring of 48 KB stages full with TMA
+// (cp.async.bulk.tensor, 128-byte swizzle, completion on an mbarrier per
+// stage), and two consumer warpgroups, 64 rows each, run
+// wgmma.mma_async m64n64k16 (bf16 in, fp32 accumulators in registers) on
+// the stages that have arrived and hand them back through a second
+// mbarrier per stage.  x and h are K-major operands, the weights MN-major
+// ones (their F or D columns are contiguous), so no copy transposes them.
+// Ragged C, D and F come from TMA's zero fill at the tensor's edge and
+// masked stores.  At the decode shape (C = 1) the grid is 512 CTAs per
+// phase, each streaming a distinct slice of the weights through its ring,
+// so all 132 SMs keep copies in flight.
+//
+// fp32 FMAs (float32, and bf16 shapes TMA cannot describe): one CTA of 256
+// threads per (expert, tile of BC capacity rows), h kept in shared memory
+// as the TPU kernel keeps it, g and u (then y) accumulated over 32-deep
+// chunks staged in shared memory; BC = 32 (8 when C is small or F wide).
+// No atomics anywhere.  Both paths round as the TPU kernel does.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 #include <type_traits>
@@ -200,231 +209,327 @@ moe_ffn_kernel(const T* __restrict__ xs, const T* __restrict__ wg,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores (mma.sync through nvcuda::wmma, 16 x 16 x 16
-// bf16 tiles, fp32 accumulators).  8 warps as (BC/16) x (128/BC): each
-// warp owns 16 rows and a 1024/BC-wide slice of each 64-wide tile.  The x
-// chunk and the weight chunks (64 deep) are staged in shared memory as
-// bf16; the accumulators go through fp32 shared scratch for the silu * u
-// epilogue and for the bf16 store of y.  h is kept as bf16 for the whole F,
-// padded to a multiple of 64 with zeros.
-
-constexpr int kMK = 64;            // depth chunk of the tensor-core path
-constexpr int kLdX = kMK + 8;      // bf16 row stride of the staged chunks
-constexpr int kLdS = kTile + 4;    // fp32 row stride of the scratch
+// bf16 on the tensor cores: wgmma fed by a TMA ring.
 
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ void set_zero(uint4& v) {
-  v = make_uint4(0, 0, 0, 0);
+constexpr int kBM = 128;                 // capacity rows per CTA
+constexpr int kBK = 64;                  // depth per stage: 128 bytes
+constexpr int kChunk = 64;               // columns per B box (128 bytes)
+constexpr int kStages = 4;
+constexpr int kConsumers = 2;            // warpgroups of 64 rows
+constexpr int kGemmThreads = 128 * (1 + kConsumers);
+constexpr int kABytes = kBM * kBK * 2;   // 16 KB
+constexpr int kBBytes = kBK * kChunk * 2;  // 8 KB
+// Per stage: A and 4 B boxes (phase 1: 2 of wg, 2 of wu; phase 2: 4 of wd).
+constexpr int kStageBytes = kABytes + 4 * kBBytes;   // 48 KB
+constexpr int kGemmSmem = kStages * kStageBytes + 1024 + 2 * kStages * 8;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void set_zero(bf16& v) {
-  v = __float2bfloat16(0.0f);
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
 
-// A chunk of ROWS x 64 bf16 of a row-major global matrix (row stride ld),
-// zero outside [0, nrows) x [0, ncols), held in registers between its
-// global loads and its shared-memory stores (row stride kLdX): all of a
-// thread's loads are in flight at once, and the next chunk's loads run
-// while the tensor cores work on this one.  kVec: 8 columns per 16-byte
-// load (ncols a multiple of 8, 16-byte aligned rows); else one column.
-template <int ROWS, bool kVec>
-struct Chunk {
-  static constexpr int kW = kVec ? 8 : 1;
-  static constexpr int kPer = ROWS * (kMK / kW) / kThreads;
-  static_assert(kPer * kThreads == ROWS * (kMK / kW), "chunk");
-  using Piece = typename std::conditional<kVec, uint4, bf16>::type;
-  Piece v[kPer];
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
 
-  __device__ __forceinline__ void fetch(const bf16* src, long long ld,
-                                        int nrows, int ncols) {
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      const int r = idx / (kMK / kW), c = (idx % (kMK / kW)) * kW;
-      if (r < nrows && c < ncols)
-        v[i] = *reinterpret_cast<const Piece*>(src + r * ld + c);
-      else
-        set_zero(v[i]);
-    }
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
-  __device__ __forceinline__ void put(bf16* dst) const {
+}
+
+// One box of a 3-D tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (all >> 4).  A (K-major): 8-row groups 1024 bytes
+// apart.  B (MN-major, one 64-wide chunk): 8-deep groups 1024 bytes apart;
+// both offsets are given 1024, since a 64-wide chunk has no second MN atom.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads and writes across the
+// asynchronous wgmma instructions.
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      const int r = idx / (kMK / kW), c = (idx % (kMK / kW)) * kW;
-      *reinterpret_cast<Piece*>(dst + r * kLdX + c) = v[i];
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64, fp32) += A (64 x 16, K-major) B (16 x 64, MN-major).
+__device__ __forceinline__ void wgmma_64x64x16(float (&d)[32], uint64_t a,
+                                               uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// One GEMM phase.  GATED (phase 1): A = x (E, C, D), B = wg and wu
+// (E, D, F), 128 output columns, out = h = bf16(silu(A wg) * (A wu)).
+// Otherwise (phase 2): A = h (E, C, F), B = wd (E, F, D), 256 output
+// columns, out = y = bf16(A wd).  N is the output width, K the depth.
+template <bool GATED>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+moe_gemm_kernel(const __grid_constant__ CUtensorMap tm_a,
+                const __grid_constant__ CUtensorMap tm_b0,
+                const __grid_constant__ CUtensorMap tm_b1,
+                bf16* __restrict__ out, int C, int N, int K) {
+  constexpr int kNB = GATED ? 2 : 1;      // B operands
+  constexpr int kNC = GATED ? 2 : 4;      // 64-wide chunks per operand
+  extern __shared__ unsigned char raw[];
+  const uint32_t base = (smem_u32(raw) + 1023u) & ~1023u;   // swizzle atom
+  const uint32_t full = base + kStages * kStageBytes;   // kStages barriers
+  const uint32_t empty = full + kStages * 8;
+  const int e = blockIdx.z, m0 = blockIdx.y * kBM;
+  const int n0 = blockIdx.x * kNC * kChunk;
+  const int ktiles = (K + kBK - 1) / kBK;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumers);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-};
+  __syncthreads();
 
-template <int BC, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-moe_ffn_mma_kernel(const bf16* __restrict__ xs, const bf16* __restrict__ wg,
-                   const bf16* __restrict__ wu, const bf16* __restrict__ wd,
-                   bf16* __restrict__ y, int C, int D, int F, int Fp) {
-  namespace wmma = nvcuda::wmma;
-  constexpr int WM = BC / 16, WN = (kThreads / 32) / WM;
-  constexpr int FN = kTile / 16 / WN;   // 16-wide fragments per warp
-  static_assert(WM * WN == kThreads / 32 && FN * WN * 16 == kTile, "tiles");
-  extern __shared__ __align__(128) unsigned char raw[];
-  const int ldh = Fp + 8;
-  bf16* hs = reinterpret_cast<bf16*>(raw);          // [BC][ldh]
-  bf16* xt = hs + BC * ldh;                          // [BC][kLdX]
-  bf16* gt = xt + BC * kLdX;                         // [kMK][kLdX]
-  bf16* ut = gt + kMK * kLdX;                        // [kMK][kLdX]
-  float* cg = reinterpret_cast<float*>(ut + kMK * kLdX);   // [BC][kLdS]
-  float* cu = cg + BC * kLdS;                              // [BC][kLdS]
-
-  const int e = blockIdx.y, c0 = blockIdx.x * BC;
-  const int warp = threadIdx.x / 32, wm = warp / WN, wn = warp % WN;
-  const long long DF = static_cast<long long>(D) * F;
-  const bf16* x_e = xs + (static_cast<long long>(e) * C + c0) * D;
-  const int rows = min(BC, C - c0);
-
-  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                               wmma::row_major>;
-  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                               wmma::row_major>;
-  using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-  const bf16* wg_e = wg + e * DF;
-  const bf16* wu_e = wu + e * DF;
-  const bf16* wd_e = wd + e * DF;
-
-  // Phase 1: h = silu(x wg) * (x wu) over [0, Fp); the zero-padded weight
-  // columns past F give h = 0 there, which phase 2's last chunk reads.
-  Chunk<BC, kVec> cx;
-  Chunk<kMK, kVec> cwg, cwu;
-  for (int f0 = 0; f0 < Fp; f0 += kTile) {
-    FragC accg[FN], accu[FN];
+  if (wg == 0) {
+    // Producer: one thread keeps the ring full.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (t == 0) {
+      for (int kt = 0; kt < ktiles; ++kt) {
+        const int s = kt % kStages;
+        if (kt >= kStages) mbar_wait(empty + 8 * s, ((kt / kStages) - 1) & 1);
+        const uint32_t st = base + s * kStageBytes;
+        const uint32_t bar = full + 8 * s;
+        mbar_expect_tx(bar, kStageBytes);
+        tma_load(st, &tm_a, bar, kt * kBK, m0, e);
 #pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::fill_fragment(accg[j], 0.0f);
-      wmma::fill_fragment(accu[j], 0.0f);
-    }
-    auto fetch = [&](int d0) {
-      cx.fetch(x_e + d0, D, rows, D - d0);
-      const long long off = static_cast<long long>(d0) * F + f0;
-      cwg.fetch(wg_e + off, F, D - d0, F - f0);
-      cwu.fetch(wu_e + off, F, D - d0, F - f0);
-    };
-    fetch(0);
-    for (int d0 = 0; d0 < D; d0 += kMK) {
-      __syncthreads();   // the previous chunk's fragments are loaded
-      cx.put(xt);
-      cwg.put(gt);
-      cwu.put(ut);
-      __syncthreads();
-      if (d0 + kMK < D) fetch(d0 + kMK);   // in flight during the MMAs
+        for (int b = 0; b < kNB; ++b)
 #pragma unroll
-      for (int kk = 0; kk < kMK; kk += 16) {
-        FragA a;
-        wmma::load_matrix_sync(a, xt + wm * 16 * kLdX + kk, kLdX);
-#pragma unroll
-        for (int j = 0; j < FN; ++j) {
-          FragB b;
-          const int col = (wn * FN + j) * 16;
-          wmma::load_matrix_sync(b, gt + kk * kLdX + col, kLdX);
-          wmma::mma_sync(accg[j], a, b, accg[j]);
-          wmma::load_matrix_sync(b, ut + kk * kLdX + col, kLdX);
-          wmma::mma_sync(accu[j], a, b, accu[j]);
-        }
+          for (int c = 0; c < kNC; ++c)
+            tma_load(st + kABytes + (b * kNC + c) * kBBytes,
+                     b == 0 ? &tm_b0 : &tm_b1, bar, n0 + c * kChunk,
+                     kt * kBK, e);
       }
     }
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      const int col = (wn * FN + j) * 16;
-      wmma::store_matrix_sync(cg + wm * 16 * kLdS + col, accg[j], kLdS,
-                              wmma::mem_row_major);
-      wmma::store_matrix_sync(cu + wm * 16 * kLdS + col, accu[j], kLdS,
-                              wmma::mem_row_major);
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < BC * kTile; idx += kThreads) {
-      const int r = idx / kTile, c = idx % kTile;
-      const float gv = cg[r * kLdS + c];
-      const float silu = gv / (1.0f + expf(-gv));
-      hs[r * ldh + f0 + c] = __float2bfloat16(silu * cu[r * kLdS + c]);
-    }
+    return;
   }
 
-  // Phase 2: y = h wd, one 64-wide D tile at a time.
-  Chunk<kMK, kVec> cwd;
-  for (int dc0 = 0; dc0 < D; dc0 += kTile) {
-    FragC acc[FN];
+  // Consumers: warpgroup wg (1 or 2) owns rows (wg-1)*64 .. +63.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  float acc[kNB][kNC][32];
 #pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[j], 0.0f);
-    cwd.fetch(wd_e + dc0, D, F, D - dc0);
-    for (int f0 = 0; f0 < Fp; f0 += kMK) {
-      __syncthreads();   // phase 1's h and the previous wd chunk are done
-      cwd.put(gt);
-      __syncthreads();
-      if (f0 + kMK < Fp)
-        cwd.fetch(wd_e + static_cast<long long>(f0 + kMK) * D + dc0, D,
-                  F - f0 - kMK, D - dc0);
+  for (int b = 0; b < kNB; ++b)
 #pragma unroll
-      for (int kk = 0; kk < kMK; kk += 16) {
-        FragA a;
-        wmma::load_matrix_sync(a, hs + wm * 16 * ldh + f0 + kk, ldh);
+    for (int c = 0; c < kNC; ++c) {
 #pragma unroll
-        for (int j = 0; j < FN; ++j) {
-          FragB b;
-          wmma::load_matrix_sync(b, gt + kk * kLdX + (wn * FN + j) * 16,
-                                 kLdX);
-          wmma::mma_sync(acc[j], a, b, acc[j]);
+      for (int i = 0; i < 32; ++i) acc[b][c][i] = 0.0f;
+      fence_acc(acc[b][c]);
+    }
+  const uint32_t a_off = (wg - 1) * 64 * kBK * 2;   // 64 rows of 128 bytes
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int s = kt % kStages;
+    mbar_wait(full + 8 * s, (kt / kStages) & 1);
+    const uint32_t st = base + s * kStageBytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint64_t da = smem_desc(st + a_off + kk * 32, 16, 1024);
+#pragma unroll
+      for (int b = 0; b < kNB; ++b)
+#pragma unroll
+        for (int c = 0; c < kNC; ++c) {
+          const uint64_t db = smem_desc(
+              st + kABytes + (b * kNC + c) * kBBytes + kk * 16 * 128, 1024,
+              1024);
+          wgmma_64x64x16(acc[b][c], da, db);
         }
-      }
     }
+    wgmma_commit();
+    wgmma_wait<1>();   // the previous stage's products are done
+    if (kt > 0 && t == 0) mbar_arrive(empty + 8 * ((kt - 1) % kStages));
+  }
+  wgmma_wait<0>();
 #pragma unroll
-    for (int j = 0; j < FN; ++j)
-      wmma::store_matrix_sync(cg + wm * 16 * kLdS + (wn * FN + j) * 16,
-                              acc[j], kLdS, wmma::mem_row_major);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < BC * kTile; idx += kThreads) {
-      const int r = idx / kTile, c = idx % kTile, d = dc0 + c;
-      if (r < rows && d < D)
-        y[(static_cast<long long>(e) * C + c0 + r) * D + d] =
-            __float2bfloat16(cg[r * kLdS + c]);
-    }
+  for (int b = 0; b < kNB; ++b)
+#pragma unroll
+    for (int c = 0; c < kNC; ++c) fence_acc(acc[b][c]);
+
+  // Accumulator layout of m64nNk16: thread t holds rows
+  // 16*(t/32) + (t%32)/4 (+8) and columns 8*j + 2*(t%4) (+1).
+  const int r0 = m0 + (wg - 1) * 64 + 16 * (t / 32) + (t % 32) / 4;
+  const int cc = 2 * (t % 4);
+  bf16* out_e = out + static_cast<long long>(e) * C * N;
+#pragma unroll
+  for (int c = 0; c < kNC; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = r0 + 8 * hf;
+        const int col = n0 + c * kChunk + 8 * j + cc;
+        if (row >= C || col >= N) continue;   // N is even: col + 1 < N
+        float v0, v1;
+        if constexpr (GATED) {
+          const float g0 = acc[0][c][4 * j + 2 * hf];
+          const float g1 = acc[0][c][4 * j + 2 * hf + 1];
+          v0 = g0 / (1.0f + expf(-g0)) * acc[1][c][4 * j + 2 * hf];
+          v1 = g1 / (1.0f + expf(-g1)) * acc[1][c][4 * j + 2 * hf + 1];
+        } else {
+          v0 = acc[0][c][4 * j + 2 * hf];
+          v1 = acc[0][c][4 * j + 2 * hf + 1];
+        }
+        __nv_bfloat162 pair;
+        pair.x = __float2bfloat16(v0);
+        pair.y = __float2bfloat16(v1);
+        *reinterpret_cast<__nv_bfloat162*>(
+            out_e + static_cast<long long>(row) * N + col) = pair;
+      }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
   }
+  return fn;
 }
 
-size_t mma_smem_bytes(int bc, int Fp) {
-  return sizeof(bf16) * (static_cast<size_t>(bc) * (Fp + 8) + bc * kLdX +
-                         2 * kMK * kLdX) +
-         sizeof(float) * 2 * bc * kLdS;
+// A (rows, cols) bf16 matrix per expert, row-major, as a 3-D tensor map
+// with boxes of box_rows x 64 columns, 128-byte swizzle, zero fill.
+bool make_map(CUtensorMap* map, const void* ptr, int E, int rows, int cols,
+              int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(E)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
+                                 static_cast<cuuint64_t>(rows) * cols * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kChunk),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BC, bool kVec>
-int launch_mma(const void* xs, const void* wg, const void* wu, const void* wd,
-               void* y, int E, int C, int D, int F, cudaStream_t stream) {
-  const int Fp = (F + kTile - 1) / kTile * kTile;
-  const size_t smem = mma_smem_bytes(BC, Fp);
-  static size_t configured = 0;
-  if (smem > configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        moe_ffn_mma_kernel<BC, kVec>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = smem;
-  }
-  const dim3 grid((C + BC - 1) / BC, E);
-  moe_ffn_mma_kernel<BC, kVec><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(xs), static_cast<const bf16*>(wg),
-      static_cast<const bf16*>(wu), static_cast<const bf16*>(wd),
-      static_cast<bf16*>(y), C, D, F, Fp);
-  return static_cast<int>(cudaGetLastError());
+template <bool GATED>
+cudaError_t configure_gemm() {
+  static bool done = false;
+  if (done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      moe_gemm_kernel<GATED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kGemmSmem);
+  done = err == cudaSuccess;
+  return err;
 }
 
-template <bool kVec>
-int dispatch_mma(int bc, const void* xs, const void* wg, const void* wu,
-                 const void* wd, void* y, int E, int C, int D, int F,
+int launch_wgmma(const void* xs, const void* wg, const void* wu,
+                 const void* wd, void* y, void* h, int E, int C, int D, int F,
                  cudaStream_t stream) {
-  if (bc == 64)
-    return launch_mma<64, kVec>(xs, wg, wu, wd, y, E, C, D, F, stream);
-  if (bc == 32)
-    return launch_mma<32, kVec>(xs, wg, wu, wd, y, E, C, D, F, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap m_x, m_wg, m_wu, m_h, m_wd;
+  if (!make_map(&m_x, xs, E, C, D, kBM) ||
+      !make_map(&m_wg, wg, E, D, F, kBK) ||
+      !make_map(&m_wu, wu, E, D, F, kBK) ||
+      !make_map(&m_h, h, E, C, F, kBM) || !make_map(&m_wd, wd, E, F, D, kBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = configure_gemm<true>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = configure_gemm<false>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int mt = (C + kBM - 1) / kBM;
+  const dim3 g1((F + 2 * kChunk - 1) / (2 * kChunk), mt, E);
+  moe_gemm_kernel<true><<<g1, kGemmThreads, kGemmSmem, stream>>>(
+      m_x, m_wg, m_wu, static_cast<bf16*>(h), C, F, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 g2((D + 4 * kChunk - 1) / (4 * kChunk), mt, E);
+  moe_gemm_kernel<false><<<g2, kGemmThreads, kGemmSmem, stream>>>(
+      m_h, m_wd, m_wd, static_cast<bf16*>(y), C, D, F);
+  return static_cast<int>(cudaGetLastError());
 }
 
 bool aligned16(const void* p) {
@@ -466,26 +571,28 @@ int dispatch(int bc, const void* xs, const void* wg, const void* wu,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  mma: 1 for the tensor-core path
-// (bfloat16 only; bc 32 or 64), 0 for the fp32-FMA path (bc 8 or 32).
+// dtype: 0 = float32, 1 = bfloat16.  path 1: the tensor-core pair
+// (bfloat16, D and F multiples of 8, 16-byte aligned; h is an (E, C, F)
+// bfloat16 scratch); path 0: the fp32-FMA kernel (bc 8 or 32, h unused).
 // Launches on `stream` and returns cudaGetLastError() (0 on success); an
-// argument the kernel cannot take returns cudaErrorInvalidValue without
+// argument the kernels cannot take returns cudaErrorInvalidValue without
 // launching.
-extern "C" int moe_ffn_launch(int dtype, int mma, int bc, const void* xs,
+extern "C" int moe_ffn_launch(int dtype, int path, int bc, const void* xs,
                               const void* wg, const void* wu, const void* wd,
-                              void* y, int E, int C, int D, int F,
+                              void* y, void* h, int E, int C, int D, int F,
                               void* stream) {
-  if (E < 1 || C < 1 || D < 1 || F < 1)
+  if (E < 1 || C < 1 || D < 1 || F < 1 || E > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mma) {
-    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-    const bool vec = D % 8 == 0 && F % 8 == 0 && aligned16(xs) &&
-                     aligned16(wg) && aligned16(wu) && aligned16(wd);
-    return vec ? dispatch_mma<true>(bc, xs, wg, wu, wd, y, E, C, D, F, st)
-               : dispatch_mma<false>(bc, xs, wg, wu, wd, y, E, C, D, F, st);
+  if (path == 1) {
+    if (dtype != 1 || D % 8 != 0 || F % 8 != 0 || h == nullptr ||
+        !aligned16(xs) || !aligned16(wg) || !aligned16(wu) ||
+        !aligned16(wd) || !aligned16(h) || !aligned16(y))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_wgmma(xs, wg, wu, wd, y, h, E, C, D, F, st);
   }
   if (dtype == 0)
     return dispatch<float>(bc, xs, wg, wu, wd, y, E, C, D, F, st);

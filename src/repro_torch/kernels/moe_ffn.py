@@ -1,13 +1,15 @@
 """CUDA kernel wrapper: the grouped SwiGLU expert FFN of the MoE layers.
 
-Replaces ``repro/kernels/moe_ffn.py::moe_ffn``.  The kernel
-(``csrc/moe_ffn.cu``) computes ``y[e] = (silu(x[e] wg[e]) * (x[e] wu[e]))
-wd[e]`` for every expert with fp32 sums, ``h`` rounded to ``wd``'s type
-and kept in shared memory (the ``(E, C, F)`` activations never reach
-device memory), and ``y`` in ``xs``'s type.  bfloat16 runs on the tensor
-cores (``wmma`` bf16 tiles), float32 on fp32 FMAs.  Compute-bound at the
-backbone's shape, memory-bound at the one-token decode shape.  See the
-source for the design.
+Replaces ``repro/kernels/moe_ffn.py::moe_ffn``.  Computes ``y[e] =
+(silu(x[e] wg[e]) * (x[e] wu[e])) wd[e]`` for every expert with fp32 sums,
+``h`` rounded to ``wd``'s type and ``y`` in ``xs``'s type
+(``csrc/moe_ffn.cu``).  bfloat16 with D and F multiples of 8 runs on the
+tensor cores: two ``wgmma`` GEMM launches fed by TMA rings, gate-and-up
+with the ``silu`` epilogue into an ``(E, C, F)`` bf16 scratch ``h``, then
+down.  float32, and bfloat16 shapes TMA cannot describe, run on fp32 FMAs
+with ``h`` in shared memory.  Compute-bound at the backbone's shape,
+memory-bound at the one-token decode shape.  A call counts as one launch
+whichever path it takes.  See the source for the design.
 
 This module always launches the kernel: :mod:`repro_torch.kernels.ops`
 routes CPU tensors to the plain version before they reach it.
@@ -26,10 +28,11 @@ launches = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Shared memory a CTA may use on Hopper (227 KB of the SM's 256 KB).
 SMEM_LIMIT = 232448
-# The kernels' tiles (csrc/moe_ffn.cu): 64-wide tiles; 32 deep on the
-# fp32-FMA path, 64 deep (rows padded to 72) on the tensor-core path.
-_TILE, _DEPTH, _MMA_LD, _SCRATCH_LD = 64, 32, 72, 68
-_SIGNATURE = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5 + \
+# The fp32-FMA kernel's tiles (csrc/moe_ffn.cu): 64 wide, 32 deep.
+_TILE, _DEPTH = 64, 32
+# The tensor-core pair's capacity rows per CTA.
+WGMMA_ROWS = 128
+_SIGNATURE = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6 + \
     [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
@@ -42,34 +45,26 @@ def _lib():
     return lib
 
 
-def smem_bytes(mma: bool, bc: int, F: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one CTA at row tile ``bc`` and width F.
-
-    FMA path: the staged x chunk and two weight chunks in fp32, and ``h``
-    (bc, F).  Tensor-core path: ``h`` (bc, F padded to 64, + 8), the x
-    chunk and two weight chunks in bf16, and two fp32 scratch tiles."""
-    if mma:
-        fp = -(-F // _TILE) * _TILE
-        return (2 * (bc * (fp + 8) + bc * _MMA_LD + 2 * 64 * _MMA_LD)
-                + 4 * 2 * bc * _SCRATCH_LD)
+def smem_bytes(bc: int, F: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one fp32-FMA CTA at row tile ``bc`` and
+    width F: the staged x chunk and two weight chunks in fp32, and ``h``
+    (bc, F) in the input type."""
     item = torch.finfo(dtype).bits // 8
     return 4 * (bc * (_DEPTH + 1) + 2 * _DEPTH * _TILE) + item * bc * F
 
 
-def plan(C: int, F: int, dtype: torch.dtype):
-    """``(mma, bc)``: bfloat16 runs on the tensor cores with 64 capacity
-    rows per CTA (32 for C <= 32, the decode shape), float32 (and a bf16 F
-    too wide for the tensor-core tiles) on fp32 FMAs with 32 rows (8 for
-    C <= 8 or a wide F).  Raises if nothing fits in shared memory."""
-    options = []
-    if dtype == torch.bfloat16:
-        options += [(True, bc) for bc in ((32,) if C <= 32 else (64, 32))]
-    options += [(False, bc) for bc in ((8,) if C <= 8 else (32, 8))]
-    for mma, bc in options:
-        if smem_bytes(mma, bc, F, dtype) <= SMEM_LIMIT:
-            return mma, bc
+def plan(C: int, D: int, F: int, dtype: torch.dtype):
+    """``(path, rows)``: ``("wgmma", 128)`` for bfloat16 with D and F
+    multiples of 8 (TMA's 16-byte strides); otherwise ``("fma", bc)``, 32
+    capacity rows per CTA (8 for C <= 8 or a wide F).  Raises if the FMA
+    kernel's ``h`` does not fit in shared memory."""
+    if dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0:
+        return "wgmma", WGMMA_ROWS
+    for bc in ((8,) if C <= 8 else (32, 8)):
+        if smem_bytes(bc, F, dtype) <= SMEM_LIMIT:
+            return "fma", bc
     raise ValueError(f"moe_ffn: F={F} too wide for shared memory "
-                     f"({smem_bytes(False, 8, F, dtype)} B at 8 rows)")
+                     f"({smem_bytes(8, F, dtype)} B at 8 rows)")
 
 
 def moe_ffn(xs: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
@@ -106,11 +101,16 @@ def moe_ffn(xs: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
         return y
     if F == 0:
         return y.zero_()
-    mma, bc = plan(C, F, xs.dtype)
+    path, bc = plan(C, D, F, xs.dtype)
+    # The tensor-core pair's h scratch: (E, C, F) bf16, written by the
+    # first launch and read by the second.
+    h = (torch.empty((E, C, F), dtype=xs.dtype, device=xs.device)
+         if path == "wgmma" else None)
     stream = torch.cuda.current_stream(xs.device).cuda_stream
     rc = _lib().moe_ffn_launch(
-        _DTYPES[xs.dtype], int(mma), bc, xs.data_ptr(), wg.data_ptr(),
-        wu.data_ptr(), wd.data_ptr(), y.data_ptr(), E, C, D, F, stream)
+        _DTYPES[xs.dtype], int(path == "wgmma"), bc, xs.data_ptr(),
+        wg.data_ptr(), wu.data_ptr(), wd.data_ptr(), y.data_ptr(),
+        h.data_ptr() if h is not None else None, E, C, D, F, stream)
     launches += 1
     _build.check(rc, "moe_ffn")
     return y

@@ -3,7 +3,10 @@
 A CUDA tensor goes to the hand-written kernel, which launches or raises;
 a CPU tensor goes to the kernel's plain version in :mod:`.ref`.  The
 choice rests on the tensor's device alone: there is no switch, and no
-fallback from a failed build or launch.
+fallback from a failed build or launch.  One kernel differs:
+:func:`approx_pass` runs a whole MP-BCFW pass, whose plain version is
+made of the core's block steps and lives in the core, which makes the
+choice there (:func:`repro_torch.core.mpbcfw.run_pass`).
 
 Each kernel module keeps a plain integer launch counter (``launches``),
 read and reset here, so a run can show that its main path went through
@@ -20,6 +23,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from . import approx_pass as _ap
 from . import flash_attention as _fa
 from . import gram as _gram
 from . import moe_ffn as _moe
@@ -34,7 +38,7 @@ INVALID_SCORE = ref.INVALID_SCORE
 
 _KERNELS = {"plane_scores": _ps, "plane_select": _psel,
             "viterbi_decode": _vit, "moe_ffn": _moe,
-            "flash_attention": _fa, "gram": _gram}
+            "flash_attention": _fa, "gram": _gram, "approx_pass": _ap}
 
 
 def plane_scores(planes: torch.Tensor, w: torch.Tensor,
@@ -93,6 +97,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, sm_scale)
     return _fa.flash_attention(q, k, v, sm_scale)
+
+
+def approx_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,
+                planes: torch.Tensor, valid: torch.Tensor,
+                last_active: torch.Tensor, perm: torch.Tensor, *,
+                lam: float, k0: int, outer_it: int,
+                gram: Optional[torch.Tensor] = None,
+                steps: Optional[int] = None,
+                go: Optional[torch.Tensor] = None) -> None:
+    """One approximate pass of MP-BCFW over the blocks of ``perm`` (int64,
+    on the state's device), in place on the dual state ``phi (d+1,)``,
+    ``phi_i (n, d+1)``, the approximate-track average ``bar (d+1,)`` (its
+    count at pass start is ``k0``) and the cache's ``last_active``
+    stamps (``outer_it``).  ``steps`` selects the Sec-3.5 scheme over the
+    ``gram`` leaf.  A ``go`` flag (one-element bool tensor) that is false
+    makes the pass a no-op; the kernel reads it, not the host.
+
+    CUDA tensors only.  The plain version is built from the core's block
+    steps, so it lives in the core (:func:`repro_torch.core.mpbcfw.
+    eager_pass`), and :func:`repro_torch.core.mpbcfw.run_pass` chooses
+    between the two by the state's device."""
+    return _ap.approx_pass(phi, phi_i, bar, planes, valid, last_active, perm,
+                           lam=lam, k0=k0, outer_it=outer_it, gram=gram,
+                           steps=steps, go=go)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -16,6 +16,7 @@ import torch
 from numpy.testing import assert_allclose
 
 from repro_torch.api import CostModel, RunConfig, Solver
+from repro_torch.core.mpbcfw import eager_pass
 from repro_torch.core.oracles import chain
 from repro_torch.data.synthetic import ocr_like
 from repro_torch.kernels import ops, ref
@@ -247,6 +248,144 @@ def test_gram_solver_on_card_matches_cpu_run(cuda):
         assert_allclose(g.primal, c.primal, rtol=1e-4)
 
 
+# -- the approximate pass kernel (approx_pass) --------------------------------
+
+def _pass_state(n, cap, d, steps, seed, cuda):
+    """A synthetic cache (unit-scale scores, empty blocks, duplicate
+    planes), phi_i = half of slot 0, phi their sum."""
+    r = np.random.RandomState(seed)
+    planes = r.randn(n, cap, d + 1).astype(np.float32) / np.sqrt(d)
+    valid = r.rand(n, cap) < 2.0 / cap
+    valid[:, 0] |= r.rand(n) < 0.8
+    valid[::17] = False
+    if cap > 10:
+        planes[1::5, cap - 1] = planes[1::5, 3]
+        valid[1::5, 3] = valid[1::5, cap - 1] = True
+    phi_i = 0.5 * planes[:, 0]
+    arrays = dict(planes=planes, valid=valid, phi_i=phi_i, phi=phi_i.sum(0),
+                  bar=0.1 * r.randn(d + 1),
+                  last=np.zeros((n, cap), np.int32))
+    t = {k: torch.from_numpy(np.ascontiguousarray(
+        v.astype(np.float32) if v.dtype == np.float64 else v)).to(cuda)
+        for k, v in arrays.items()}
+    gram = (torch.bmm(t["planes"][..., :-1],
+                      t["planes"][..., :-1].transpose(1, 2))
+            if steps else None)
+    perm = torch.from_numpy(r.permutation(n)).to(cuda)
+    return t, gram, perm
+
+
+def _run_pass(fn, st, planes, valid, gram, perm, steps, go=None):
+    fn(st["phi"], st["phi_i"], st["bar"], planes, valid, st["last"], perm,
+       lam=1.0 / 6877, k0=7000, outer_it=5, gram=gram, steps=steps, go=go)
+
+
+@pytest.mark.parametrize("steps", [None, 10])
+@pytest.mark.parametrize("n,cap,d", [(512, 64, 4004), (40, 16, 10265),
+                                     (33, 5, 7)])
+def test_approx_pass_kernel_matches_plain(cuda, n, cap, d, steps):
+    """One pass, kernel vs the eager loop on the card: activity stamps
+    equal, phi, phi_i and the average within rtol = atol = 3e-5."""
+    t, gram, perm = _pass_state(n, cap, d, steps, n + cap, cuda)
+    keys = ("phi", "phi_i", "bar", "last")
+    got = {k: t[k].clone() for k in keys}
+    want = {k: t[k].clone() for k in keys}
+    before = ops.launch_counts()["approx_pass"]
+    _run_pass(ops.approx_pass, got, t["planes"], t["valid"], gram, perm,
+              steps)
+    assert ops.launch_counts()["approx_pass"] == before + 1
+    _run_pass(eager_pass, want, t["planes"], t["valid"], gram, perm, steps)
+    assert torch.equal(got["last"], want["last"])
+    for k in ("phi", "phi_i", "bar"):
+        assert_allclose(got[k].cpu().numpy(), want[k].cpu().numpy(), **TOL)
+
+
+@pytest.mark.parametrize("steps", [None, 10])
+@pytest.mark.parametrize("n,cap,d", [(512, 64, 4004), (33, 5, 7)])
+def test_approx_pass_kernel_is_deterministic(cuda, n, cap, d, steps):
+    """50 launches from the same state give the same bits: every
+    block-wide read of a row ends before the row is rewritten."""
+    t, gram, perm = _pass_state(n, cap, d, steps, n + cap, cuda)
+    keys = ("phi", "phi_i", "bar", "last")
+    first = None
+    for _ in range(50):
+        st = {k: t[k].clone() for k in keys}
+        _run_pass(ops.approx_pass, st, t["planes"], t["valid"], gram, perm,
+                  steps)
+        if first is None:
+            first = st
+        for k in keys:
+            assert torch.equal(st[k], first[k]), k
+
+
+@pytest.mark.parametrize("steps", [None, 10])
+def test_approx_pass_kernel_gated_off_changes_nothing(cuda, steps):
+    t, gram, perm = _pass_state(64, 8, 100, steps, 3, cuda)
+    st = {k: t[k].clone() for k in ("phi", "phi_i", "bar", "last")}
+    _run_pass(ops.approx_pass, st, t["planes"], t["valid"], gram, perm,
+              steps, go=torch.zeros((), dtype=torch.bool, device=cuda))
+    for k in st:
+        assert torch.equal(st[k], t[k]), k
+
+
+@pytest.mark.parametrize("algo", ["mpbcfw", "mpbcfw-gram"])
+def test_approx_pass_run_all_batch_matches_plain_passes(cuda, algo):
+    """A trained SMALL ocr state: a 4-pass run_all batch of gated kernel
+    launches against 4 eager passes, duals within rtol 1e-4."""
+    from repro_torch.configs.paper import SMALL
+    from repro_torch.core import mpbcfw
+    from repro_torch.core.ssvm import dual_value
+    sc = SMALL["ocr"]
+    X, Y, M = ocr_like(n=sc.n, f=sc.f, num_labels=sc.num_classes,
+                       mean_len=sc.mean_len, max_len=sc.max_len, seed=0)
+    solver = Solver(chain.make_problem(X, Y, M, sc.num_classes, device=cuda),
+                    RunConfig(lam=1 / sc.n, algo=algo, max_iters=2, cap=16,
+                              approx_batch=4, max_approx_passes=6,
+                              cost_model=CostModel(0.3, 1e-4)))
+    solver.run()
+    mp, lam = solver.state, solver.cfg.lam
+    steps = solver.cfg.gram_steps if algo == "mpbcfw-gram" else None
+    perms = np.stack([np.random.RandomState(s).permutation(sc.n)
+                      for s in range(4)])
+    c = mp.cache
+    plain = {k: v.clone() for k, v in dict(
+        phi=mp.inner.phi, phi_i=mp.inner.phi_i, bar=mp.avg.bar_approx,
+        last=c.last_active).items()}
+    want = []
+    for k, p in enumerate(perms):
+        mpbcfw.eager_pass(plain["phi"], plain["phi_i"], plain["bar"],
+                          c.planes, c.valid, plain["last"],
+                          torch.from_numpy(p).to(cuda), lam=lam,
+                          k0=mp.avg.k_approx + k * sc.n,
+                          outer_it=mp.outer_it, gram=c.gram, steps=steps)
+        want.append(float(dual_value(plain["phi"], lam)))
+    clock = mpbcfw.make_slope_clock(0.0, 0.0, 1.0, 1e-4, cuda)
+    _, _, st = mpbcfw.multi_approx_pass(mp, perms, clock, lam=lam,
+                                        steps=steps, run_all=True)
+    got = st.duals.cpu().numpy()
+    assert int(st.passes_run) == 4
+    assert_allclose(got, want, rtol=1e-4)
+    assert_allclose(mp.inner.phi.cpu().numpy(), plain["phi"].cpu().numpy(),
+                    rtol=1e-4, atol=1e-6)
+
+
+def test_approx_pass_kernel_refuses_what_it_cannot_take(cuda):
+    from repro_torch.kernels import approx_pass as t_ap
+    t, gram, perm = _pass_state(8, 4, 16, None, 1, cuda)
+    st = {k: t[k].clone() for k in ("phi", "phi_i", "bar", "last")}
+    with pytest.raises(ValueError, match="int64"):
+        _run_pass(t_ap.approx_pass, st, t["planes"], t["valid"], None,
+                  perm.int(), None)
+    with pytest.raises(ValueError, match="Gram leaf"):
+        _run_pass(t_ap.approx_pass, st, t["planes"], t["valid"], None, perm,
+                  10)
+    with pytest.raises(ValueError, match="shared memory"):
+        big, _, bperm = _pass_state(2, 4, 60000, None, 2, cuda)
+        bst = {k: big[k].clone() for k in ("phi", "phi_i", "bar", "last")}
+        _run_pass(t_ap.approx_pass, bst, big["planes"], big["valid"], None,
+                  bperm, None)
+
+
 # -- the LM kernels (moe_ffn, flash_attention) --------------------------------
 
 def _lm(a, dtype, device):
@@ -277,9 +416,9 @@ def _rel_l2(got, want):
     return float((got - want).norm() / want.norm())
 
 
-# Tensor-core path (bf16) at 32 and 64 rows, vector and scalar loads; the
-# fp32-FMA path (float32, and bf16 with an F too wide for the tensor-core
-# tiles) at 8 and 32 rows.
+# The tensor-core pair (bf16 with D and F multiples of 8: ragged C, D and F
+# tiles, the decode shape's single row) and the fp32-FMA path (float32, and
+# bf16 with D or F not a multiple of 8) at 8 and 32 rows.
 MOE_SHAPES = [(2, 8, 64, 32), (3, 130, 128, 300), (64, 1, 256, 128),
               (2, 40, 64, 2000), (5, 3, 96, 72), (2, 70, 100, 4000),
               (3, 200, 64, 128)]

@@ -19,7 +19,9 @@ from repro.core.oracles.chain import viterbi_decode as jax_viterbi_decode
 from repro.kernels import plane_scores as jax_ps
 from repro.kernels import ref as jax_ref
 from repro.kernels import viterbi as jax_vit
+from repro_torch.core.mpbcfw import eager_pass
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import approx_pass as t_ap
 from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import gram as t_gram
 from repro_torch.kernels import moe_ffn as t_moe
@@ -158,9 +160,14 @@ def test_cpu_tensors_take_the_plain_path_without_launching():
     q = torch.ones((3, 6, 4))
     ops.flash_attention(q, q, q)
     ops.gram(tb[:, :-1])
+    state = torch.zeros(9), torch.zeros((3, 9)), torch.zeros(9)
+    eager_pass(*state, stack, torch.ones((3, 4), dtype=torch.bool),
+               torch.zeros((3, 4), dtype=torch.int32),
+               torch.tensor([2, 0, 1]), lam=0.5, k0=0, outer_it=1)
     assert ops.launch_counts() == {"plane_scores": 0, "plane_select": 0,
                                    "viterbi_decode": 0, "moe_ffn": 0,
-                                   "flash_attention": 0, "gram": 0}
+                                   "flash_attention": 0, "gram": 0,
+                                   "approx_pass": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -187,9 +194,30 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         t_fa.flash_attention(x, x, x)
     with pytest.raises(ValueError, match="CUDA"):
         t_gram.gram(tb[:, :-1])
+    with pytest.raises(ValueError, match="CUDA"):
+        t_ap.approx_pass(torch.zeros(9), torch.zeros((2, 9)), torch.zeros(9),
+                         stack, torch.ones((2, 2), dtype=torch.bool),
+                         torch.zeros((2, 2), dtype=torch.int32),
+                         torch.arange(2), lam=0.5, k0=0, outer_it=1)
     assert t_ps.launches == 0 and t_vit.launches == 0
     assert t_psel.launches == 0 and t_gram.launches == 0
     assert t_moe.launches == 0 and t_fa.launches == 0
+    assert t_ap.launches == 0
+
+
+def test_moe_ffn_plan_takes_the_tensor_cores_where_tma_can():
+    """bf16 with D and F multiples of 8 (TMA's 16-byte strides) goes to the
+    wgmma pair, 128 rows per CTA, the backbone's and the decode's shapes
+    alike; float32 and other bf16 shapes go to the fp32-FMA kernel."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert t_moe.plan(5120, 2048, 1024, bf16) == ("wgmma", 128)
+    assert t_moe.plan(1, 2048, 1024, bf16) == ("wgmma", 128)
+    assert t_moe.plan(130, 128, 300, bf16) == ("fma", 32)
+    assert t_moe.plan(70, 100, 4000, bf16)[0] == "fma"
+    assert t_moe.plan(3, 96, 72, f32) == ("fma", 8)
+    assert t_moe.plan(200, 64, 128, f32) == ("fma", 32)
+    with pytest.raises(ValueError, match="too wide"):
+        t_moe.plan(64, 64, 60000, f32)
 
 
 def test_viterbi_label_limit_fits_shared_memory():
