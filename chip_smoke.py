@@ -21,13 +21,19 @@ Phases, one JSON line each (seconds on an H100 in brackets):
   4. main     -- the main path: Solver + mpbcfw on the full-size OCR chain
                  scenario (n=6877, f=128, C=26, d=4004, cap=64), 3 outer
                  iterations of up to 8 approximate passes, each pass one
-                 approx_pass launch gated on the device, one host sync per
-                 iteration, with every kernel launch counted [~35].
-  5. profile  -- where the main path's time goes: an exact-pass window and
-                 one whole approximate pass on the trained state, timed
-                 plain and then under torch.profiler (device busy share,
-                 kernels per block step, device time by kernel); the pass
-                 kernel's full-pass time beside the eager loop's [~20].
+                 approx_pass launch gated on the device, the exact pass one
+                 replay of a captured CUDA graph per block, one host sync
+                 per iteration, with every kernel launch counted (a
+                 replay adds the launches its capture counted) [~15].
+  5. profile  -- where the main path's time goes: an exact-pass window
+                 (one replay of the engine's captured block step per
+                 block: host ms to enqueue a block, replays per block, the
+                 device span between CUDA events against the profiler's
+                 summed kernel time) and one whole approximate pass on the
+                 trained state, timed plain and then under torch.profiler
+                 (device busy share, kernels per block step, device time
+                 by kernel); the pass kernel's full-pass time beside the
+                 eager loop's [~15].
   6. parity_async  -- mpbcfw-async on the card against the CPU on the
                  CI-sized OCR scenario, with the same straggler mask.
   7. main_async    -- the pipelined path: Solver + mpbcfw-async on the
@@ -35,10 +41,12 @@ Phases, one JSON line each (seconds on an H100 in brackets):
                  arrivals from repro_torch.ft (stragglers fold their cached
                  fallback), launch counts reset just before, read just after
                  [~10].
-  8. profile_async -- the fold step, 2 gated passes and the side-stream
-                 oracle program on the trained state: host ms per folded
-                 block, device busy share, and whether kernels on the two
-                 streams overlapped [~5].
+  8. profile_async -- the fold alone (one replay per folded block: host
+                 ms per block, replays per block, busy share), then the
+                 fold, 2 gated passes and the side-stream oracle program
+                 on the trained state: each stream's device time and the
+                 microseconds in which kernels of the two streams ran at
+                 once [~5].
   9. parity_gram -- mpbcfw-gram (the Sec-3.5 multi-step scheme) on the
                  card against the CPU on the CI-sized OCR scenario.
  10. main_gram -- mpbcfw-gram on the full-size OCR scenario (cap=64,
@@ -608,6 +616,16 @@ def check_syncs(phase: str, rows, dispatches: int):
               f"syncs at iteration {r.iteration}")
 
 
+def check_replays(phase: str, solver, steps: int, captured: int) -> int:
+    """One graph replay per block step, but for the eager warm-up step of
+    each of the ``captured`` bodies.  Returns the replays."""
+    replays = solver.engine.graphs.replays
+    check(replays == steps - captured,
+          f"{phase}: {replays} graph replays for {steps} block steps and "
+          f"{captured} captures")
+    return replays
+
+
 def phase_main(torch, data):
     from repro_torch.api import CostModel, RunConfig, Solver
     from repro_torch.core.oracles import chain
@@ -643,49 +661,96 @@ def phase_main(torch, data):
     check(launches["plane_select"] == 0,
           f"plane_select launched {launches['plane_select']} times on the "
           "mpbcfw path, which has no batched fallback")
+    replays = check_replays("main", solver, last.n_exact, captured=1)
     w = solver.result().w
     check(w.shape == (4004,) and all(map(math.isfinite, w.tolist())),
           "weights not finite")
     emit("main", scenario="OCR", n=n, d=problem.d, cap=RUN["cap"],
          iterations=len(rows), wall_s_per_iteration=walls,
          max_memory_allocated=peak, launches=launches,
-         n_exact=last.n_exact, n_approx=last.n_approx)
+         n_exact=last.n_exact, n_approx=last.n_approx, graph_replays=replays)
     return launches, solver
 
 
-def phase_profile(torch, solver, n_exact: int = 256):
+def graph_window(torch, run, graphs, blocks: int):
+    """One window of ``blocks`` block steps replayed from ``graphs``:
+    host ms per block to enqueue (``run()`` returns before the device is
+    done), wall ms per block to a sync, the device span between CUDA
+    events recorded around it, and graph replays per block; then the same
+    window under torch.profiler (:func:`traced`), whose summed kernel time
+    is held against the events' span (kernels inside graph replays must
+    show in the trace).  Two busy shares, each from one run: the events'
+    span over the untraced wall time (``event_span_over_wall``: the share
+    of the wall during which the stream had work), and the traced kernel
+    time over the traced window's own device span, first kernel start to
+    last kernel end (``traced_busy_share_of_span``)."""
+    torch.cuda.synchronize()
+    r0 = graphs.replays
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    run()
+    host = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    replays = graphs.replays - r0
+    span_ms = start.elapsed_time(end)
+    tr = traced(torch, run)
+    check(tr["device_events"] >= blocks,
+          f"the trace saw {tr['device_events']} device events in "
+          f"{blocks} replayed block steps")
+    return dict(blocks=blocks, host_ms_per_block=1e3 * host / blocks,
+                ms_per_block=1e3 * wall / blocks,
+                replays_per_block=replays / blocks,
+                event_span_ms=span_ms,
+                event_span_over_wall=span_ms * 1e-3 / wall,
+                traced_ms_per_block=tr["wall_ms"] / blocks,
+                device_ops_per_block=tr["device_events"] / blocks,
+                device_us_per_block=tr["device_us"] / blocks,
+                traced_us_over_event_span=tr["device_us"] * 1e-3 / span_ms,
+                traced_busy_share_of_span=(tr["device_us"]
+                                           / tr["device_span_us"]),
+                **tr)
+
+
+def phase_profile(torch, solver, n_exact: int = 1024):
     """Where the main path's time goes, on the trained state: an exact-pass
-    window of ``n_exact`` blocks and one whole approximate pass (one
-    approx_pass launch over all n blocks), each timed untraced, then
-    traced (busy share = device time of all kernels and copies / the
-    traced window's wall time).  Then the pass kernel's time per full pass
+    window of ``n_exact`` blocks (one replay of the engine's captured step
+    per block) and one whole approximate pass (one approx_pass launch over
+    all n blocks).  The exact window through :func:`graph_window` (host ms
+    per block, replays per block, device span and busy share); the pass
+    timed untraced, then traced.  Then the pass kernel's time per full pass
     with CUDA events beside the plain version's (the eager per-block loop,
     one pass, ~3-6 s) and the bound on this state's valid slots: the
-    numbers of the kernels line.  ~20 s."""
+    numbers of the kernels line.  ~15 s."""
     import numpy as np
     from repro_torch.core import mpbcfw
     from repro_torch.core.types import index_tensor
     from repro_torch.kernels import ops
     problem, lam = solver.problem, solver.cfg.lam
     mp, n = solver.state, solver.problem.n
+    graphs = solver.engine.graphs
     perm = np.random.RandomState(2).permutation(n)
-    windows = {
-        "exact": (n_exact, lambda: mpbcfw.exact_pass(
-            problem, mp, np.arange(n_exact), lam)),
-        "approx": (n, lambda: mpbcfw.approx_pass(None, mp, perm, lam)),
-    }
-    out = {}
-    for name, (count, run) in windows.items():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        untraced = time.perf_counter() - t0
-        tr = traced(torch, run)
-        out[name] = dict(blocks=count, ms_per_block=1e3 * untraced / count,
-                         traced_ms_per_block=tr["wall_ms"] / count,
-                         device_ops_per_block=tr["device_events"] / count,
-                         device_us_per_block=tr["device_us"] / count, **tr)
+    out = {"exact": graph_window(torch, lambda: mpbcfw.exact_pass(
+        problem, mp, perm[:n_exact], lam, graphs=graphs), graphs, n_exact)}
+    check(out["exact"]["replays_per_block"] == 1.0,
+          f"exact window: {out['exact']['replays_per_block']} replays per "
+          "block")
+
+    def approx():
+        mpbcfw.approx_pass(None, mp, perm, lam)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    approx()
+    torch.cuda.synchronize()
+    untraced = time.perf_counter() - t0
+    tr = traced(torch, approx)
+    out["approx"] = dict(blocks=n, ms_per_block=1e3 * untraced / n,
+                         traced_ms_per_block=tr["wall_ms"] / n,
+                         device_ops_per_block=tr["device_events"] / n,
+                         device_us_per_block=tr["device_us"] / n, **tr)
     c = mp.cache
     ids = index_tensor(perm, "cuda")
 
@@ -802,6 +867,8 @@ def phase_main_async(torch, data):
           f"approx_pass launches {launches['approx_pass']}")
     check(launches["plane_scores"] == 0,
           f"plane_scores launches {launches['plane_scores']}")
+    replays = check_replays("main_async", solver, arrived + fallbacks,
+                            captured=(arrived > 0) + (fallbacks > 0))
     w = solver.result().w
     check(w.shape == (4004,) and all(map(math.isfinite, w.tolist())),
           "weights not finite")
@@ -809,6 +876,7 @@ def phase_main_async(torch, data):
          iterations=len(rows), wall_s_per_iteration=walls,
          max_memory_allocated=peak, launches=launches, n_exact=last.n_exact,
          n_approx=last.n_approx, fallbacks_folded=fallbacks,
+         graph_replays=replays,
          oracle_overlap=[r.oracle_overlap for r in rows])
     return launches, solver
 
@@ -849,17 +917,31 @@ def _stream_overlap_us(events):
 
 def phase_profile_async(torch, solver, n_fold: int = 512):
     """The fold step, the approximate passes and the oracle program on the
-    trained pipelined state: one engine iteration whose pending buffer is
-    cut to ``n_fold`` blocks, so it folds those blocks (and scores their
-    fallback) and queues 2 gated passes on the main stream while the
-    oracle program for all n blocks runs on the side stream.  Timed
-    untraced, then under torch.profiler: do kernels of the two streams
-    ever run at once (ROADMAP C4)?  ~5 s."""
+    trained pipelined state.  First the fold alone: ``n_fold`` pending
+    blocks (arrived and stragglers) through :func:`graph_window`, one
+    replay of the engine's captured fold body per block.  Then one engine
+    iteration whose pending buffer is cut to ``n_fold`` blocks, so it
+    folds those blocks (and scores their fallback) and queues 2 gated
+    passes on the main stream while the oracle program for all n blocks
+    runs on the side stream (ROADMAP C4).  Untraced, CUDA events give the
+    main stream's span from the cache program's start to the fold's end
+    (``fold_device_ms``), the oracle program's span, and the time the two
+    spans share (``events_overlap_us``); then the same span in a window
+    with no oracle program (``fold_device_ms_without_oracle``: what the
+    oracle beside it costs the fold); under torch.profiler, each
+    stream's device time, the microseconds during which kernels of the two
+    streams ran at once (``cross_stream_overlap_us``) and the host times of
+    the first and last graph launch.  The profiler slows each graph launch
+    to the device's pace, so there the fold's enqueue ends only as the
+    fold does, and the oracle program queued after it cannot overlap it:
+    the untraced events are the measurement.  ~5 s."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import mpbcfw
+    from repro_torch.core.distributed import fallback_planes, fold_planes
     from repro_torch.core.ssvm import weights_of
     engine, problem, lam = solver.engine, solver.problem, solver.cfg.lam
+    graphs = engine.graphs
     n = problem.n
     rng = np.random.RandomState(1)
     perm = rng.permutation(n)
@@ -867,15 +949,55 @@ def phase_profile_async(torch, solver, n_fold: int = 512):
     clock = mpbcfw.make_slope_clock(0.0, 0.0, ORACLE_COST * n, PLANE_COST,
                                     "cuda")
 
-    def window(state):
+    mp, p = solver.state.mp, solver.state.pending
+    ids, planes, done = p.ids[:n_fold], p.planes[:n_fold], p.done[:n_fold]
+    fbp, fbs, _ = fallback_planes(mp.cache, ids,
+                                  weights_of(mp.inner.phi, lam))
+    fold = graph_window(torch, lambda: fold_planes(
+        mp, ids, planes, fbp, fbs, done, lam, graphs=graphs), graphs, n_fold)
+    check(fold["replays_per_block"] == 1.0,
+          f"fold: {fold['replays_per_block']} replays per block")
+
+    span = {}
+
+    def cut_to_fold(state):
         p = state.pending
-        cut = state._replace(pending=p._replace(
+        return state._replace(pending=p._replace(
             ids=p.ids[:n_fold], planes=p.planes[:n_fold],
             done=p.done[:n_fold]))
+
+    def window(state):
+        cut = cut_to_fold(state)
+        m0 = torch.cuda.Event(enable_timing=True)
+        m1 = torch.cuda.Event(enable_timing=True)
+        m0.record()
         state, _, stats = engine.outer_iteration(cut, perm, passes,
                                                  clock, ttl=RUN["ttl"])
+        m1.record()
         state = engine.count_passes(state, engine.read_stats(stats))
         torch.cuda.synchronize()
+        (f0, f1), (o0, o1) = engine.fold_span, engine.oracle_span
+        span.update(main_ms=m0.elapsed_time(m1),
+                    fold_start_ms=m0.elapsed_time(f0),
+                    fold_end_ms=m0.elapsed_time(f1),
+                    oracle_start_ms=m0.elapsed_time(o0),
+                    oracle_end_ms=m0.elapsed_time(o1))
+        return state
+
+    def fold_alone(state):
+        """The same cache program with no oracle program beside it: the
+        main stream's span from its start to the fold's end."""
+        cut = cut_to_fold(state)
+        f0 = torch.cuda.Event(enable_timing=True)
+        f1 = torch.cuda.Event(enable_timing=True)
+        f0.record()
+        mp, _, stats = mpbcfw.async_cache_program(
+            cut.mp, cut.pending, passes, clock, lam=lam, ttl=RUN["ttl"],
+            graphs=graphs, after_fold=f1.record)
+        state = engine.count_passes(cut._replace(mp=mp),
+                                    engine.read_stats(stats))
+        torch.cuda.synchronize()
+        span["fold_alone_ms"] = f0.elapsed_time(f1)
         return state
 
     state = solver.state
@@ -883,6 +1005,16 @@ def phase_profile_async(torch, solver, n_fold: int = 512):
     t0 = time.perf_counter()
     state = window(state)
     untraced = time.perf_counter() - t0
+    state = fold_alone(state)
+    # CUDA events, no profiler: the main stream's cache program from its
+    # start to the end of its fold (eviction, fallback scoring, the fold's
+    # replays; the event behind the fold is recorded in stream order after
+    # its last replay) against the side stream's oracle program.
+    spans = dict(span)
+    events_overlap_us = 1e3 * max(0.0, min(spans["oracle_end_ms"],
+                                           spans["fold_end_ms"])
+                                  - max(spans["oracle_start_ms"],
+                                        spans["fold_start_ms"]))
     w = weights_of(state.inner.phi, lam)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -898,21 +1030,39 @@ def phase_profile_async(torch, solver, n_fold: int = 512):
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in dev)
     streams, overlap_us = _stream_overlap_us(dev)
+    # Host times of the first and last graph launch, in us after the
+    # window's first device event: under the profiler the launches keep
+    # the device's pace.
+    t_dev = min((e.time_range.start for e in dev), default=0.0)
+    launches = sorted(e.time_range.start - t_dev for e in prof.events()
+                      if e.device_type != torch.autograd.DeviceType.CUDA
+                      and e.name == "cudaGraphLaunch")
+    stream_us = {}
+    for e in dev:
+        key = str(e.device_resource_id)
+        stream_us[key] = stream_us.get(key, 0.0) + e.time_range.elapsed_us()
     by_kernel = {}
     for e in dev:
         by_kernel[e.name] = (by_kernel.get(e.name, 0.0)
                              + e.time_range.elapsed_us())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-    emit("profile_async", scenario="OCR", folded_blocks=n_fold,
+    emit("profile_async", scenario="OCR", fold=fold, folded_blocks=n_fold,
          approx_passes_queued=len(passes), oracle_blocks=n,
          window_ms=1e3 * untraced,
          ms_per_folded_block=1e3 * untraced / n_fold,
-         traced_ms_per_folded_block=1e3 * traced / n_fold,
+         traced_window_ms=1e3 * traced,
          oracle_program_ms=oracle_ms, device_events=len(dev),
-         device_ops_per_folded_block=len(dev) / n_fold,
          device_busy_share=(busy_us * 1e-6 / traced) if dev else None,
-         events_per_stream=streams, cross_stream_overlap_us=overlap_us,
-         streams_overlapped=overlap_us > 0.0,
+         events_per_stream=streams, device_us_per_stream=stream_us,
+         event_spans_ms=spans,
+         fold_device_ms=spans["fold_end_ms"] - spans["fold_start_ms"],
+         fold_device_ms_without_oracle=spans["fold_alone_ms"],
+         oracle_device_ms=spans["oracle_end_ms"] - spans["oracle_start_ms"],
+         events_overlap_us=events_overlap_us,
+         streams_overlapped=events_overlap_us > 0.0,
+         cross_stream_overlap_us=overlap_us,
+         traced_graph_launches=len(launches),
+         traced_graph_launch_first_last_us=launches[:1] + launches[-1:],
          top_device_us=[[k[:60], v] for k, v in top])
 
 
@@ -1089,6 +1239,10 @@ def check_flash_attention(torch, gen):
         ragged[f"bh_5x130x32_{tag}"] = compare(q, k, v, f"(BH,S,D) {tag}")
         q, k, v = (rand(4, 64, 2, 128, dtype=dtype) for _ in range(3))
         ragged[f"4x64x2x128_{tag}"] = compare(q, k, v, f"S=64 {tag}")
+        for S_ in (1, 31, 33):
+            q, k, v = (rand(3, S_, 4, 128, dtype=dtype) for _ in range(3))
+            ragged[f"3x{S_}x4x128_{tag}"] = compare(q, k, v,
+                                                    f"S={S_} {tag}")
 
     B, S, H, D = 1024, 32, 16, 128
     q, k, v = (rand(B, S, H, D, dtype=torch.bfloat16) for _ in range(3))
@@ -1224,6 +1378,7 @@ def phase_main_gram(torch, data):
     # One B=1 decode per exact step, one B=n sweep per evaluation.
     check(run_launches["viterbi_decode"] == (n + 1) * len(rows),
           f"viterbi launches {run_launches['viterbi_decode']}")
+    replays = check_replays("main_gram", solver, last.n_exact, captured=1)
     w = solver.result().w
     check(w.shape == (4004,) and all(map(math.isfinite, w.tolist())),
           "weights not finite")
@@ -1249,7 +1404,8 @@ def phase_main_gram(torch, data):
          approx_passes=[r.approx_passes for r in rows],
          max_memory_allocated=peak, n_exact=last.n_exact,
          n_approx=last.n_approx, run_launches=run_launches,
-         launches=launches, valid_pairs=int(both.sum()),
+         graph_replays=replays, launches=launches,
+         valid_pairs=int(both.sum()),
          gram_leaf_max_abs_err=gram_err, recompute_s=recompute_s)
     return launches, solver
 
@@ -1487,6 +1643,8 @@ def phase_main_lm(torch):
     check(head_launches["approx_pass"] == HEAD_RUN["approx_batch"] * len(rows)
           and head_launches["viterbi_decode"] >= rows[-1].n_exact,
           f"head launches {head_launches}")
+    head_replays = check_replays("main_lm", solver, rows[-1].n_exact,
+                                 captured=1)
     emit("main_lm", arch=cfg.name, params=n_params, param_bytes=param_bytes,
          init_s=init_s, serve=dict(
              slots=SERVE["slots"], max_seq=SERVE["max_seq"],
@@ -1497,7 +1655,7 @@ def phase_main_lm(torch):
                    feature_launches=feature_launches,
                    iterations=len(rows), wall_s_per_iteration=walls,
                    n_exact=rows[-1].n_exact, n_approx=rows[-1].n_approx,
-                   launches=head_launches),
+                   graph_replays=head_replays, launches=head_launches),
          max_memory_allocated=peak)
     del solver, problem, x
     routing = compare_routing(torch, cfg, params, tok)
@@ -1510,7 +1668,8 @@ def phase_main_lm(torch):
 
 def traced(torch, fn):
     """Wall ms of ``fn()`` under torch.profiler, device busy share (device
-    time of all kernels and copies / wall time) and device us by kernel."""
+    time of all kernels and copies / wall time), the device span (first
+    start to last end) and device us by kernel."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1527,8 +1686,10 @@ def traced(torch, fn):
                              + e.time_range.elapsed_us())
     busy_us = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    span_us = (max(e.time_range.end for e in dev)
+               - min(e.time_range.start for e in dev)) if dev else 0.0
     return dict(wall_ms=1e3 * wall, device_events=len(dev),
-                device_us=busy_us,
+                device_us=busy_us, device_span_us=span_us,
                 device_busy_share=(busy_us * 1e-6 / wall) if dev else None,
                 top_device_us=[[k[:60], v] for k, v in top])
 

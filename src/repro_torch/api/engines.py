@@ -23,6 +23,7 @@ import torch
 from ..cache import CacheLayout
 from ..core import mpbcfw
 from ..core.averaging import extract as extract_average
+from ..core.graphs import StepGraphs
 from ..core.selection import SyncLedger
 from ..core.ssvm import weights_of
 from ..core.types import SSVMProblem
@@ -37,7 +38,10 @@ class FusedEngine:
     on ``ledger``, and ``count_passes`` then charges the passes that ran
     to the state's host counters.  A ``gram_steps`` count keeps Gram
     blocks in the plane cache, which switches the approximate passes to
-    the Sec-3.5 scheme, ``gram_steps`` updates per block."""
+    the Sec-3.5 scheme, ``gram_steps`` updates per block.  On CUDA the
+    exact pass replays one captured CUDA graph per block, kept in
+    ``graphs`` while the state's tensors live
+    (:class:`~repro_torch.core.graphs.StepGraphs`)."""
 
     def __init__(self, problem: SSVMProblem, lam: float, *,
                  gram_steps: Optional[int] = None):
@@ -46,6 +50,8 @@ class FusedEngine:
         self.gram_steps = gram_steps
         self.use_gram = gram_steps is not None
         self.ledger = SyncLedger()
+        # The exact pass's (and the fold's) captured block steps on CUDA.
+        self.graphs = StepGraphs()
 
     def init_state(self, cap: int) -> mpbcfw.MPState:
         return mpbcfw.init_mp_state(
@@ -55,7 +61,8 @@ class FusedEngine:
         self.ledger.dispatched()
         return mpbcfw.outer_iteration(self.problem, mp, perm, perms, clock,
                                       lam=self.lam, ttl=ttl,
-                                      steps=self.gram_steps)
+                                      steps=self.gram_steps,
+                                      graphs=self.graphs)
 
     def continue_passes(self, mp, perms, clock):
         """Overflow batch of approximate passes (only when an iteration
@@ -100,7 +107,10 @@ class AsyncEngine(FusedEngine):
 
       * it reads a snapshot ``w`` made on the main stream before the cache
         program mutates ``phi`` in place, after the side stream waits for
-        the main one;
+        an event recorded behind that snapshot;
+      * it is enqueued once the cache program's fold is (one replay of a
+        captured step per block, which the host enqueues faster than the
+        device runs), so its kernels run beside the fold's;
       * its planes are folded on the main stream in the next iteration,
         after the main stream waits on an event recorded behind the
         oracle; ``record_stream`` tells the caching allocator about both
@@ -121,6 +131,11 @@ class AsyncEngine(FusedEngine):
         self._it = 0
         self._side = None           # the oracle's CUDA stream
         self._oracle_ready = None   # event behind the in-flight oracle
+        # Timed CUDA events around the latest oracle program on the side
+        # stream, and on the main stream around the cache program up to the
+        # end of its fold: their device spans, for measuring the overlap.
+        self.oracle_span = None
+        self.fold_span = None
 
     def init_state(self, cap: int) -> mpbcfw.AsyncMPState:
         return mpbcfw.init_async_state(self.problem, cap)
@@ -132,35 +147,62 @@ class AsyncEngine(FusedEngine):
         return np.asarray(self.outcome_fn(self._it, k), dtype=bool
                           ).reshape(k)
 
-    def _dispatch_oracle(self, phi: torch.Tensor, perm):
-        w = weights_of(phi, self.lam)          # a snapshot: phi mutates
+    def _dispatch_oracle(self, w: torch.Tensor, w_ready, perm):
+        """The oracle program at the snapshot ``w``; on CUDA on the side
+        stream, after ``w_ready`` (the event behind the snapshot, not
+        behind the fold enqueued since)."""
         if w.device.type != "cuda":
             return mpbcfw.async_oracle_program(self.problem, w, perm)
         main = torch.cuda.current_stream(w.device)
         if self._side is None:
             self._side = torch.cuda.Stream(w.device)
         side = self._side
-        side.wait_stream(main)
+        side.wait_event(w_ready)
+        start = torch.cuda.Event(enable_timing=True)
+        ready = torch.cuda.Event(enable_timing=True)
         with torch.cuda.stream(side):
+            start.record(side)
             ids, planes = mpbcfw.async_oracle_program(self.problem, w, perm)
-            ready = torch.cuda.Event()
             ready.record(side)
         w.record_stream(side)
         planes.record_stream(main)
         self._oracle_ready = ready
+        self.oracle_span = (start, ready)
         return ids, planes
 
     def outer_iteration(self, state, perm, perms, clock, *, ttl: int):
         mp, pending = state.mp, state.pending
-        if self._oracle_ready is not None:
-            # The fold below reads the previous oracle's planes.
-            torch.cuda.current_stream(mp.inner.phi.device).wait_event(
-                self._oracle_ready)
+        w_ready = None
+        if mp.inner.phi.device.type == "cuda":
+            main = torch.cuda.current_stream(mp.inner.phi.device)
+            if self._oracle_ready is not None:
+                # The fold below reads the previous oracle's planes.
+                main.wait_event(self._oracle_ready)
         self.ledger.dispatched()
-        ids, planes = self._dispatch_oracle(mp.inner.phi, perm)
+        w = weights_of(mp.inner.phi, self.lam)   # a snapshot: phi mutates
+        if w.device.type == "cuda":
+            w_ready = torch.cuda.Event()
+            w_ready.record(main)
+        oracle = []
         self.ledger.dispatched()
+        fold_start = fold_end = None
+        if w_ready is not None:
+            fold_start = torch.cuda.Event(enable_timing=True)
+            fold_end = torch.cuda.Event(enable_timing=True)
+            fold_start.record(main)
+
+        def after_fold():
+            # The oracle program is enqueued once the fold is: the fold is
+            # host-enqueued graph replays the device takes longer to run,
+            # so the oracle's kernels run beside them.
+            if fold_end is not None:
+                fold_end.record(main)
+                self.fold_span = (fold_start, fold_end)
+            oracle.append(self._dispatch_oracle(w, w_ready, perm))
         mp2, clock2, stats = mpbcfw.async_cache_program(
-            mp, pending, perms, clock, lam=self.lam, ttl=ttl)
+            mp, pending, perms, clock, lam=self.lam, ttl=ttl,
+            graphs=self.graphs, after_fold=after_fold)
+        ids, planes = oracle[0]
         new_pending = mpbcfw.PendingOracle(
             ids=ids, planes=planes, done=self._done_mask(len(ids)),
             live=True)

@@ -4,8 +4,9 @@ Every mutation updates the cache tensors in place; the functions return
 the cache so call sites read like the reference.  Slots chosen on the
 device (the LRU victim, the approximate oracle's argmax) stay 1-element
 index tensors: indexing with a 0-d CUDA tensor would call ``.item()`` and
-block the host inside a pass.  Block indices come from the host
-permutation and are Python ints.
+block the host inside a pass.  Block indices are Python ints from a host
+permutation, or (1,) index tensors on the device in the captured block
+steps of :mod:`repro_torch.core.graphs`.
 
 Scoring goes through :func:`repro_torch.kernels.ops.plane_scores` (one
 block) and :func:`repro_torch.kernels.ops.plane_select` (many blocks at
@@ -20,7 +21,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from ..core.types import index_tensor
+from ..core.types import index_tensor, row_of
 from ..kernels import ops as kops
 from .state import CacheLayout, PlaneCache
 
@@ -61,38 +62,56 @@ def row_dots(rows: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return kops.plane_scores(rows, v, zero.expand(rows.shape[0]))
 
 
-def _lru_slot(cache: PlaneCache, i: int) -> torch.Tensor:
+def _lru_slot(cache: PlaneCache, i) -> torch.Tensor:
     """First empty slot if any, else the valid slot inactive the longest
     (paper Alg. 3 step 3); ties break to the lowest slot.  (1,) int64."""
-    key = torch.where(cache.valid[i], cache.last_active[i],
-                      torch.full_like(cache.last_active[i], _EMPTY_KEY))
+    last = row_of(cache.last_active, i)
+    key = torch.where(row_of(cache.valid, i), last,
+                      torch.full_like(last, _EMPTY_KEY))
     return key.argmin().reshape(1)
 
 
-def insert(cache: PlaneCache, i: int, plane: torch.Tensor,
-           it: int) -> PlaneCache:
+def _stamp(cache: PlaneCache, flat: torch.Tensor, it) -> None:
+    """Activity stamp ``it`` (a host int, or a (1,) int32 device tensor)
+    on the slots at ``flat`` ((k,) indices into the flattened cache)."""
+    last = cache.last_active.view(-1)
+    if isinstance(it, torch.Tensor):
+        last.index_copy_(0, flat, it.reshape(1).expand(flat.shape[0]))
+    else:
+        last.index_fill_(0, flat, it)
+
+
+def insert(cache: PlaneCache, i, plane: torch.Tensor, it) -> PlaneCache:
     """Insert ``plane`` into block ``i``, evicting LRU if full; the slot is
     marked active at outer iteration ``it``.
 
-    With Gram blocks, the slot's row and column are refreshed with the
-    inner products of the new plane and all ``cap`` slots of the block,
-    stale ones included (``repro/cache/ops.py::insert``)."""
+    ``i`` is a host int or a (1,) int64 tensor on the cache's device, ``it``
+    a host int or a (1,) int32 tensor there: a captured block step reads
+    both on the device.  With Gram blocks, the slot's row and column are
+    refreshed with the inner products of the new plane and all ``cap``
+    slots of the block, stale ones included (``repro/cache/ops.py::insert``).
+    """
+    n, cap, d1 = cache.planes.shape
     slot = _lru_slot(cache, i)
-    cache.planes[i].index_copy_(0, slot, plane.reshape(1, -1))
-    cache.valid[i].index_fill_(0, slot, True)
-    cache.last_active[i].index_fill_(0, slot, it)
+    flat = slot + i * cap                                  # (1,) int64
+    cache.planes.view(n * cap, d1).index_copy_(0, flat, plane.reshape(1, -1))
+    cache.valid.view(-1).index_fill_(0, flat, True)
+    _stamp(cache, flat, it)
     if cache.gram is not None:
-        row = row_dots(cache.planes[i, :, :-1], plane[:-1].contiguous())
-        cache.gram[i].index_copy_(0, slot, row[None, :])
-        cache.gram[i].index_copy_(1, slot, row[:, None])
+        row = row_dots(row_of(cache.planes, i)[:, :-1],
+                       plane[:-1].contiguous())
+        cache.gram.view(n * cap, cap).index_copy_(0, flat, row[None, :])
+        col = flat * cap - slot * (cap - 1) + torch.arange(
+            0, cap * cap, cap, device=slot.device)
+        cache.gram.view(-1).index_copy_(0, col, row)
     return cache
 
 
-def mark_active(cache: PlaneCache, i: int, slot: torch.Tensor,
-                it: int) -> PlaneCache:
+def mark_active(cache: PlaneCache, i, slot: torch.Tensor, it) -> PlaneCache:
     """Record that block ``i``'s ``slot`` ((1,) int64 or int32 index) was
-    returned by an oracle call at outer iteration ``it``."""
-    cache.last_active[i].index_fill_(0, slot.reshape(1).long(), it)
+    returned by an oracle call at outer iteration ``it`` (``i`` and ``it``
+    as in :func:`insert`)."""
+    _stamp(cache, slot.reshape(1).long() + i * cache.valid.shape[1], it)
     return cache
 
 

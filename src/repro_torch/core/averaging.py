@@ -3,6 +3,10 @@
 bar_phi^(k+1) = k/(k+2) bar_phi^(k) + 2/(k+2) phi^(k+1), kept twice: one
 track after every exact oracle call, one after every approximate call.
 Extraction returns the interpolation of the two with the best dual F.
+
+A pass steps a track in place with :func:`average_step`, its weights
+read from a :func:`weight_table` on the state's device (the host knows
+``k``; a captured block step reads its row by index).
 """
 from __future__ import annotations
 
@@ -18,24 +22,26 @@ def init_averaging(d: int, device) -> AveragingState:
                           k_approx=0)
 
 
-def _weights(k: int):
-    # The reference computes k/(k+2) and 2/(k+2) from a float32 k, in
-    # float32; the same two roundings here give bit-equal weights.
-    kf = np.float32(k)
-    return float(kf / (kf + np.float32(2.0))), float(np.float32(2.0)
-                                                     / (kf + np.float32(2.0)))
+def weight_table(k0: int, m: int) -> np.ndarray:
+    """``(m, 2)`` float32: ``(k/(k+2), 2/(k+2))`` for ``k = k0 .. k0+m-1``.
+
+    The reference computes both from a float32 ``k``, in float32; the same
+    roundings here give bit-equal weights."""
+    kf = np.arange(k0, k0 + m, dtype=np.int64).astype(np.float32)
+    two = np.float32(2.0)
+    return np.stack([kf / (kf + two), two / (kf + two)], axis=1)
 
 
-def update_average(avg: AveragingState, phi: torch.Tensor,
-                   *, exact: bool) -> AveragingState:
-    """Incremental weighted-average update after one oracle call."""
-    if exact:
-        a, b = _weights(avg.k_exact)
-        return avg._replace(bar_exact=a * avg.bar_exact + b * phi,
-                            k_exact=avg.k_exact + 1)
-    a, b = _weights(avg.k_approx)
-    return avg._replace(bar_approx=a * avg.bar_approx + b * phi,
-                        k_approx=avg.k_approx + 1)
+def average_step(bar: torch.Tensor, phi: torch.Tensor, ab: torch.Tensor,
+                 scratch: torch.Tensor) -> None:
+    """One averaging step after an oracle call: ``bar <- a bar + b phi`` in
+    place, ``ab = (a, b)`` a (2,) float32 tensor (a row of
+    :func:`weight_table`, on the state's device).  Each product is
+    rounded, then the sum, as the reference's expression says: ``b phi``
+    goes to ``scratch``, then ``bar`` is scaled and the scratch added (a
+    fused ``add_(alpha=)`` could round once)."""
+    torch.mul(phi, ab[1], out=scratch)
+    bar.mul_(ab[0]).add_(scratch)
 
 
 def extract(avg: AveragingState, lam: float) -> torch.Tensor:

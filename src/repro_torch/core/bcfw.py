@@ -5,7 +5,7 @@ from typing import Tuple
 
 import torch
 
-from .types import BCFWState
+from .types import BCFWState, row_of, set_row
 
 
 def line_search_gamma(phi: torch.Tensor, phi_i: torch.Tensor,
@@ -24,16 +24,17 @@ def line_search_gamma(phi: torch.Tensor, phi_i: torch.Tensor,
     return torch.clamp(gamma, 0.0, 1.0)
 
 
-def block_update(state: BCFWState, i: int, phi_hat: torch.Tensor,
+def block_update(state: BCFWState, i, phi_hat: torch.Tensor,
                  lam: float) -> Tuple[BCFWState, torch.Tensor]:
-    """One BCFW step on block ``i`` with candidate plane ``phi_hat``.
+    """One BCFW step on block ``i`` (a host int, or a (1,) int64 tensor on
+    the state's device) with candidate plane ``phi_hat``.
 
     Updates ``state.phi_i[i]`` and ``state.phi`` in place and returns the
     state and gamma.  Monotone in F: exact line search, gamma = 0 allowed.
     """
-    phi_i = state.phi_i[i]
+    phi_i = row_of(state.phi_i, i)
     gamma = line_search_gamma(state.phi, phi_i, phi_hat, lam)
     new_phi_i = (1.0 - gamma) * phi_i + gamma * phi_hat
     state.phi.add_(new_phi_i - phi_i)
-    phi_i.copy_(new_phi_i)
+    set_row(state.phi_i, i, new_phi_i)
     return state, gamma

@@ -9,12 +9,14 @@ The algorithm interleaves
 
 The reference fuses one outer iteration into one XLA program
 (``lax.scan`` over blocks, ``lax.while_loop`` over passes).  Here the
-exact pass is a host loop over the blocks of the host permutation, every
-step device work enqueued without blocking (no ``.item()``: slots stay
-index tensors).  An approximate pass is one launch of the ``approx_pass``
-kernel over a device permutation (on the CPU its plain version,
-:func:`eager_pass`), and a batch of passes is enqueued
-whole: each pass is gated on the device by the slope rule's flag (Sec.
+exact pass is one block step per block of the host permutation, the
+block read on the device (:func:`exact_step`): a plain loop on the CPU,
+and on CUDA one replay per block of the step's captured CUDA graph
+(:mod:`repro_torch.core.graphs`), nothing read on the host (no
+``.item()``: slots stay index tensors).  An approximate pass is one
+launch of the ``approx_pass`` kernel over a device permutation (on the
+CPU its plain version, :func:`eager_pass`), and a batch of passes is
+enqueued whole: each pass is gated on the device by the slope rule's flag (Sec.
 3.4), computed in float32 exactly as in the reference.  Nothing is read
 on the host until the engine reads the batch's stats: one sync per
 dispatch, as in the reference.
@@ -41,10 +43,12 @@ import torch
 from .. import cache as plane_cache
 from ..cache import CacheLayout, PlaneCache
 from ..kernels import ops as kops
-from .averaging import init_averaging, update_average
+from .averaging import average_step, init_averaging, weight_table
 from .bcfw import block_update
-from .distributed import fallback_planes, fold_planes, parallel_oracles
+from .distributed import (fallback_planes, fold_planes, parallel_oracles,
+                          state_tensors)
 from .gram import multi_step_block_update
+from .graphs import StepControl, StepGraphs, load_control
 from .selection import slope_continue_t
 from .ssvm import dual_value, init_state, weights_of
 from .types import (ApproxBatchStats, AveragingState, BCFWState, ObsMetrics,
@@ -60,24 +64,43 @@ class MPState(NamedTuple):
     outer_it: int  # outer-iteration counter (for TTL)
 
 
-def _example(problem: SSVMProblem, i: int):
-    """Block ``i`` as a batch of one (views, no copies)."""
-    return {k: v[i:i + 1] for k, v in problem.data.items()}
+def exact_step(problem: SSVMProblem, mp: MPState, ctl: StepControl,
+               lam: float) -> None:
+    """One exact block step, in place, with the block read on the device:
+    the spec's oracle at ``w = -phi*/lam`` on block ``ctl.ids[cursor]``,
+    the line search, the cache insert (LRU slot, Gram row) stamped
+    ``ctl.it``, and an exact-track averaging step with the pass's weights.
+    Advances the cursor.  The body of :func:`exact_pass`'s loop, and of its
+    captured graph on CUDA."""
+    st, c = mp.inner, mp.cache
+    i = ctl.block()
+    example = {k: v.index_select(0, i) for k, v in problem.data.items()}
+    phi_hat = problem.oracle(weights_of(st.phi, lam), example)[0]
+    block_update(st, i, phi_hat, lam)
+    plane_cache.insert(c, i, phi_hat, ctl.it)
+    average_step(mp.avg.bar_exact, st.phi, ctl.weight(), ctl.scratch)
+    ctl.cursor.add_(1)
 
 
-def exact_pass(problem: SSVMProblem, mp: MPState, perm,
-               lam: float) -> MPState:
-    """Paper Alg. 3 step 3: BCFW pass with the real oracle + plane caching."""
-    st, c, av = mp.inner, mp.cache, mp.avg
-    blocks = block_ids(perm)
-    for i in blocks:
-        w = weights_of(st.phi, lam)
-        phi_hat = problem.oracle(w, _example(problem, i))[0]
-        st, _ = block_update(st, i, phi_hat, lam)
-        c = plane_cache.insert(c, i, phi_hat, mp.outer_it)
-        av = update_average(av, st.phi, exact=True)
-    st = st._replace(n_exact=st.n_exact + len(blocks))
-    return MPState(inner=st, cache=c, avg=av, outer_it=mp.outer_it)
+def exact_pass(problem: SSVMProblem, mp: MPState, perm, lam: float, *,
+               graphs: StepGraphs) -> MPState:
+    """Paper Alg. 3 step 3: BCFW pass with the real oracle + plane caching,
+    over the blocks of the host permutation ``perm``.
+
+    One :func:`exact_step` per block: a plain loop on the CPU; on CUDA one
+    replay per block of the step's captured graph, kept in ``graphs`` (an
+    engine's :class:`~repro_torch.core.graphs.StepGraphs`).  The host counters ``n_exact`` and ``k_exact``
+    advance by the pass's length.
+    """
+    ids = np.asarray(perm, np.int64).reshape(-1)
+    ctl = graphs.control("exact", state_tensors(mp) + tuple(
+        problem.data.values()), (lam, problem.oracle), len(ids), problem.d)
+    load_control(ctl, ids, k0=mp.avg.k_exact, it=mp.outer_it)
+    graphs.run("exact", "exact", lambda: exact_step(problem, mp, ctl, lam),
+               len(ids))
+    return mp._replace(
+        inner=mp.inner._replace(n_exact=mp.inner.n_exact + len(ids)),
+        avg=mp.avg._replace(k_exact=mp.avg.k_exact + len(ids)))
 
 
 def eager_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,
@@ -107,9 +130,11 @@ def eager_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,
     cache = PlaneCache(planes=planes, valid=valid, last_active=last_active,
                        gram=gram)
     st = BCFWState(phi_i=phi_i, phi=phi, n_exact=0, n_approx=0)
-    avg = AveragingState(bar_exact=bar, bar_approx=bar, k_exact=0,
-                         k_approx=int(k0))
-    for i in block_ids(perm.cpu()):
+    ids = block_ids(perm.cpu())
+    weights = torch.from_numpy(weight_table(int(k0), len(ids))).to(
+        phi.device)
+    scratch = torch.empty_like(phi)
+    for pos, i in enumerate(ids):
         if steps is None:
             w = weights_of(phi, lam)
             phi_hat, slot, _ = plane_cache.approx_oracle(cache, i, w)
@@ -122,9 +147,7 @@ def eager_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,
             phi.copy_(new_phi)
             phi_i[i].copy_(new_phi_i)
             plane_cache.mark_active_where(cache, i, won, outer_it)
-        avg = update_average(avg, phi, exact=False)
-    if avg.bar_approx is not bar:
-        bar.copy_(avg.bar_approx)
+        average_step(bar, phi, weights[pos], scratch)
 
 
 def run_pass(mp: MPState, perm: torch.Tensor, lam: float,
@@ -278,10 +301,11 @@ def multi_approx_pass(mp: MPState, perms, clock: SlopeClock, *, lam: float,
 
 def outer_iteration(problem: SSVMProblem, mp: MPState, perm, perms,
                     clock: SlopeClock, *, lam: float, ttl: int,
-                    steps: Optional[int] = None, run_all: bool = False):
-    """One MP-BCFW outer iteration: TTL eviction, the exact pass, and the
-    slope-ruled batch of approximate passes (``steps`` per block with Gram
-    blocks).
+                    graphs: StepGraphs, steps: Optional[int] = None,
+                    run_all: bool = False):
+    """One MP-BCFW outer iteration: TTL eviction, the exact pass (its
+    captured step kept in ``graphs``), and the slope-ruled batch of
+    approximate passes (``steps`` per block with Gram blocks).
 
     ``clock.f0`` is re-seeded on the device from the dual at iteration
     entry; the host supplies ``clock.t`` (the modeled exact-pass cost) and
@@ -291,7 +315,7 @@ def outer_iteration(problem: SSVMProblem, mp: MPState, perm, perms,
     mp = begin_iteration(mp, ttl)
     occ1 = mp.cache.occupancy                 # after eviction
     clock = clock._replace(f0=dual_value(mp.inner.phi, lam))
-    mp = exact_pass(problem, mp, perm, lam)
+    mp = exact_pass(problem, mp, perm, lam, graphs=graphs)
     occ2 = mp.cache.occupancy                 # after the insert scan
     mp, clock, stats = multi_approx_pass(mp, perms, clock, lam=lam,
                                          steps=steps, run_all=run_all)
@@ -394,13 +418,18 @@ def async_oracle_program(problem: SSVMProblem, w: torch.Tensor, perm
 
 
 def async_cache_program(mp: MPState, pending: PendingOracle, perms,
-                        clock: SlopeClock, *, lam: float, ttl: int):
+                        clock: SlopeClock, *, lam: float, ttl: int,
+                        graphs: StepGraphs,
+                        after_fold: Optional[Callable[[], None]] = None):
     """The cache half of the pipelined iteration.
 
     TTL eviction, the fold-in of ``pending`` (straggler blocks fold their
     best cached plane at the *current* ``w``, batched), then the
     slope-ruled approximate passes: :func:`outer_iteration` with the exact
-    pass replaced by the fold.  ``clock.f0`` is seeded before the fold,
+    pass replaced by the fold (its captured steps kept in ``graphs``).
+    ``after_fold()`` is called once the fold is enqueued, before the
+    passes: the engine enqueues the next oracle program there, so that on
+    the card it runs beside the fold.  ``clock.f0`` is seeded before the fold,
     so the slope rule's chord includes its gain.  Returns ``(mp, clock,
     stats)``.
     """
@@ -413,8 +442,10 @@ def async_cache_program(mp: MPState, pending: PendingOracle, perms,
         w = weights_of(mp.inner.phi, lam)
         fbp, fbs, _ = fallback_planes(mp.cache, pending.ids, w)
     mp = fold_planes(mp, pending.ids, pending.planes, fbp, fbs,
-                     pending.done, lam, live=pending.live)
+                     pending.done, lam, live=pending.live, graphs=graphs)
     occ2 = mp.cache.occupancy                 # after the fold's inserts
+    if after_fold is not None:
+        after_fold()
     mp, clock, stats = multi_approx_pass(mp, perms, clock, lam=lam)
     # Eviction accounting (cf. outer_iteration): the fold inserts one plane
     # per arrived block (fallbacks only refresh activity), when live.

@@ -115,6 +115,22 @@ def block_ids(perm) -> List[int]:
     return [int(i) for i in np.asarray(perm).reshape(-1)]
 
 
+def row_of(t: torch.Tensor, i) -> torch.Tensor:
+    """Row ``i`` of ``t``: a view for a host int; a copy for a (1,) int64
+    device tensor (a captured block step reads its block on the device)."""
+    if isinstance(i, torch.Tensor):
+        return t.index_select(0, i.reshape(1))[0]
+    return t[i]
+
+
+def set_row(t: torch.Tensor, i, value: torch.Tensor) -> None:
+    """``t[i] = value`` in place, ``i`` as in :func:`row_of`."""
+    if isinstance(i, torch.Tensor):
+        t.index_copy_(0, i.reshape(1), value.unsqueeze(0))
+    else:
+        t[i].copy_(value)
+
+
 def index_tensor(ids, device) -> torch.Tensor:
     """Block ids (numpy array, list or tensor) as an int64 tensor on
     ``device``."""

@@ -22,20 +22,38 @@
 // Bound: bytes at the backbone's shape.  At BH = 16384, S = 32, D = 128
 // bf16 a call reads q, k, v once and writes o once: 4 * 16384*32*128*2 B =
 // 0.54 GB, 0.16 ms at 3.35 TB/s, against 2*2*16384*32*32*128/2 = 2.2e9
-// causal flops.
+// causal flops, ~2 us of the bf16 tensor cores.  So the design is about
+// keeping enough bytes in flight, not about the math.
 //
-// Design: one CTA of 256 threads per (bh, q block of BQ = 64 rows, or 32
-// for S <= 32), a loop over BQ-row k/v blocks up to the diagonal only.
-// The q tile and each k/v tile sit in shared memory as fp32 (rows padded
-// to 129 floats, so a warp's 16 distinct k rows fall in 16 banks).  Thread
-// (ty, tx) owns score rows ty + 16i and columns tx + 16j (BQ/16 x BQ/16),
-// and output rows ty + 16i and columns tx + 16j (BQ/16 x 8, D <= 128) in
-// registers.  256/BQ adjacent threads share a row for the online-softmax
-// update.  Plain fp32 FMAs: no tensor cores, no atomics, nothing carried
-// between CTAs.  A simple kernel that is right; a wgmma/TMA version is
-// later work.
+// bfloat16 design (the model path): one CTA of NW warps per (bh, q block of
+// BQ = 16 NW rows), each warp owning 16 query rows, a loop over BK-row k/v
+// blocks up to the diagonal only.  q, k and v stay bf16 in shared memory
+// (rows padded by 16 bytes, so ldmatrix's eight 16-byte row reads hit 32
+// distinct banks), loaded with 16-byte cp.async copies (zero-filled past S
+// and past D); with more than one k/v block, block kb+1 is in flight while
+// block kb computes (a two-stage ring).  At the backbone's S = 32 a CTA is
+// 2 warps and 26 KB, one k/v block, so ~7 CTAs share an SM and their loads
+// overlap each other's math: the "next (b, h) tile in flight" comes from
+// occupancy, not from a persistent loop.  QK^T and P.V run on the tensor
+// cores as warp-level mma.sync.m16n8k16 (bf16 inputs, fp32 accumulators):
+// a 64-row wgmma tile would be half empty at S = 32 for one head, and the
+// kernel is bound by bytes, so the warp-level instruction loses nothing.
+// The S accumulator fragments become P's A fragments in registers (p
+// rounded to bf16 there, the row sum taken before the rounding); V's B
+// fragments come from ldmatrix.trans.  The output goes through the warp's
+// own q rows in shared memory to 16-byte stores.  A shape whose rows are
+// not 16-byte aligned (D or a stride not a multiple of 8 elements, or an
+// unaligned base) loads and stores element by element, same math.
+//
+// float32 design: fp32 inputs stay on plain FMAs, because the tensor
+// cores would take them as TF32 and change the reference's numbers.  One
+// CTA of 256 threads per (bh, q block of 64 rows, or 32 for S <= 32);
+// fp32 tiles in shared memory (rows padded to 129 floats); thread (ty, tx)
+// owns score rows ty + 16i and columns tx + 16j and output columns tx +
+// 16j; 256/BQ adjacent threads share a row for the online-softmax update.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -44,22 +62,18 @@ constexpr int kPad = kMaxD + 1;   // shared row stride (floats)
 constexpr int kThreads = 256;
 constexpr float kInvalid = -1e30f;   // INVALID_SCORE, as the TPU kernel
 
+struct Strides {   // in elements; unit stride over the head dim
+  long long b, s, h;
+};
+
+// ---------------------------------------------------------------------------
+// float32: plain FMAs (instantiated for T = float only).
+
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
 }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);      // round to nearest even, as astype()
-}
-
-struct Strides {   // in elements; unit stride over the head dim
-  long long b, s, h;
-};
 
 template <typename T>
 __device__ __forceinline__ void load_tile(float* dst, const T* base,
@@ -242,15 +256,294 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-// 32-row blocks for S <= 32 (the backbone's sequences: a quarter of the
-// work of a 64-row block, and four CTAs per SM), 64-row blocks above.
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int H, int K, int S, int D, const long long* st, float sm_scale,
-             cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores.
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes = 0 fills zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c += a (16x16, row) . b (16x8, col), bf16 inputs, fp32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16 (nearest even), lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ROWS x DP tile of rows row0.. of head h into shared rows of LD elements:
+// 16-byte cp.async chunks (vec), or element loads; zeros past S and D.
+template <int ROWS, int DP, int NT>
+__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* base,
+                                               Strides st, int b, int h,
+                                               int row0, int S, int D,
+                                               bool vec) {
+  constexpr int LD = DP + 8, CH = DP / 8;
+  const bf16* head = base + b * st.b + h * st.h;
+  for (int idx = threadIdx.x; idx < ROWS * CH; idx += NT) {
+    const int r = idx / CH, c = idx % CH, s = row0 + r;
+    bf16* d = dst + r * LD + c * 8;
+    if (vec) {
+      const bool ok = s < S && c * 8 < D;
+      cp_async16(d, ok ? head + s * st.s + c * 8 : head, ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int col = c * 8 + e;
+        d[e] = (s < S && col < D) ? head[s * st.s + col]
+                                  : __float2bfloat16(0.0f);
+      }
+    }
+  }
+}
+
+// DP: head dim padded to 32, 64 or 128; NW warps of 16 q rows; BK-row k/v
+// blocks.  Dynamic shared memory: q [BQ][LD], then one or two stages of
+// k [BK][LD] and v [BK][LD].
+template <int DP, int NW, int BK>
+__global__ void __launch_bounds__(NW * 32)
+flash_attention_bf16_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, bf16* __restrict__ o,
+                            int H, int group, int S, int D, Strides qs,
+                            Strides ks, Strides vs, Strides os,
+                            float sm_scale, int vec) {
+  constexpr int NT = NW * 32, BQ = 16 * NW, LD = DP + 8;
+  constexpr int NS = BK / 8;    // score n-tiles (8 keys each)
+  constexpr int NKD = DP / 16;  // k-steps over the head dim
+  constexpr int NO = DP / 8;    // output n-tiles (8 dims each)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* KV = Qs + BQ * LD;      // stage x: k at KV + 2x BK LD, v after it
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H, hk = h / group;
+  const int q0 = blockIdx.y * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;   // fragment row, column pair
+  const int n_kb = (min(q0 + BQ, S) - 1) / BK + 1;
+
+  load_tile_bf16<BQ, DP, NT>(Qs, q, qs, b, h, q0, S, D, vec);
+  load_tile_bf16<BK, DP, NT>(KV, k, ks, b, hk, 0, S, D, vec);
+  load_tile_bf16<BK, DP, NT>(KV + BK * LD, v, vs, b, hk, 0, S, D, vec);
+  cp_async_commit();
+
+  uint32_t qf[NKD][4];
+  float oacc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.0f;
+  float m_r[2] = {kInvalid, kInvalid}, l_r[2] = {0.0f, 0.0f};
+  const int row0 = q0 + 16 * warp + g;     // this thread's rows: +0, +8
+
+  for (int kb = 0; kb < n_kb; ++kb) {
+    if (kb + 1 < n_kb) {                   // next block into the other stage
+      bf16* nxt = KV + ((kb + 1) & 1) * 2 * BK * LD;
+      load_tile_bf16<BK, DP, NT>(nxt, k, ks, b, hk, (kb + 1) * BK, S, D, vec);
+      load_tile_bf16<BK, DP, NT>(nxt + BK * LD, v, vs, b, hk, (kb + 1) * BK,
+                                 S, D, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kb == 0) {
+#pragma unroll
+      for (int kd = 0; kd < NKD; ++kd)
+        ldmatrix_x4(qf[kd], Qs + (16 * warp + (lane & 15)) * LD + kd * 16 +
+                                (lane >> 4) * 8);
+    }
+    const bf16* Ks = KV + (kb & 1) * 2 * BK * LD;
+    const bf16* Vs = Ks + BK * LD;
+
+    // S = Q K^T for this warp's 16 rows and the block's BK keys.
+    float sacc[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[j][e] = 0.0f;
+#pragma unroll
+    for (int kd = 0; kd < NKD; ++kd)
+#pragma unroll
+      for (int jp = 0; jp < NS / 2; ++jp) {
+        uint32_t r[4];
+        ldmatrix_x4(r, Ks + (16 * jp + (lane >> 4) * 8 + (lane & 7)) * LD +
+                           kd * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(sacc[2 * jp], qf[kd], r[0], r[1]);
+        mma_bf16(sacc[2 * jp + 1], qf[kd], r[2], r[3]);
+      }
+
+    // Scale and mask; the rows' maxima over the 4 threads sharing them.
+    const int k0 = kb * BK;
+    float mx[2] = {kInvalid, kInvalid};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + (e >> 1) * 8;
+        const int col = k0 + 8 * j + 2 * t + (e & 1);
+        const float sc = row >= col ? sacc[j][e] * sm_scale : kInvalid;
+        sacc[j][e] = sc;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc);
+      }
+    float alpha[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_r[r], mx[r]);
+      alpha[r] = expf(m_r[r] - m_new);
+      m_r[r] = m_new;
+    }
+    // p = exp(s - m): the sum unrounded, P's A fragments rounded to bf16.
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const float p0 = expf(sacc[j][0] - m_r[0]);
+      const float p1 = expf(sacc[j][1] - m_r[0]);
+      const float p2 = expf(sacc[j][2] - m_r[1]);
+      const float p3 = expf(sacc[j][3] - m_r[1]);
+      sum[0] += p0 + p1;
+      sum[1] += p2 + p3;
+      pa[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
+      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      l_r[r] = alpha[r] * l_r[r] + sum[r];
+    }
+
+    // acc = alpha acc + P V.
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      oacc[n][0] *= alpha[0];
+      oacc[n][1] *= alpha[0];
+      oacc[n][2] *= alpha[1];
+      oacc[n][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int np = 0; np < NO / 2; ++np) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, Vs + (kk * 16 + (lane & 7) +
+                                   ((lane >> 3) & 1) * 8) * LD +
+                                 np * 16 + (lane >> 4) * 8);
+        mma_bf16(oacc[2 * np], pa[kk], r[0], r[1]);
+        mma_bf16(oacc[2 * np + 1], pa[kk], r[2], r[3]);
+      }
+    __syncthreads();   // every warp is done with this stage
+  }
+
+  // o = acc / max(l, 1e-30) in bf16, through this warp's q rows.
+  const float inv0 = 1.0f / fmaxf(l_r[0], 1e-30f);
+  const float inv1 = 1.0f / fmaxf(l_r[1], 1e-30f);
+  bf16* Os = Qs + 16 * warp * LD;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    *reinterpret_cast<__nv_bfloat162*>(Os + g * LD + 8 * n + 2 * t) =
+        __floats2bfloat162_rn(oacc[n][0] * inv0, oacc[n][1] * inv0);
+    *reinterpret_cast<__nv_bfloat162*>(Os + (g + 8) * LD + 8 * n + 2 * t) =
+        __floats2bfloat162_rn(oacc[n][2] * inv1, oacc[n][3] * inv1);
+  }
+  __syncwarp();
+  constexpr int CH = DP / 8;
+  for (int idx = lane; idx < 16 * CH; idx += 32) {
+    const int r = idx / CH, c = idx % CH, s = q0 + 16 * warp + r;
+    if (s >= S || c * 8 >= D) continue;
+    bf16* dst = o + b * os.b + s * os.s + h * os.h + c * 8;
+    const bf16* src = Os + r * LD + c * 8;
+    if (vec) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < 8 && c * 8 + e < D; ++e) dst[e] = src[e];
+    }
+  }
+}
+
+template <int DP, int NW, int BK>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                int H, int K, int S, int D, const Strides* st, float sm_scale,
+                int vec, cudaStream_t stream) {
+  constexpr int BQ = 16 * NW, LD = DP + 8;
+  const int stages = S > BK ? 2 : 1;
+  const size_t smem = sizeof(bf16) * LD * (BQ + stages * 2 * BK);
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_bf16_kernel<DP, NW, BK>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(sizeof(bf16) * LD * (BQ + 4 * BK)));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid(B * H, (S + BQ - 1) / BQ);
+  flash_attention_bf16_kernel<DP, NW, BK><<<grid, NW * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), H, H / K, S, D,
+      st[0], st[1], st[2], st[3], sm_scale, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 2 warps and 32-key blocks for S <= 32 (the backbone's sequences: one k/v
+// block, ~7 CTAs per SM); 4 warps and 64-key blocks above.
+template <int DP>
+int dispatch_bf16(const void* q, const void* k, const void* v, void* o,
+                  int B, int H, int K, int S, int D, const Strides* st,
+                  float sm_scale, int vec, cudaStream_t stream) {
   if (S <= 32)
-    return launch<T, 32>(q, k, v, o, B, H, K, S, D, st, sm_scale, stream);
-  return launch<T, 64>(q, k, v, o, B, H, K, S, D, st, sm_scale, stream);
+    return launch_bf16<DP, 2, 32>(q, k, v, o, B, H, K, S, D, st, sm_scale,
+                                  vec, stream);
+  return launch_bf16<DP, 4, 64>(q, k, v, o, B, H, K, S, D, st, sm_scale, vec,
+                                stream);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
 }  // namespace
@@ -267,10 +560,26 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
   if (D < 1 || D > kMaxD || K < 1 || H % K != 0 || S < 1 || B < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, o, B, H, K, S, D, strides, sm_scale, st);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, B, H, K, S, D, strides,
-                                   sm_scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    if (S <= 32)
+      return launch<float, 32>(q, k, v, o, B, H, K, S, D, strides, sm_scale,
+                               st);
+    return launch<float, 64>(q, k, v, o, B, H, K, S, D, strides, sm_scale,
+                             st);
+  }
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Strides sv[4] = {{strides[0], strides[1], strides[2]},
+                         {strides[3], strides[4], strides[5]},
+                         {strides[6], strides[7], strides[8]},
+                         {strides[9], strides[10], strides[11]}};
+  // 16-byte rows: D and every stride a multiple of 8 elements, bases
+  // 16-byte aligned.
+  bool vec = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+             aligned16(o);
+  for (int i = 0; i < 12; ++i) vec = vec && strides[i] % 8 == 0;
+  if (D <= 32)
+    return dispatch_bf16<32>(q, k, v, o, B, H, K, S, D, sv, sm_scale, vec, st);
+  if (D <= 64)
+    return dispatch_bf16<64>(q, k, v, o, B, H, K, S, D, sv, sm_scale, vec, st);
+  return dispatch_bf16<128>(q, k, v, o, B, H, K, S, D, sv, sm_scale, vec, st);
 }

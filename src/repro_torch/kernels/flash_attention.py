@@ -6,9 +6,12 @@ kernel (``csrc/flash_attention.cu``) runs the TPU kernel's streaming
 softmax (fp32 running max, sum and accumulator; ``p`` rounded to ``v``'s
 type before ``p.v``; ``acc / max(l, 1e-30)``), one CTA per (batch x head,
 64 query rows, or 32 for S <= 32), k/v blocks up to the diagonal only.
-It reads q, k, v and writes the output in the model's ``(B, S, H, hd)``
-layout through strides, with grouped kv heads read in place.
-Memory-bound at the backbone's shape.  See the source for the design.
+bfloat16 runs on the tensor cores (``mma.sync`` from bf16 tiles that
+``cp.async`` loads into shared memory); float32 stays on plain FMAs, so
+no TF32 rounding enters.  It reads q, k, v and writes the output in the
+model's ``(B, S, H, hd)`` layout through strides, with grouped kv heads
+read in place.  Memory-bound at the backbone's shape.  See the source for
+the design.
 
 This module always launches the kernel: :mod:`repro_torch.kernels.ops`
 routes CPU tensors to the plain version before they reach it.

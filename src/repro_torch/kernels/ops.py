@@ -10,7 +10,9 @@ choice there (:func:`repro_torch.core.mpbcfw.run_pass`).
 
 Each kernel module keeps a plain integer launch counter (``launches``),
 read and reset here, so a run can show that its main path went through
-the kernels.
+the kernels.  A wrapper counts when it launches; a kernel captured into a
+CUDA graph launches again on every replay, which the graph's runner adds
+with :func:`add_launches`.
 
 The reference's ``kernels/ops.py`` defines ``viterbi_step`` twice (lines
 78 and 107).  Here the max-plus step exists once, as
@@ -131,3 +133,17 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for mod in _KERNELS.values():
         mod.launches = 0
+
+
+def set_launch_counts(counts: Dict[str, int]) -> None:
+    """Set the counters to ``counts`` (a :func:`launch_counts` dict)."""
+    for name, mod in _KERNELS.items():
+        mod.launches = counts[name]
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count launches made outside the wrappers: a replayed CUDA graph
+    runs the kernels its capture counted (:mod:`repro_torch.core.graphs`).
+    """
+    for name, k in counts.items():
+        _KERNELS[name].launches += k

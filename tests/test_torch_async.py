@@ -36,6 +36,7 @@ from repro_torch import convert
 from repro_torch.api import CostModel, RunConfig, Solver, algorithms
 from repro_torch.core import distributed as tdist
 from repro_torch.core import mpbcfw as tmp
+from repro_torch.core.graphs import StepGraphs
 from repro_torch.core.oracles import chain as tchain
 from repro_torch.core.ssvm import weights_of
 from repro_torch.ft import (StragglerPolicy, fallback_planes,
@@ -278,7 +279,7 @@ def test_fold_planes_mixed_done_matches_jax(midrun, size):
     got = tdist.fold_planes(
         state.mp, ids, torch.from_numpy(np.array(planes)),
         torch.from_numpy(np.array(fbp)), torch.from_numpy(np.array(fbs)),
-        done, lam)
+        done, lam, graphs=StepGraphs())
     _assert_mp_matches(convert.mp_state_to_numpy(got), want, got.outer_it)
 
 
@@ -291,9 +292,11 @@ def test_fold_planes_not_live_leaves_the_state_alone(midrun):
             torch.from_numpy(np.array(fbs)), done, lam)
     mp = convert.async_state_from_numpy(host, "cpu").mp
     with pytest.raises(ValueError, match="done flags"):
-        tdist.fold_planes(mp, *args[:4], done[:-1], lam)
+        tdist.fold_planes(mp, *args[:4], done[:-1], lam,
+                          graphs=StepGraphs())
     before = convert.mp_state_to_numpy(mp)
-    assert tdist.fold_planes(mp, *args, live=False) is mp
+    assert tdist.fold_planes(mp, *args, live=False,
+                             graphs=StepGraphs()) is mp
     for key, val in convert.mp_state_to_numpy(mp).items():
         assert np.array_equal(np.asarray(val), np.asarray(before[key])), key
 
@@ -310,7 +313,8 @@ def test_fold_planes_empty_cache_marks_slot_zero():
     fbp, fbs, _ = fallback_planes(mp.cache, ids, w)
     planes = tdist.parallel_oracles(tp, w, ids)
     out = tdist.fold_planes(mp, ids, planes, fbp, fbs,
-                            np.array([False, True]), lam)
+                            np.array([False, True]), lam,
+                            graphs=StepGraphs())
     assert out.cache.last_active[2].tolist() == [3, -1, -1, -1]
     assert out.cache.valid[2].sum() == 0 and out.cache.valid[7].sum() == 1
     assert (out.inner.n_exact, out.inner.n_approx) == (1, 1)
@@ -333,7 +337,7 @@ def test_async_cache_program_from_carried_state_matches_jax(midrun, size):
     out, clk, st = tmp.async_cache_program(
         state.mp, state.pending, perms,
         tmp.make_slope_clock(0.0, 0.0, est_exact, plane_cost, "cpu"),
-        lam=lam, ttl=ttl)
+        lam=lam, ttl=ttl, graphs=StepGraphs())
     out = tmp.count_passes(out, int(st.passes_run), st.blocks)
     assert st.passes_run == int(jstats.passes_run)
     assert bool(st.more) == bool(jstats.more)

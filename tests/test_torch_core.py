@@ -114,9 +114,16 @@ def test_averaging_tracks_match_jax(schedule):
     vecs = _vecs(6, d, k=max(len(schedule), 1), scale=0.3)
     ja = javg.init_averaging(d)
     ta = tavg.init_averaging(d, "cpu")
+    scratch = torch.empty(d + 1)
     for step, v in zip(schedule, vecs):
         ja = javg.update_average(ja, jnp.asarray(v), exact=step == "E")
-        ta = tavg.update_average(ta, T(v), exact=step == "E")
+        # The port steps a track in place with weights from its table.
+        exact = step == "E"
+        k = ta.k_exact if exact else ta.k_approx
+        tavg.average_step(ta.bar_exact if exact else ta.bar_approx, T(v),
+                          T(tavg.weight_table(k, 1)[0]), scratch)
+        ta = ta._replace(k_exact=ta.k_exact + exact,
+                         k_approx=ta.k_approx + (not exact))
     assert (ta.k_exact, ta.k_approx) == (int(ja.k_exact), int(ja.k_approx))
     assert_allclose(ta.bar_exact.numpy(), np.asarray(ja.bar_exact), **TOL)
     assert_allclose(ta.bar_approx.numpy(), np.asarray(ja.bar_approx), **TOL)
@@ -127,7 +134,7 @@ def test_averaging_tracks_match_jax(schedule):
 def test_averaging_weights_are_float32_exact():
     """k/(k+2) and 2/(k+2) round as the reference's float32 division."""
     for k in (0, 1, 2, 3, 7, 1000, 123457):
-        a, b = tavg._weights(k)
+        a, b = map(float, tavg.weight_table(k, 1)[0])
         kf = jnp.float32(k)
         assert a == float(kf / (kf + 2.0)) and b == float(2.0 / (kf + 2.0))
 

@@ -568,3 +568,195 @@ def test_reduced_model_on_card_matches_cpu(cuda, arch):
     counts = ops.launch_counts()
     assert counts["flash_attention"] == cfg.num_layers
     assert counts["moe_ffn"] == (cfg.num_layers if cfg.moe else 0)
+
+
+# -- the exact pass and the fold as captured CUDA graphs ----------------------
+
+def _clone(mp):
+    c = mp.cache
+    return mp._replace(
+        inner=mp.inner._replace(phi=mp.inner.phi.clone(),
+                                phi_i=mp.inner.phi_i.clone()),
+        cache=type(c)(*(None if t is None else t.clone() for t in c)),
+        avg=mp.avg._replace(bar_exact=mp.avg.bar_exact.clone(),
+                            bar_approx=mp.avg.bar_approx.clone()))
+
+
+def _leaves(mp):
+    c = mp.cache
+    return [mp.inner.phi, mp.inner.phi_i, mp.avg.bar_exact, c.planes,
+            c.valid, c.last_active] + ([] if c.gram is None else [c.gram])
+
+
+def _same_bits(a, b):
+    return all(torch.equal(x, y) for x, y in zip(_leaves(a), _leaves(b)))
+
+
+def _card_state(cuda, n, f, C, mean_len, max_len, algo, cap):
+    """A chain problem on the card and its state after one Solver
+    iteration (a part-filled cache)."""
+    X, Y, M = ocr_like(n=n, f=f, num_labels=C, mean_len=mean_len,
+                       max_len=max_len, seed=0)
+    problem = chain.make_problem(X, Y, M, C, device=cuda)
+    solver = Solver(problem, RunConfig(
+        lam=1.0 / n, algo=algo, max_iters=1, cap=cap, approx_batch=2,
+        max_approx_passes=2, cost_model=CostModel(0.3, 1e-4)))
+    solver.run()
+    return problem, solver.state
+
+
+# SMALL["ocr"] (n=120, f=32, C=12), plain and Gram cache; a window of 256
+# blocks at the full OCR widths (f=128, C=26, d=4004, cap=64).
+GRAPH_CASES = [((120, 32, 12, 7, 10), "mpbcfw", 16, 120),
+               ((120, 32, 12, 7, 10), "mpbcfw-gram", 16, 120),
+               ((512, 128, 26, 8, 14), "mpbcfw", 64, 256)]
+
+
+@pytest.mark.parametrize("shape,algo,cap,blocks", GRAPH_CASES)
+def test_graph_replayed_exact_pass_equals_eager_steps(cuda, shape, algo, cap,
+                                                      blocks):
+    """One replay per block equals the same step body run eagerly on the
+    card, bit for bit, with the same kernel launches."""
+    from repro_torch.core import graphs, mpbcfw
+    problem, mp = _card_state(cuda, *shape, algo, cap)
+    lam = 1.0 / problem.n
+    perm = np.random.RandomState(4).permutation(problem.n)[:blocks]
+    eager = _clone(mp)
+    ctl = graphs.new_control(blocks, problem.d, cuda)
+    graphs.load_control(ctl, perm, k0=mp.avg.k_exact, it=mp.outer_it)
+    ops.reset_launch_counts()
+    for _ in range(blocks):
+        mpbcfw.exact_step(problem, eager, ctl, lam)
+    want_launches = ops.launch_counts()
+    steps = graphs.StepGraphs()
+    ops.reset_launch_counts()
+    out = mpbcfw.exact_pass(problem, mp, perm, lam, graphs=steps)
+    torch.cuda.synchronize()
+    assert steps.replays == blocks - 1                  # + 1 warm-up step
+    assert ops.launch_counts() == want_launches
+    assert want_launches["viterbi_decode"] == blocks
+    assert want_launches["plane_scores"] == (
+        blocks if algo == "mpbcfw-gram" else 0)
+    assert _same_bits(out, eager)
+    assert out.inner.n_exact == mp.inner.n_exact + blocks
+
+
+def test_graph_replays_from_one_state_give_the_same_bits(cuda):
+    """20 passes of replays, each from the same starting bits copied into
+    the captured tensors, end on the same bits."""
+    from repro_torch.core import graphs, mpbcfw
+    problem, mp = _card_state(cuda, 120, 32, 12, 7, 10, "mpbcfw-gram", 16)
+    lam = 1.0 / problem.n
+    perm = np.random.RandomState(6).permutation(problem.n)
+    start = _clone(mp)
+    steps = graphs.StepGraphs()
+    ends = []
+    for _ in range(20):
+        for dst, src in zip(_leaves(mp), _leaves(start)):
+            dst.copy_(src)
+        mpbcfw.exact_pass(problem, mp, perm, lam, graphs=steps)
+        ends.append(_clone(mp))
+    assert steps.replays == 20 * problem.n - 1
+    assert all(_same_bits(e, ends[0]) for e in ends[1:])
+
+
+def test_new_state_recaptures_and_the_old_graph_stays_idle(cuda):
+    """A state with other tensors (as after a restore) gets its own
+    capture; the graph of the first state is never replayed on it, so
+    the first state's bits do not move."""
+    from repro_torch.core import graphs, mpbcfw
+    problem, mp = _card_state(cuda, 120, 32, 12, 7, 10, "mpbcfw", 16)
+    lam = 1.0 / problem.n
+    perm = np.random.RandomState(8).permutation(problem.n)
+    steps = graphs.StepGraphs()
+    mpbcfw.exact_pass(problem, mp, perm, lam, graphs=steps)
+    frozen = _clone(mp)
+    other = _clone(mp)
+    eager = _clone(mp)
+    r0 = steps.replays
+    out = mpbcfw.exact_pass(problem, other, perm, lam, graphs=steps)
+    torch.cuda.synchronize()
+    assert steps.replays - r0 == problem.n - 1          # a new warm-up
+    assert _same_bits(mp, frozen)
+    ctl = graphs.new_control(problem.n, problem.d, cuda)
+    graphs.load_control(ctl, perm, k0=eager.avg.k_exact, it=eager.outer_it)
+    for _ in perm:
+        mpbcfw.exact_step(problem, eager, ctl, lam)
+    assert _same_bits(out, eager)
+
+
+def test_graph_replayed_fold_equals_eager_steps(cuda):
+    """Both fold bodies (arrived, straggler), one replay per block, equal
+    the bodies run eagerly, bit for bit."""
+    from repro_torch.core import graphs
+    from repro_torch.core.distributed import (fallback_planes, fold_planes,
+                                              fold_step, parallel_oracles)
+    from repro_torch.core.ssvm import weights_of
+    problem, mp = _card_state(cuda, 512, 128, 26, 8, 14, "mpbcfw", 64)
+    lam = 1.0 / problem.n
+    rng = np.random.RandomState(2)
+    ids = rng.permutation(problem.n)[:256]
+    done = rng.rand(256) > 0.3
+    w = weights_of(mp.inner.phi, lam)
+    planes = parallel_oracles(problem, w, ids)
+    fbp, fbs, _ = fallback_planes(mp.cache, ids, w)
+    eager = _clone(mp)
+    ctl = graphs.new_control(256, problem.d, cuda, fold=True)
+    graphs.load_control(ctl, ids, k0=mp.avg.k_exact, it=mp.outer_it,
+                        planes=planes, fb_planes=fbp, fb_slots=fbs)
+    ops.reset_launch_counts()
+    for ok in done:
+        fold_step(eager, ctl, lam, arrived=bool(ok))
+    want_launches = ops.launch_counts()
+    steps = graphs.StepGraphs()
+    ops.reset_launch_counts()
+    out = fold_planes(mp, ids, planes, fbp, fbs, done, lam, graphs=steps)
+    torch.cuda.synchronize()
+    assert steps.replays == 256 - 2
+    assert ops.launch_counts() == want_launches
+    assert _same_bits(out, eager)
+
+
+def test_async_solver_replays_one_graph_per_folded_block(cuda):
+    X, Y, M = ocr_like(n=120, f=32, num_labels=12, mean_len=7, max_len=10,
+                       seed=0)
+    solver = Solver(chain.make_problem(X, Y, M, 12, device=cuda), RunConfig(
+        lam=1 / 120, algo="mpbcfw-async", max_iters=3, cap=16,
+        approx_batch=2, max_approx_passes=2, cost_model=CostModel(0.3, 1e-4)))
+    solver.engine.outcome_fn = (
+        lambda it, k: np.random.RandomState(it).rand(k) > 0.3)
+    trace = solver.run().trace
+    folded = trace[-1].n_exact + trace[-1].n_approx - 120 * sum(
+        r.approx_passes for r in trace)
+    assert folded == 2 * 120
+    assert solver.engine.graphs.replays == folded - 2
+
+
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 200])
+def test_flash_attention_kernel_ragged_s_at_full_width(cuda, S):
+    """The backbone's (B, S, 16, 128) layout at ragged S: bf16 on the
+    tensor cores against the plain version, f32 at 3e-4."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _attn_case((4, S, 16, 128), 16, S, dtype, cuda)
+        got = ops.flash_attention(q, k, v)
+        want = ref.flash_attention_ref(q, k, v)
+        if dtype == torch.float32:
+            assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                            rtol=3e-4, atol=3e-4)
+        else:
+            assert _rel_l2(got, want) <= 2e-2
+
+
+def test_flash_attention_kernel_at_the_backbone_shape(cuda):
+    """(1024, 32, 16, 128) bf16, the feature pass's call: against the
+    plain version and the emulated roundings (one k block)."""
+    q, k, v = _attn_case((1024, 32, 16, 128), 16, 5, torch.bfloat16, cuda)
+    got = ops.flash_attention(q, k, v)
+    assert _rel_l2(got, ref.flash_attention_ref(q, k, v)) <= 2e-2
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+    s = torch.matmul(qf, kf.transpose(-1, -2)) / 128 ** 0.5
+    s = s.masked_fill(~torch.ones((32, 32), dtype=torch.bool,
+                                  device=cuda).tril(), -3e38)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.matmul(e.bfloat16().float(), vf) / e.sum(dim=-1, keepdim=True)
+    _close_to_emulation(got, o.transpose(1, 2).bfloat16())

@@ -31,6 +31,7 @@ from repro_torch.api import CostModel, RunConfig, Solver
 from repro_torch.cache import CacheLayout
 from repro_torch.core import gram as tgram
 from repro_torch.core import mpbcfw as tmp
+from repro_torch.core.graphs import StepGraphs
 from repro_torch.core.oracles import chain as tchain
 from repro_torch.core.oracles import multiclass as tmulti
 from repro_torch.kernels import ops
@@ -208,7 +209,8 @@ def test_outer_iteration_with_gram_from_carried_state_matches_jax(
     state = convert.mp_state_from_numpy(host, "cpu")
     tclock = tmp.make_slope_clock(0.0, 0.0, 0.3 * jp.n, 1e-3, "cpu")
     tout, tclk, tst = tmp.outer_iteration(tp, state, perm, perms, tclock,
-                                          lam=lam, ttl=1, steps=10)
+                                          lam=lam, ttl=1, steps=10,
+                                          graphs=StepGraphs())
     tout = tmp.count_passes(tout, int(tst.passes_run), tst.blocks, 10)
     assert tst.passes_run == int(jst.passes_run)
     out = convert.mp_state_to_numpy(tout)

@@ -27,6 +27,7 @@ from repro_torch import convert
 from repro_torch.api import (CostModel, RunConfig, Solver, StopOnGap,
                              UnsupportedConfigError)
 from repro_torch.core import mpbcfw as tmp
+from repro_torch.core.graphs import StepGraphs
 from repro_torch.core.oracles import chain as tchain
 
 torch.set_num_threads(1)
@@ -119,7 +120,8 @@ def test_outer_iteration_from_carried_state_matches_jax(midrun, size):
     assert 0 < int(state.cache.valid.sum()) < state.cache.valid.numel()
     tclock = tmp.make_slope_clock(0.0, 0.0, est_exact, plane_cost, "cpu")
     tmp_out, tclk, tst = tmp.outer_iteration(tp, state, perm, perms, tclock,
-                                             lam=lam, ttl=ttl)
+                                             lam=lam, ttl=ttl,
+                                             graphs=StepGraphs())
     # The passes ran gated on the device; the host counters follow them.
     tmp_out = tmp.count_passes(tmp_out, int(tst.passes_run), tst.blocks)
     assert tst.passes_run == int(jst.passes_run), (
@@ -156,7 +158,7 @@ def test_single_passes_from_carried_state_match_jax(midrun, phase):
     state = convert.mp_state_from_numpy(host, "cpu")
     if phase == "exact":
         jout = jmp.exact_pass(jp, jstate, jnp.asarray(perm), lam)
-        tout = tmp.exact_pass(tp, state, perm, lam)
+        tout = tmp.exact_pass(tp, state, perm, lam, graphs=StepGraphs())
     else:
         jout = jmp.approx_pass(None, jstate, jnp.asarray(perm), lam)
         tout = tmp.approx_pass(None, state, perm, lam)
