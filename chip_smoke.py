@@ -11,10 +11,13 @@ Phases, one JSON line each (seconds on an H100 in brackets):
                  at the main paths' shapes and at ragged ones, then timed
                  with CUDA events beside its plain version, its bound and
                  (where one exists) a single PyTorch call computing the same
-                 function: plane_scores, viterbi_decode, plane_select,
-                 moe_ffn, flash_attention, gram, and approx_pass (one
-                 whole approximate pass per launch, both modes, against
-                 the eager per-block loop) [~60].
+                 function (plane_scores and gram, and their PyTorch calls,
+                 also with the host out of the loop: graph_ms replays the
+                 calls captured in one CUDA graph): plane_scores,
+                 viterbi_decode, plane_select, moe_ffn, flash_attention,
+                 gram, and approx_pass (one whole approximate pass per
+                 launch, both modes, against the eager per-block loop)
+                 [~60].
   3. parity   -- a short Solver run of the port on the card against the same
                  run on the CPU (plain versions), on the CI-sized OCR
                  scenario.
@@ -54,8 +57,9 @@ Phases, one JSON line each (seconds on an H100 in brackets):
                  iterations of up to 8 passes), launch counts reset just
                  before; then the gram kernel recomputes every block's Gram
                  matrix and the cache's incrementally kept leaf is held
-                 against it; profile_gram times a whole gram pass and the
-                 eager recurrences [~60].
+                 against it; profile_gram reads B1's device us per exact
+                 block from a traced exact window, and times a whole gram
+                 pass and the eager recurrences [~60].
  11. resume   -- mpbcfw-gram on the card, CI-sized OCR: 2 iterations, save,
                  restore, 2 more, bit for bit against 4 uninterrupted ones.
  12. parity_specs -- the multiclass and graph scenarios (SMALL usps and
@@ -150,6 +154,34 @@ def time_ms(torch, fn, calls: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / calls
 
 
+def graph_ms(torch, fn, calls: int, warmup: int = 3) -> float:
+    """Mean milliseconds per ``fn(k)`` call, k = 0..calls-1, with the host
+    out of the loop: the calls are captured in one CUDA graph (on a side
+    stream), replayed once to warm up, then once between two CUDA events.
+    :func:`time_ms` paces small calls by the host's enqueue; this times
+    what the card takes, as inside a captured block step."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for k in range(warmup):
+            fn(k)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for k in range(calls):
+            fn(k)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -162,7 +194,12 @@ def phase_build():
 
 
 def check_plane_scores(torch, gen):
+    """B1 against its plain version at one cache block read in place and
+    at ragged shapes, then timed at (64, 4004) over the blocks of a cold
+    131 MB stack by :func:`graph_ms` and :func:`time_ms` beside
+    ``torch.addmv``, with the rows per CTA it launches.  ~2 s."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import plane_scores as t_ps
 
     def case(n, d):
         block = torch.randn((n, d + 1), generator=gen, device="cuda")
@@ -185,22 +222,30 @@ def check_plane_scores(torch, gen):
     nblk, cap, d = 128, 64, 4004
     stack = torch.randn((nblk, cap, d + 1), generator=gen, device="cuda")
     w = torch.randn((d,), generator=gen, device="cuda")
-    ms = time_ms(torch, lambda k: ops.plane_scores(
-        stack[k % nblk, :, :-1], w, stack[k % nblk, :, -1]), 4 * nblk)
-    plain_ms = time_ms(torch, lambda k: ref.plane_scores_ref(
-        stack[k % nblk, :, :-1], w, stack[k % nblk, :, -1]), 4 * nblk)
-    library_ms = time_ms(torch, lambda k: torch.addmv(
-        stack[k % nblk, :, -1], stack[k % nblk, :, :-1], w), 4 * nblk)
+
+    def kernel(k):
+        return ops.plane_scores(stack[k % nblk, :, :-1], w,
+                                stack[k % nblk, :, -1])
+
+    def library(k):
+        return torch.addmv(stack[k % nblk, :, -1], stack[k % nblk, :, :-1], w)
+    calls = 4 * nblk
     bms, by = bound_ms(4.0 * (cap * d + d + 2 * cap), 2.0 * cap * d)
+    times = dict(
+        ms=graph_ms(torch, kernel, calls),
+        library_ms=graph_ms(torch, library, calls),
+        event_loop_ms=time_ms(torch, kernel, calls),
+        library_event_loop_ms=time_ms(torch, library, calls),
+        plain_ms=time_ms(torch, lambda k: ref.plane_scores_ref(
+            stack[k % nblk, :, :-1], w, stack[k % nblk, :, -1]), calls),
+        bound_ms=bms, bound_by=by, rows_per_cta_stages=list(t_ps.plan(cap)))
     emit("kernel", name="plane_scores", shape=[cap, d], max_abs_err=main_err,
-         ragged_max_abs_err=ragged, ms=ms, plain_ms=plain_ms,
-         library_ms=library_ms, bound_ms=bms, bound_by=by)
+         ragged_max_abs_err=ragged, timing_by="ms, library_ms: graph_ms; "
+         "*event_loop_ms, plain_ms: time_ms", **times)
     return dict(name="plane_scores", route="cuda",
                 source="src/repro_torch/kernels/csrc/plane_scores.cu",
                 replaces="src/repro/kernels/plane_scores.py:52",
-                max_abs_err=max([main_err, *ragged.values()]), ms=ms,
-                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=library_ms)
+                max_abs_err=max([main_err, *ragged.values()]), **times)
 
 
 def viterbi_work(mask, C: int):
@@ -672,7 +717,7 @@ def phase_main(torch, data):
     return launches, solver
 
 
-def graph_window(torch, run, graphs, blocks: int):
+def graph_window(torch, run, graphs, blocks: int, kernels=()):
     """One window of ``blocks`` block steps replayed from ``graphs``:
     host ms per block to enqueue (``run()`` returns before the device is
     done), wall ms per block to a sync, the device span between CUDA
@@ -683,7 +728,8 @@ def graph_window(torch, run, graphs, blocks: int):
     span over the untraced wall time (``event_span_over_wall``: the share
     of the wall during which the stream had work), and the traced kernel
     time over the traced window's own device span, first kernel start to
-    last kernel end (``traced_busy_share_of_span``)."""
+    last kernel end (``traced_busy_share_of_span``).  ``kernels`` goes to
+    :func:`traced`."""
     torch.cuda.synchronize()
     r0 = graphs.replays
     start = torch.cuda.Event(enable_timing=True)
@@ -697,7 +743,7 @@ def graph_window(torch, run, graphs, blocks: int):
     wall = time.perf_counter() - t0
     replays = graphs.replays - r0
     span_ms = start.elapsed_time(end)
-    tr = traced(torch, run)
+    tr = traced(torch, run, kernels)
     check(tr["device_events"] >= blocks,
           f"the trace saw {tr['device_events']} device events in "
           f"{blocks} replayed block steps")
@@ -1284,11 +1330,14 @@ def gram_close(torch, got, want, what: str):
 
 def check_gram(torch, gen):
     """B4 against its plain version at a ragged shape, at one cache block
-    read in place (a (64, 4004) view of a (64, 4005) buffer) and at a
-    flattened 64-block working set (4096, 4004): entries within the gram
-    tolerance, G exactly equal to its transpose.  Timed at the two larger
-    shapes beside the plain version, cuBLAS and the bound."""
+    read in place (a (64, 4004) view of a (64, 4005) buffer), at two tiles
+    with split-K (65, 4004) and at a flattened 64-block working set (4096,
+    4004): entries within the gram tolerance, G exactly equal to its
+    transpose.  Timed at one block and at (4096, 4004) beside the plain
+    version, cuBLAS and the bound, by :func:`graph_ms` and :func:`time_ms`,
+    with the plan (tile, split) each shape launches.  ~3 s."""
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import gram as t_gram
     d = 4004
 
     def case(n, dd, strided):
@@ -1302,7 +1351,7 @@ def check_gram(torch, gen):
         return P, gram_close(torch, got, want, f"gram {n}x{dd}")
 
     errs = {}
-    for n, dd, strided in ((33, 200, False), (64, d, True),
+    for n, dd, strided in ((33, 200, False), (64, d, True), (65, d, True),
                            (4096, d, True)):
         P, errs[f"{n}x{dd}"] = case(n, dd, strided)
     timing = {}
@@ -1311,24 +1360,32 @@ def check_gram(torch, gen):
         calls = 200 if n == 64 else 10
         # G is symmetric: n(n+1)/2 distinct entries of 2d flops each.
         bms, by = bound_ms(4.0 * (n * d + n * n), float(n * (n + 1) * d))
+
+        def kernel(k):
+            return ops.gram(P)
+
+        def library(k):
+            return torch.mm(P, P.T)
         timing[n] = dict(
-            ms=time_ms(torch, lambda k: ops.gram(P), calls),
+            ms=graph_ms(torch, kernel, calls),
+            library_ms=graph_ms(torch, library, calls),
+            event_loop_ms=time_ms(torch, kernel, calls),
+            library_event_loop_ms=time_ms(torch, library, calls),
             plain_ms=time_ms(torch, lambda k: ref.gram_ref(P), calls),
-            library_ms=time_ms(torch, lambda k: torch.mm(P, P.T), calls),
-            bound_ms=bms, bound_by=by)
+            bound_ms=bms, bound_by=by, tile_split=list(t_gram.plan(n, d)))
     ptxas = [ln.strip() for ln in _build.build_log("gram").splitlines()
              if "registers" in ln or "spill" in ln]
     emit("kernel", name="gram", max_abs_err=errs,
          timing={f"{n}x{d}": t for n, t in timing.items()},
          library="torch.mm(P, P.T), allow_tf32=False", ptxas=ptxas,
+         timing_by="ms, library_ms: graph_ms; *event_loop_ms, plain_ms: "
+         "time_ms",
          tolerance="|err| <= 3e-5 |p_a| |p_b| + 3e-4, G == G^T exactly")
     t = timing[64]
     return dict(name="gram", route="cuda",
                 source="src/repro_torch/kernels/csrc/gram.cu",
                 replaces="src/repro/kernels/gram.py:34",
-                shape=[64, d], max_abs_err=max(errs.values()), ms=t["ms"],
-                plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                bound_by=t["bound_by"], library_ms=t["library_ms"],
+                shape=[64, d], max_abs_err=max(errs.values()), **t,
                 at_4096=timing[4096])
 
 
@@ -1410,17 +1467,31 @@ def phase_main_gram(torch, data):
     return launches, solver
 
 
-def phase_profile_gram(torch, solver, blocks: int = 128):
-    """The Sec-3.5 pass on the trained state: one whole gram pass (one
-    approx_pass launch over all n blocks) timed untraced, then traced,
-    then with CUDA events beside its bound; and the plain version (the
-    eager recurrences, ~550 small ops per block) over ``blocks`` blocks.
-    ~5 s."""
+def phase_profile_gram(torch, solver, blocks: int = 128,
+                       n_exact: int = 1024):
+    """The Sec-3.5 path on the trained state.  An exact-pass window of
+    ``n_exact`` blocks (one replay of the gram engine's captured step per
+    block, :func:`graph_window`), with the device us per block of B1
+    ``plane_scores`` (each insert's Gram row) read from the trace by kernel
+    name.  One whole gram pass (one approx_pass launch over all n blocks)
+    timed untraced, then traced, then with CUDA events beside its bound;
+    and the plain version (the eager recurrences, ~550 small ops per
+    block) over ``blocks`` blocks.  ~6 s."""
     import numpy as np
     from repro_torch.core import mpbcfw
     from repro_torch.core.types import index_tensor
     mp, lam, n = solver.state, solver.cfg.lam, solver.problem.n
     steps = solver.cfg.gram_steps
+    graphs = solver.engine.graphs
+    perm = np.random.RandomState(2).permutation(n)[:n_exact]
+    exact = graph_window(torch, lambda: mpbcfw.exact_pass(
+        solver.problem, mp, perm, lam, graphs=graphs), graphs, n_exact,
+        kernels=("plane_scores_kernel",))
+    b1 = exact.pop("kernel_us")["plane_scores_kernel"]
+    check(exact["replays_per_block"] == 1.0 and b1["calls"] == n_exact,
+          f"gram exact window: {exact['replays_per_block']} replays and "
+          f"{b1['calls']} plane_scores kernels per {n_exact} blocks")
+    exact["plane_scores_us_per_block"] = b1["us"] / n_exact
     ids = index_tensor(np.random.RandomState(3).permutation(n), "cuda")
 
     def run():
@@ -1444,7 +1515,8 @@ def phase_profile_gram(torch, solver, blocks: int = 128):
                       steps=steps)
     torch.cuda.synchronize()
     plain_block_ms = 1e3 * (time.perf_counter() - t0) / blocks
-    emit("profile_gram", scenario="OCR", blocks=n, gram_steps=steps,
+    emit("profile_gram", scenario="OCR", exact=exact, blocks=n,
+         gram_steps=steps,
          pass_ms=1e3 * untraced, ms_per_block=1e3 * untraced / n,
          traced_ms_per_block=tr["wall_ms"] / n,
          device_ops_per_block=tr["device_events"] / n,
@@ -1666,10 +1738,12 @@ def phase_main_lm(torch):
                   "main_lm_head": head_launches}
 
 
-def traced(torch, fn):
+def traced(torch, fn, kernels=()):
     """Wall ms of ``fn()`` under torch.profiler, device busy share (device
     time of all kernels and copies / wall time), the device span (first
-    start to last end) and device us by kernel."""
+    start to last end) and device us by kernel; for each name in
+    ``kernels``, the device us and calls of the kernels whose names hold
+    it (``kernel_us``)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1688,7 +1762,12 @@ def traced(torch, fn):
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     span_us = (max(e.time_range.end for e in dev)
                - min(e.time_range.start for e in dev)) if dev else 0.0
+    named = {}
+    for k in kernels:
+        hits = [e.time_range.elapsed_us() for e in dev if k in e.name]
+        named[k] = dict(us=sum(hits), calls=len(hits))
     return dict(wall_ms=1e3 * wall, device_events=len(dev),
+                kernel_us=named,
                 device_us=busy_us, device_span_us=span_us,
                 device_busy_share=(busy_us * 1e-6 / wall) if dev else None,
                 top_device_us=[[k[:60], v] for k, v in top])

@@ -1,12 +1,18 @@
 """CUDA kernel wrapper: the plane Gram matrix ``G = P Pᵀ`` (paper Sec. 3.5).
 
 Replaces ``repro/kernels/gram.py::gram``.  The kernel (``csrc/gram.cu``)
-computes ``G[a, b] = <P[a], P[b]>`` in fp32 on FMAs, one 64 x 64 output
-tile per CTA over the upper triangle, each entry written to both halves
-from one register, so ``G`` is exactly symmetric.  It reads row-strided
-views in place: the gram path hands it ``planes[i, :, :-1]`` of the plane
-cache, rows of ``d+1`` floats.  Compute-bound at large ``N``, launch-bound
-at one block (64 x 4004).  See the source for the design.
+computes ``G[a, b] = <P[a], P[b]>`` in fp32 on FMAs over the upper
+triangle of output tiles, each entry written to both halves from one
+register, so ``G`` is exactly symmetric.  It reads row-strided views in
+place: the gram path hands it ``planes[i, :, :-1]`` of the plane cache,
+rows of ``d+1`` floats.  Operations bound it at large ``N``.  At one block
+(64 x 4004) one 64 x 64 tile ran on one SM of 132, bound by latency;
+:func:`plan` now cuts such a block into three 32 x 32 tiles (the fourth is
+the mirror) and splits each tile's K range over a thread-block cluster of
+up to 16 CTAs, which add their partials in rank order through distributed
+shared memory, so the result still depends on ``(N, d)`` and the inputs
+alone.  See the source
+for the design.
 
 As in the reference, no training step calls it: the cache keeps its Gram
 blocks row by row on insertion (:func:`repro_torch.cache.ops.insert`);
@@ -19,6 +25,7 @@ routes CPU tensors to the plain version before they reach it.
 from __future__ import annotations
 
 import ctypes
+from typing import List, Tuple
 
 import torch
 
@@ -27,14 +34,54 @@ from . import _build
 # Kernel launches since the last reset (repro_torch.kernels.ops).
 launches = 0
 
+TILES = (32, 128)  # output tile edges csrc/gram.cu builds
+SMS = 132        # streaming multiprocessors of an H100 SXM
+K_STEP = 32      # columns per staged panel (csrc/gram.cu kK)
+MAX_SPLIT = 16   # the largest cluster H100 places (non-portable)
+
 _SIGNATURE = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+              ctypes.c_void_p]
+
+
+def _triangle(n: int, tile: int) -> int:
+    t = -(-n // tile)
+    return t * (t + 1) // 2
+
+
+def plan(n: int, d: int) -> Tuple[int, int]:
+    """``(tile, split)`` for an ``(n, d)`` Gram matrix, from the shape
+    alone.  128-tiles (8 x 8 entries a thread) once their upper triangle
+    fills the card's SMs, with no split; else 32-tiles, each tile's K
+    range split over ``split`` CTAs of one cluster: the smallest power of
+    two that fills the card, at most :data:`MAX_SPLIT` and at most one CTA
+    per K step."""
+    if _triangle(n, 128) >= SMS:
+        return 128, 1
+    tiles, steps = _triangle(n, 32), -(-d // K_STEP)
+    split = 1
+    while (split * 2 <= min(MAX_SPLIT, steps)
+           and tiles * split < SMS):
+        split *= 2
+    return 32, split
+
+
+def k_ranges(d: int, split: int) -> List[Tuple[int, int]]:
+    """The columns ``[k0, k1)`` that cluster rank r = 0..split-1 sums:
+    K steps ``[r*steps//split, (r+1)*steps//split)``, as the kernel
+    computes them."""
+    steps = -(-d // K_STEP)
+    return [(K_STEP * (r * steps // split),
+             min(d, K_STEP * ((r + 1) * steps // split)))
+            for r in range(split)]
 
 
 def _lib():
     lib = _build.load("gram")
     fn = lib.gram_launch
     if fn.argtypes is None:
+        lib.gram_init.restype = ctypes.c_int
+        _build.check(lib.gram_init(), "gram (init)")
         fn.argtypes = _SIGNATURE
         fn.restype = ctypes.c_int
     return lib
@@ -59,9 +106,10 @@ def gram(planes: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, n), dtype=torch.float32, device=planes.device)
     if n == 0:
         return out
+    tile, split = plan(n, d)
     stream = torch.cuda.current_stream(planes.device).cuda_stream
     rc = _lib().gram_launch(planes.data_ptr(), planes.stride(0),
-                            out.data_ptr(), n, d, stream)
+                            out.data_ptr(), n, d, tile, split, stream)
     launches += 1
     _build.check(rc, "gram")
     return out

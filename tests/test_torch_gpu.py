@@ -59,6 +59,69 @@ def test_plane_scores_kernel_scores_equal_rows_equally(cuda):
     assert (got[[5, 17, 40]] == got[2]).all()
 
 
+@pytest.mark.parametrize("n", [1, 7, 64, 65, 4096])
+@pytest.mark.parametrize("d", [1, 127, 4004])
+def test_plane_scores_kernel_equals_plane_select_bit_for_bit(cuda, n, d):
+    """B1 and B2 reduce a row in one order: B1's scores of strided rows
+    equal B2's for the same rows, each its own one-slot cache row."""
+    r = np.random.RandomState(n + 3 * d)
+    block = torch.from_numpy(r.randn(n, d + 1).astype(np.float32)).to(cuda)
+    w = torch.from_numpy(r.randn(d).astype(np.float32)).to(cuda)
+    scores = ops.plane_scores(block[:, :-1], w, block[:, -1])
+    stack = block[:, None, :]
+    best, idx = ops.plane_select(
+        stack[..., :-1], w, stack[..., -1],
+        torch.ones((n, 1), dtype=torch.bool, device=cuda))
+    assert torch.equal(idx, torch.zeros_like(idx))
+    assert torch.equal(scores, best)
+
+
+@pytest.mark.parametrize("n,d", [(64, 4004), (4096, 127), (7, 1)])
+def test_plane_scores_kernel_replayed_from_a_graph_equals_eager(cuda, n, d):
+    """The launch is capturable (as in the gram exact step's graph): a
+    replay writes the eager launch's bits, and reads its inputs anew."""
+    r = np.random.RandomState(n + d)
+    block = torch.from_numpy(r.randn(n, d + 1).astype(np.float32)).to(cuda)
+    w = torch.from_numpy(r.randn(d).astype(np.float32)).to(cuda)
+    eager = ops.plane_scores(block[:, :-1], w, block[:, -1])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.plane_scores(block[:, :-1], w, block[:, -1])
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    w.mul_(-1.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, ops.plane_scores(block[:, :-1], w,
+                                             block[:, -1]))
+
+
+def test_kernel_launchers_refuse_plans_they_do_not_have(cuda):
+    """A launch with a tile, split, row count or ring depth the kernels do
+    not build returns an error, which the wrappers raise; nothing runs
+    another way."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import gram as t_gram
+    from repro_torch.kernels import plane_scores as t_ps
+    P = torch.zeros((64, 64), device=cuda)
+    G = torch.empty((64, 64), device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = t_gram._lib()
+    for tile, split in ((64, 1), (16, 1), (32, 3), (32, 32), (128, 0)):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            _build.check(lib.gram_launch(P.data_ptr(), 64, G.data_ptr(), 64,
+                                         64, tile, split, stream), "gram")
+    lib = t_ps._lib()
+    out = torch.empty((64,), device=cuda)
+    for rows, stages in ((3, 4), (4, 4), (1, 3)):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            _build.check(lib.plane_scores_launch(
+                P.data_ptr(), 64, P.data_ptr(), P.data_ptr(), 1,
+                out.data_ptr(), 64, 64, rows, stages, stream),
+                "plane_scores")
+
+
 def _select_case(n, cap, d, seed):
     """A (n, cap, d+1) stack with mixed validity, empty rows and duplicate
     planes, and a permutation of its rows."""
@@ -201,12 +264,22 @@ def test_async_solver_on_card_matches_cpu_run(cuda):
 
 # -- the gram kernel and the mpbcfw-gram path ---------------------------------
 
-@pytest.mark.parametrize("n,d,strided", [(1, 1, False), (4, 32, False),
-                                         (33, 200, False), (65, 127, True),
-                                         (64, 4004, True), (130, 33, True)])
+# Every tile and split the plan picks: 32-tiles split over 1, 2, 4, 8 and
+# 16 CTAs (n <= 512), and 128-tiles at n = 4096.
+GRAM_CASES = ([(1, 1, False), (4, 32, False), (33, 200, False),
+               (65, 127, True), (130, 33, True)]
+              + [(n, d, True) for n in (1, 33, 64, 65, 128, 4096)
+                 for d in (1, 127, 4004)]
+              + [(192, 4004, True), (384, 4004, True), (512, 4004, True),
+                 (64, 33, True), (1024, 127, True)])
+
+
+@pytest.mark.parametrize("n,d,strided", GRAM_CASES)
 def test_gram_kernel_matches_plain(cuda, n, d, strided):
-    """Ragged n and d, and row-strided views read in place: entries within
-    3e-5 |p_a| |p_b| + 3e-4 of the plain product, G == G^T exactly."""
+    """Ragged n and d, every launch plan, and row-strided views read in
+    place: entries within 3e-5 |p_a| |p_b| + 3e-4 of the plain product,
+    G == G^T exactly, and a second launch gives the same bits."""
+    from repro_torch.kernels import gram as t_gram
     r = np.random.RandomState(n + d)
     buf = torch.from_numpy(r.randn(n, d + 1 if strided else d).astype(
         np.float32)).to(cuda)
@@ -214,11 +287,12 @@ def test_gram_kernel_matches_plain(cuda, n, d, strided):
     before = ops.launch_counts()["gram"]
     got = ops.gram(P)
     assert ops.launch_counts()["gram"] == before + 1
-    assert torch.equal(got, got.T)
+    assert torch.equal(got, got.T), t_gram.plan(n, d)
+    assert torch.equal(got, ops.gram(P))
     want = ref.gram_ref(P.cpu())
     norms = want.diagonal().sqrt()
     allow = 3e-5 * norms[:, None] * norms[None, :] + 3e-4
-    assert bool(((got.cpu() - want).abs() <= allow).all())
+    assert bool(((got.cpu() - want).abs() <= allow).all()), t_gram.plan(n, d)
 
 
 def test_gram_kernel_refuses_what_it_cannot_hold(cuda):
