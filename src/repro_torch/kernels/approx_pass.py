@@ -3,12 +3,15 @@
 The port's own kernel: the reference runs the pass as ``lax.scan`` over
 blocks inside the ``lax.while_loop`` of ``repro/core/mpbcfw.py``.  The
 kernel (``csrc/approx_pass.cu``) walks a device permutation of block ids
-in one CTA, keeping ``phi`` and the average in shared memory, and updates
-the dual state, the cache's activity stamps and the approximate-track
-average in place; in the Sec-3.5 mode it runs ``steps`` Gram recurrences
-per block.  A device ``go`` flag gates the launch, so passes can be queued
-behind the slope rule's on-device decision.  Latency-bound (a sequential
-chain of block-wide reductions).  See the source for the design.
+in one CTA, keeping ``phi`` and the average on chip, and updates the dual
+state, the cache's activity stamps and the approximate-track average in
+place; in the Sec-3.5 mode it runs ``steps`` Gram recurrences per block.
+Each block's phi_i row, valid plane rows and Gram leaf are staged in
+shared memory by bulk copies (the TMA engine) while the block before it
+computes, as :func:`plan` lays out.  A device ``go`` flag gates the
+launch, so passes can be queued behind the slope rule's on-device
+decision.  Latency-bound (a sequential chain of per-block reductions).
+See the source for the design.
 
 This module always launches the kernel: :func:`repro_torch.core.mpbcfw.
 run_pass` routes CPU tensors to the plain version
@@ -17,7 +20,7 @@ run_pass` routes CPU tensors to the plain version
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -30,19 +33,79 @@ launches = 0
 # Shared memory a CTA may use on Hopper (227 KB of the SM's 256 KB).
 SMEM_LIMIT = 232448
 
+# The kernel's threads, and the most elements of the average each holds
+# in registers (csrc/approx_pass.cu builds 8, 16, 24 and 40).
+THREADS = 512
+MAX_D1 = 40 * THREADS
+
 _SIGNATURE = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + \
-    [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_longlong,
-                                                 ctypes.c_void_p]
+    [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_longlong] + \
+    [ctypes.c_int] * 2 + [ctypes.c_void_p]
+
+
+class Plan(NamedTuple):
+    """One launch's staging: ``rows`` valid plane rows staged per buffer,
+    blocks staged ``distance`` ahead (1: two buffers, the next block's
+    copies in flight while this one computes; 0: one buffer, filled just
+    before its block), and the ``smem_bytes`` of shared memory."""
+    rows: int
+    distance: int
+    smem_bytes: int
+
+
+def _slot(length: int) -> int:
+    """Words of a slot that takes ``length`` floats at any 4-byte offset,
+    rounded out to 16 bytes (csrc/approx_pass.cu ``slot_words``)."""
+    return (length + 6 + 3) // 4 * 4
+
+
+def _words(d1: int, cap: int, steps: int, rows: int, nbuf: int) -> int:
+    """Shared-memory words of csrc/approx_pass.cu's ``make_layout``: block
+    ids (8 x 2), two mbarriers (4), row pointers (2 cap), scalars (8),
+    averaging weights (4), a, b, beta, the offsets and the mix list
+    (5 cap), four valid-slot lists (4 (2 cap + 1)), phi (d+1), all
+    rounded up to 16 bytes; then per buffer a slot for the phi_i row and
+    for each of ``rows`` plane rows and, in the Sec-3.5 mode, one for the
+    Gram leaf."""
+    fixed = 16 + 4 + 2 * cap + 8 + 4 + 5 * cap + 4 * (2 * cap + 1) + d1
+    fixed = (fixed + 3) // 4 * 4
+    per_buf = _slot(d1) * (1 + rows) + (_slot(cap * cap) if steps > 0
+                                        else 0)
+    return fixed + nbuf * per_buf
+
+
+def plan(d: int, cap: int, steps: int = 0) -> Plan:
+    """The launch plan for ``d``-dimensional planes, ``cap`` slots per
+    block and ``steps`` Gram recurrences (0: the plain pass), from the
+    shape alone: two buffers whenever two fit beside the fixed part, each
+    with as many rows (at most ``cap``) as then fit; else one buffer.
+    Raises ``ValueError`` if not even one buffer without rows fits
+    :data:`SMEM_LIMIT`, or ``d + 1`` exceeds :data:`MAX_D1`."""
+    d1 = d + 1
+    for nbuf in (2, 1):
+        base = 4 * _words(d1, cap, steps, 0, nbuf)
+        if base <= SMEM_LIMIT:
+            rows = min(cap, (SMEM_LIMIT - base) // (4 * nbuf * _slot(d1)))
+            if d1 > MAX_D1:
+                raise ValueError(f"approx_pass: d={d} exceeds the {MAX_D1} "
+                                 "elements of the average the kernel "
+                                 "holds in registers")
+            return Plan(rows, nbuf - 1,
+                        4 * _words(d1, cap, steps, rows, nbuf))
+    raise ValueError(f"approx_pass: d={d}, cap={cap} need {base} B of shared "
+                     f"memory (limit {SMEM_LIMIT})")
 
 
 def _lib():
     lib = _build.load("approx_pass")
     fn = lib.approx_pass_launch
     if fn.argtypes is None:
+        lib.approx_pass_init.restype = ctypes.c_int
+        _build.check(lib.approx_pass_init(), "approx_pass (init)")
+        lib.approx_pass_smem_bytes.argtypes = [ctypes.c_int] * 5
+        lib.approx_pass_smem_bytes.restype = ctypes.c_longlong
         fn.argtypes = _SIGNATURE
         fn.restype = ctypes.c_int
-        lib.approx_pass_smem_bytes.argtypes = [ctypes.c_int] * 3
-        lib.approx_pass_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -105,12 +168,9 @@ def approx_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,
                          f"device is {torch.cuda.current_device()}")
     if perm.numel() == 0:
         return
-    lib = _lib()
     nsteps = 0 if steps is None else int(steps)
-    smem = lib.approx_pass_smem_bytes(d1 - 1, cap, nsteps)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"approx_pass: d={d1 - 1}, cap={cap} need {smem} B "
-                         f"of shared memory (limit {SMEM_LIMIT})")
+    how = plan(d1 - 1, cap, nsteps)
+    lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.approx_pass_launch(
         phi.data_ptr(), phi_i.data_ptr(), bar.data_ptr(), planes.data_ptr(),
@@ -118,6 +178,6 @@ def approx_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,
         gram.data_ptr() if steps is not None else None, perm.data_ptr(),
         go.data_ptr() if go is not None else None, n, perm.numel(), cap,
         d1 - 1, nsteps, int(outer_it), float(lam), inverse_lam(lam),
-        int(k0), stream)
+        int(k0), how.rows, how.distance + 1, stream)
     launches += 1
     _build.check(rc, "approx_pass")

@@ -30,34 +30,91 @@
 // (2 + valid planes) per block at d = 4004, ~0.46 GB per full-size OCR
 // pass, 0.14 ms at 3.35 TB/s.  In practice it is latency bound: the blocks
 // depend on each other through phi, so the pass is sequential, and each
-// block costs a few block-wide reductions.
+// block is a few dependent chains (a 125-long fmaf chain per scored row,
+// the Sec-3.5 recurrence) and barriers on one SM.
 //
-// Design: one CTA of 1024 threads walks the permutation.  phi, the
-// average and w = -phi*/lam stay in shared memory for the whole pass and
-// are written back once at the end.  Per block the valid planes are scored
-// one warp per plane with plane_scores.cu's lane order and xor butterfly,
-// so equal planes score bit-equally and the first maximum wins, as in the
-// eager pass.  Every block-wide reduction is a fixed butterfly per warp and
-// a fixed butterfly over the 32 warp sums, so a pass is deterministic.
-// Where the eager pass rounds twice (a*x + b*y as two products and a sum),
-// the kernel uses __fmul_rn/__fadd_rn so that nvcc does not contract it
-// into one FMA.  The line-search dot products reduce in another order than
+// Design: one CTA of 512 threads walks the permutation, with phi in
+// shared memory and the average in registers (element j = tid + k * 512
+// of thread tid, the only mapping that touches it); both go back to
+// device memory once, at the end.  Each mode and each count of average
+// elements per thread is its own build.  512 threads give each thread up
+// to 128 registers (1024 would cap it at 64), so the pass's state does
+// not spill to local memory, which the 227 KB of staged shared memory
+// leaves no L1 to cache.
+//
+// What a block reads from device memory does not depend on phi, so it is
+// staged a block ahead (plan: kernels/approx_pass.py::plan).  Shared
+// memory holds two buffers (one when two do not fit; then a block's copies
+// are issued just before it); each holds a block's phi_i row, its first
+// `rows` valid plane rows and, in the Sec-3.5 mode, its Gram leaf.  At the
+// top of block t one thread of the last warp issues block t+1's copies as
+// Hopper bulk copies (the TMA engine's cp.async.bulk, one per row, done
+// when the buffer's mbarrier has counted their bytes), so the copies
+// neither wait on nor occupy the threads that compute block t.  A bulk
+// copy moves whole 16-byte units between 16-byte-aligned addresses, and
+// rows of d+1 = 4005 floats start at any 4-byte offset: each copy covers
+// its row rounded out to 16 bytes (never past the row's aligned 16-byte
+// units, so never off its page), into a slot 6 floats longer than the row,
+// and the row is read at its own offset within the slot.  The same warp
+// reads block t+2's validity at the top of block t, turns it into a list
+// of valid slots at the end, and asks L2 for block t+2's rows then (a
+// bulk prefetch), so block t+1's copies can be issued at once and find
+// their rows in L2; block ids are read three ahead, and the next block's
+// averaging weights are taken there too.  Scores, the line search, the
+// recurrences and the update read the staged copies; phi_i[i] is written
+// back once.  A block with more valid planes than staged rows streams the
+// rest from device memory in the same lane order (shape-driven, not a
+// fallback).
+//
+// Plain mode, per block: one warp per valid row takes, in one
+// lane-strided pass, the row's score and the line search's two sums
+// should the row be chosen (<phi_i* - p*, phi*>, |phi_i* - p*|^2); after
+// one barrier, warp 0 picks the first maximum and the step size, and
+// after a second all threads update.  Sec-3.5 mode: one warp per valid
+// row takes a and b, the last warp c and e; then warp 0 runs the `steps`
+// recurrences with each lane's slots (l, l+32, ...) in registers, the
+// first maximum by two warp reductions; then all threads mix phi_i' from
+// the staged rows.
+//
+// A block may repeat within the prefetch distance (no path does so today:
+// perm is a permutation).  Only phi_i changes in a pass, so a block that
+// comes again in the next buffer's turn (distance 1) gets its new phi_i
+// row written straight into that buffer, and a block that comes again in
+// its own buffer's next turn (distance 2, or 1 with one buffer) keeps its
+// buffer, updated in place, and stages nothing; any later repeat is staged
+// after the rewrite and the barriers between.
+//
+// Every dot product is lane-strided in one warp (lane l sums columns l,
+// l+32, ... with fmaf, then the fixed xor butterfly), so a pass is
+// deterministic, and scores are plane_scores.cu's: equal planes score
+// bit-equally and the first maximum wins, as in the eager pass.  Where
+// the eager pass rounds twice (a*x + b*y as two products and a sum), the
+// kernel uses __fmul_rn/__fadd_rn so that nvcc does not contract it into
+// one FMA.  The line-search sums (and c, e) reduce in another order than
 // cuBLAS's: the kernel and the eager pass agree to ~1e-6 relative, not bit
-// for bit.  w is (-phi_j) * fl32(1/lam), the reciprocal taken in double:
-// the eager op's form on the card (PyTorch multiplies by the reciprocal
-// for a scalar divisor).  Later: a cluster of CTAs sharing phi through
-// distributed shared memory.
+// for bit.  w_j is (-phi_j) * fl32(1/lam), the reciprocal taken in
+// double: the eager op's form on the card (PyTorch multiplies by the
+// reciprocal for a scalar divisor).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 512;
 constexpr int kWarp = 32;
 constexpr int kWarps = kThreads / kWarp;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNeg = -1e30f;   // kernels/ref.py INVALID_SCORE
+constexpr int kSmemLimit = 232448;   // what a CTA may opt into on H100
+constexpr int kIdRing = 8;     // block ids, read three blocks ahead
+constexpr int kMetaRing = 4;   // valid-slot lists, built two blocks ahead
+constexpr int kMaskChunks = 4; // validity held in registers: cap <= 128
+constexpr int kLoader = kWarps - 1;  // the warp that reads ahead
+// The most elements of d + 1 a launch takes: the kernel is built for 8,
+// 16, 24 and 40 elements of the average per thread, and a launch takes
+// the smallest count that covers d + 1 (kernels/approx_pass.py::MAX_D1).
+constexpr int kMaxD1 = 40 * kThreads;
 
 struct Args {
   float* phi;                  // (d+1,)
@@ -70,10 +127,67 @@ struct Args {
   const long long* perm;       // (n_perm,)
   const bool* go;              // () or null
   long long n;
-  int n_perm, cap, d, steps, outer_it;
+  int n_perm, cap, d, steps, outer_it, rows, nbuf;
   float lam, inv_lam;
   long long k0;
 };
+
+// Words of a slot that takes `len` floats at any 4-byte offset, rounded
+// out to 16 bytes: 6 more, in whole 16-byte units.
+__host__ __device__ constexpr long long slot_words(long long len) {
+  return (len + 6 + 3) / 4 * 4;
+}
+
+// Shared-memory layout in 4-byte words, the same on host and device
+// (kernels/approx_pass.py::plan mirrors it).  Every buffer starts on a
+// 16-byte boundary.
+struct Layout {
+  int ids;     // long long [kIdRing]
+  int mbar;    // 8-byte mbarrier [2]
+  int rowp;    // const float* [cap]: rows phi_i' mixes in
+  int scal;    // float [8]: per-block scalars
+  int wts;     // float [2][2]: averaging weights, by block parity
+  int a, b, beta, off;   // float [cap]
+  int mix;     // int [cap]: slots phi_i' mixes in
+  int meta;    // int [kMetaRing][2 * cap + 1]: pos, list, count
+  int vec;     // float [d+1]: phi
+  int buf;     // nbuf buffers of buf_words
+  int row;     // words of a row slot (phi_i and planes)
+  int buf_words;   // phi_i slot, `rows` row slots, the Gram leaf's slot
+  long long total;
+};
+
+__host__ __device__ inline Layout make_layout(long long d1, long long cap,
+                                              int steps, long long rows,
+                                              int nbuf) {
+  Layout l;
+  long long w = 0;
+  auto take = [&w](long long words) {
+    const long long at = w;
+    w += words;
+    return static_cast<int>(at);
+  };
+  l.ids = take(2 * kIdRing);
+  l.mbar = take(4);
+  l.rowp = take(2 * cap);
+  l.scal = take(8);
+  l.wts = take(4);
+  l.a = take(cap);
+  l.b = take(cap);
+  l.beta = take(cap);
+  l.off = take(cap);
+  l.mix = take(cap);
+  l.meta = take(kMetaRing * (2 * cap + 1));
+  l.vec = take(d1);
+  w = (w + 3) / 4 * 4;
+  l.row = static_cast<int>(slot_words(d1));
+  const long long buf_words =
+      slot_words(d1) * (1 + rows) + (steps > 0 ? slot_words(cap * cap) : 0);
+  l.buf_words = static_cast<int>(buf_words);
+  l.buf = take(nbuf * buf_words);
+  l.total = w;
+  return l;
+}
 
 __device__ __forceinline__ float minus_inf() {
   return __int_as_float(0xff800000);
@@ -86,24 +200,17 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// First maximum over (score, index) pairs held one per lane: the larger
-// score wins, equal scores keep the lower index.
-__device__ __forceinline__ void warp_argmax(float& best, int& idx) {
-#pragma unroll
-  for (int off = kWarp / 2; off > 0; off >>= 1) {
-    const float ob = __shfl_xor_sync(kFull, best, off);
-    const int oi = __shfl_xor_sync(kFull, idx, off);
-    if (ob > best || (ob == best && oi < idx)) {
-      best = ob;
-      idx = oi;
-    }
-  }
-}
-
-// Every warp reduces the 32 per-warp partials of `red` alike, so all
-// threads get the same block-wide sums without another barrier.
-__device__ __forceinline__ float block_total(const float* red, int lane) {
-  return warp_sum(red[lane]);
+// The slot of the first maximum over (score, slot) pairs held one per
+// lane (the larger score, then the lower slot), by two warp reductions:
+// the largest score as an order-preserving integer key (-0 taken as +0,
+// so equal floats have equal keys), then the lowest slot holding it.
+__device__ __forceinline__ int warp_first_max(float best, int slot) {
+  const float v = best == 0.0f ? 0.0f : best;
+  const int bits = __float_as_int(v);
+  const int key = bits >= 0 ? bits : bits ^ 0x7fffffff;
+  const int top = __reduce_max_sync(kFull, key);
+  return static_cast<int>(__reduce_min_sync(
+      kFull, key == top ? static_cast<unsigned>(slot) : 0xffffffffu));
 }
 
 // The averaging weights k/(k+2), 2/(k+2) from a float32 k, in float32.
@@ -114,287 +221,756 @@ __device__ __forceinline__ void avg_weights(long long k, float& a, float& b) {
   b = __fdiv_rn(2.0f, den);
 }
 
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// The 16-byte units that hold `len` floats from `src`.
+__device__ __forceinline__ void units(const float* src, long long len,
+                                      const char*& lo, unsigned& bytes) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t b = a + 4 * static_cast<uintptr_t>(len);
+  lo = reinterpret_cast<const char*>(a & ~uintptr_t{15});
+  const uintptr_t end = (b + 15) & ~uintptr_t{15};
+  bytes = static_cast<unsigned>(end - reinterpret_cast<uintptr_t>(lo));
+}
+
+// Where `src`'s first float lands in a slot filled from its 16-byte unit.
+__device__ __forceinline__ float* in_slot(float* slot, const float* src) {
+  return slot + ((reinterpret_cast<uintptr_t>(src) & 15) >> 2);
+}
+
+// One bulk copy of `len` floats from `src` into `slot`, counted by `mbar`.
+__device__ __forceinline__ void bulk_copy(float* slot, const float* src,
+                                          long long len, unsigned mbar) {
+  const char* lo;
+  unsigned bytes;
+  units(src, len, lo, bytes);
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(slot)),
+      "l"(lo), "r"(bytes), "r"(mbar)
+      : "memory");
+}
+
+__device__ __forceinline__ unsigned bulk_bytes(const float* src,
+                                               long long len) {
+  const char* lo;
+  unsigned bytes;
+  units(src, len, lo, bytes);
+  return bytes;
+}
+
+__device__ __forceinline__ void prefetch_l2(const float* src, long long len) {
+  const char* lo;
+  unsigned bytes;
+  units(src, len, lo, bytes);
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(lo),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned mbar, unsigned bytes) {
+  if (bytes > 0)
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(mbar), "r"(bytes)
+                 : "memory");
+  else
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(mbar)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned mbar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(mbar), "r"(parity)
+        : "memory");
+}
+
+// The dot products below run lane-strided over one warp: lane l takes
+// columns l, l+32, ... in that order with fmaf, then the xor butterfly
+// (plane_scores.cu's order).  They load eight columns' operands at a
+// time, so the loads are in flight together while each chain keeps its
+// order.
+
+// One valid row p of the plain mode: its score <p*, w> + p_o (w_j =
+// -phi_j * fl32(1/lam), formed here from phi), and what the line search
+// needs should the row be chosen: <phi_i* - p*, phi*> and
+// |phi_i* - p*|^2.
+__device__ __forceinline__ void plain_row(const float* p, const float* phi,
+                                          const float* pi, int d, int lane,
+                                          float inv_lam, float& s,
+                                          float& num, float& den) {
+  float acc = 0.0f, nu = 0.0f, de = 0.0f;
+  auto one = [&](float x, float f, float q) {
+    acc = fmaf(x, __fmul_rn(-f, inv_lam), acc);
+    const float df = __fsub_rn(q, x);
+    nu = fmaf(df, f, nu);
+    de = fmaf(df, df, de);
+  };
+  int j = lane;
+  for (; j + 7 * kWarp < d; j += 8 * kWarp) {
+    float x[8], f[8], q[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      x[u] = p[j + u * kWarp];
+      f[u] = phi[j + u * kWarp];
+      q[u] = pi[j + u * kWarp];
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) one(x[u], f[u], q[u]);
+  }
+  for (; j < d; j += kWarp) one(p[j], phi[j], pi[j]);
+  s = warp_sum(acc) + p[d];
+  num = warp_sum(nu);
+  den = warp_sum(de);
+}
+
+// <phi_i*, phi*> and |phi_i*|^2: the line search against the zero plane
+// (plain mode), e and c of the Sec-3.5 recurrence.
+__device__ __forceinline__ void self_dots(const float* pi, const float* phi,
+                                          int d, int lane, float& e,
+                                          float& c) {
+  float ev = 0.0f, cv = 0.0f;
+  int j = lane;
+  for (; j + 7 * kWarp < d; j += 8 * kWarp) {
+    float q[8], f[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      q[u] = pi[j + u * kWarp];
+      f[u] = phi[j + u * kWarp];
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      ev = fmaf(q[u], f[u], ev);
+      cv = fmaf(q[u], q[u], cv);
+    }
+  }
+  for (; j < d; j += kWarp) {
+    const float q = pi[j];
+    ev = fmaf(q, phi[j], ev);
+    cv = fmaf(q, q, cv);
+  }
+  e = warp_sum(ev);
+  c = warp_sum(cv);
+}
+
+// a = <p*, phi*>, b = <p*, phi_i*> (cache.row_dots: plus a zero offset).
+__device__ __forceinline__ void dots_row(const float* p, const float* phi,
+                                         const float* pi, int d, int lane,
+                                         float& av, float& bv) {
+  av = 0.0f;
+  bv = 0.0f;
+  int j = lane;
+  for (; j + 7 * kWarp < d; j += 8 * kWarp) {
+    float x[8], y[8], z[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      x[u] = p[j + u * kWarp];
+      y[u] = phi[j + u * kWarp];
+      z[u] = pi[j + u * kWarp];
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      av = fmaf(x[u], y[u], av);
+      bv = fmaf(x[u], z[u], bv);
+    }
+  }
+  for (; j < d; j += kWarp) {
+    const float pj = p[j];
+    av = fmaf(pj, phi[j], av);
+    bv = fmaf(pj, pi[j], bv);
+  }
+  av = warp_sum(av) + 0.0f;
+  bv = warp_sum(bv) + 0.0f;
+}
+
+// The Sec-3.5 recurrences of one block (core/gram.py), in one warp: lane
+// l owns slots l, l+32, ... (kQ of them, cap <= 32 kQ) and keeps their a,
+// b, beta and offset in registers, so a step touches shared memory only
+// for the Gram leaf's row h.  a, b and the offsets come in by slot (0
+// for invalid slots); beta goes out by slot, with beta0 as the return
+// value.  Stamps the slots it picks.  Each update is the one
+// core/gram.py::multi_step_block_update takes, in its order of roundings.
+template <int kQ>
+__device__ __forceinline__ float recurrence(
+    const int* pos, const float* s_a, const float* s_b, const float* s_off,
+    const float* s_g, float* s_beta, int cap, int steps, float lam, float e,
+    float c, float oi, int* stamps, int outer_it, int lane) {
+  float a[kQ], b[kQ], be[kQ], off[kQ];
+  bool v[kQ];
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    const int r = lane + q * kWarp;
+    v[q] = r < cap && pos[r] >= 0;
+    a[q] = r < cap ? s_a[r] : 0.0f;
+    b[q] = r < cap ? s_b[r] : 0.0f;
+    off[q] = v[q] ? s_off[r] : 0.0f;
+    be[q] = 0.0f;
+  }
+  float beta0 = 1.0f;
+  for (int step = 0; step < steps; ++step) {
+    float best = minus_inf();
+    int h = cap;
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      // (An invalid slot divides 1, not its unused a, so no division
+      // leaves the fast path for a zero numerator.)
+      const float sr = __fsub_rn(off[q], __fdiv_rn(v[q] ? a[q] : 1.0f, lam));
+      const float s = v[q] ? sr : kNeg;
+      if (lane + q * kWarp < cap && s > best) {
+        best = s;
+        h = lane + q * kWarp;
+      }
+    }
+    h = warp_first_max(best, h);
+    const int hq = h / kWarp, hl = h % kWarp;
+    float ah = a[0], bh = b[0], ch = off[0];
+#pragma unroll
+    for (int q = 1; q < kQ; ++q)
+      if (hq == q) {
+        ah = a[q];
+        bh = b[q];
+        ch = off[q];
+      }
+    ah = __shfl_sync(kFull, ah, hl);
+    bh = __shfl_sync(kFull, bh, hl);
+    ch = __shfl_sync(kFull, ch, hl);
+    const float* gh_row = s_g + h;   // G[r, h] at gh_row[r * cap]
+    const float ghh = gh_row[h * cap];
+    float gh[kQ];
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      const int r = lane + q * kWarp;
+      gh[q] = r < cap ? gh_row[r * cap] : 0.0f;
+    }
+    const float num = __fsub_rn(__fsub_rn(e, ah),
+                                __fmul_rn(lam, __fsub_rn(oi, ch)));
+    const float den = __fadd_rn(__fsub_rn(c, __fmul_rn(2.0f, bh)), ghh);
+    float g = den > 0.0f ? __fdiv_rn(num, fmaxf(den, 1e-30f)) : 0.0f;
+    g = fminf(fmaxf(g, 0.0f), 1.0f);
+    const float omg = __fsub_rn(1.0f, g);
+    const float e_new = __fadd_rn(
+        __fmul_rn(omg, __fadd_rn(e, __fmul_rn(g, __fsub_rn(bh, c)))),
+        __fmul_rn(g, __fadd_rn(ah, __fmul_rn(g, __fsub_rn(ghh, bh)))));
+    const float c_new = __fadd_rn(
+        __fadd_rn(__fmul_rn(__fmul_rn(omg, omg), c),
+                  __fmul_rn(__fmul_rn(__fmul_rn(2.0f, g), omg), bh)),
+        __fmul_rn(__fmul_rn(g, g), ghh));
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      a[q] = __fadd_rn(a[q], __fmul_rn(g, __fsub_rn(gh[q], b[q])));
+      b[q] = __fadd_rn(__fmul_rn(omg, b[q]), __fmul_rn(g, gh[q]));
+      be[q] = __fmul_rn(omg, be[q]);
+      if (lane + q * kWarp == h) be[q] = __fadd_rn(be[q], g);
+    }
+    // The slot was returned by the approximate oracle.
+    if (lane == 0) stamps[h] = outer_it;
+    e = e_new;
+    c = c_new;
+    oi = __fadd_rn(__fmul_rn(omg, oi), __fmul_rn(g, ch));
+    beta0 = __fmul_rn(omg, beta0);
+  }
+#pragma unroll
+  for (int q = 0; q < kQ; ++q)
+    if (lane + q * kWarp < cap) s_beta[lane + q * kWarp] = be[q];
+  __syncwarp();
+  return beta0;
+}
+
+// One warp turns a block's validity (one flag per slot) into pos[slot]
+// (index among the valid slots, -1 if invalid), list[k] (the k-th valid
+// slot) and the count.  `flag(c)` gives the lane's flag for chunk c.
+template <typename Flag>
+__device__ __forceinline__ void compact(int* meta, int cap, int lane,
+                                        Flag flag) {
+  int* pos = meta;
+  int* list = meta + cap;
+  int count = 0;
+  for (int c = 0; c * kWarp < cap; ++c) {
+    const int r = c * kWarp + lane;
+    const bool v = r < cap && flag(c);
+    const unsigned m = __ballot_sync(kFull, v);
+    const int at = count + __popc(m & ((1u << lane) - 1u));
+    if (r < cap) pos[r] = v ? at : -1;
+    if (v) list[at] = r;
+    count += __popc(m);
+  }
+  if (lane == 0) meta[2 * cap] = count;
+}
+
+template <int NJ, bool kSec35>
 __global__ void __launch_bounds__(kThreads, 1)
 approx_pass_kernel(const Args args) {
   if (args.go != nullptr && !*args.go) return;
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int d1 = args.d + 1, d = args.d, cap = args.cap;
-  float* s_phi = smem;                 // [d1]
-  float* s_bar = s_phi + d1;           // [d1]
-  float* s_w = s_bar + d1;             // [d]  (w = -phi*/lam)
-  float* s_pi = s_w + d1;              // [d1] Sec-3.5 mode: phi_i row
-  float* s_g = s_pi + (args.steps > 0 ? d1 : 0);   // [cap*cap] Gram leaf
-  float* s_a = s_g + (args.steps > 0 ? cap * cap : 0);   // [cap] scores, a
-  float* s_b = s_a + cap;              // [cap]
-  float* s_beta = s_b + cap;           // [cap]
-  int* s_rows = reinterpret_cast<int*>(s_beta + cap);    // [cap]
-  float* s_red = reinterpret_cast<float*>(s_rows + cap); // [2 * kWarps]
-  float* s_scal = s_red + 2 * kWarps;  // [4]
-  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  const int R = args.rows, NB = args.nbuf, n_perm = args.n_perm;
+  const Layout ly = make_layout(d1, cap, args.steps, R, NB);
+  long long* s_id = reinterpret_cast<long long*>(smem + ly.ids);
+  const float** s_rowp = reinterpret_cast<const float**>(smem + ly.rowp);
+  float* s_a = smem + ly.a;
+  int* s_meta = reinterpret_cast<int*>(smem + ly.meta);
+  float* s_vec = smem + ly.vec;   // phi
+  const unsigned mbar0 = smem_addr(smem + ly.mbar);
+  const int tid = threadIdx.x, lane = tid % kWarp;
+  // The warp index as a warp-uniform value, so that a branch on it is one
+  // (the bulk copies' issue stays out of the other warps' paths).
+  const int warp = __shfl_sync(kFull, tid / kWarp, 0);
+  float* s_wts = smem + ly.wts;
   const float lam = args.lam, inv_lam = args.inv_lam;
+  const long long n = args.n;
 
-  for (int j = tid; j < d1; j += kThreads) {
-    const float p = args.phi[j];
-    s_phi[j] = p;
-    s_bar[j] = args.bar[j];
-    if (j < d) s_w[j] = __fmul_rn(-p, inv_lam);
+  auto in_range = [n](long long i) { return i >= 0 && i < n; };
+  auto id_of = [&](int u) { return s_id[u & (kIdRing - 1)]; };
+  auto meta_of = [&](int u) {
+    return s_meta + (u & (kMetaRing - 1)) * (2 * cap + 1);
+  };
+  auto buffer = [&](int u) {
+    return smem + ly.buf + (NB == 2 ? (u & 1) : 0) * ly.buf_words;
+  };
+  auto mbar_of = [&](int u) { return mbar0 + 8 * (NB == 2 ? (u & 1) : 0); };
+  auto plane = [&](long long i, int r) {
+    return args.planes + (i * cap + r) * static_cast<long long>(d1);
+  };
+  auto gram_of = [&](long long i) {
+    return args.gram + i * static_cast<long long>(cap) * cap;
+  };
+
+  // Stage block u (one thread): phi_i row, first R valid rows and in the
+  // Sec-3.5 mode the Gram leaf, as bulk copies; the buffer's mbarrier
+  // completes its phase for block u once their bytes have landed (at
+  // once if there is nothing to copy).
+  auto stage = [&](int u) {
+    const long long i = id_of(u);
+    const unsigned mbar = mbar_of(u);
+    // Nothing to copy for a skipped block, or if the buffer still holds
+    // block i, kept current by block u - NB.
+    if (!in_range(i) || (u >= NB && id_of(u - NB) == i)) {
+      mbar_arrive(mbar, 0);
+      return;
+    }
+    float* B = buffer(u);
+    const int* meta = meta_of(u);
+    const int* list = meta + cap;
+    const int nr = min(meta[2 * cap], R);
+    // Distance 1 with two buffers: block u-1 writes the new phi_i here.
+    const bool own_pi = !(NB == 2 && u >= 1 && id_of(u - 1) == i);
+    const float* pi_src = args.phi_i + i * d1;
+    unsigned bytes = own_pi ? bulk_bytes(pi_src, d1) : 0;
+    for (int k = 0; k < nr; ++k) bytes += bulk_bytes(plane(i, list[k]), d1);
+    if (kSec35) bytes += bulk_bytes(gram_of(i), cap * cap);
+    // The buffer was last read and written by the threads (generic
+    // proxy); order that before the bulk copies (async proxy) refill it.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_arrive(mbar, bytes);
+    if (own_pi) bulk_copy(B, pi_src, d1, mbar);
+    for (int k = 0; k < nr; ++k)
+      bulk_copy(B + ly.row * (1 + k), plane(i, list[k]), d1, mbar);
+    if (kSec35)
+      bulk_copy(B + ly.row * (1 + R), gram_of(i), cap * cap, mbar);
+  };
+
+  // phi into shared memory, the average into registers.
+  float bar_r[NJ];
+#pragma unroll
+  for (int k = 0; k < NJ; ++k) {
+    const int j = tid + k * kThreads;
+    bar_r[k] = 0.0f;
+    if (j < d1) {
+      s_vec[j] = args.phi[j];
+      bar_r[k] = args.bar[j];
+    }
+  }
+  // Prologue: the mbarriers, ids of blocks 0-2, the valid lists of
+  // blocks 0 and 1.
+  if (tid == 0) {
+    for (int b = 0; b < NB; ++b)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                       mbar0 + 8 * b)
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (tid < 3) s_id[tid] = tid < n_perm ? args.perm[tid] : -1;
+  if (tid == 0) avg_weights(args.k0, s_wts[0], s_wts[1]);
+  __syncthreads();
+  if (warp < 2) {
+    const long long i = s_id[warp];
+    const bool ok = warp < n_perm && in_range(i);
+    const bool* V = args.valid + (ok ? i * cap : 0);
+    compact(meta_of(warp), cap, lane,
+            [&](int c) { return ok && V[c * kWarp + lane]; });
   }
   __syncthreads();
+  if (NB == 2 && warp == kLoader && lane == 0) stage(0);
 
-  for (int t = 0; t < args.n_perm; ++t) {
-    const long long i = args.perm[t];
-    float wa, wb;
-    avg_weights(args.k0 + t, wa, wb);
-    if (i < 0 || i >= args.n) continue;   // uniform: every thread skips
-    const float* P = args.planes + i * cap * static_cast<long long>(d1);
-    const bool* V = args.valid + i * cap;
-    float* pi_row = args.phi_i + i * static_cast<long long>(d1);
-
-    if (args.steps == 0) {
-      // -- plain mode: score, first argmax, exact line search ------------
-      for (int r = warp; r < cap; r += kWarps) {
-        float s = kNeg;
-        if (V[r]) {
-          const float* p = P + static_cast<long long>(r) * d1;
-          float acc = 0.0f;
-          for (int j = lane; j < d; j += kWarp) acc = fmaf(p[j], s_w[j], acc);
-          s = warp_sum(acc) + p[d];
-        }
-        if (lane == 0) s_a[r] = s;
-      }
+  for (int t = 0; t < n_perm; ++t) {
+    if (NB == 1) {   // one buffer: block t-1 is done with it first
       __syncthreads();
-      float best = minus_inf();
-      int slot = cap;
-      for (int r = lane; r < cap; r += kWarp)
-        if (s_a[r] > best) {
-          best = s_a[r];
-          slot = r;
-        }
-      warp_argmax(best, slot);
-      bool any = false;
-      for (int r = lane; r < cap; r += kWarp) any = any || V[r];
-      any = __any_sync(kFull, any);
-      const float* ph = P + static_cast<long long>(slot) * d1;
-      float num_p = 0.0f, den_p = 0.0f;
-      for (int j = tid; j < d; j += kThreads) {
-        const float diff = __fsub_rn(pi_row[j], any ? ph[j] : 0.0f);
-        num_p = fmaf(diff, s_phi[j], num_p);
-        den_p = fmaf(diff, diff, den_p);
-      }
-      num_p = warp_sum(num_p);
-      den_p = warp_sum(den_p);
-      if (lane == 0) {
-        s_red[warp] = num_p;
-        s_red[kWarps + warp] = den_p;
-      }
-      // Every thread reads the row's offset before the barrier: after it,
-      // the update loop below rewrites pi_row[d].
-      const float diff_o = __fsub_rn(pi_row[d], any ? ph[d] : 0.0f);
-      __syncthreads();
-      const float dot = block_total(s_red, lane);
-      const float den = block_total(s_red + kWarps, lane);
-      const float num = __fsub_rn(dot, __fmul_rn(lam, diff_o));
-      float g = den > 0.0f ? __fdiv_rn(num, fmaxf(den, 1e-30f)) : 0.0f;
-      g = fminf(fmaxf(g, 0.0f), 1.0f);
-      const float omg = __fsub_rn(1.0f, g);
-      if (tid == 0) args.last_active[i * cap + slot] = args.outer_it;
-      for (int j = tid; j < d1; j += kThreads) {
-        const float pij = pi_row[j];
-        const float hj = any ? ph[j] : 0.0f;
-        const float npi = __fadd_rn(__fmul_rn(omg, pij), __fmul_rn(g, hj));
-        const float p = __fadd_rn(s_phi[j], __fsub_rn(npi, pij));
-        pi_row[j] = npi;
-        s_phi[j] = p;
-        if (j < d) s_w[j] = __fmul_rn(-p, inv_lam);
-        s_bar[j] = __fadd_rn(__fmul_rn(wa, s_bar[j]), __fmul_rn(wb, p));
-      }
-      __syncthreads();
-      continue;
+      if (warp == kLoader && lane == 0) stage(t);
     }
-
-    // -- Sec-3.5 mode: Gram recurrences, then one materialisation --------
-    const float* G = args.gram + i * static_cast<long long>(cap) * cap;
-    for (int j = tid; j < d1; j += kThreads) s_pi[j] = pi_row[j];
-    for (int j = tid; j < cap * cap; j += kThreads) s_g[j] = G[j];
-    bool any = false;
-    for (int r = lane; r < cap; r += kWarp) any = any || V[r];
-    any = __syncthreads_or(any);
-    if (!any) {
-      // No cached plane: the recurrence takes no step (g = 0 throughout),
-      // phi and phi_i stay; only the average moves.
-      for (int j = tid; j < d1; j += kThreads)
-        s_bar[j] = __fadd_rn(__fmul_rn(wa, s_bar[j]),
-                             __fmul_rn(wb, s_phi[j]));
-      __syncthreads();
-      continue;
-    }
-    // a_r = <p_r*, phi*>, b_r = <p_r*, phi_i*> (cache.row_dots: the
-    // plane_scores order, plus a zero offset); c and e over the block.
-    for (int r = warp; r < cap; r += kWarps) {
-      float av = 0.0f, bv = 0.0f;
-      if (V[r]) {
-        const float* p = P + static_cast<long long>(r) * d1;
-        for (int j = lane; j < d; j += kWarp) {
-          const float pj = p[j];
-          av = fmaf(pj, s_phi[j], av);
-          bv = fmaf(pj, s_pi[j], bv);
-        }
-        av = warp_sum(av) + 0.0f;
-        bv = warp_sum(bv) + 0.0f;
-      }
-      if (lane == 0) {
-        s_a[r] = av;
-        s_b[r] = bv;
-        s_beta[r] = 0.0f;
-      }
-    }
-    float c_p = 0.0f, e_p = 0.0f;
-    for (int j = tid; j < d; j += kThreads) {
-      const float q = s_pi[j];
-      c_p = fmaf(q, q, c_p);
-      e_p = fmaf(q, s_phi[j], e_p);
-    }
-    c_p = warp_sum(c_p);
-    e_p = warp_sum(e_p);
-    if (lane == 0) {
-      s_red[warp] = c_p;
-      s_red[kWarps + warp] = e_p;
-    }
+    mbar_wait(mbar_of(t), (NB == 2 ? t >> 1 : t) & 1);
     __syncthreads();
-    if (warp == 0) {
-      float c = block_total(s_red, lane);
-      float e = block_total(s_red + kWarps, lane);
-      float oi = s_pi[d], beta0 = 1.0f;
-      for (int step = 0; step < args.steps; ++step) {
-        float best = minus_inf();
-        int h = cap;
-        for (int r = lane; r < cap; r += kWarp) {
-          const float s =
-              V[r] ? __fsub_rn(P[static_cast<long long>(r) * d1 + d],
-                               __fdiv_rn(s_a[r], lam))
-                   : kNeg;
-          if (s > best) {
-            best = s;
-            h = r;
+    if (NB == 2 && t + 1 < n_perm && warp == kLoader && lane == 0)
+      stage(t + 1);
+
+    // The loader warp reads ahead: block t+2's validity, block t+3's id.
+    bool vreg[kMaskChunks];
+    long long next_id = -1;
+    if (warp == kLoader) {
+      const long long i2 = t + 2 < n_perm ? id_of(t + 2) : -1;
+      const bool* V = args.valid + (in_range(i2) ? i2 * cap : 0);
+#pragma unroll
+      for (int c = 0; c < kMaskChunks; ++c) {
+        const int r = c * kWarp + lane;
+        vreg[c] = in_range(i2) && r < cap && V[r];
+      }
+      if (lane == 0 && t + 3 < n_perm) next_id = args.perm[t + 3];
+    }
+
+    const long long i = id_of(t);
+    const float wa = s_wts[2 * (t & 1)], wb = s_wts[2 * (t & 1) + 1];
+    if (in_range(i)) {
+      float* B = buffer(t);
+      float* pi = in_slot(B, args.phi_i + i * d1);   // the staged row
+      const int* meta = meta_of(t);
+      const int* pos = meta;
+      const int* list = meta + cap;
+      const int nv = meta[2 * cap];
+      float* pi_row = args.phi_i + i * d1;
+      // Where the new phi_i row also goes: this buffer, if block i comes
+      // again in its next turn; the other one, if it comes next.
+      const bool keep = t + NB < n_perm && id_of(t + NB) == i;
+      float* also = (NB == 2 && t + 1 < n_perm && id_of(t + 1) == i)
+                        ? in_slot(buffer(t + 1), pi_row)
+                        : nullptr;
+      // Valid row r at its index k < R among the valid slots, staged;
+      // row_at: staged or streamed.
+      auto staged = [&](int k, int r) -> const float* {
+        return in_slot(B + ly.row * (1 + k), plane(i, r));
+      };
+      auto row_at = [&](int k, int r) -> const float* {
+        return k < R ? staged(k, r) : plane(i, r);
+      };
+
+      if (!kSec35) {
+        // -- plain mode: score, first argmax, exact line search ----------
+        // One warp per valid row: its score and its line-search sums
+        // (s_a, s_b, s_beta, s_off by index among the valid rows); with
+        // no valid row, warp 0 takes the zero plane's.
+        float* s_num = smem + ly.b;
+        float* s_den = smem + ly.beta;
+        float* s_off = smem + ly.off;
+        float* s_scal = smem + ly.scal;
+        for (int k = warp; k < nv; k += kWarps) {
+          const int r = list[k];
+          float sc, nu, de;
+          if (k < R)
+            plain_row(staged(k, r), s_vec, pi, d, lane, inv_lam, sc, nu, de);
+          else
+            plain_row(plane(i, r), s_vec, pi, d, lane, inv_lam, sc, nu, de);
+          if (lane == 0) {
+            s_a[k] = sc;
+            s_num[k] = nu;
+            s_den[k] = de;
+            s_off[k] = row_at(k, r)[d];
           }
         }
-        warp_argmax(best, h);
-        const float ah = s_a[h], bh = s_b[h];
-        const float ch = P[static_cast<long long>(h) * d1 + d];
-        const float ghh = s_g[h * cap + h];
-        const float num = __fsub_rn(__fsub_rn(e, ah),
-                                    __fmul_rn(lam, __fsub_rn(oi, ch)));
-        const float den = __fadd_rn(__fsub_rn(c, __fmul_rn(2.0f, bh)), ghh);
-        float g = den > 0.0f ? __fdiv_rn(num, fmaxf(den, 1e-30f)) : 0.0f;
-        g = fminf(fmaxf(g, 0.0f), 1.0f);
+        if (nv == 0 && warp == 0) {
+          float e0, c0;
+          self_dots(pi, s_vec, d, lane, e0, c0);
+          if (lane == 0) {
+            s_scal[0] = e0;
+            s_scal[1] = c0;
+          }
+        }
+        __syncthreads();
+        // Warp 0 picks the row and the step size for all: the first
+        // maximum over the valid rows in slot order (a valid plane scores
+        // far above the invalid marker kNeg, so this is the eager pass's
+        // first maximum over all slots), the zero plane in slot 0 if there
+        // is none, and the exact line search.
+        if (warp == 0) {
+          float best = minus_inf();
+          int kb = 0;
+          for (int k = 0; k < nv; ++k) {
+            const float sc = s_a[k];
+            if (sc > best) {
+              best = sc;
+              kb = k;
+            }
+          }
+          const bool any = nv > 0;
+          const float dot = any ? s_num[kb] : s_scal[0];
+          const float den = any ? s_den[kb] : s_scal[1];
+          const float diff_o = __fsub_rn(pi[d], any ? s_off[kb] : 0.0f);
+          const float num = __fsub_rn(dot, __fmul_rn(lam, diff_o));
+          float g = den > 0.0f ? __fdiv_rn(num, fmaxf(den, 1e-30f)) : 0.0f;
+          g = fminf(fmaxf(g, 0.0f), 1.0f);
+          if (lane == 0) {
+            s_scal[2] = __int_as_float(any ? kb : -1);
+            s_scal[3] = g;
+            args.last_active[i * cap + (any ? list[kb] : 0)] = args.outer_it;
+          }
+        }
+        __syncthreads();
+        const int kb = __float_as_int(s_scal[2]);
+        const float g = s_scal[3];
+        const bool any = kb >= 0;
         const float omg = __fsub_rn(1.0f, g);
-        const float e_new = __fadd_rn(
-            __fmul_rn(omg, __fadd_rn(e, __fmul_rn(g, __fsub_rn(bh, c)))),
-            __fmul_rn(g, __fadd_rn(ah, __fmul_rn(g, __fsub_rn(ghh, bh)))));
-        const float c_new = __fadd_rn(
-            __fadd_rn(__fmul_rn(__fmul_rn(omg, omg), c),
-                      __fmul_rn(__fmul_rn(__fmul_rn(2.0f, g), omg), bh)),
-            __fmul_rn(__fmul_rn(g, g), ghh));
-        __syncwarp();   // every lane has read a[h], b[h]
-        for (int r = lane; r < cap; r += kWarp) {
-          const float gh = s_g[r * cap + h];
-          const float br = s_b[r];
-          s_a[r] = __fadd_rn(s_a[r], __fmul_rn(g, __fsub_rn(gh, br)));
-          s_b[r] = __fadd_rn(__fmul_rn(omg, br), __fmul_rn(g, gh));
-          float be = __fmul_rn(omg, s_beta[r]);
-          if (r == h) {
-            be = __fadd_rn(be, g);
-            // The slot was returned by the approximate oracle.
-            args.last_active[i * cap + h] = args.outer_it;
+        // The chosen row (phi_i's own staged row stands in, unread, for
+        // the zero plane, so the loads need no branch).
+        const float* ph = any ? row_at(kb, list[kb]) : pi;
+#pragma unroll
+        for (int k = 0; k < NJ; ++k) {
+          const int j = tid + k * kThreads;
+          if (j < d1) {
+            const float pij = pi[j];
+            const float h = ph[j];
+            const float hj = any ? h : 0.0f;
+            const float npi =
+                __fadd_rn(__fmul_rn(omg, pij), __fmul_rn(g, hj));
+            const float p = __fadd_rn(s_vec[j], __fsub_rn(npi, pij));
+            pi_row[j] = npi;
+            if (keep) pi[j] = npi;
+            if (also != nullptr) also[j] = npi;
+            s_vec[j] = p;
+            bar_r[k] = __fadd_rn(__fmul_rn(wa, bar_r[k]), __fmul_rn(wb, p));
           }
-          s_beta[r] = be;
         }
-        e = e_new;
-        c = c_new;
-        oi = __fadd_rn(__fmul_rn(omg, oi), __fmul_rn(g, ch));
-        beta0 = __fmul_rn(omg, beta0);
+      } else if (nv == 0) {
+        // -- Sec-3.5 mode, no cached plane: the recurrence takes no step
+        // (g = 0 throughout), phi and phi_i stay; only the average moves.
+#pragma unroll
+        for (int k = 0; k < NJ; ++k) {
+          const int j = tid + k * kThreads;
+          if (j < d1) {
+            bar_r[k] = __fadd_rn(__fmul_rn(wa, bar_r[k]),
+                                 __fmul_rn(wb, s_vec[j]));
+            if (also != nullptr) also[j] = pi[j];
+          }
+        }
+      } else {
+        // -- Sec-3.5 mode: Gram recurrences, then one materialisation ----
+        float* s_b = smem + ly.b;
+        float* s_beta = smem + ly.beta;
+        float* s_off = smem + ly.off;
+        int* s_mix = reinterpret_cast<int*>(smem + ly.mix);
+        float* s_scal = smem + ly.scal;
+        const float* s_g = in_slot(B + ly.row * (1 + R), gram_of(i));
+        for (int r = tid; r < cap; r += kThreads)
+          if (pos[r] < 0) {
+            s_a[r] = 0.0f;
+            s_b[r] = 0.0f;
+          }
+        for (int k = warp; k < nv; k += kWarps) {
+          const int r = list[k];
+          float av, bv;
+          if (k < R)
+            dots_row(staged(k, r), s_vec, pi, d, lane, av, bv);
+          else
+            dots_row(plane(i, r), s_vec, pi, d, lane, av, bv);
+          if (lane == 0) {
+            s_a[r] = av;
+            s_b[r] = bv;
+            s_off[r] = row_at(k, r)[d];
+          }
+        }
+        // c and e: the last warp, after any row of its own.
+        if (warp == kLoader) {
+          float e0, c0;
+          self_dots(pi, s_vec, d, lane, e0, c0);
+          if (lane == 0) {
+            s_scal[2] = e0;
+            s_scal[3] = c0;
+          }
+        }
+        __syncthreads();
+        if (warp == 0) {
+          const float e = s_scal[2], c = s_scal[3], oi = pi[d];
+          int* stamps = args.last_active + i * cap;
+          const float beta0 =
+              cap <= 2 * kWarp
+                  ? recurrence<2>(pos, s_a, s_b, s_off, s_g, s_beta, cap,
+                                  args.steps, lam, e, c, oi, stamps,
+                                  args.outer_it, lane)
+                  : recurrence<8>(pos, s_a, s_b, s_off, s_g, s_beta, cap,
+                                  args.steps, lam, e, c, oi, stamps,
+                                  args.outer_it, lane);
+          // The rows phi_i' mixes in: those with a non-zero coefficient,
+          // staged or streamed.
+          int count = 0;
+          for (int base = 0; base < cap; base += kWarp) {
+            const int r = base + lane;
+            const bool nz = r < cap && s_beta[r] != 0.0f;
+            const unsigned m = __ballot_sync(kFull, nz);
+            if (nz) {
+              const int q = count + __popc(m & ((1u << lane) - 1u));
+              s_mix[q] = r;
+              s_rowp[q] = row_at(pos[r], r);
+            }
+            count += __popc(m);
+          }
+          if (lane == 0) {
+            s_scal[0] = beta0;
+            s_scal[1] = __int_as_float(count);
+          }
+        }
+        __syncthreads();
+        const float beta0 = s_scal[0];
+        const int count = __float_as_int(s_scal[1]);
+        float mix[NJ];
+#pragma unroll
+        for (int k = 0; k < NJ; ++k) mix[k] = 0.0f;
+        for (int q = 0; q < count; ++q) {   // rows in slot order, as before
+          const float bq = s_beta[s_mix[q]];
+          const float* row = s_rowp[q];
+#pragma unroll
+          for (int k = 0; k < NJ; ++k) {
+            const int j = tid + k * kThreads;
+            if (j < d1) mix[k] = fmaf(bq, row[j], mix[k]);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < NJ; ++k) {
+          const int j = tid + k * kThreads;
+          if (j < d1) {
+            const float pij = pi[j];
+            const float npi = __fadd_rn(__fmul_rn(beta0, pij), mix[k]);
+            const float p = __fadd_rn(s_vec[j], __fsub_rn(npi, pij));
+            pi_row[j] = npi;
+            if (keep) pi[j] = npi;
+            if (also != nullptr) also[j] = npi;
+            s_vec[j] = p;
+            bar_r[k] = __fadd_rn(__fmul_rn(wa, bar_r[k]), __fmul_rn(wb, p));
+          }
+        }
+      }
+    }
+
+    // The loader warp files what it read: block t+3's id, block t+2's
+    // valid list (chunks past the registers are read now); then it asks
+    // L2 for the rows block t+2 will stage.
+    if (warp == kLoader) {
+      if (lane == 0 && t + 3 < n_perm)
+        s_id[(t + 3) & (kIdRing - 1)] = next_id;
+      if (lane == 0)
+        avg_weights(args.k0 + t + 1, s_wts[2 * ((t + 1) & 1)],
+                    s_wts[2 * ((t + 1) & 1) + 1]);
+      const long long i2 = t + 2 < n_perm ? id_of(t + 2) : -1;
+      if (t + 2 < n_perm) {
+        const bool ok = in_range(i2);
+        const bool* V = args.valid + (ok ? i2 * cap : 0);
+        int* meta = meta_of(t + 2);
+        compact(meta, cap, lane, [&](int c) {
+          bool v = false;
+#pragma unroll
+          for (int q = 0; q < kMaskChunks; ++q)
+            if (q == c) v = vreg[q];
+          return c < kMaskChunks ? v : ok && V[c * kWarp + lane];
+        });
         __syncwarp();
-      }
-      // The rows phi_i' mixes in: those with a non-zero coefficient.
-      int count = 0;
-      for (int base = 0; base < cap; base += kWarp) {
-        const int r = base + lane;
-        const bool nz = r < cap && s_beta[r] != 0.0f;
-        const unsigned m = __ballot_sync(kFull, nz);
-        if (nz) s_rows[count + __popc(m & ((1u << lane) - 1u))] = r;
-        count += __popc(m);
-      }
-      if (lane == 0) {
-        s_scal[0] = beta0;
-        s_scal[1] = __int_as_float(count);
+        if (ok) {
+          if (lane < min(meta[2 * cap], R))
+            prefetch_l2(plane(i2, meta[cap + lane]), d1);
+          if (lane == kWarp - 1) prefetch_l2(args.phi_i + i2 * d1, d1);
+          if (kSec35 && lane == kWarp - 2)
+            prefetch_l2(gram_of(i2), cap * cap);
+        }
       }
     }
-    __syncthreads();
-    const float beta0 = s_scal[0];
-    const int count = __float_as_int(s_scal[1]);
-    for (int j = tid; j < d1; j += kThreads) {
-      float mix = 0.0f;
-      for (int q = 0; q < count; ++q) {
-        const int r = s_rows[q];
-        mix = fmaf(s_beta[r], P[static_cast<long long>(r) * d1 + j], mix);
-      }
-      const float pij = s_pi[j];
-      const float npi = __fadd_rn(__fmul_rn(beta0, pij), mix);
-      const float p = __fadd_rn(s_phi[j], __fsub_rn(npi, pij));
-      pi_row[j] = npi;
-      s_phi[j] = p;
-      if (j < d) s_w[j] = __fmul_rn(-p, inv_lam);
-      s_bar[j] = __fadd_rn(__fmul_rn(wa, s_bar[j]), __fmul_rn(wb, p));
-    }
-    __syncthreads();
   }
 
-  for (int j = tid; j < d1; j += kThreads) {
-    args.phi[j] = s_phi[j];
-    args.bar[j] = s_bar[j];
+#pragma unroll
+  for (int k = 0; k < NJ; ++k) {
+    const int j = tid + k * kThreads;
+    if (j < d1) {
+      args.phi[j] = s_vec[j];
+      args.bar[j] = bar_r[k];
+    }
   }
 }
 
-size_t smem_bytes(int d, int cap, int steps) {
-  const size_t d1 = static_cast<size_t>(d) + 1;
-  size_t floats = 3 * d1 + 3 * static_cast<size_t>(cap) + 2 * kWarps + 4;
-  if (steps > 0) floats += d1 + static_cast<size_t>(cap) * cap;
-  return 4 * (floats + cap);   // + s_rows
+template <int NJ, bool kSec35>
+cudaError_t allow() {
+  return cudaFuncSetAttribute(approx_pass_kernel<NJ, kSec35>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              kSmemLimit);
+}
+
+template <bool kSec35>
+cudaError_t allow_all() {
+  cudaError_t err = allow<8, kSec35>();
+  if (err == cudaSuccess) err = allow<16, kSec35>();
+  if (err == cudaSuccess) err = allow<24, kSec35>();
+  if (err == cudaSuccess) err = allow<40, kSec35>();
+  return err;
+}
+
+template <bool kSec35>
+void launch(const Args& args, long long d1, size_t bytes, cudaStream_t s) {
+  if (d1 <= 8 * kThreads)
+    approx_pass_kernel<8, kSec35><<<1, kThreads, bytes, s>>>(args);
+  else if (d1 <= 16 * kThreads)
+    approx_pass_kernel<16, kSec35><<<1, kThreads, bytes, s>>>(args);
+  else if (d1 <= 24 * kThreads)
+    approx_pass_kernel<24, kSec35><<<1, kThreads, bytes, s>>>(args);
+  else
+    approx_pass_kernel<40, kSec35><<<1, kThreads, bytes, s>>>(args);
 }
 
 }  // namespace
 
-// Shared memory one launch needs (the wrapper refuses what does not fit).
-extern "C" long long approx_pass_smem_bytes(int d, int cap, int steps) {
-  return static_cast<long long>(smem_bytes(d, cap, steps));
+// Shared memory one launch of the plan (rows staged per buffer, nbuf
+// buffers) takes.
+extern "C" long long approx_pass_smem_bytes(int d, int cap, int steps,
+                                            int rows, int nbuf) {
+  return 4 * make_layout(static_cast<long long>(d) + 1, cap, steps, rows,
+                         nbuf)
+                 .total;
+}
+
+// Once, when the library loads (never inside a graph capture): dynamic
+// shared memory above 48 KB for every build.  Returns a cudaError_t.
+extern "C" int approx_pass_init(void) {
+  cudaError_t err = allow_all<false>();
+  if (err == cudaSuccess) err = allow_all<true>();
+  return static_cast<int>(err);
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// steps == 0 runs the plain pass (gram unread), steps > 0 the Sec-3.5 one.
+// steps == 0 runs the plain pass (gram unread), steps > 0 the Sec-3.5 one;
+// `rows` and `nbuf` are the plan's (kernels/approx_pass.py::plan).
 extern "C" int approx_pass_launch(float* phi, float* phi_i, float* bar,
                                   const float* planes, const bool* valid,
                                   int* last_active, const float* gram,
                                   const long long* perm, const bool* go,
                                   long long n, int n_perm, int cap, int d,
                                   int steps, int outer_it, float lam,
-                                  float inv_lam, long long k0, void* stream) {
+                                  float inv_lam, long long k0, int rows,
+                                  int nbuf, void* stream) {
+  const long long d1 = static_cast<long long>(d) + 1;
   if (n_perm < 0 || cap < 1 || d < 1 || steps < 0 ||
-      (steps > 0 && gram == nullptr))
+      (steps > 0 && gram == nullptr) || rows < 0 || rows > cap ||
+      (nbuf != 1 && nbuf != 2) || d1 > kMaxD1 ||
+      (steps > 0 && cap > 8 * kWarp))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_perm == 0) return 0;
-  const size_t smem = smem_bytes(d, cap, steps);
-  static size_t configured = 0;
-  if (smem > configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        approx_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = smem;
-  }
-  Args args{phi,  phi_i,  bar,   planes, valid,    last_active, gram,
-            perm, go,     n,     n_perm, cap,      d,           steps,
-            outer_it, lam, inv_lam, k0};
-  approx_pass_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      args);
+  const long long smem = approx_pass_smem_bytes(d, cap, steps, rows, nbuf);
+  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  Args args{phi,  phi_i, bar,   planes, valid, last_active, gram,
+            perm, go,    n,     n_perm, cap,   d,           steps,
+            outer_it, rows, nbuf, lam, inv_lam, k0};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t bytes = static_cast<size_t>(smem);
+  if (steps > 0)
+    launch<true>(args, d1, bytes, s);
+  else
+    launch<false>(args, d1, bytes, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,9 +2,12 @@
 
 Replaces ``repro/kernels/viterbi.py::viterbi_step`` and the
 ``viterbi_decode_batch`` scan around it with one launch per batch: one
-thread block per sequence runs the forward max-plus DP with the
-transition table in shared memory, then the backtrace
-(``csrc/viterbi.cu``).  Each row's labels equal
+thread block per sequence loads the transition table (for ``C <= 32`` a
+column per thread, into registers) and stages its row's unaries and mask
+in shared memory in one round trip, runs the forward max-plus DP with its
+back pointers in shared memory, then the backtrace (``csrc/viterbi.cu``).  A row too long to stage keeps its back pointers
+in a device scratch tensor and reads its unaries step by step
+(:func:`plan`).  Each row's labels equal
 ``repro/core/oracles/chain.py::viterbi_decode`` on that row.  Bound by
 latency and the L-step dependence, not by bytes.
 
@@ -16,6 +19,7 @@ tensors to the plain version before they reach it.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -30,15 +34,46 @@ SMEM_BYTES = 48 * 1024
 MAX_LABELS = max(c for c in range(1, 1025)
                  if (c * c + 2 * c) * 4 <= SMEM_BYTES)
 
+# Shared memory a block may opt into on Hopper (227 KB of the SM's 256 KB).
+SMEM_LIMIT = 232448
+
 _SIGNATURE = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-              ctypes.c_int, ctypes.c_void_p]
+              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+class Plan(NamedTuple):
+    """How one row of ``(L, C)`` is decoded: ``staged`` keeps the unaries,
+    the back pointers and the mask bytes in shared memory beside the
+    table and score rows (``smem_bytes`` in all); otherwise the back
+    pointers go to a device scratch tensor and each step reads its
+    unaries from device memory."""
+    staged: bool
+    smem_bytes: int
+
+
+def plan(L: int, C: int) -> Plan:
+    """The launch plan for rows of ``L`` steps over ``C`` labels, from the
+    shape alone: staged when ``(T + L*C + (L-1)*C) * 4`` bytes plus the
+    ``L`` mask bytes (rounded up to 4) fit :data:`SMEM_LIMIT`, else the
+    scratch variant's ``T * 4`` bytes; ``T = max(C*C + 2C, 64)`` words
+    hold the table and two score rows (the one-warp kernel of ``C <= 32``
+    keeps two 32-float score rows there)."""
+    table = max(C * C + 2 * C, 64)
+    staged = 4 * (table + L * C + (L - 1) * C) + 4 * (-(-L // 4))
+    if staged <= SMEM_LIMIT:
+        return Plan(True, staged)
+    return Plan(False, 4 * table)
 
 
 def _lib():
     lib = _build.load("viterbi")
     fn = lib.viterbi_decode_launch
     if fn.argtypes is None:
+        lib.viterbi_init.restype = ctypes.c_int
+        _build.check(lib.viterbi_init(), "viterbi_decode (init)")
+        lib.viterbi_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.viterbi_smem_bytes.restype = ctypes.c_longlong
         fn.argtypes = _SIGNATURE
         fn.restype = ctypes.c_int
     return lib
@@ -77,11 +112,14 @@ def viterbi_decode(unary: torch.Tensor, trans: torch.Tensor,
     labels = torch.empty((B, L), dtype=torch.int32, device=unary.device)
     if B == 0:
         return labels
-    back = torch.empty((B, L - 1, C), dtype=torch.int32, device=unary.device)
+    how = plan(L, C)
+    back = None if how.staged else torch.empty(
+        (B, L - 1, C), dtype=torch.int32, device=unary.device)
     stream = torch.cuda.current_stream(unary.device).cuda_stream
     rc = _lib().viterbi_decode_launch(
-        unary.data_ptr(), trans.data_ptr(), mask.data_ptr(), back.data_ptr(),
-        labels.data_ptr(), B, L, C, stream)
+        unary.data_ptr(), trans.data_ptr(), mask.data_ptr(),
+        None if back is None else back.data_ptr(), labels.data_ptr(), B, L,
+        C, int(how.staged), stream)
     launches += 1
     _build.check(rc, "viterbi_decode")
     return labels

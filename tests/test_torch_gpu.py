@@ -194,10 +194,7 @@ def test_plane_select_kernel_refuses_what_it_cannot_hold(cuda):
     assert torch.isnan(best[1:]).all() and idx.tolist() == [0, -1, -1]
 
 
-@pytest.mark.parametrize("B,L,C,seed,tie", [
-    (1, 1, 4, 0, False), (1, 14, 26, 1, False), (1, 14, 26, 2, True),
-    (6877, 14, 26, 3, False), (513, 14, 26, 4, True), (9, 8, 109, 5, True)])
-def test_viterbi_kernel_matches_plain(cuda, B, L, C, seed, tie):
+def _viterbi_args(B, L, C, seed, tie):
     r = np.random.RandomState(seed)
     if tie:
         unary = r.randint(-2, 3, (B, L, C)).astype(np.float32)
@@ -208,9 +205,55 @@ def test_viterbi_kernel_matches_plain(cuda, B, L, C, seed, tie):
     lens = r.randint(1, L + 1, size=B)
     mask = np.arange(L)[None, :] < lens[:, None]
     mask[:, 0] = True
-    args = [torch.from_numpy(a) for a in (unary, trans, mask)]
+    return [torch.from_numpy(a) for a in (unary, trans, mask)]
+
+
+@pytest.mark.parametrize("B,L,C,seed,tie", [
+    (1, 1, 4, 0, False), (1, 14, 26, 1, False), (1, 14, 26, 2, True),
+    (6877, 14, 26, 3, False), (513, 14, 26, 4, True), (9, 8, 109, 5, True),
+    (1, 32, 109, 6, True), (7, 32, 109, 7, False), (5, 211, 109, 8, True),
+    (3, 212, 109, 9, True), (1, 2000, 26, 10, False), (2, 1200, 5, 11, True),
+    (4, 1098, 26, 12, True), (4, 1099, 26, 13, True)])
+def test_viterbi_kernel_matches_plain(cuda, B, L, C, seed, tie):
+    """Labels equal the plain version's on both plans: staged (the row in
+    shared memory) and scratch (back pointers in device memory), at the
+    edge between them too, ties included."""
+    args = _viterbi_args(B, L, C, seed, tie)
     got = ops.viterbi_decode(*(a.to(cuda) for a in args))
     assert torch.equal(got.cpu(), ref.viterbi_decode_ref(*args))
+
+
+@pytest.mark.parametrize("L,C,staged", [(14, 26, True), (32, 109, True),
+                                        (2000, 26, False),
+                                        (300, 109, False)])
+def test_viterbi_kernel_replayed_from_a_graph_equals_eager(cuda, L, C,
+                                                           staged):
+    """B = 1 as the captured exact step runs it: a graph replay of the
+    decode gives the eager launch's labels, on either plan."""
+    args = [a.to(cuda) for a in _viterbi_args(1, L, C, L + C, True)]
+    want = ops.viterbi_decode(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.viterbi_decode(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = ops.viterbi_decode(*args)
+    got.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert t_vit.plan(L, C).staged == staged
+
+
+@pytest.mark.parametrize("L,C", [(14, 26), (32, 109), (1, 4), (1098, 26),
+                                 (1099, 26), (300, 109)])
+def test_viterbi_plan_matches_the_kernels_layout(cuda, L, C):
+    """The host plan's shared-memory bytes are the kernel's own layout."""
+    how = t_vit.plan(L, C)
+    lib = t_vit._lib()
+    assert lib.viterbi_smem_bytes(L, C, int(how.staged)) == how.smem_bytes
 
 
 def test_viterbi_kernel_refuses_what_it_cannot_hold(cuda):
@@ -458,6 +501,105 @@ def test_approx_pass_kernel_refuses_what_it_cannot_take(cuda):
         bst = {k: big[k].clone() for k in ("phi", "phi_i", "bar", "last")}
         _run_pass(t_ap.approx_pass, bst, big["planes"], big["valid"], None,
                   bperm, None)
+
+
+def _kernel_vs_eager(t, gram, perm, steps):
+    """One pass from state ``t`` over ``perm``: the kernel against the
+    eager loop, stamps equal, phi, phi_i and the average within TOL."""
+    keys = ("phi", "phi_i", "bar", "last")
+    got = {k: t[k].clone() for k in keys}
+    want = {k: t[k].clone() for k in keys}
+    _run_pass(ops.approx_pass, got, t["planes"], t["valid"], gram, perm,
+              steps)
+    _run_pass(eager_pass, want, t["planes"], t["valid"], gram, perm, steps)
+    assert torch.equal(got["last"], want["last"])
+    for k in ("phi", "phi_i", "bar"):
+        assert_allclose(got[k].cpu().numpy(), want[k].cpu().numpy(), **TOL)
+
+
+@pytest.mark.parametrize("steps", [None, 10])
+@pytest.mark.parametrize("n,cap,d", [(96, 64, 4004), (24, 16, 10265),
+                                     (33, 5, 7)])
+def test_approx_pass_kernel_streams_rows_past_the_staged_ones(cuda, n, cap,
+                                                              d, steps):
+    """Blocks with every slot valid hold more valid planes than the plan
+    stages (5 or 4 rows at d = 4004, 1 at d = 10265): the rest stream from
+    device memory in the same lane order."""
+    from repro_torch.kernels import approx_pass as t_ap
+    t, gram, perm = _pass_state(n, cap, d, steps, 7 * n + cap, cuda)
+    t["valid"][::3] = True
+    t["valid"][1::6, : cap // 2] = True
+    if d > 7:
+        assert t_ap.plan(d, cap, steps or 0).rows < cap
+    _kernel_vs_eager(t, gram, perm, steps)
+
+
+@pytest.mark.parametrize("steps", [None, 10])
+@pytest.mark.parametrize("n,cap,d", [(64, 64, 4004), (16, 16, 10265),
+                                     (9, 5, 7)])
+def test_approx_pass_kernel_with_blocks_repeated_close_together(cuda, n, cap,
+                                                                d, steps):
+    """A perm that repeats blocks at distance 1, 2 and 3, three in a row,
+    and alternating pairs (no path sends one, the kernel must stay right):
+    a repeat inside the prefetch distance reads the rewritten phi_i row."""
+    t, gram, _ = _pass_state(n, cap, d, steps, 11 * n + cap, cuda)
+    t["valid"][2] = True          # a repeated block past the staged rows
+    order = [2, 2, 5, 2, 7, 7, 7, 1, 3, 1, 3, 4, 0, 6, 4, 8, 8, 2, 6, 5, 5]
+    perm = torch.tensor(order + list(range(n)), device=cuda)
+    _kernel_vs_eager(t, gram, perm, steps)
+
+
+@pytest.mark.parametrize("steps", [None, 10])
+@pytest.mark.parametrize("n,cap,d", [(512, 64, 4004), (40, 16, 10265)])
+def test_approx_pass_kernel_over_part_of_the_blocks(cuda, n, cap, d, steps):
+    """n_perm < n: a pass over a third of the blocks leaves the rest."""
+    t, gram, perm = _pass_state(n, cap, d, steps, 13 * n + cap, cuda)
+    _kernel_vs_eager(t, gram, perm[: n // 3].contiguous(), steps)
+
+
+@pytest.mark.parametrize("steps", [None, 10])
+@pytest.mark.parametrize("n,cap,d", [(128, 64, 4004), (33, 5, 7)])
+def test_approx_pass_kernel_with_runs_of_empty_blocks(cuda, n, cap, d,
+                                                      steps):
+    """Blocks with no valid plane, alone and in runs (the zero plane in
+    the plain mode, only the average moves in the Sec-3.5 mode)."""
+    t, gram, perm = _pass_state(n, cap, d, steps, 17 * n + cap, cuda)
+    empty = perm[: n // 2]
+    t["valid"][empty] = False
+    t["valid"][perm[n // 2 + 1]] = False
+    _kernel_vs_eager(t, gram, perm, steps)
+
+
+@pytest.mark.parametrize("steps", [None, 10])
+@pytest.mark.parametrize("n,cap,d", [(12, 1, 19400), (12, 1, 19347),
+                                     (10, 4, 15000), (12, 8, 7000)])
+def test_approx_pass_kernel_on_one_buffer_and_every_build(cuda, n, cap, d,
+                                                          steps):
+    """The widest shapes: one buffer where two do not fit (staged just
+    before its block, distance 0; at d = 19347 with 10 steps one staged
+    row, plain two buffers of phi_i alone) and the builds holding 16, 24
+    and 40 elements of phi per thread; with a repeated block."""
+    from repro_torch.kernels import approx_pass as t_ap
+    how = t_ap.plan(d, cap, steps or 0)
+    if d == 19400:
+        assert how.distance == 0
+    t, gram, perm = _pass_state(n, cap, d, steps, 19 * n + cap, cuda)
+    t["valid"][perm[0]] = True
+    perm = torch.cat([perm[:1], perm[:1], perm]).contiguous()
+    _kernel_vs_eager(t, gram, perm, steps)
+
+
+@pytest.mark.parametrize("d,cap,steps", [(4004, 64, 0), (4004, 64, 10),
+                                         (10265, 16, 0), (10265, 16, 10),
+                                         (7, 5, 0), (7, 5, 10),
+                                         (19347, 1, 0), (15000, 4, 10)])
+def test_approx_pass_plan_matches_the_kernels_layout(cuda, d, cap, steps):
+    """The host plan's shared-memory bytes are the kernel's own layout."""
+    from repro_torch.kernels import approx_pass as t_ap
+    how = t_ap.plan(d, cap, steps)
+    lib = t_ap._lib()
+    assert lib.approx_pass_smem_bytes(d, cap, steps, how.rows,
+                                      how.distance + 1) == how.smem_bytes
 
 
 # -- the LM kernels (moe_ffn, flash_attention) --------------------------------

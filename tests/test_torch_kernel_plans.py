@@ -1,14 +1,21 @@
-"""The launch plans of the port's B4 ``gram`` and B1 ``plane_scores``
-kernels, computed on the host from the shape alone.
+"""The launch plans of the port's B4 ``gram``, B1 ``plane_scores``,
+``approx_pass`` and B3 ``viterbi`` kernels, computed on the host from the
+shape alone.
 
 The kernels run only on a card (``tests/test_torch_gpu.py``); what they
 are launched with is plain Python and is checked here: B4's split of each
-output tile's K range over a cluster, and B1's rows per CTA.
+output tile's K range over a cluster, B1's rows per CTA, the rows
+``approx_pass`` stages per buffer and how far ahead, and whether B3
+stages a row in shared memory.
 """
 import pytest
 
+from repro_torch.kernels import approx_pass as t_ap
 from repro_torch.kernels import gram as t_gram
 from repro_torch.kernels import plane_scores as t_ps
+from repro_torch.kernels import viterbi as t_vit
+
+SMEM = 232448   # shared memory a CTA may opt into on an H100
 
 D_CASES = [1, 31, 32, 33, 127, 4004]
 GRAM_SHAPES = [(n, d) for n in (1, 33, 64, 65, 128, 192, 384, 512, 1024,
@@ -90,3 +97,100 @@ def test_plane_scores_rows_per_cta_cover_n(n):
     if n > 8 * t_ps.SMS:
         assert (rows, stages) == (8, 2)
     assert t_ps.plan(n) == (rows, stages)
+
+
+# The shapes the paths launch approx_pass at: full-size OCR (d = 4004,
+# cap = 64), the SSVM head on OLMoE features (d = 10265, cap = 16) and the
+# card tests' small one; each plain (0) and with 10 Gram steps.
+PASS_SHAPES = [(d, cap, steps) for d, cap in ((4004, 64), (10265, 16),
+                                              (7, 5))
+               for steps in (0, 10)]
+
+
+@pytest.mark.parametrize("d,cap,steps", PASS_SHAPES)
+def test_approx_pass_plan_fits_and_prefetches_on_the_paths(d, cap, steps):
+    """Every path's shape fits the card's shared memory with two buffers
+    (the next block staged while this one computes) and at least one
+    staged row; the plan depends on the shape alone."""
+    how = t_ap.plan(d, cap, steps)
+    assert how == t_ap.plan(d, cap, steps)
+    assert how.smem_bytes <= SMEM
+    assert how.distance == 1 and 1 <= how.rows <= cap
+
+
+@pytest.mark.parametrize("d,cap,steps,rows", [
+    (4004, 64, 0, 5), (4004, 64, 10, 4), (10265, 16, 0, 1),
+    (10265, 16, 10, 1), (7, 5, 0, 5), (7, 5, 10, 5)])
+def test_approx_pass_plan_stages_as_many_rows_as_fit(d, cap, steps, rows):
+    """The rows per buffer are the most that fit: one more does not."""
+    how = t_ap.plan(d, cap, steps)
+    assert how.rows == rows
+    if rows < cap:
+        more = t_ap._words(d + 1, cap, steps, rows + 1, how.distance + 1)
+        assert 4 * more > SMEM
+
+
+def _taken_before(d, cap, steps):
+    """The kernel before staging kept w, phi, the average and, in the
+    Sec-3.5 mode, phi_i and the Gram leaf in shared memory."""
+    d1 = d + 1
+    words = 3 * d1 + 4 * cap + 68 + (d1 + cap * cap if steps else 0)
+    return 4 * words <= SMEM
+
+
+TAKEN_BEFORE = [(d, cap, steps)
+                for d in (1, 7, 127, 4004, 10265, 15000, 19000, 19344)
+                for cap in (1, 5, 16, 64, 128) for steps in (0, 10)
+                if _taken_before(d, cap, steps)]
+
+
+@pytest.mark.parametrize("d,cap,steps", TAKEN_BEFORE)
+def test_approx_pass_plan_takes_every_shape_the_single_buffer_kernel_took(
+        d, cap, steps):
+    """Each shape the kernel took before staging still has a plan; one
+    that stages a row prefetches it a block ahead."""
+    d1 = d + 1
+    how = t_ap.plan(d, cap, steps)
+    assert how.smem_bytes <= SMEM and 0 <= how.rows <= cap
+    if 4 * t_ap._words(d1, cap, steps, 1, 2) <= SMEM:
+        assert how.distance == 1 and how.rows >= 1
+
+
+@pytest.mark.parametrize("steps", [0, 10])
+@pytest.mark.parametrize("d,cap", [(60000, 4), (60000, 64), (30000, 1)])
+def test_approx_pass_plan_refuses_what_shared_memory_cannot_hold(d, cap,
+                                                                  steps):
+    with pytest.raises(ValueError, match="shared memory"):
+        t_ap.plan(d, cap, steps)
+
+
+@pytest.mark.parametrize("d", [20480, 25000])
+def test_approx_pass_plan_refuses_more_of_phi_than_a_thread_holds(d):
+    """Past 20 elements of phi per thread (d + 1 > 20480) there is no
+    build, though one buffer would fit."""
+    assert 4 * t_ap._words(d + 1, 1, 0, 0, 1) <= SMEM
+    with pytest.raises(ValueError, match="registers"):
+        t_ap.plan(d, 1, 0)
+
+
+# B3 at the paths' shapes (OCR rows of 14 steps over 26 labels, the SSVM
+# head's 32 steps) and at the most labels one block takes (109).
+VITERBI_SHAPES = ([(14, 26)] + [(32, c) for c in (5, 26, 64, 109)]
+                  + [(L, 109) for L in (1, 14, 32, 211, 212, 1000)])
+
+
+@pytest.mark.parametrize("L,C", VITERBI_SHAPES)
+def test_viterbi_plan_stages_what_fits(L, C):
+    """Staged exactly when the table and two score rows (at least 64
+    words), the unaries, the back pointers and the mask bytes fit; either
+    way within the card's shared memory, and a function of (L, C)
+    alone."""
+    how = t_vit.plan(L, C)
+    assert how == t_vit.plan(L, C)
+    assert how.smem_bytes <= SMEM
+    table = max(C * C + 2 * C, 64)
+    staged = 4 * (table + L * C + (L - 1) * C) + 4 * (-(-L // 4))
+    assert how.staged == (staged <= SMEM)
+    assert how.smem_bytes == (staged if how.staged else 4 * table)
+    if L <= 32:
+        assert how.staged
