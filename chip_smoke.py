@@ -18,7 +18,13 @@ Phases, one JSON line each (seconds on an H100 in brackets):
                  and scratch), plane_select, moe_ffn, flash_attention,
                  gram, and approx_pass (one whole approximate pass per
                  launch, both modes, against the eager per-block loop),
-                 each with the launch plan it chose [~60].
+                 each with the launch plan it chose; plane_select at
+                 three densities (the path's 2/64, half, all valid) and
+                 at k = 64 and 512 rows, each held bit for bit against
+                 plane_scores and against 50 relaunches, timed by
+                 graph_ms and the event loop beside the two-step addmv
+                 + mask + amax/argmax, each with its bound from its
+                 valid count [~70; plane_select ~10].
   3. parity   -- a short Solver run of the port on the card against the same
                  run on the CPU (plain versions), on the CI-sized OCR
                  scenario.
@@ -51,7 +57,10 @@ Phases, one JSON line each (seconds on an H100 in brackets):
                  fold, 2 gated passes and the side-stream oracle program
                  on the trained state: each stream's device time and the
                  microseconds in which kernels of the two streams ran at
-                 once [~5].
+                 once; plane_select where the fold calls it
+                 (fallback_planes), over 512 and over all pending rows of
+                 the trained state: valid slots read, graph_ms, event-loop
+                 ms, bound and plan [~6].
   9. parity_gram -- mpbcfw-gram (the Sec-3.5 multi-step scheme) on the
                  card against the CPU on the CI-sized OCR scenario.
  10. main_gram -- mpbcfw-gram on the full-size OCR scenario (cap=64,
@@ -345,12 +354,74 @@ def check_viterbi(torch, gen, masks):
                 at_6877=timing[masks.shape[0]])
 
 
+SELECT_DENSITIES = (("path", 2.0 / 64), ("half", 0.5), ("full", 1.0))
+SELECT_SMALL_K = (64, 512)      # a tau chunk, a window of the fold
+SELECT_REPEATS = 50             # plane_select relaunches that must agree
+
+
+def select_plan(k: int, cap: int, d: int):
+    """plane_select's launch plan for k rows of a (., cap, d) cache
+    (kernels/plane_select.py::plan)."""
+    from repro_torch.kernels import plane_select as t_psel
+    return t_psel.plan(k, cap, d)._asdict()
+
+
+def select_bound(torch, valid, rows, d: int):
+    """(valid slots read, bound ms, bound_by) of one plane_select call over
+    ``rows``: the least traffic is the valid slots' planes and offsets,
+    the selected rows' validity bytes, w, the row indices, and best + idx
+    written once; 2d flops per valid slot."""
+    k, cap = rows.numel(), valid.shape[1]
+    n_valid = int(valid[rows].sum())
+    nbytes = 4 * n_valid * (d + 1) + k * cap + 4 * d + 8 * k + 8 * k
+    return (n_valid,) + bound_ms(nbytes, 2.0 * n_valid * d)
+
+
+def check_select_bits(torch, P, w, b, valid, rows, best, idx, what):
+    """B2's result against B1's scores of the same planes, bit for bit
+    (the order both keep), then SELECT_REPEATS relaunches from one state
+    against the first launch."""
+    from repro_torch.kernels import ops
+    n, cap, d = P.shape
+    scores = ops.plane_scores(P.reshape(n * cap, d), w,
+                              b.reshape(n * cap)).reshape(n, cap)
+    masked = torch.where(valid, scores,
+                         torch.full_like(scores, ops.INVALID_SCORE))[rows]
+    check(torch.equal(best, masked.amax(dim=1)),
+          f"plane_select {what}: scores differ from plane_scores' bits")
+    check(torch.equal(idx.long(), masked.argmax(dim=1)),
+          f"plane_select {what}: slots differ from plane_scores' argmax")
+    for _ in range(SELECT_REPEATS):
+        again = ops.plane_select(P, w, b, valid, rows=rows)
+        check(torch.equal(again[0], best) and torch.equal(again[1], idx),
+              f"plane_select {what}: a relaunch changed the result")
+
+
 def check_plane_select(torch, gen):
     """The fused score-and-select kernel against its plain version: all n
     rows of the full-size cache selected through a permutation (the
-    pipelined path's batched fallback), and ragged shapes."""
+    pipelined path's batched fallback) at three densities (the path's
+    2/64, one half, all valid), k = 64 and 512 rows through ``rows``, and
+    ragged shapes.  At each density and k: idx equal to the plain
+    version's, best within TOL, the scores equal to B1's bit for bit, and
+    SELECT_REPEATS relaunches bit-equal.  Timed by :func:`graph_ms` (the
+    host out of the loop) and :func:`time_ms`, beside the two-step
+    ``addmv`` + mask + ``amax``/``argmax`` over the whole cache, each with
+    its own byte bound from its valid count and the plan it launched with.
+    Small k reads other rows each call (slices of one permutation), so
+    each call finds its rows cold in L2, as a tau chunk does.  ~10 s."""
     from repro_torch.kernels import ops, ref
     n, cap, d = OCR["n"], RUN_ASYNC["cap"], 4004
+
+    def density(stack, p_valid):
+        rows_n, cap = stack.shape[:2]
+        valid = torch.rand((rows_n, cap), generator=gen,
+                           device="cuda") < p_valid
+        if p_valid < 1.0:
+            valid[::11] = False                 # rows with no valid slot
+        if cap > 40:
+            valid[1::5, 10] = valid[1::5, 40] = True
+        return valid
 
     def case(rows_n, cap, d, p_valid):
         # Planes scaled by 1/sqrt(d): scores of unit scale, so the absolute
@@ -360,15 +431,11 @@ def check_plane_select(torch, gen):
         # a score cancels to near 0.
         stack = torch.randn((rows_n, cap, d + 1), generator=gen,
                             device="cuda") / math.sqrt(d)
-        valid = torch.rand((rows_n, cap), generator=gen,
-                           device="cuda") < p_valid
-        valid[::11] = False                     # rows with no valid slot
         if cap > 40:                            # duplicate planes: ties
             stack[1::5, 40] = stack[1::5, 10]
-            valid[1::5, 10] = valid[1::5, 40] = True
         w = torch.randn((d,), generator=gen, device="cuda")
         rows = torch.randperm(rows_n, generator=gen, device="cuda")
-        return stack, valid, w, rows
+        return stack, density(stack, p_valid), w, rows
 
     def compare(stack, valid, w, rows, what):
         best, idx = ops.plane_select(stack[..., :-1], w, stack[..., -1],
@@ -382,51 +449,108 @@ def check_plane_select(torch, gen):
         err = (best - want_best).abs()
         check(bool((err <= TOL * (1 + want_best.abs())).all()),
               f"plane_select {what}: max err {float(err.max())}")
-        return float(err.max())
+        return float(err.max()), best, idx
 
     ragged = {}
     for c in (1, 7, 64):
         for dd in (1, 127, 4004):
             ragged[f"{c}x{dd}"] = compare(*case(300, c, dd, 0.3),
-                                          f"300x{c}x{dd}")
-    stack, valid, w, rows = case(n, cap, d, 2.0 / cap)
-    main_err = compare(stack, valid, w, rows, f"{n}x{cap}x{d}")
+                                          f"300x{c}x{dd}")[0]
+    stack, path_valid, w, rows = case(n, cap, d, SELECT_DENSITIES[0][1])
     P, b = stack[..., :-1], stack[..., -1]
-    n_valid = int(valid.sum())
-    ms = time_ms(torch, lambda k: ops.plane_select(P, w, b, valid,
-                                                   rows=rows), 20)
-    plain_ms = time_ms(torch, lambda k: ref.plane_select_ref(
-        P, w, b, valid, rows), 3, warmup=1)
     flat = stack.reshape(n * cap, d + 1)
+    errs, at = [], {}
+    for name, p_valid in SELECT_DENSITIES:
+        valid = path_valid if name == "path" else density(stack, p_valid)
+        what = f"{n}x{cap}x{d} {name}"
+        err, best, idx = compare(stack, valid, w, rows, what)
+        check_select_bits(torch, P, w, b, valid, rows, best, idx, what)
+        errs.append(err)
+        # The plain version's gathers leave ~14 GB cached.  A graph capture
+        # frees it (empty_cache), and a replay timed just after it read up
+        # to 20 % slow at all valid (scripts/plane_select_timing.py
+        # --after-plain), so free it first and let the card settle.
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        time.sleep(0.5)
 
-    def two_step(k):
-        scores = torch.addmv(flat[:, -1], flat[:, :-1], w).reshape(n, cap)
-        masked = scores.masked_fill(~valid, ops.INVALID_SCORE)
-        return masked.amax(dim=1), masked.argmax(dim=1)
-    two_step_ms = time_ms(torch, two_step, 5, warmup=1)
-    # Least traffic: the valid slots' planes and offsets, the validity
-    # bytes, w, the row indices, and best + idx written once.
-    nbytes = 4 * n_valid * (d + 1) + n * cap + 4 * d + 8 * n + 8 * n
-    bms, by = bound_ms(nbytes, 2.0 * n_valid * d)
+        def kernel(k, valid=valid):
+            return ops.plane_select(P, w, b, valid, rows=rows)
+
+        def two_step(k, valid=valid):
+            scores = torch.addmv(flat[:, -1], flat[:, :-1], w).reshape(n, cap)
+            masked = scores.masked_fill(~valid, ops.INVALID_SCORE)
+            return masked.amax(dim=1), masked.argmax(dim=1)
+        n_valid, bms, by = select_bound(torch, valid, rows, d)
+        calls = 20 if name == "path" else 5
+        at[name] = dict(
+            valid_slots=n_valid, max_abs_err=err,
+            graph_ms=graph_ms(torch, kernel, calls),
+            event_loop_ms=time_ms(torch, kernel, calls),
+            two_step_graph_ms=graph_ms(torch, two_step, 3, warmup=1),
+            two_step_ms=time_ms(torch, two_step, 3, warmup=1),
+            plain_ms=time_ms(torch, lambda k, valid=valid:
+                             ref.plane_select_ref(P, w, b, valid, rows),
+                             2, warmup=1),
+            bound_ms=bms, bound_by=by, plan=select_plan(n, cap, d))
+        at[name]["graph_over_bound"] = at[name]["graph_ms"] / bms
+        del valid, kernel, two_step
+    # Small k at the path's density: slices of one permutation, another
+    # slice each call.
+    small = {}
+    for kk in SELECT_SMALL_K:
+        slices = [rows[i:i + kk] for i in range(0, n - kk + 1, kk)]
+        what = f"k={kk}"
+        err, best, idx = compare(stack, path_valid, w, slices[0], what)
+        check_select_bits(torch, P, w, b, path_valid, slices[0], best, idx,
+                          what)
+        errs.append(err)
+
+        def kernel(k, slices=slices):
+            return ops.plane_select(P, w, b, path_valid,
+                                    rows=slices[k % len(slices)])
+        calls = 4 * len(slices) if kk == 64 else 2 * len(slices)
+        nv = [select_bound(torch, path_valid, s, d) for s in slices]
+        small[kk] = dict(
+            max_abs_err=err, slices=len(slices),
+            valid_slots_per_call=sum(v[0] for v in nv) / len(nv),
+            graph_ms=graph_ms(torch, kernel, calls),
+            event_loop_ms=time_ms(torch, kernel, calls),
+            bound_ms=sum(v[1] for v in nv) / len(nv), bound_by=nv[0][2],
+            plan=select_plan(kk, cap, d))
+    path = at["path"]
     full_ms, _ = bound_ms(4.0 * n * cap * (d + 1) + n * cap + 4 * d + 16 * n,
                           2.0 * n * cap * d)
-    del stack, valid, flat, P, b
+    del stack, path_valid, flat, P, b
     torch.cuda.empty_cache()
     note = ("no single PyTorch call computes a masked first argmax over "
             "slots; two_step_ms is addmv over the whole cache, then "
             "masked_fill, amax and argmax (rows in order, no gather)")
     emit("kernel", name="plane_select", shape=[n, cap, d], rows="permutation",
-         valid_slots=n_valid, max_abs_err=main_err, ragged_max_abs_err=ragged,
-         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-         full_read_bound_ms=full_ms, two_step_ms=two_step_ms,
-         library_ms=None, library_note=note)
+         densities=at, small_k=small, max_abs_err=max(errs),
+         ragged_max_abs_err=ragged, full_read_bound_ms=full_ms,
+         library_ms=None, library_note=note,
+         timing_by="graph_ms: the calls captured in one CUDA graph; "
+         "event_loop_ms, two_step_ms, plain_ms: time_ms")
     return dict(name="plane_select", route="cuda",
                 source="src/repro_torch/kernels/csrc/plane_select.cu",
                 replaces="src/repro/kernels/plane_select.py:64",
-                max_abs_err=max([main_err, *ragged.values()]), ms=ms,
-                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                max_abs_err=max([*errs, *ragged.values()]),
+                ms=path["event_loop_ms"], graph_ms=path["graph_ms"],
+                plain_ms=path["plain_ms"], bound_ms=path["bound_ms"],
+                bound_by=path["bound_by"], valid_slots=path["valid_slots"],
                 library_ms=None, full_read_bound_ms=full_ms,
-                two_step_ms=two_step_ms, library_note=note)
+                two_step_ms=path["two_step_ms"],
+                two_step_graph_ms=path["two_step_graph_ms"],
+                plan=path["plan"], timing_by="ms, two_step_ms: time_ms; "
+                "graph_ms, two_step_graph_ms: graph_ms",
+                densities={k: {f: v[f] for f in ("valid_slots", "graph_ms",
+                                                  "event_loop_ms",
+                                                  "bound_ms")}
+                           for k, v in at.items()},
+                small_k={k: {f: v[f] for f in ("graph_ms", "bound_ms")}
+                         for k, v in small.items()},
+                library_note=note)
 
 
 def approx_plan(d: int, cap: int, steps=None):
@@ -1147,6 +1271,7 @@ def phase_profile_async(torch, solver, n_fold: int = 512):
                              + e.time_range.elapsed_us())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     emit("profile_async", scenario="OCR", fold=fold, folded_blocks=n_fold,
+         plane_select=select_on_state(torch, solver.state, lam, n_fold),
          approx_passes_queued=len(passes), oracle_blocks=n,
          window_ms=1e3 * untraced,
          ms_per_folded_block=1e3 * untraced / n_fold,
@@ -1164,6 +1289,43 @@ def phase_profile_async(torch, solver, n_fold: int = 512):
          traced_graph_launches=len(launches),
          traced_graph_launch_first_last_us=launches[:1] + launches[-1:],
          top_device_us=[[k[:60], v] for k, v in top])
+
+
+def select_on_state(torch, state, lam: float, n_fold: int):
+    """B2 where the fold calls it (``fallback_planes``) on a trained
+    pipelined state: over ``n_fold`` pending rows and over all pending
+    rows, at the state's ``w`` and its cache's own validity.  Per call:
+    the valid slots read, :func:`graph_ms` and :func:`time_ms`, the bound
+    from that count, and the plan.  The ``n_fold`` calls take successive
+    windows of the pending ids, so each finds its rows cold in L2."""
+    from repro_torch.core.ssvm import weights_of
+    from repro_torch.core.types import index_tensor
+    from repro_torch.kernels import ops
+    cache = state.mp.cache
+    P, b = cache.planes[:, :, :-1], cache.planes[:, :, -1]
+    cap, d = cache.valid.shape[1], P.shape[2]
+    w = weights_of(state.mp.inner.phi, lam)
+    pending = index_tensor(state.pending.ids, P.device)
+    out = {}
+    for name, k in (("n_fold", n_fold), ("all_pending", pending.numel())):
+        windows = [pending[i:i + k]
+                   for i in range(0, pending.numel() - k + 1, k)]
+        nv = [select_bound(torch, cache.valid, r, d) for r in windows]
+
+        def kernel(i, windows=windows):
+            return ops.plane_select(P, w, b, cache.valid,
+                                    rows=windows[i % len(windows)])
+        calls = max(10, 2 * len(windows))
+        out[name] = dict(
+            rows=k, windows=len(windows),
+            valid_slots_per_call=sum(v[0] for v in nv) / len(nv),
+            graph_ms=graph_ms(torch, kernel, calls),
+            event_loop_ms=time_ms(torch, kernel, calls),
+            bound_ms=sum(v[1] for v in nv) / len(nv), bound_by=nv[0][2],
+            plan=select_plan(k, cap, d))
+        out[name]["graph_over_bound"] = (out[name]["graph_ms"]
+                                         / out[name]["bound_ms"])
+    return out
 
 
 def rel_l2(torch, got, want) -> float:

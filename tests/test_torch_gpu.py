@@ -194,6 +194,218 @@ def test_plane_select_kernel_refuses_what_it_cannot_hold(cuda):
     assert torch.isnan(best[1:]).all() and idx.tolist() == [0, -1, -1]
 
 
+SELECT_DENSITIES = [0.0, 1.0 / 64, 0.3, 1.0]
+
+
+@pytest.fixture(scope="module")
+def ocr_cache():
+    """The full-size (6877, 64, 4004) cache of unit-scale planes, rows of
+    4005 floats read in place, with duplicate planes in slots 10 and 40 of
+    every fifth row; w and a generator for the masks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20)
+    n, cap, d = 6877, 64, 4004
+    stack = torch.randn((n, cap, d + 1), generator=gen, device="cuda") \
+        / np.sqrt(d)
+    stack[1::5, 40] = stack[1::5, 10]
+    w = torch.randn((d,), generator=gen, device="cuda")
+    yield stack, w, gen
+    del stack
+    torch.cuda.empty_cache()
+
+
+def _select_mask(gen, n, cap, density):
+    valid = torch.rand((n, cap), generator=gen, device="cuda") < density
+    if 0.0 < density < 1.0:
+        valid[::11] = False                       # rows with no valid slot
+        if cap > 40:
+            valid[1::5, 10] = valid[1::5, 40] = True   # tied duplicates
+    return valid
+
+
+def _select_against_plain_and_b1(stack, w, valid, rows):
+    """B2 on the card against the plain version (idx equal, best within
+    TOL) and against B1's scores of the same planes, bit for bit.  The
+    plain version's matrix-vector product does not always round equal
+    rows equally (seen at d = 8193): where it picks slot 40 of a row
+    whose valid slot 10 holds the same plane, the first copy, slot 10, is
+    what it means."""
+    P, b = stack[..., :-1], stack[..., -1]
+    best, idx = ops.plane_select(P, w, b, valid, rows=rows)
+    want_best, want_idx = ref.plane_select_ref(P, w, b, valid, rows)
+    if stack.shape[1] > 40:
+        twin = (want_idx == 40) & valid[rows, 10] & (
+            stack[rows, 10] == stack[rows, 40]).all(dim=1)
+        want_idx = torch.where(twin, torch.full_like(want_idx, 10), want_idx)
+    assert torch.equal(idx, want_idx)
+    assert_allclose(best.cpu().numpy(), want_best.cpu().numpy(), **TOL)
+    n, cap, d = P.shape
+    scores = ops.plane_scores(P.reshape(n * cap, d), w,
+                              b.reshape(n * cap)).reshape(n, cap)
+    masked = torch.where(valid, scores, torch.full_like(
+        scores, ops.INVALID_SCORE))[rows]
+    assert torch.equal(best, masked.amax(dim=1))
+    assert torch.equal(idx.long(), masked.argmax(dim=1))
+    return best, idx
+
+
+@pytest.mark.parametrize("density", SELECT_DENSITIES)
+@pytest.mark.parametrize("k", [1, 8, 64, 257, 6877])
+def test_plane_select_kernel_at_every_density_and_k(cuda, ocr_cache,
+                                                     density, k):
+    """The full-size cache through ``rows``: k rows of a permutation (the
+    first ones again at the end, so rows repeat), at the path's density
+    (1/64), none, 0.3 and all valid."""
+    stack, w, gen = ocr_cache
+    n, cap = stack.shape[:2]
+    valid = _select_mask(gen, n, cap, density)
+    perm = torch.randperm(n, generator=gen, device="cuda")
+    rows = torch.cat([perm[:k - k // 8], perm[:k // 8]])
+    best, idx = _select_against_plain_and_b1(stack, w, valid, rows)
+    if density == 0.0:
+        assert (best == ops.INVALID_SCORE).all() and (idx == 0).all()
+
+
+@pytest.mark.parametrize("d", [1, 31, 33, 127, 4004, 8193])
+@pytest.mark.parametrize("density", SELECT_DENSITIES)
+def test_plane_select_kernel_at_every_width(cuda, d, density):
+    """257 rows of a (300, 64, d) cache, with repeats, at every width: one
+    column, less than a warp, just over, a ragged 127, the path's 4004
+    and 8193 (staged in three chunks of 2752 columns)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(d)
+    n, cap = 300, 64
+    stack = torch.randn((n, cap, d + 1), generator=gen, device="cuda") \
+        / np.sqrt(d)
+    stack[1::5, 40] = stack[1::5, 10]
+    w = torch.randn((d,), generator=gen, device="cuda")
+    valid = _select_mask(gen, n, cap, density)
+    rows = torch.randint(0, n, (257,), generator=gen, device="cuda")
+    _select_against_plain_and_b1(stack, w, valid, rows)
+
+
+def test_plane_select_kernel_ties_to_the_lower_slot_at_every_density(
+        cuda, ocr_cache):
+    """Duplicate planes in slots 10 and 40 of every fifth row, both valid:
+    the lower slot wins wherever they are the best."""
+    stack, w, gen = ocr_cache
+    n, cap = stack.shape[:2]
+    for density in SELECT_DENSITIES[1:]:
+        valid = _select_mask(gen, n, cap, density)
+        valid[1::5, 10] = valid[1::5, 40] = True
+        P, b = stack[..., :-1], stack[..., -1]
+        # w pointing along slot 10's plane makes it the best of its row.
+        rows = torch.arange(1, n, 5, device=cuda)
+        w10 = stack[1, 10, :-1].contiguous()
+        best, idx = ops.plane_select(P, w10, b, valid, rows=rows)
+        assert idx[0] == 10
+        assert not (idx == 40).any()
+
+
+def test_plane_select_kernel_rows_outside_give_nan(cuda, ocr_cache):
+    """Row indices outside [0, n) give (NaN, -1); the rows around them
+    are scored as without them."""
+    stack, w, gen = ocr_cache
+    n, cap = stack.shape[:2]
+    valid = _select_mask(gen, n, cap, 1.0 / 64)
+    P, b = stack[..., :-1], stack[..., -1]
+    inside = torch.randint(0, n, (40,), generator=gen, device="cuda")
+    rows = inside.clone()
+    rows[[0, 9, 10, 39]] = torch.tensor([-1, n, -5, n + 7], device=cuda)
+    best, idx = ops.plane_select(P, w, b, valid, rows=rows)
+    want_best, want_idx = ops.plane_select(P, w, b, valid, rows=inside)
+    out = torch.zeros(40, dtype=torch.bool, device=cuda)
+    out[[0, 9, 10, 39]] = True
+    assert torch.isnan(best[out]).all() and (idx[out] == -1).all()
+    assert torch.equal(best[~out], want_best[~out])
+    assert torch.equal(idx[~out], want_idx[~out])
+
+
+@pytest.mark.parametrize("density", [1.0 / 64, 1.0])
+def test_plane_select_kernel_relaunches_give_the_same_bits(cuda, ocr_cache,
+                                                           density):
+    stack, w, gen = ocr_cache
+    n, cap = stack.shape[:2]
+    valid = _select_mask(gen, n, cap, density)
+    P, b = stack[..., :-1], stack[..., -1]
+    rows = torch.randperm(n, generator=gen, device="cuda")
+    best, idx = ops.plane_select(P, w, b, valid, rows=rows)
+    for _ in range(50):
+        again = ops.plane_select(P, w, b, valid, rows=rows)
+        assert torch.equal(again[0], best) and torch.equal(again[1], idx)
+
+
+@pytest.mark.parametrize("k", [64, 6877])
+def test_plane_select_kernel_replayed_from_a_graph_equals_eager(
+        cuda, ocr_cache, k):
+    """The launch is capturable: a replay writes the eager launch's bits,
+    and reads its inputs anew."""
+    stack, w, gen = ocr_cache
+    n, cap = stack.shape[:2]
+    valid = _select_mask(gen, n, cap, 1.0 / 64)
+    P, b = stack[..., :-1], stack[..., -1]
+    rows = torch.randperm(n, generator=gen, device="cuda")[:k]
+    eager = ops.plane_select(P, w, b, valid, rows=rows)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.plane_select(P, w, b, valid, rows=rows)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], eager[0]) and torch.equal(out[1], eager[1])
+    w2 = w.clone()
+    w.mul_(-1.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    again = ops.plane_select(P, w, b, valid, rows=rows)
+    w.copy_(w2)
+    assert torch.equal(out[0], again[0]) and torch.equal(out[1], again[1])
+
+
+@pytest.mark.parametrize("d", [0, 1, 31, 4004, 4096, 4097, 8193, 20000])
+@pytest.mark.parametrize("cap", [1, 7, 64, 4096])
+def test_plane_select_plan_matches_the_kernels_layout(cuda, d, cap):
+    """The wrapper's shared-memory count is the kernel's own, for the
+    picked plan and with w moved to the other place."""
+    lib = t_psel._lib()
+    try:
+        how = t_psel.plan(6877, cap, d)
+    except ValueError:
+        return
+    for w_shared in (how.w_shared, not how.w_shared):
+        assert t_psel.smem_bytes(how.rows, how.chunk, d, cap, w_shared) == \
+            lib.plane_select_smem_bytes(how.rows, how.chunk, d, cap,
+                                        int(w_shared))
+
+
+def test_plane_select_launcher_refuses_plans_it_does_not_have(cuda):
+    """Rows per CTA or chunks the kernel does not take, or more shared
+    memory than a CTA gets, return an error and launch nothing."""
+    lib = t_psel._lib()
+    planes = torch.zeros((4, 3, 5), device=cuda)
+    w = torch.zeros(4, device=cuda)
+    valid = torch.ones((4, 3), dtype=torch.bool, device=cuda)
+    best = torch.full((4,), 7.0, device=cuda)
+    idx = torch.full((4,), 7, dtype=torch.int32, device=cuda)
+
+    def launch(rows_per_cta, chunk, cap=3):
+        return lib.plane_select_launch(
+            planes.data_ptr(), 15, 5, w.data_ptr(), planes.data_ptr() + 16,
+            15, 5, valid.data_ptr(), 3, 1, None, 4, 4, cap, 4, 0.0,
+            best.data_ptr(), idx.data_ptr(), rows_per_cta, chunk, 1,
+            torch.cuda.current_stream().cuda_stream)
+    for rows_per_cta, chunk in ((0, 32), (t_psel.MAX_ROWS + 1, 32), (1, 48),
+                                (1, 0)):
+        assert launch(rows_per_cta, chunk) != 0
+    assert launch(32, 32, cap=t_psel.MAX_CAP) != 0
+    torch.cuda.synchronize()
+    assert (best == 7.0).all() and (idx == 7).all()
+    assert launch(1, 32) == 0
+    torch.cuda.synchronize()
+    assert (idx == 0).all()
+
+
 def _viterbi_args(B, L, C, seed, tie):
     r = np.random.RandomState(seed)
     if tie:

@@ -1,18 +1,19 @@
 """The launch plans of the port's B4 ``gram``, B1 ``plane_scores``,
-``approx_pass`` and B3 ``viterbi`` kernels, computed on the host from the
-shape alone.
+B2 ``plane_select``, ``approx_pass`` and B3 ``viterbi`` kernels, computed
+on the host from the shape alone.
 
 The kernels run only on a card (``tests/test_torch_gpu.py``); what they
 are launched with is plain Python and is checked here: B4's split of each
-output tile's K range over a cluster, B1's rows per CTA, the rows
-``approx_pass`` stages per buffer and how far ahead, and whether B3
-stages a row in shared memory.
+output tile's K range over a cluster, B1's rows per CTA, B2's rows per
+CTA, ring and shared memory, the rows ``approx_pass`` stages per buffer
+and how far ahead, and whether B3 stages a row in shared memory.
 """
 import pytest
 
 from repro_torch.kernels import approx_pass as t_ap
 from repro_torch.kernels import gram as t_gram
 from repro_torch.kernels import plane_scores as t_ps
+from repro_torch.kernels import plane_select as t_psel
 from repro_torch.kernels import viterbi as t_vit
 
 SMEM = 232448   # shared memory a CTA may opt into on an H100
@@ -97,6 +98,90 @@ def test_plane_scores_rows_per_cta_cover_n(n):
     if n > 8 * t_ps.SMS:
         assert (rows, stages) == (8, 2)
     assert t_ps.plan(n) == (rows, stages)
+
+
+# B2 at the pipelined path (all 6877 OCR blocks, a 512-block fold window,
+# a tau chunk of 64), single rows, and ragged counts around the plan's
+# steps.
+SELECT_K = [1, 2, 7, 63, 64, 257, 512, 527, 528, 1056, 4224, 6877, 16897,
+            440_128]
+SELECT_CAPS = [1, 7, 64, 4096]
+SELECT_DS = [1, 127, 4004, 8193]
+
+
+@pytest.mark.parametrize("k", SELECT_K)
+def test_plane_select_plan_covers_every_row(k):
+    """The CTAs' row groups cover the k rows once: a power of two of rows
+    per CTA, at most MAX_ROWS, and more than one only while the grid
+    keeps CTAS_PER_SM CTAs per SM."""
+    how = t_psel.plan(k, 64, 4004)
+    ctas = -(-k // how.rows)
+    assert ctas * how.rows >= k > (ctas - 1) * how.rows
+    assert how.rows & (how.rows - 1) == 0 and how.rows <= t_psel.MAX_ROWS
+    if how.rows > 1:
+        assert ctas >= t_psel.CTAS_PER_SM * t_psel.SMS
+    if how.rows < t_psel.MAX_ROWS:
+        assert -(-k // (2 * how.rows)) < t_psel.CTAS_PER_SM * t_psel.SMS
+
+
+@pytest.mark.parametrize("d", SELECT_DS)
+@pytest.mark.parametrize("cap", SELECT_CAPS)
+@pytest.mark.parametrize("k", [1, 64, 6877])
+def test_plane_select_plan_fits_shared_memory(k, cap, d):
+    """Every plan fits the card's shared memory, its count is the layout's,
+    and w is staged exactly when it fits beside the rest."""
+    how = t_psel.plan(k, cap, d)
+    assert how.smem_bytes <= SMEM == t_psel.SMEM_LIMIT
+    assert how.smem_bytes == t_psel.smem_bytes(how.rows, how.chunk, d, cap,
+                                               how.w_shared)
+    with_w = t_psel.smem_bytes(how.rows, how.chunk, d, cap, True)
+    assert how.w_shared == (with_w <= SMEM)
+
+
+@pytest.mark.parametrize("d", [0, 1, 31, 32, 33, 4004, 4096, 4097, 8192,
+                               8193, 12289, 100_000])
+def test_plane_select_chunks_keep_the_lane_order(d):
+    """A chunk is a multiple of 32 columns, so each lane keeps its columns
+    l, l+32, ... across chunks; rows up to MAX_CHUNK go in one copy, wider
+    ones in equal chunks of at most MAX_CHUNK."""
+    chunk = t_psel.chunk_of(d)
+    assert chunk % 32 == 0 and 32 <= chunk <= t_psel.MAX_CHUNK
+    pieces = max(1, -(-d // chunk))
+    if d <= t_psel.MAX_CHUNK:
+        assert pieces == 1
+    else:
+        assert pieces == -(-d // t_psel.MAX_CHUNK)
+
+
+@pytest.mark.parametrize("k,cap,d", [(6877, 64, 4004), (64, 64, 4004),
+                                     (512, 64, 4004), (300, 4096, 8193),
+                                     (1, 1, 1)])
+def test_plane_select_plan_depends_on_the_shape_alone(k, cap, d):
+    """The same shape gives the same plan, whatever the data; the path's
+    shape takes 4 rows per CTA with w staged, a tau chunk one row."""
+    assert t_psel.plan(k, cap, d) == t_psel.plan(k, cap, d)
+    assert t_psel.plan(k, cap, d) == t_psel.plan(int(k), int(cap), int(d))
+    if (k, cap, d) == (6877, 64, 4004):
+        assert t_psel.plan(k, cap, d).rows == 4
+        assert t_psel.plan(k, cap, d).w_shared
+    if k == 64:
+        assert t_psel.plan(k, cap, d).rows == 1
+
+
+@pytest.mark.parametrize("k,cap,d,what", [
+    (64, 0, 4004, "cap="), (64, t_psel.MAX_CAP + 1, 1, "cap="),
+    (64, 1 << 16, 1, "cap="), (64, t_psel.MAX_CAP, 4004, "shared memory"),
+    (64, 64, -1, "d="), (64, 64, 2 ** 31, "d=")])
+def test_plane_select_plan_refuses_what_it_cannot_hold(k, cap, d, what):
+    with pytest.raises(ValueError, match=what):
+        t_psel.plan(k, cap, d)
+
+
+def test_plane_select_max_cap_is_the_most_one_row_holds():
+    """MAX_CAP slots fit one row per CTA at the smallest width; one more
+    does not."""
+    assert t_psel.plan(1, t_psel.MAX_CAP, 1).smem_bytes <= SMEM
+    assert t_psel.smem_bytes(1, 32, 1, t_psel.MAX_CAP + 1, False) > SMEM
 
 
 # The shapes the paths launch approx_pass at: full-size OCR (d = 4004,
