@@ -80,6 +80,24 @@ Phases, one JSON line each (seconds on an H100 in brackets):
                  CPU: reduced OLMoE in float32, same weights and tokens;
                  backbone features, one decode step's logits, and a
                  3-iteration SSVM-head Solver run.
+ 13b. parity_simple -- the engines fw, ssg, bcfw, bcfw-avg and mpbcfw-avg
+                 (one program per outer iteration, and MP-BCFW reporting the
+                 averaged primal), SMALL ocr on the card against the CPU:
+                 the same schedule and sync counts, objectives within rtol
+                 1e-4 (ssg has no dual: NaN on both) [~15].
+ 13c. main_bcfw, main_ssg, main_fw -- bcfw-avg, ssg and fw on the
+                 full-size OCR scenario, 3 outer iterations each through the
+                 Solver: one dispatch and one host sync per iteration, B3
+                 at B=1 once per exact step (bcfw, ssg: one graph replay
+                 per block) or at B=n once per iteration (fw), approx_pass
+                 never [~4, ~3, ~1].
+ 13d. wide    -- ROADMAP C6: approx_pass's wide plan (phi and the average
+                 in device memory) against the eager pass at d = 20,505 and
+                 25,625 in both modes, plain cap 4096 and Sec-3.5 cap 512;
+                 then mpbcfw and mpbcfw-gram train 3 iterations on a chain
+                 of n=512, f=5120, C=5 (d = 25,625, the SSVM head's width
+                 over Mistral-NeMo-12B and Qwen2.5-14B), each with its ms
+                 per full wide pass beside its bound [~30].
  14. main_lm  -- OLMoE-1B-7B at its published width (16 layers, d_model
                  2048, 64 experts top-8, random weights from a seed): the
                  Server answers 8 requests, then the SSVM head trains on
@@ -132,6 +150,22 @@ HEAD = dict(n=1024, L=32, tags=5)
 HEAD_RUN = dict(algo="mpbcfw", max_iters=3, cap=16, approx_batch=8,
                 max_approx_passes=8)
 HEAD_ORACLE_COST = 0.5
+
+# The engines the registry added: card vs CPU on SMALL ocr, and three of
+# them at full OCR size (phase, algorithm).
+SIMPLE_ALGOS = ("fw", "ssg", "bcfw", "bcfw-avg", "mpbcfw-avg")
+SIMPLE_MAIN = (("main_bcfw", "bcfw-avg"), ("main_ssg", "ssg"),
+               ("main_fw", "fw"))
+# The wide plan (ROADMAP C6): pass shapes (blocks, cap, d, steps) past the
+# staged kernel, and a chain at the SSVM head's width over Mistral-NeMo-12B
+# and Qwen2.5-14B (d = 5 x 5120 + 5^2 = 25,625) at the head's settings.
+WIDE_PASSES = [(12, 16, 20505, None), (12, 16, 20505, 10),
+               (12, 16, 25625, None), (12, 16, 25625, 10),
+               (3, 4096, 4004, None), (6, 512, 4004, 10)]
+WIDE_DATA = dict(n=512, f=5120, num_labels=5, mean_len=8, max_len=14,
+                 seed=0)
+WIDE_RUN = dict(max_iters=3, cap=16, approx_batch=8, max_approx_passes=8,
+                gram_steps=10)
 
 
 def emit(phase: str, **fields) -> None:
@@ -739,8 +773,12 @@ def compare_traces(what: str, traces) -> list:
         check((g.n_exact, g.n_approx, g.approx_passes)
               == (c.n_exact, c.n_approx, c.approx_passes),
               f"{what}: schedule differs at iteration {g.iteration}")
-        for f in ("dual", "primal"):
+        for f in ("dual", "primal", "primal_avg"):
             a, b = getattr(g, f), getattr(c, f)
+            if math.isnan(b):        # ssg has no dual certificate
+                check(math.isnan(a), f"{what}: {f} {a} where the CPU has "
+                      f"NaN at iteration {g.iteration}")
+                continue
             check(abs(a - b) <= 1e-4 * abs(b) + 1e-7,
                   f"{what}: {f} {a} vs {b} at iteration {g.iteration}")
         rows.append([g.dual, c.dual, g.primal, c.primal, g.approx_passes])
@@ -785,11 +823,12 @@ def phase_parity(torch):
          rows=compare_traces("parity", traces))
 
 
-def drive(torch, solver, phase: str):
+def drive(torch, solver, phase: str, dual: bool = True):
     """Run ``solver`` to its end, each row timed to a device sync and
     emitted as ``<phase>_row``, then check the rows: all ``max_iters`` ran,
     the dual never decreased, gap >= -1e-5 |primal|, finite objectives.
-    Returns ``(rows, walls)``."""
+    Without ``dual`` (an engine with no dual certificate, ssg) only the
+    primal is checked.  Returns ``(rows, walls)``."""
     walls, rows = [], []
     rows_iter = solver.iterate()
     while True:
@@ -805,6 +844,10 @@ def drive(torch, solver, phase: str):
           f"{phase}: {len(rows)} iterations ran")
     prev = -float("inf")
     for r in rows:
+        check(math.isfinite(r.primal),
+              f"{phase}: non-finite primal at iteration {r.iteration}")
+        if not dual:
+            continue
         check(r.dual >= prev, f"{phase}: dual decreased at iteration "
               f"{r.iteration}")
         check(r.gap >= -1e-5 * abs(r.primal),
@@ -893,7 +936,7 @@ def graph_window(torch, run, graphs, blocks: int, kernels=()):
     time over the traced window's own device span, first kernel start to
     last kernel end (``traced_busy_share_of_span``).  ``kernels`` goes to
     :func:`traced`; a trace that shows a named kernel other than once per
-    block is taken once more (``trace_attempts``)."""
+    block is taken again, up to four times (``trace_attempts``)."""
     torch.cuda.synchronize()
     r0 = graphs.replays
     start = torch.cuda.Event(enable_timing=True)
@@ -908,10 +951,14 @@ def graph_window(torch, run, graphs, blocks: int, kernels=()):
     replays = graphs.replays - r0
     span_ms = start.elapsed_time(end)
     # Each named kernel runs once per block step.  The profiler can lose
-    # an event of a replayed graph (seen once: 1023 of 1024), so a trace
-    # that does not show one per block is taken once more; the callers
-    # still require one per block.
-    for attempt in (1, 2):
+    # events of a replayed graph (seen: 1023 of 1024, and 1022 of 1024 in
+    # two traces in a row), so a trace that does not show one per block
+    # is taken again, up to four times, after a sync and a pause; the
+    # callers still require one per block.
+    for attempt in (1, 2, 3, 4):
+        if attempt > 1:
+            torch.cuda.synchronize()
+            time.sleep(0.5)
         tr = traced(torch, run, kernels)
         if all(v["calls"] == blocks for v in tr["kernel_us"].values()):
             break
@@ -1797,6 +1844,183 @@ def phase_parity_specs(torch):
              rows=compare_traces(f"parity_specs {name}", traces))
 
 
+def phase_parity_simple(torch):
+    """fw, ssg, bcfw, bcfw-avg and mpbcfw-avg on the card vs the CPU,
+    SMALL ocr, 3 iterations: the same schedule, dispatches and host syncs
+    (one each for the one-program engines), objectives within rtol 1e-4
+    (ssg: NaN duals on both).  ~15 s."""
+    out = {}
+    for algo in SIMPLE_ALGOS:
+        traces = {dev: small_run("ocr", dev, algo)[1].run().trace
+                  for dev in ("cuda", "cpu")}
+        for g, c in zip(traces["cuda"], traces["cpu"]):
+            # One each for the one-program engines; mpbcfw-avg runs an
+            # overflow batch where the slope rule wants more than 4 passes.
+            check((g.dispatches, g.host_syncs) == (c.dispatches,
+                                                   c.host_syncs)
+                  and (algo == "mpbcfw-avg"
+                       or (g.dispatches, g.host_syncs) == (1, 1)),
+                  f"parity_simple {algo}: {g.dispatches} dispatches, "
+                  f"{g.host_syncs} syncs at iteration {g.iteration}")
+        out[algo] = compare_traces(f"parity_simple {algo}", traces)
+    emit("parity_simple", scenario="SMALL[ocr]", rows=out)
+
+
+def phase_main_simple(torch, data, phase: str, algo: str):
+    """``algo`` (bcfw-avg, ssg or fw) on the full-size OCR scenario, 3
+    outer iterations through the Solver, launch counts reset just before:
+    one dispatch and one host sync per iteration, no approximate pass.
+    bcfw and ssg decode each block at B=1 in one graph replay per block,
+    fw all blocks at B=n once per iteration; every evaluation sweep is one
+    B=n decode (two for bcfw-avg, whose primal_avg is a second sweep).
+    Returns the run's launch counts.  ~4 s (bcfw-avg), ~3 (ssg), ~1
+    (fw)."""
+    from repro_torch.api import CostModel, RunConfig, Solver
+    from repro_torch.core.oracles import chain
+    from repro_torch.kernels import ops
+    X, Y, M = data
+    n = OCR["n"]
+    problem = chain.make_problem(X, Y, M, OCR["num_labels"], device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    solver = Solver(problem, RunConfig(
+        lam=1.0 / n, algo=algo, max_iters=RUN["max_iters"], cap=RUN["cap"],
+        cost_model=CostModel(oracle_cost=ORACLE_COST,
+                             plane_cost=PLANE_COST)))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rows, walls = drive(torch, solver, phase, dual=algo != "ssg")
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_syncs(phase, rows, dispatches=1)
+    last, iters = rows[-1], len(rows)
+    check(last.n_exact == n * iters and last.n_approx == 0
+          and all(r.approx_passes == 0 for r in rows),
+          f"{phase}: n_exact {last.n_exact}, n_approx {last.n_approx}")
+    check(launches["approx_pass"] == 0,
+          f"{phase}: approx_pass launched {launches['approx_pass']} times")
+    sweeps = 2 if algo == "bcfw-avg" else 1
+    per_iter = (1 if algo == "fw" else n) + sweeps
+    check(launches["viterbi_decode"] == per_iter * iters,
+          f"{phase}: viterbi launches {launches['viterbi_decode']}, "
+          f"expected {per_iter * iters}")
+    if algo == "fw":
+        replays = solver.engine.graphs.replays
+        check(replays == 0, f"{phase}: {replays} graph replays")
+    else:
+        replays = check_replays(phase, solver, last.n_exact, captured=1)
+    w = solver.result().w
+    check(w.shape == (problem.d,) and all(map(math.isfinite, w.tolist())),
+          f"{phase}: weights not finite")
+    emit(phase, scenario="OCR", algo=algo, n=n, d=problem.d,
+         iterations=iters, wall_s_per_iteration=walls,
+         primal=[r.primal for r in rows], dual=[r.dual for r in rows],
+         primal_avg=[r.primal_avg for r in rows],
+         max_memory_allocated=peak, launches=launches,
+         n_exact=last.n_exact, graph_replays=replays)
+    return launches
+
+
+def phase_wide(torch, gen):
+    """ROADMAP C6 on the card.  The wide plan against the eager pass at
+    WIDE_PASSES (one pass each: stamps equal, phi, phi_i and the average
+    within TOL (1 + |ref|); a block with every slot valid); then mpbcfw
+    and mpbcfw-gram, 3 iterations each at the SSVM head's settings on a
+    chain of d = 25,625, launch counts reset just before each: one
+    dispatch and one sync per iteration, one wide approx_pass launch per
+    queued pass; then one full wide pass over each trained state, timed
+    beside the eager pass (~0.5 s plain, ~3 s Sec-3.5) and its bound.
+    Returns ``(errors, timing, launches by path)``.  ~35 s."""
+    from repro_torch.api import CostModel, RunConfig, Solver
+    from repro_torch.core import mpbcfw
+    from repro_torch.core.oracles import chain
+    from repro_torch.data.synthetic import ocr_like
+    from repro_torch.kernels import approx_pass as t_ap
+    from repro_torch.kernels import ops
+    lam = 1.0 / OCR["n"]
+    errs = {}
+    for nb, cap, d, steps in WIDE_PASSES:
+        mode = "plain" if steps is None else "gram"
+        check(t_ap.plan(d, cap, steps or 0).wide,
+              f"wide: ({d}, {cap}, {mode}) is staged")
+        planes, valid, gram, state = _approx_state(torch, gen, nb, cap, d,
+                                                   steps)
+        valid[1] = True                  # every slot valid in one block
+        perm = torch.randperm(nb, generator=gen, device="cuda")
+        got = {k: v.clone() for k, v in state.items()}
+        want = {k: v.clone() for k, v in state.items()}
+        for fn, st in ((ops.approx_pass, got), (mpbcfw.eager_pass, want)):
+            fn(st["phi"], st["phi_i"], st["bar"], planes, valid, st["last"],
+               perm, lam=lam, k0=7000, outer_it=5, gram=gram, steps=steps)
+        torch.cuda.synchronize()
+        errs[f"{nb}x{cap}x{d}_{mode}"] = _pass_close(
+            torch, got, want, f"wide {nb}x{cap}x{d} {mode}")
+        del planes, valid, gram, state, got, want
+    torch.cuda.empty_cache()
+
+    X, Y, M = ocr_like(**WIDE_DATA)
+    n = WIDE_DATA["n"]
+    problem = chain.make_problem(X, Y, M, WIDE_DATA["num_labels"],
+                                 device="cuda")
+    check(problem.d == 25625, f"wide: d = {problem.d}, expected 25625")
+    timing, by_path = {}, {}
+    for algo, phase in (("mpbcfw", "wide_mpbcfw"),
+                        ("mpbcfw-gram", "wide_gram")):
+        steps = WIDE_RUN["gram_steps"] if algo == "mpbcfw-gram" else None
+        check(t_ap.plan(problem.d, WIDE_RUN["cap"], steps or 0).wide,
+              f"{phase}: not the wide plan")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        solver = Solver(problem, RunConfig(
+            lam=1.0 / n, algo=algo,
+            cost_model=CostModel(oracle_cost=HEAD_ORACLE_COST,
+                                 plane_cost=PLANE_COST), **WIDE_RUN))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        rows, walls = drive(torch, solver, phase)
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check_syncs(phase, rows, dispatches=1)
+        passes = sum(r.approx_passes for r in rows)
+        check(passes > 0 and launches["approx_pass"]
+              == WIDE_RUN["approx_batch"] * len(rows),
+              f"{phase}: approx_pass launches {launches['approx_pass']} "
+              f"for {passes} passes")
+        check(launches["viterbi_decode"] >= rows[-1].n_exact,
+              f"{phase}: viterbi launches {launches['viterbi_decode']}")
+        by_path[phase] = launches
+        mp, c = solver.state, solver.state.cache
+        ids = torch.randperm(n, generator=gen, device="cuda")
+        nbytes, ops_n = approx_pass_work(c.valid, ids, problem.d, steps)
+        bms, by = bound_ms(nbytes, ops_n)
+
+        def one(fn):
+            fn(mp.inner.phi, mp.inner.phi_i, mp.avg.bar_approx, c.planes,
+               c.valid, c.last_active, ids, lam=solver.cfg.lam,
+               k0=mp.avg.k_approx, outer_it=mp.outer_it,
+               gram=c.gram if steps else None, steps=steps)
+        ms = time_ms(torch, lambda k: one(ops.approx_pass), 3, warmup=1)
+        plain_ms = time_ms(torch, lambda k: one(mpbcfw.eager_pass), 1,
+                           warmup=0)
+        timing[phase] = dict(blocks=n, cap=WIDE_RUN["cap"], d=problem.d,
+                             valid_planes=int(c.valid.sum()), ms=ms,
+                             us_per_block=1e3 * ms / n, plain_ms=plain_ms,
+                             bound_ms=bms, bound_by=by,
+                             plan=approx_plan(problem.d, WIDE_RUN["cap"],
+                                              steps))
+        emit(phase, scenario="chain n={n} f={f} C={num_labels}".format(
+            **WIDE_DATA), d=problem.d,
+             iterations=len(rows), wall_s_per_iteration=walls,
+             approx_passes=[r.approx_passes for r in rows],
+             max_memory_allocated=peak, launches=launches,
+             approx_pass_full=timing[phase])
+        del solver, mp, c
+    emit("wide", max_abs_err=errs, tolerance="one pass: activity stamps "
+         "equal, |err| <= 3e-5 (1+|ref|)", timing=timing)
+    torch.cuda.empty_cache()
+    return errs, timing, by_path
+
+
 def phase_parity_lm(torch):
     """Reduced OLMoE in float32 on the card vs the port on the CPU, from
     the same weights and tokens: backbone features and one decode step's
@@ -2121,6 +2345,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_resume(torch)
     phase_parity_specs(torch)
+    phase_parity_simple(torch)
+    simple_paths = {phase: phase_main_simple(torch, data, phase, algo)
+                    for phase, algo in SIMPLE_MAIN}
+    torch.cuda.empty_cache()
+    wide_errs, wide_timing, wide_paths = phase_wide(torch, gen)
+    kernels[-1].update(wide=wide_timing, wide_max_abs_err=max(
+        wide_errs.values()))
+    kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
+                                     kernels[-1]["wide_max_abs_err"])
     phase_parity_lm(torch)
     launches_lm, lm_paths = phase_main_lm(torch)
     # Each kernel's launches on the path it was ported for; every path's
@@ -2130,8 +2363,8 @@ def main() -> int:
                "flash_attention": "main_lm", "gram": "main_gram",
                "approx_pass": "main"}
     by_path = {"main": launches, "main_async": launches_async,
-               "main_gram": launches_gram, "main_lm": launches_lm,
-               **lm_paths}
+               "main_gram": launches_gram, **simple_paths, **wide_paths,
+               "main_lm": launches_lm, **lm_paths}
     for k in kernels:
         k["launches"] = by_path[path_of[k["name"]]][k["name"]]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}

@@ -1,9 +1,10 @@
 """Run configuration and trace/result value types (PyTorch port).
 
-The fields of ``repro/api/config.py`` that the ported ``mpbcfw``,
-``mpbcfw-gram`` and ``mpbcfw-async`` paths read; a later slice adds the
-rest with the engines that consume them (``mesh`` with the
-multi-device engines, ROADMAP A10).
+The fields of ``repro/api/config.py`` that the ported engines read; a
+later slice adds the rest with the engines that consume them (``mesh``
+and ``tau`` with the multi-device engines, ``policies`` with the policy
+layer; :func:`repro_torch.api.engine.validate_config` already checks
+them where a config carries them).
 """
 from __future__ import annotations
 

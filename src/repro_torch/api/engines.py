@@ -1,36 +1,99 @@
-"""Execution engines and their registry (PyTorch port).
+"""Built-in engines and their registry entries (PyTorch port of
+``repro/api/engines.py``).
 
-An engine owns the passes of one optimizer family and is driven by
-:class:`repro_torch.api.Solver` through a fixed seam: ``init_state``,
-``outer_iteration``, ``continue_passes``, ``read_stats``,
-``count_passes``, ``evaluate`` and ``extract``, plus a
-:class:`~repro_torch.core.selection.SyncLedger`.
+Importing this module registers, in the reference's order, every engine
+the port runs into the :mod:`repro_torch.api.engine` registry:
 
-Ported: :class:`FusedEngine` as ``mpbcfw`` and, with the Sec-3.5 Gram
-blocks in its plane cache, as ``mpbcfw-gram``; :class:`AsyncEngine` as
-``mpbcfw-async``.  Every other algorithm name raises
-:class:`~repro_torch.api.errors.UnsupportedConfigError` (not yet ported).
-The engines' states are NamedTuples of tensors, which
-:class:`repro_torch.checkpoint.CheckpointManager` saves as they are.
+  * ``fw``, ``ssg``, ``bcfw`` and ``bcfw-avg`` (:class:`FWEngine`,
+    :class:`SSGEngine`, :class:`BCFWEngine`): one exact program per outer
+    iteration, driven by the Solver's simple loop.  BCFW's and SSG's
+    passes replay one captured CUDA graph per block on the card; FW runs
+    one batched oracle over all blocks;
+  * ``mpbcfw``, ``mpbcfw-avg`` and ``mpbcfw-gram`` (:class:`FusedEngine`;
+    the gram variant keeps Sec-3.5 Gram blocks in its plane cache);
+  * ``mpbcfw-async`` (:class:`AsyncEngine`, the pipelined oracle).
+
+The ``-avg`` engines report ``primal_avg`` at the Sec-3.6 averaged
+iterate; the others keep the averages (``extract`` returns them) and
+report the primal again.  The reference's ``mpbcfw-gap`` and
+``mpbcfw-shard*`` engines are not ported yet: looking one up raises
+:class:`~repro_torch.api.errors.UnsupportedConfigError` ("not yet
+ported").  Capabilities equal the reference's, entry for entry.  The
+engines' states are tensors and NamedTuples of tensors in the reference's
+layout, which :class:`repro_torch.checkpoint.CheckpointManager` saves as
+they are, so each package resumes the other's checkpoints.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import dataclasses
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..cache import CacheLayout
-from ..core import mpbcfw
-from ..core.averaging import extract as extract_average
+from ..core import bcfw, mpbcfw, subgradient
+from ..core.averaging import extract as extract_average, init_averaging
 from ..core.graphs import StepGraphs
 from ..core.selection import SyncLedger
-from ..core.ssvm import weights_of
+from ..core.ssvm import init_state as init_bcfw_state, weights_of
 from ..core.types import SSVMProblem
-from .config import RunConfig
+from ..kernels import approx_pass as approx_kernel
+from . import solver as solver_mod
+from .engine import EngineCapabilities, register_engine
 from .errors import UnsupportedConfigError
 
-class FusedEngine:
+
+class IterStats(NamedTuple):
+    """Host telemetry returned by a non-multipass engine's read_stats."""
+
+    n_exact: int
+    n_approx: int
+
+
+# Contract budgets: single-device engines issue no collectives and no host
+# callbacks; the shard engines (not ported yet) one setup all-reduce per
+# program and one per approximate pass.
+_SINGLE_DEVICE_BUDGET = dict(collectives_per_pass=0, collectives_setup=0,
+                             host_callbacks=0)
+_SHARD_BUDGET = dict(collectives_per_pass=1, collectives_setup=1,
+                     host_callbacks=0)
+
+
+def _device(problem: SSVMProblem) -> torch.device:
+    """Where the problem's data, and so the engine's state, lives."""
+    return next(iter(problem.data.values())).device
+
+
+class _EngineBase:
+    """Shared plumbing: the ledger, the captured block steps, and the
+    default checkpoint pack/unpack hooks."""
+
+    def __init__(self, problem: SSVMProblem, lam: float):
+        self.problem = problem
+        self.lam = float(lam)
+        self.ledger = SyncLedger()
+        # The engine's block steps: captured CUDA graphs on the card.
+        self.graphs = StepGraphs()
+
+    def pack_state(self, state):
+        """Checkpointable tree for ``state`` (identity by default)."""
+        return state
+
+    def unpack_state(self, tree):
+        """Inverse of :meth:`pack_state`."""
+        return tree
+
+    def continue_passes(self, state, perms, clock):
+        raise NotImplementedError(
+            f"{type(self).__name__} is not a multipass engine")
+
+
+# ---------------------------------------------------------------------------
+# MP-BCFW engines (multipass: the full slope-ruled control loop)
+
+
+class FusedEngine(_EngineBase):
     """Single-device MP-BCFW engine (:func:`repro_torch.core.mpbcfw
     .outer_iteration`).  ``outer_iteration`` enqueues the iteration's
     device work, the slope-gated approximate passes included, without a
@@ -38,22 +101,41 @@ class FusedEngine:
     on ``ledger``, and ``count_passes`` then charges the passes that ran
     to the state's host counters.  A ``gram_steps`` count keeps Gram
     blocks in the plane cache, which switches the approximate passes to
-    the Sec-3.5 scheme, ``gram_steps`` updates per block.  On CUDA the
-    exact pass replays one captured CUDA graph per block, kept in
-    ``graphs`` while the state's tensors live
-    (:class:`~repro_torch.core.graphs.StepGraphs`)."""
+    the Sec-3.5 scheme, ``gram_steps`` updates per block.  ``averaged``
+    reports ``primal_avg`` at the averaged iterate (``mpbcfw-avg``).  On
+    CUDA the exact pass replays one captured CUDA graph per block, kept
+    in ``graphs`` while the state's tensors live
+    (:class:`~repro_torch.core.graphs.StepGraphs`).
+
+    ``init_state`` takes the ``approx_pass`` kernel's launch plan for the
+    problem's width and the cache's capacity (shape arithmetic, on any
+    device), so a shape the kernel cannot take is refused when the Solver
+    is built, not at the first approximate pass."""
+
+    capabilities = EngineCapabilities(multipass=True,
+                                      supports_averaging=True,
+                                      policy_capable=True,
+                                      policies=("uniform", "ttl-lru",
+                                                "slope"),
+                                      **_SINGLE_DEVICE_BUDGET)
 
     def __init__(self, problem: SSVMProblem, lam: float, *,
-                 gram_steps: Optional[int] = None):
-        self.problem = problem
-        self.lam = float(lam)
+                 gram_steps: Optional[int] = None, averaged: bool = False):
+        super().__init__(problem, lam)
         self.gram_steps = gram_steps
         self.use_gram = gram_steps is not None
-        self.ledger = SyncLedger()
-        # The exact pass's (and the fold's) captured block steps on CUDA.
-        self.graphs = StepGraphs()
+        self.averaged = averaged
+
+    def _check_plan(self, cap: int) -> None:
+        try:
+            approx_kernel.plan(self.problem.d, cap, self.gram_steps or 0)
+        except ValueError as err:
+            raise UnsupportedConfigError(
+                f"the approx_pass kernel cannot run d={self.problem.d}, "
+                f"cap={cap}: {err}") from err
 
     def init_state(self, cap: int) -> mpbcfw.MPState:
+        self._check_plan(cap)
         return mpbcfw.init_mp_state(
             self.problem, CacheLayout(cap=cap, gram=self.use_gram))
 
@@ -81,11 +163,12 @@ class FusedEngine:
                                    self.gram_steps)
 
     def evaluate(self, mp):
-        """``(primal, dual, primal)``: ``mpbcfw`` reports no averaged
-        primal (the averages are kept; ``extract`` returns them)."""
-        from .solver import evaluate_objectives
-        return evaluate_objectives(self.problem, mp.inner.phi, None,
-                                   self.lam)
+        """``(primal, dual, primal_avg)``: ``primal_avg`` at the averaged
+        iterate when ``averaged`` (``mpbcfw-avg``), else the primal again
+        (the averages are kept all the same; ``extract`` returns them)."""
+        return solver_mod.evaluate_objectives(
+            self.problem, mp.inner.phi, mp.avg if self.averaged else None,
+            self.lam)
 
     def extract(self, mp):
         w = weights_of(mp.inner.phi, self.lam).cpu().numpy()
@@ -124,6 +207,14 @@ class AsyncEngine(FusedEngine):
     bool`` injects oracle arrivals (stragglers); None means all arrive.
     """
 
+    capabilities = EngineCapabilities(multipass=True,
+                                      supports_averaging=True,
+                                      policy_capable=True,
+                                      async_oracle=True,
+                                      policies=("uniform", "ttl-lru",
+                                                "slope"),
+                                      **_SINGLE_DEVICE_BUDGET)
+
     def __init__(self, problem: SSVMProblem, lam: float):
         super().__init__(problem, lam)
         self.outcome_fn = None
@@ -138,6 +229,7 @@ class AsyncEngine(FusedEngine):
         self.fold_span = None
 
     def init_state(self, cap: int) -> mpbcfw.AsyncMPState:
+        self._check_plan(cap)
         return mpbcfw.init_async_state(self.problem, cap)
 
     def _done_mask(self, k: int) -> np.ndarray:
@@ -239,40 +331,179 @@ class AsyncEngine(FusedEngine):
         return super().extract(state.mp)
 
 
-EngineFactory = Callable[[SSVMProblem, RunConfig], FusedEngine]
-
-_REGISTRY: Dict[str, EngineFactory] = {
-    "mpbcfw": lambda problem, cfg: FusedEngine(problem, cfg.lam),
-    "mpbcfw-gram": lambda problem, cfg: FusedEngine(
-        problem, cfg.lam, gram_steps=cfg.gram_steps),
-    "mpbcfw-async": lambda problem, cfg: AsyncEngine(problem, cfg.lam),
-}
+# ---------------------------------------------------------------------------
+# Single-program engines (one exact pass per outer iteration)
+#
+# Each returns as its stats a device value the iteration wrote last, with
+# the host counters, so that read_stats' one sync waits for the
+# iteration's device work (wall-clock mode times the compute).
 
 
-def algorithms():
-    """The algorithm names the port runs."""
-    return tuple(_REGISTRY)
+class FWEngine(_EngineBase):
+    """Batch Frank-Wolfe (paper Alg. 1): n oracle calls per iteration in
+    one batched call, no per-block state, no permutation.  The oracle-call
+    counter rides in the state tuple (a host int), so checkpoints resume
+    it exactly."""
+
+    capabilities = EngineCapabilities(needs_perm=False,
+                                      **_SINGLE_DEVICE_BUDGET)
+
+    def init_state(self, cap: int):
+        del cap
+        return (torch.zeros((self.problem.d + 1,), dtype=torch.float32,
+                            device=_device(self.problem)), 0)
+
+    def outer_iteration(self, state, perm, perms, clock, *, ttl: int):
+        del perm, perms, clock, ttl
+        phi, calls = state
+        self.ledger.dispatched()
+        phi = bcfw.fw_pass(self.problem, phi, self.lam)
+        calls += self.problem.n
+        return (phi, calls), None, (calls, phi[-1:])
+
+    def read_stats(self, stats):
+        calls, _ = self.ledger.sync(stats)
+        return IterStats(n_exact=int(calls), n_approx=0)
+
+    def evaluate(self, state):
+        return solver_mod.evaluate_objectives(self.problem, state[0], None,
+                                              self.lam)
+
+    def extract(self, state):
+        return weights_of(state[0], self.lam).cpu().numpy(), None
 
 
-def engine_factory(name: str) -> EngineFactory:
-    factory = _REGISTRY.get(name)
-    if factory is None:
-        raise UnsupportedConfigError(
-            f"algorithm {name!r} is not yet ported to repro_torch; "
-            f"ported: {algorithms()}")
-    return factory
+class SSGEngine(_EngineBase):
+    """Stochastic subgradient baseline: no dual certificate (dual and gap
+    are reported as NaN).  The step counter ``t`` (the 1/(lam t)
+    schedule, starting at 1, an () int32 tensor on the device) doubles as
+    the oracle-call counter.  One captured-graph replay per block on the
+    card (:func:`repro_torch.core.subgradient.ssg_pass`)."""
+
+    capabilities = EngineCapabilities(needs_perm=True,
+                                      **_SINGLE_DEVICE_BUDGET)
+
+    def init_state(self, cap: int):
+        del cap
+        dev = _device(self.problem)
+        return (torch.zeros((self.problem.d,), dtype=torch.float32,
+                            device=dev),
+                torch.ones((), dtype=torch.int32, device=dev))
+
+    def outer_iteration(self, state, perm, perms, clock, *, ttl: int):
+        del perms, clock, ttl
+        w, t = state
+        self.ledger.dispatched()
+        subgradient.ssg_pass(self.problem, w, t, perm, self.lam,
+                             graphs=self.graphs)
+        return (w, t), None, t
+
+    def read_stats(self, stats):
+        return IterStats(n_exact=int(self.ledger.sync(stats)) - 1,
+                         n_approx=0)
+
+    def evaluate(self, state):
+        primal = solver_mod.ssg_primal(self.problem, state[0], self.lam)
+        return primal, float("nan"), primal
+
+    def extract(self, state):
+        return state[0].cpu().numpy(), None
 
 
-def validate_config(cfg: RunConfig) -> None:
-    """Reject configs the ported engine cannot run."""
-    if cfg.approx_batch < 1:
-        raise UnsupportedConfigError(
-            "approx_batch must be >= 1 (use max_approx_passes=0 to "
-            "disable approximate passes)")
-    if cfg.ttl < 1:
-        raise UnsupportedConfigError(
-            f"ttl must be >= 1 (planes must survive at least the iteration "
-            f"that inserted them), got {cfg.ttl}")
-    if cfg.gap_tol is not None and cfg.gap_tol < 0.0:
-        raise UnsupportedConfigError(
-            f"gap_tol must be >= 0, got {cfg.gap_tol}")
+class BCFWEngine(_EngineBase):
+    """Block-coordinate Frank-Wolfe (paper Alg. 2), with the Sec-3.6
+    averaging tracks kept (reported when ``averaged``, ``bcfw-avg``).  The
+    pass replays one captured CUDA graph per block on the card
+    (:func:`repro_torch.core.bcfw.exact_pass`)."""
+
+    capabilities = EngineCapabilities(needs_perm=True,
+                                      supports_averaging=True,
+                                      **_SINGLE_DEVICE_BUDGET)
+
+    def __init__(self, problem: SSVMProblem, lam: float, *,
+                 averaged: bool = False):
+        super().__init__(problem, lam)
+        self.averaged = averaged
+
+    def init_state(self, cap: int):
+        del cap
+        dev = _device(self.problem)
+        return (init_bcfw_state(self.problem, dev),
+                init_averaging(self.problem.d, dev))
+
+    def outer_iteration(self, state, perm, perms, clock, *, ttl: int):
+        del perms, clock, ttl
+        st, avg = state
+        self.ledger.dispatched()
+        st, avg = bcfw.exact_pass(self.problem, st, avg, perm, self.lam,
+                                  graphs=self.graphs)
+        return (st, avg), None, (st.n_exact, st.phi[-1:])
+
+    def read_stats(self, stats):
+        n_exact, _ = self.ledger.sync(stats)
+        return IterStats(n_exact=int(n_exact), n_approx=0)
+
+    def evaluate(self, state):
+        st, avg = state
+        return solver_mod.evaluate_objectives(
+            self.problem, st.phi, avg if self.averaged else None, self.lam)
+
+    def extract(self, state):
+        st, avg = state
+        w = weights_of(st.phi, self.lam).cpu().numpy()
+        w_avg = weights_of(extract_average(avg, self.lam),
+                           self.lam).cpu().numpy()
+        return w, w_avg
+
+
+# ---------------------------------------------------------------------------
+# Registration, in the reference's order (the names not yet ported are
+# skipped).  overwrite=True keeps a re-import after a failed first import
+# clear of the duplicate guard.
+
+
+def _register(name, factory, capabilities):
+    def make(problem, cfg, _factory=factory, _caps=capabilities):
+        engine = _factory(problem, cfg)
+        # The instance's capabilities are its registry entry's, also where
+        # the entry refines the class default (mpbcfw-gram).
+        engine.capabilities = _caps
+        return engine
+
+    register_engine(name, make, capabilities, overwrite=True)
+
+
+_register("fw", lambda p, cfg: FWEngine(p, cfg.lam), FWEngine.capabilities)
+_register("ssg", lambda p, cfg: SSGEngine(p, cfg.lam),
+          SSGEngine.capabilities)
+_register("bcfw", lambda p, cfg: BCFWEngine(p, cfg.lam),
+          BCFWEngine.capabilities)
+_register("bcfw-avg", lambda p, cfg: BCFWEngine(p, cfg.lam, averaged=True),
+          BCFWEngine.capabilities)
+_register("mpbcfw", lambda p, cfg: FusedEngine(p, cfg.lam),
+          FusedEngine.capabilities)
+_register("mpbcfw-avg",
+          lambda p, cfg: FusedEngine(p, cfg.lam, averaged=True),
+          FusedEngine.capabilities)
+_register(
+    "mpbcfw-gram",
+    lambda p, cfg: FusedEngine(p, cfg.lam, gram_steps=cfg.gram_steps),
+    EngineCapabilities(
+        multipass=True, supports_gram=True, supports_averaging=True,
+        supports_mesh=True, uses_tau=True, tau_requires_mesh=True,
+        mesh_optional=True, policy_capable=True,
+        policies=("uniform", "ttl-lru", "slope"), **_SHARD_BUDGET,
+        note="mpbcfw-gram with RunConfig.mesh resolves to the sharded "
+             "gram engine (the mpbcfw-shard-gram path: PlaneCache.gram "
+             "shards with the blocks), which also consumes "
+             "RunConfig.tau."))
+_register(
+    "mpbcfw-async", lambda p, cfg: AsyncEngine(p, cfg.lam),
+    dataclasses.replace(
+        AsyncEngine.capabilities,
+        note="Pipelined oracle: two programs dispatched per outer "
+             "iteration (exact oracles for the next iteration at stale "
+             "w, eviction + monotone fold-in + approximate batch on the "
+             "current state), <= 2 dispatches + 1 host sync, proven by "
+             "analysis rule J009; TraceRow.oracle_overlap reports the "
+             "hidden fraction of the modeled oracle time."))

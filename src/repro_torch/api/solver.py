@@ -1,14 +1,18 @@
-"""The :class:`Solver` facade: the MP-BCFW control loop (PyTorch port).
+"""The :class:`Solver` facade: the engine-generic SSVM control loop
+(PyTorch port).
 
-It drives the ported engines, ``mpbcfw``, ``mpbcfw-gram`` and
-``mpbcfw-async`` (:mod:`repro_torch.api.engines`), through one seam.
-The loop draws the block permutations from
-``np.random.RandomState(cfg.seed)`` in exactly the reference's order
-(``repro/api/solver.py``): per outer iteration one permutation for the
-exact pass, then ``min(approx_batch, max_approx_passes)`` for the
-approximate batch, used or not, then one more batch per overflow
-continuation.  The same seed therefore gives both
-packages the same block schedule.
+``RunConfig.algo`` names an engine of the registry
+(:mod:`repro_torch.api.engine`), whose capabilities choose the loop: the
+MP-BCFW loop for multipass engines (``mpbcfw``, ``mpbcfw-avg``,
+``mpbcfw-gram``, ``mpbcfw-async``), one program per outer iteration for
+the others (``fw``, ``ssg``, ``bcfw``, ``bcfw-avg``).  The loop draws the
+block permutations from ``np.random.RandomState(cfg.seed)`` in exactly the
+reference's order (``repro/api/solver.py``): per outer iteration one
+permutation for the exact pass (only when the engine ``needs_perm``),
+then, in the MP-BCFW loop, ``min(approx_batch, max_approx_passes)`` for
+the approximate batch, used or not, then one more batch per overflow
+continuation.  The same seed therefore gives both packages the same block
+schedule.
 
 Sync accounting: the approximate passes are gated on the device by the
 slope rule, so the engine reads each dispatch's telemetry once and
@@ -46,11 +50,11 @@ import torch
 from ..checkpoint import CheckpointManager
 from ..core import mpbcfw
 from ..core.selection import CostModel, attribute_wall_time
-from ..core.ssvm import dual_value, primal_value, weights_of
+from ..core.ssvm import batched_oracle, dual_value, primal_value, weights_of
 from ..core.averaging import extract as extract_average
 from ..core.types import SSVMProblem
 from .config import RunConfig, RunResult, TraceRow
-from .engines import engine_factory, validate_config
+from .engine import engine_entry, validate_config
 from .stopping import (MaxIters, StopContext, StopOnGap, StoppingCriterion,
                        WallTimeBudget)
 
@@ -113,6 +117,13 @@ def evaluate_objectives(problem: SSVMProblem, phi: torch.Tensor, avg,
     return float(primal), float(dual), float(primal_avg)
 
 
+def ssg_primal(problem: SSVMProblem, w: torch.Tensor, lam: float) -> float:
+    """Primal objective at a raw weight vector (no dual certificate)."""
+    planes = batched_oracle(problem, w)
+    return float(0.5 * lam * torch.dot(w, w)
+                 + torch.sum(planes[:, :-1] @ w + planes[:, -1]))
+
+
 def _fit_pass_costs(xs: List[float], ys: List[float]):
     """Least-squares fit of iteration time ~ exact_cost + plane_cost * x
     over the last 8 iterations; None unless both terms come out > 0."""
@@ -163,11 +174,12 @@ class Solver:
                  callbacks: Iterable[Callback] = (),
                  checkpoint: Optional[CheckpointManager] = None,
                  checkpoint_every: int = 0):
-        factory = engine_factory(cfg.algo)
-        validate_config(cfg)
+        entry = engine_entry(cfg.algo)
+        validate_config(entry, cfg)
         self.problem = problem
         self.cfg = cfg
-        self.engine = factory(problem, cfg)
+        self.engine = entry.factory(problem, cfg)
+        self.caps = entry.capabilities
         self.callbacks = list(callbacks)
         self.checkpoint = checkpoint
         self.checkpoint_every = int(checkpoint_every)
@@ -221,7 +233,8 @@ class Solver:
         """Run outer iterations, yielding one ``TraceRow`` each, until a
         stopping criterion fires; iterating again continues the run."""
         self._clock.start()
-        inner = self._iterate_multipass()
+        inner = (self._iterate_multipass() if self.caps.multipass
+                 else self._iterate_simple())
         while not self._should_stop():
             row = next(inner)
             self.trace.append(row)
@@ -234,6 +247,26 @@ class Solver:
                 with self._clock.exclude():
                     self.save(self.checkpoint)
             yield row
+
+    def _iterate_simple(self) -> Iterator[TraceRow]:
+        """One program per outer iteration, no approximate phase (``fw``,
+        ``ssg``, ``bcfw`` and any registered non-multipass engine)."""
+        engine, cfg, clock = self.engine, self.cfg, self._clock
+        n = self.problem.n
+        while True:
+            it = self._it
+            led0 = engine.ledger.counts()
+            perm = self._rng.permutation(n) if self.caps.needs_perm else None
+            self._state, _, stats = engine.outer_iteration(
+                self._state, perm, None, None, ttl=cfg.ttl)
+            st = engine.read_stats(stats)   # the iteration's one sync
+            t = clock.exact(n)
+            with clock.exclude():
+                primal, dual, primal_avg = engine.evaluate(self._state)
+            led1 = engine.ledger.counts()
+            yield TraceRow(it, int(st.n_exact), int(st.n_approx), t,
+                           primal, dual, primal - dual, primal_avg,
+                           0.0, 0, led1[0] - led0[0], led1[2] - led0[2])
 
     def _iterate_multipass(self) -> Iterator[TraceRow]:
         """The MP-BCFW control loop (reference ``_iterate_multipass``)."""
@@ -338,6 +371,8 @@ class Solver:
             raise ValueError("no CheckpointManager: pass one to save() or "
                              "to the Solver constructor")
         step = self._it if step is None else int(step)
+        pack = getattr(self.engine, "pack_state", None)
+        tree = pack(self._state) if pack is not None else self._state
         extra = {
             "algo": self.cfg.algo,
             "iteration": self._it,
@@ -359,7 +394,7 @@ class Solver:
             "wall_x": self._wall_x,
             "wall_y": self._wall_y,
         }
-        manager.save(step, self._state, extra=extra, metrics={})
+        manager.save(step, tree, extra=extra, metrics={})
         return step
 
     @classmethod
@@ -378,7 +413,11 @@ class Solver:
             raise ValueError(
                 f"checkpoint was saved by algo={extra['algo']!r}, "
                 f"cannot resume as {cfg.algo!r}")
-        solver._state, _ = manager.restore(solver._state, step)
+        pack = getattr(solver.engine, "pack_state", None)
+        unpack = getattr(solver.engine, "unpack_state", None)
+        template = pack(solver._state) if pack is not None else solver._state
+        tree, _ = manager.restore(template, step)
+        solver._state = unpack(tree) if unpack is not None else tree
         solver._it = int(extra.get("iteration", manifest["step"]))
         if extra.get("last_row") is not None:
             solver._last_row = TraceRow(**{

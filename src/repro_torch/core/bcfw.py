@@ -1,11 +1,25 @@
-"""The block-coordinate Frank-Wolfe step (paper Alg. 2, steps 5-7)."""
+"""Frank-Wolfe and Block-Coordinate Frank-Wolfe (paper Alg. 1 and 2).
+
+The reference expresses both as jitted ``lax.scan`` passes.  Here the BCFW
+pass is one block step per block of the host permutation, the block read
+on the device (:func:`block_step`): a plain loop on the CPU, one replay of
+the step's captured CUDA graph per block on the card
+(:mod:`repro_torch.core.graphs`).  MP-BCFW's exact step
+(:func:`repro_torch.core.mpbcfw.exact_step`) is the same body plus the
+cache insert.  The FW pass is one batched oracle over all n examples at
+the same ``w`` and a closed-form line search.
+"""
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
-from .types import BCFWState, row_of, set_row
+from .averaging import average_step
+from .graphs import StepControl, StepGraphs, load_control
+from .ssvm import weights_of
+from .types import AveragingState, BCFWState, SSVMProblem, row_of, set_row
 
 
 def line_search_gamma(phi: torch.Tensor, phi_i: torch.Tensor,
@@ -38,3 +52,64 @@ def block_update(state: BCFWState, i, phi_hat: torch.Tensor,
     state.phi.add_(new_phi_i - phi_i)
     set_row(state.phi_i, i, new_phi_i)
     return state, gamma
+
+
+def block_step(problem: SSVMProblem, st: BCFWState, bar: torch.Tensor,
+               ctl: StepControl, lam: float
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One exact BCFW block step, in place, with the block read on the
+    device: the spec's oracle at ``w = -phi*/lam`` on block
+    ``ctl.ids[cursor]``, the line search and an exact-track averaging step
+    of ``bar`` with the pass's weights.  Returns the block id ((1,) int64)
+    and its oracle plane; the caller advances the cursor."""
+    i = ctl.block()
+    example = {k: v.index_select(0, i) for k, v in problem.data.items()}
+    phi_hat = problem.oracle(weights_of(st.phi, lam), example)[0]
+    block_update(st, i, phi_hat, lam)
+    average_step(bar, st.phi, ctl.weight(), ctl.scratch)
+    return i, phi_hat
+
+
+def exact_step(problem: SSVMProblem, st: BCFWState, bar: torch.Tensor,
+               ctl: StepControl, lam: float) -> None:
+    """:func:`block_step`, then the cursor advances: the body of
+    :func:`exact_pass`'s loop, and of its captured graph on CUDA."""
+    block_step(problem, st, bar, ctl, lam)
+    ctl.cursor.add_(1)
+
+
+def exact_pass(problem: SSVMProblem, st: BCFWState, avg: AveragingState,
+               perm, lam: float, *, graphs: StepGraphs
+               ) -> Tuple[BCFWState, AveragingState]:
+    """One BCFW pass over the blocks of the host permutation ``perm``
+    (exact oracle calls), in place: one :func:`exact_step` per block, a
+    plain loop on the CPU and one replay of the step's captured graph per
+    block on CUDA, kept in ``graphs``.  The host counters ``n_exact`` and
+    ``k_exact`` advance by the pass's length."""
+    ids = np.asarray(perm, np.int64).reshape(-1)
+    ctl = graphs.control(
+        "bcfw", (st.phi, st.phi_i, avg.bar_exact) + tuple(
+            problem.data.values()), (lam, problem.oracle), len(ids),
+        problem.d)
+    load_control(ctl, ids, k0=avg.k_exact, it=0)
+    graphs.run("bcfw", "exact",
+               lambda: exact_step(problem, st, avg.bar_exact, ctl, lam),
+               len(ids))
+    return (st._replace(n_exact=st.n_exact + len(ids)),
+            avg._replace(k_exact=avg.k_exact + len(ids)))
+
+
+def fw_pass(problem: SSVMProblem, phi: torch.Tensor,
+            lam: float) -> torch.Tensor:
+    """One iteration of batch Frank-Wolfe (paper Alg. 1): the oracle of
+    all n examples at the same ``w`` in one batched call (on a chain
+    problem one Viterbi launch at B = n), their summed plane as the FW
+    vertex of the product domain, and the closed-form line search."""
+    w = weights_of(phi, lam)
+    phi_hat = problem.oracle(w, problem.data).sum(dim=0)
+    diff = phi - phi_hat
+    num = torch.dot(diff[:-1], phi[:-1]) - lam * diff[-1]
+    den = torch.dot(diff[:-1], diff[:-1])
+    gamma = torch.clamp(torch.where(den > 0, num / torch.clamp_min(den, 1e-30),
+                                    torch.zeros_like(num)), 0.0, 1.0)
+    return (1.0 - gamma) * phi + gamma * phi_hat

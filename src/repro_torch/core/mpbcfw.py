@@ -44,6 +44,7 @@ from .. import cache as plane_cache
 from ..cache import CacheLayout, PlaneCache
 from ..kernels import ops as kops
 from .averaging import average_step, init_averaging, weight_table
+from . import bcfw
 from .bcfw import block_update
 from .distributed import (fallback_planes, fold_planes, parallel_oracles,
                           state_tensors)
@@ -67,18 +68,15 @@ class MPState(NamedTuple):
 def exact_step(problem: SSVMProblem, mp: MPState, ctl: StepControl,
                lam: float) -> None:
     """One exact block step, in place, with the block read on the device:
-    the spec's oracle at ``w = -phi*/lam`` on block ``ctl.ids[cursor]``,
-    the line search, the cache insert (LRU slot, Gram row) stamped
-    ``ctl.it``, and an exact-track averaging step with the pass's weights.
-    Advances the cursor.  The body of :func:`exact_pass`'s loop, and of its
-    captured graph on CUDA."""
-    st, c = mp.inner, mp.cache
-    i = ctl.block()
-    example = {k: v.index_select(0, i) for k, v in problem.data.items()}
-    phi_hat = problem.oracle(weights_of(st.phi, lam), example)[0]
-    block_update(st, i, phi_hat, lam)
-    plane_cache.insert(c, i, phi_hat, ctl.it)
-    average_step(mp.avg.bar_exact, st.phi, ctl.weight(), ctl.scratch)
+    BCFW's step (:func:`repro_torch.core.bcfw.block_step`: the spec's
+    oracle at ``w = -phi*/lam`` on block ``ctl.ids[cursor]``, the line
+    search and an exact-track averaging step with the pass's weights), then
+    the cache insert (LRU slot, Gram row) stamped ``ctl.it``, which reads
+    nothing the averaging step writes.  Advances the cursor.  The body of
+    :func:`exact_pass`'s loop, and of its captured graph on CUDA."""
+    i, phi_hat = bcfw.block_step(problem, mp.inner, mp.avg.bar_exact, ctl,
+                                 lam)
+    plane_cache.insert(mp.cache, i, phi_hat, ctl.it)
     ctl.cursor.add_(1)
 
 

@@ -13,6 +13,13 @@ launch, so passes can be queued behind the slope rule's on-device
 decision.  Latency-bound (a sequential chain of per-block reductions).
 See the source for the design.
 
+Shapes the staged kernel cannot hold (``d + 1`` past :data:`MAX_D1`, a
+layout past shared memory, Sec-3.5 caps past :data:`MAX_SEC35_CAP`) take
+the wide plan (``Plan.wide``): the same pass by another kernel of the same
+source, with phi, the average and the per-slot lists in device memory (a
+scratch of :func:`wide_scratch_words` this module allocates), so every d
+and cap the reference's pass takes runs on the card.
+
 This module always launches the kernel: :func:`repro_torch.core.mpbcfw.
 run_pass` routes CPU tensors to the plain version
 (:func:`repro_torch.core.mpbcfw.eager_pass`) before they reach it.
@@ -37,20 +44,28 @@ SMEM_LIMIT = 232448
 # in registers (csrc/approx_pass.cu builds 8, 16, 24 and 40).
 THREADS = 512
 MAX_D1 = 40 * THREADS
+# The staged Sec-3.5 build holds 8 slots per lane of one warp.
+MAX_SEC35_CAP = 8 * 32
+# The wide kernel's shared memory: 4 floats of per-block scalars.
+WIDE_SMEM = 16
 
 _SIGNATURE = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + \
     [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_longlong] + \
     [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_WIDE_SIGNATURE = _SIGNATURE[:-3] + [ctypes.c_void_p] * 2
 
 
 class Plan(NamedTuple):
     """One launch's staging: ``rows`` valid plane rows staged per buffer,
     blocks staged ``distance`` ahead (1: two buffers, the next block's
     copies in flight while this one computes; 0: one buffer, filled just
-    before its block), and the ``smem_bytes`` of shared memory."""
+    before its block), and the ``smem_bytes`` of shared memory.  ``wide``:
+    the wide plan (nothing staged, phi and the average in device
+    memory)."""
     rows: int
     distance: int
     smem_bytes: int
+    wide: bool = False
 
 
 def _slot(length: int) -> int:
@@ -74,26 +89,35 @@ def _words(d1: int, cap: int, steps: int, rows: int, nbuf: int) -> int:
     return fixed + nbuf * per_buf
 
 
+def wide_scratch_words(cap: int) -> int:
+    """4-byte words of the wide plan's device scratch (csrc/approx_pass.cu
+    ``wide_scratch``): a block's valid-slot list (positions, list, count,
+    2 cap + 1), then a, b, beta, the offsets and the mix list (5 cap)."""
+    return (2 * cap + 1) + 5 * cap
+
+
 def plan(d: int, cap: int, steps: int = 0) -> Plan:
     """The launch plan for ``d``-dimensional planes, ``cap`` slots per
     block and ``steps`` Gram recurrences (0: the plain pass), from the
-    shape alone: two buffers whenever two fit beside the fixed part, each
-    with as many rows (at most ``cap``) as then fit; else one buffer.
-    Raises ``ValueError`` if not even one buffer without rows fits
-    :data:`SMEM_LIMIT`, or ``d + 1`` exceeds :data:`MAX_D1`."""
+    shape alone.  The staged kernel where it holds the shape (``d + 1 <=``
+    :data:`MAX_D1`, a Sec-3.5 cap of at most :data:`MAX_SEC35_CAP`, and
+    one buffer beside the fixed part within :data:`SMEM_LIMIT`): two
+    buffers whenever two fit, each with as many rows (at most ``cap``) as
+    then fit; else one buffer.  Every other shape takes the wide plan.
+    Raises ``ValueError`` only for ``d < 1``, ``cap < 1`` or ``steps <
+    0``."""
+    if d < 1 or cap < 1 or steps < 0:
+        raise ValueError(f"approx_pass: no plan for d={d}, cap={cap}, "
+                         f"steps={steps}")
     d1 = d + 1
-    for nbuf in (2, 1):
-        base = 4 * _words(d1, cap, steps, 0, nbuf)
-        if base <= SMEM_LIMIT:
-            rows = min(cap, (SMEM_LIMIT - base) // (4 * nbuf * _slot(d1)))
-            if d1 > MAX_D1:
-                raise ValueError(f"approx_pass: d={d} exceeds the {MAX_D1} "
-                                 "elements of the average the kernel "
-                                 "holds in registers")
-            return Plan(rows, nbuf - 1,
-                        4 * _words(d1, cap, steps, rows, nbuf))
-    raise ValueError(f"approx_pass: d={d}, cap={cap} need {base} B of shared "
-                     f"memory (limit {SMEM_LIMIT})")
+    if d1 <= MAX_D1 and (steps == 0 or cap <= MAX_SEC35_CAP):
+        for nbuf in (2, 1):
+            base = 4 * _words(d1, cap, steps, 0, nbuf)
+            if base <= SMEM_LIMIT:
+                rows = min(cap, (SMEM_LIMIT - base) // (4 * nbuf * _slot(d1)))
+                return Plan(rows, nbuf - 1,
+                            4 * _words(d1, cap, steps, rows, nbuf))
+    return Plan(0, 0, WIDE_SMEM, wide=True)
 
 
 def _lib():
@@ -104,6 +128,12 @@ def _lib():
         _build.check(lib.approx_pass_init(), "approx_pass (init)")
         lib.approx_pass_smem_bytes.argtypes = [ctypes.c_int] * 5
         lib.approx_pass_smem_bytes.restype = ctypes.c_longlong
+        lib.approx_pass_wide_scratch_words.argtypes = [ctypes.c_int]
+        lib.approx_pass_wide_scratch_words.restype = ctypes.c_longlong
+        lib.approx_pass_wide_smem_bytes.argtypes = []
+        lib.approx_pass_wide_smem_bytes.restype = ctypes.c_longlong
+        lib.approx_pass_wide_launch.argtypes = _WIDE_SIGNATURE
+        lib.approx_pass_wide_launch.restype = ctypes.c_int
         fn.argtypes = _SIGNATURE
         fn.restype = ctypes.c_int
     return lib
@@ -172,12 +202,20 @@ def approx_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,
     how = plan(d1 - 1, cap, nsteps)
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.approx_pass_launch(
-        phi.data_ptr(), phi_i.data_ptr(), bar.data_ptr(), planes.data_ptr(),
-        valid.data_ptr(), last_active.data_ptr(),
-        gram.data_ptr() if steps is not None else None, perm.data_ptr(),
-        go.data_ptr() if go is not None else None, n, perm.numel(), cap,
-        d1 - 1, nsteps, int(outer_it), float(lam), inverse_lam(lam),
-        int(k0), how.rows, how.distance + 1, stream)
+    args = (phi.data_ptr(), phi_i.data_ptr(), bar.data_ptr(),
+            planes.data_ptr(), valid.data_ptr(), last_active.data_ptr(),
+            gram.data_ptr() if steps is not None else None, perm.data_ptr(),
+            go.data_ptr() if go is not None else None, n, perm.numel(), cap,
+            d1 - 1, nsteps, int(outer_it), float(lam), inverse_lam(lam),
+            int(k0))
+    if how.wide:
+        # Freed on return: the caching allocator hands it out again only
+        # to work queued on this stream behind the pass.
+        scratch = torch.empty((wide_scratch_words(cap),), dtype=torch.int32,
+                              device=dev)
+        rc = lib.approx_pass_wide_launch(*args, scratch.data_ptr(), stream)
+    else:
+        rc = lib.approx_pass_launch(*args, how.rows, how.distance + 1,
+                                    stream)
     launches += 1
     _build.check(rc, "approx_pass")

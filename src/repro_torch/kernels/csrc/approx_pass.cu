@@ -84,6 +84,11 @@
 // buffer, updated in place, and stages nothing; any later repeat is staged
 // after the rewrite and the barriers between.
 //
+// Shapes past what shared memory and the builds hold (d + 1 > 20,480, a
+// fixed part or one buffer past 227 KB, Sec-3.5 caps past 256) take the
+// wide plan: approx_pass_wide_kernel below, the same pass with phi, the
+// average and the per-slot scratch in device memory (see there).
+//
 // Every dot product is lane-strided in one warp (lane l sums columns l,
 // l+32, ... with fmaf, then the fixed xor butterfly), so a pass is
 // deterministic, and scores are plane_scores.cu's: equal planes score
@@ -896,6 +901,294 @@ approx_pass_kernel(const Args args) {
   }
 }
 
+// -- The wide plan ------------------------------------------------------------
+//
+// Shapes the staged kernel cannot take (kernels/approx_pass.py::plan: d + 1
+// past the 40 elements of the average a thread holds, a fixed part or one
+// buffer past shared memory, Sec-3.5 caps past 8 x 32) run here.  The same
+// pass, one CTA of 512 threads, but phi and the average stay in device
+// memory (the phi and bar tensors, updated in place; L2-resident: 240 KB
+// each at d = 60,000 against 50 MB), each block's phi_i row, plane rows and
+// Gram leaf are read from device memory where they are used (the staged
+// kernel's streamed rows, for every row), and the per-slot lists and
+// scalars live in a device scratch the wrapper allocates (wide_scratch).
+// The Sec-3.5 recurrence loops over the slots 32 at a time with its a, b,
+// beta in that scratch, so it takes any cap.  A __syncthreads() orders
+// each block's writes to phi before the next block's reads.  The order
+// contract is the staged kernel's: each dot product lane-strided in one
+// warp (plain_row, dots_row, self_dots), the same roundings, the first
+// maximum by warp_first_max.  Slow (every operand a device-memory or L2
+// round trip on one SM) but any shape the reference's pass takes runs.
+
+constexpr int kWideScalars = 4;   // the wide kernel's shared memory: floats
+
+// Words of the wide plan's device scratch: a block's valid-slot list (pos,
+// list, count: compact's layout), then a, b, beta, the offsets and the mix
+// list, one word per slot each.
+__host__ __device__ constexpr long long wide_scratch(long long cap) {
+  return (2 * cap + 1) + 5 * cap;
+}
+
+// The Sec-3.5 recurrences of one block (as recurrence<kQ>, the same
+// updates in the same order of roundings), in one warp, over the slots 32
+// at a time with a, b and beta in device scratch: lane l owns slots l,
+// l+32, ...; a __syncwarp() after each step makes its writes visible to
+// the lane that reads slot h next.
+__device__ float recurrence_wide(const int* pos, float* s_a, float* s_b,
+                                 const float* s_off, const float* G,
+                                 float* s_beta, int cap, int steps,
+                                 float lam, float e, float c, float oi,
+                                 int* stamps, int outer_it, int lane) {
+  for (int r = lane; r < cap; r += kWarp) s_beta[r] = 0.0f;
+  __syncwarp();
+  float beta0 = 1.0f;
+  for (int step = 0; step < steps; ++step) {
+    float best = minus_inf();
+    int h = cap;
+    for (int r = lane; r < cap; r += kWarp) {
+      const bool v = pos[r] >= 0;
+      const float sr = __fsub_rn(v ? s_off[r] : 0.0f,
+                                 __fdiv_rn(v ? s_a[r] : 1.0f, lam));
+      const float s = v ? sr : kNeg;
+      if (s > best) {
+        best = s;
+        h = r;
+      }
+    }
+    h = warp_first_max(best, h);
+    const float ah = s_a[h], bh = s_b[h];
+    const float ch = pos[h] >= 0 ? s_off[h] : 0.0f;
+    const float* gh_row = G + h;   // G[r, h] at gh_row[r * cap]
+    const float ghh = gh_row[static_cast<long long>(h) * cap];
+    const float num = __fsub_rn(__fsub_rn(e, ah),
+                                __fmul_rn(lam, __fsub_rn(oi, ch)));
+    const float den = __fadd_rn(__fsub_rn(c, __fmul_rn(2.0f, bh)), ghh);
+    float g = den > 0.0f ? __fdiv_rn(num, fmaxf(den, 1e-30f)) : 0.0f;
+    g = fminf(fmaxf(g, 0.0f), 1.0f);
+    const float omg = __fsub_rn(1.0f, g);
+    const float e_new = __fadd_rn(
+        __fmul_rn(omg, __fadd_rn(e, __fmul_rn(g, __fsub_rn(bh, c)))),
+        __fmul_rn(g, __fadd_rn(ah, __fmul_rn(g, __fsub_rn(ghh, bh)))));
+    const float c_new = __fadd_rn(
+        __fadd_rn(__fmul_rn(__fmul_rn(omg, omg), c),
+                  __fmul_rn(__fmul_rn(__fmul_rn(2.0f, g), omg), bh)),
+        __fmul_rn(__fmul_rn(g, g), ghh));
+    __syncwarp();   // every lane has read slot h before it is rewritten
+    for (int r = lane; r < cap; r += kWarp) {
+      const float gh = gh_row[static_cast<long long>(r) * cap];
+      const float br = s_b[r];
+      s_a[r] = __fadd_rn(s_a[r], __fmul_rn(g, __fsub_rn(gh, br)));
+      s_b[r] = __fadd_rn(__fmul_rn(omg, br), __fmul_rn(g, gh));
+      float be = __fmul_rn(omg, s_beta[r]);
+      if (r == h) be = __fadd_rn(be, g);
+      s_beta[r] = be;
+    }
+    // The slot was returned by the approximate oracle.
+    if (lane == 0) stamps[h] = outer_it;
+    e = e_new;
+    c = c_new;
+    oi = __fadd_rn(__fmul_rn(omg, oi), __fmul_rn(g, ch));
+    beta0 = __fmul_rn(omg, beta0);
+    __syncwarp();
+  }
+  return beta0;
+}
+
+template <bool kSec35>
+__global__ void __launch_bounds__(kThreads, 1)
+approx_pass_wide_kernel(const Args args, int* scratch) {
+  if (args.go != nullptr && !*args.go) return;
+  __shared__ float s_scal[kWideScalars];
+  const int d1 = args.d + 1, d = args.d, cap = args.cap;
+  const float lam = args.lam, inv_lam = args.inv_lam;
+  const long long n = args.n;
+  const int tid = threadIdx.x, lane = tid % kWarp;
+  const int warp = __shfl_sync(kFull, tid / kWarp, 0);
+  float* phi = args.phi;
+  float* bar = args.bar;
+  int* meta = scratch;                 // pos [cap], list [cap], count
+  const int* pos = meta;
+  const int* list = meta + cap;
+  float* s_a = reinterpret_cast<float*>(scratch + 2 * cap + 1);
+  float* s_b = s_a + cap;
+  float* s_beta = s_b + cap;
+  float* s_off = s_beta + cap;
+  int* s_mix = reinterpret_cast<int*>(s_off + cap);
+  auto plane = [&](long long i, int r) {
+    return args.planes + (i * cap + r) * static_cast<long long>(d1);
+  };
+
+  for (int t = 0; t < args.n_perm; ++t) {
+    const long long i = args.perm[t];
+    if (i < 0 || i >= n) continue;   // uniform: every thread read i
+    float wa, wb;
+    avg_weights(args.k0 + t, wa, wb);
+    float* pi = args.phi_i + i * d1;
+    if (warp == 0) {
+      const bool* V = args.valid + i * cap;
+      compact(meta, cap, lane, [&](int c) { return V[c * kWarp + lane]; });
+    }
+    __syncthreads();
+    const int nv = meta[2 * cap];
+
+    if (!kSec35) {
+      // -- plain mode: as the staged kernel, rows read where they lie ----
+      float* s_num = s_b;
+      float* s_den = s_beta;
+      for (int k = warp; k < nv; k += kWarps) {
+        const float* p = plane(i, list[k]);
+        float sc, nu, de;
+        plain_row(p, phi, pi, d, lane, inv_lam, sc, nu, de);
+        if (lane == 0) {
+          s_a[k] = sc;
+          s_num[k] = nu;
+          s_den[k] = de;
+          s_off[k] = p[d];
+        }
+      }
+      if (nv == 0 && warp == 0) {
+        float e0, c0;
+        self_dots(pi, phi, d, lane, e0, c0);
+        if (lane == 0) {
+          s_scal[0] = e0;
+          s_scal[1] = c0;
+        }
+      }
+      __syncthreads();
+      if (warp == 0) {
+        // The first maximum over the valid rows: each lane the first of
+        // its rows (k = lane, lane + 32, ...), then the lowest k among
+        // the lanes holding the largest score.
+        float best = minus_inf();
+        int kb = nv;
+        for (int k = lane; k < nv; k += kWarp) {
+          const float sc = s_a[k];
+          if (sc > best) {
+            best = sc;
+            kb = k;
+          }
+        }
+        kb = warp_first_max(best, kb);
+        if (kb >= nv) kb = 0;
+        const bool any = nv > 0;
+        const float dot = any ? s_num[kb] : s_scal[0];
+        const float den = any ? s_den[kb] : s_scal[1];
+        const float diff_o = __fsub_rn(pi[d], any ? s_off[kb] : 0.0f);
+        const float num = __fsub_rn(dot, __fmul_rn(lam, diff_o));
+        float g = den > 0.0f ? __fdiv_rn(num, fmaxf(den, 1e-30f)) : 0.0f;
+        g = fminf(fmaxf(g, 0.0f), 1.0f);
+        if (lane == 0) {
+          s_scal[2] = __int_as_float(any ? kb : -1);
+          s_scal[3] = g;
+          args.last_active[i * cap + (any ? list[kb] : 0)] = args.outer_it;
+        }
+      }
+      __syncthreads();
+      const int kb = __float_as_int(s_scal[2]);
+      const float g = s_scal[3];
+      const bool any = kb >= 0;
+      const float omg = __fsub_rn(1.0f, g);
+      const float* ph = any ? plane(i, list[kb]) : pi;
+      for (int j = tid; j < d1; j += kThreads) {
+        const float pij = pi[j];
+        const float h = ph[j];
+        const float hj = any ? h : 0.0f;
+        const float npi = __fadd_rn(__fmul_rn(omg, pij), __fmul_rn(g, hj));
+        const float p = __fadd_rn(phi[j], __fsub_rn(npi, pij));
+        pi[j] = npi;
+        phi[j] = p;
+        bar[j] = __fadd_rn(__fmul_rn(wa, bar[j]), __fmul_rn(wb, p));
+      }
+    } else if (nv == 0) {
+      // -- Sec-3.5 mode, no cached plane: only the average moves ---------
+      for (int j = tid; j < d1; j += kThreads)
+        bar[j] = __fadd_rn(__fmul_rn(wa, bar[j]), __fmul_rn(wb, phi[j]));
+    } else {
+      // -- Sec-3.5 mode: Gram recurrences, then one materialisation ------
+      for (int r = tid; r < cap; r += kThreads)
+        if (pos[r] < 0) {
+          s_a[r] = 0.0f;
+          s_b[r] = 0.0f;
+        }
+      for (int k = warp; k < nv; k += kWarps) {
+        const int r = list[k];
+        const float* p = plane(i, r);
+        float av, bv;
+        dots_row(p, phi, pi, d, lane, av, bv);
+        if (lane == 0) {
+          s_a[r] = av;
+          s_b[r] = bv;
+          s_off[r] = p[d];
+        }
+      }
+      if (warp == kLoader) {
+        float e0, c0;
+        self_dots(pi, phi, d, lane, e0, c0);
+        if (lane == 0) {
+          s_scal[2] = e0;
+          s_scal[3] = c0;
+        }
+      }
+      __syncthreads();
+      if (warp == 0) {
+        const float beta0 = recurrence_wide(
+            pos, s_a, s_b, s_off,
+            args.gram + i * static_cast<long long>(cap) * cap, s_beta, cap,
+            args.steps, lam, s_scal[2], s_scal[3], pi[d],
+            args.last_active + i * cap, args.outer_it, lane);
+        // The slots phi_i' mixes in: those with a non-zero coefficient.
+        int count = 0;
+        for (int base = 0; base < cap; base += kWarp) {
+          const int r = base + lane;
+          const bool nz = r < cap && s_beta[r] != 0.0f;
+          const unsigned m = __ballot_sync(kFull, nz);
+          if (nz) s_mix[count + __popc(m & ((1u << lane) - 1u))] = r;
+          count += __popc(m);
+        }
+        if (lane == 0) {
+          s_scal[0] = beta0;
+          s_scal[1] = __int_as_float(count);
+        }
+      }
+      __syncthreads();
+      const float beta0 = s_scal[0];
+      const int count = __float_as_int(s_scal[1]);
+      // Eight elements per thread at a time, each summing its rows in slot
+      // order (the staged kernel's order).
+      constexpr int kJ = 8;
+      for (int j0 = 0; j0 < d1; j0 += kJ * kThreads) {
+        float mix[kJ];
+#pragma unroll
+        for (int u = 0; u < kJ; ++u) mix[u] = 0.0f;
+        for (int q = 0; q < count; ++q) {
+          const int r = s_mix[q];
+          const float bq = s_beta[r];
+          const float* row = plane(i, r);
+#pragma unroll
+          for (int u = 0; u < kJ; ++u) {
+            const int j = j0 + tid + u * kThreads;
+            if (j < d1) mix[u] = fmaf(bq, row[j], mix[u]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kJ; ++u) {
+          const int j = j0 + tid + u * kThreads;
+          if (j < d1) {
+            const float pij = pi[j];
+            const float npi = __fadd_rn(__fmul_rn(beta0, pij), mix[u]);
+            const float p = __fadd_rn(phi[j], __fsub_rn(npi, pij));
+            pi[j] = npi;
+            phi[j] = p;
+            bar[j] = __fadd_rn(__fmul_rn(wa, bar[j]), __fmul_rn(wb, p));
+          }
+        }
+      }
+    }
+    // Block t's writes (phi, phi_i, the scratch) before block t+1 reads.
+    __syncthreads();
+  }
+}
+
 template <int NJ, bool kSec35>
 cudaError_t allow() {
   return cudaFuncSetAttribute(approx_pass_kernel<NJ, kSec35>,
@@ -941,6 +1234,49 @@ extern "C" int approx_pass_init(void) {
   cudaError_t err = allow_all<false>();
   if (err == cudaSuccess) err = allow_all<true>();
   return static_cast<int>(err);
+}
+
+// Words of the wide plan's device scratch at `cap` slots
+// (kernels/approx_pass.py::wide_scratch_words mirrors it).
+extern "C" long long approx_pass_wide_scratch_words(int cap) {
+  return wide_scratch(cap);
+}
+
+// The wide kernel's shared memory in bytes (plan's smem_bytes for it).
+extern "C" long long approx_pass_wide_smem_bytes(void) {
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, approx_pass_wide_kernel<false>) !=
+      cudaSuccess)
+    return -1;
+  return static_cast<long long>(attr.sharedSizeBytes);
+}
+
+// The wide plan: launches on `stream` and returns cudaGetLastError().
+// `scratch` holds approx_pass_wide_scratch_words(cap) 4-byte words of
+// device memory, allocated by the caller; any d >= 1 and cap >= 1.
+extern "C" int approx_pass_wide_launch(float* phi, float* phi_i, float* bar,
+                                       const float* planes,
+                                       const bool* valid, int* last_active,
+                                       const float* gram,
+                                       const long long* perm, const bool* go,
+                                       long long n, int n_perm, int cap,
+                                       int d, int steps, int outer_it,
+                                       float lam, float inv_lam,
+                                       long long k0, int* scratch,
+                                       void* stream) {
+  if (n_perm < 0 || cap < 1 || d < 1 || steps < 0 ||
+      (steps > 0 && gram == nullptr) || scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_perm == 0) return 0;
+  Args args{phi,  phi_i, bar,   planes, valid, last_active, gram,
+            perm, go,    n,     n_perm, cap,   d,           steps,
+            outer_it, 0, 1, lam, inv_lam, k0};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (steps > 0)
+    approx_pass_wide_kernel<true><<<1, kThreads, 0, s>>>(args, scratch);
+  else
+    approx_pass_wide_kernel<false><<<1, kThreads, 0, s>>>(args, scratch);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).

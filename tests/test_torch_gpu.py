@@ -708,11 +708,9 @@ def test_approx_pass_kernel_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="Gram leaf"):
         _run_pass(t_ap.approx_pass, st, t["planes"], t["valid"], None, perm,
                   10)
-    with pytest.raises(ValueError, match="shared memory"):
-        big, _, bperm = _pass_state(2, 4, 60000, None, 2, cuda)
-        bst = {k: big[k].clone() for k in ("phi", "phi_i", "bar", "last")}
-        _run_pass(t_ap.approx_pass, bst, big["planes"], big["valid"], None,
-                  bperm, None)
+    with pytest.raises(ValueError, match="one-element flag"):
+        _run_pass(t_ap.approx_pass, st, t["planes"], t["valid"], None, perm,
+                  None, go=torch.ones(2, dtype=torch.bool, device=cuda))
 
 
 def _kernel_vs_eager(t, gram, perm, steps):
@@ -812,6 +810,62 @@ def test_approx_pass_plan_matches_the_kernels_layout(cuda, d, cap, steps):
     lib = t_ap._lib()
     assert lib.approx_pass_smem_bytes(d, cap, steps, how.rows,
                                       how.distance + 1) == how.smem_bytes
+
+
+# The wide plan (ROADMAP C6): the SSVM head's widths over Minitron-8B
+# (20,505) and Mistral-NeMo-12B / Qwen2.5-14B (25,625), d = 60,000, plain
+# caps in the thousands and Sec-3.5 caps past 256.
+WIDE_CASES = [(12, 16, 20505, None), (12, 16, 20505, 10),
+              (12, 16, 25625, None), (12, 16, 25625, 10),
+              (4, 4, 60000, None), (4, 4, 60000, 10),
+              (6, 4096, 7, None), (3, 4096, 4004, None),
+              (12, 512, 7, 10), (6, 512, 4004, 10)]
+
+
+@pytest.mark.parametrize("n,cap,d,steps", WIDE_CASES)
+def test_approx_pass_wide_plan_matches_plain(cuda, n, cap, d, steps):
+    """Shapes past the staged kernel, on the wide plan: one pass against
+    the eager loop, stamps equal, phi, phi_i and the average within TOL;
+    blocks with every slot valid and a repeated block included."""
+    from repro_torch.kernels import approx_pass as t_ap
+    assert t_ap.plan(d, cap, steps or 0).wide
+    t, gram, perm = _pass_state(n, cap, d, steps, 23 * n + cap, cuda)
+    t["valid"][perm[1]] = True
+    t["valid"][perm[2], : min(cap, 300)] = True
+    perm = torch.cat([perm[:1], perm[:1], perm]).contiguous()
+    before = ops.launch_counts()["approx_pass"]
+    _kernel_vs_eager(t, gram, perm, steps)
+    assert ops.launch_counts()["approx_pass"] == before + 1
+
+
+@pytest.mark.parametrize("steps", [None, 10])
+def test_approx_pass_wide_plan_is_deterministic_and_gated(cuda, steps):
+    """Ten launches from one state give the same bits; a false flag
+    changes nothing."""
+    t, gram, perm = _pass_state(16, 16, 25625, steps, 29, cuda)
+    keys = ("phi", "phi_i", "bar", "last")
+    first = None
+    for _ in range(10):
+        st = {k: t[k].clone() for k in keys}
+        _run_pass(ops.approx_pass, st, t["planes"], t["valid"], gram, perm,
+                  steps)
+        first = first or st
+        for k in keys:
+            assert torch.equal(st[k], first[k]), k
+    st = {k: t[k].clone() for k in keys}
+    _run_pass(ops.approx_pass, st, t["planes"], t["valid"], gram, perm,
+              steps, go=torch.zeros((), dtype=torch.bool, device=cuda))
+    for k in keys:
+        assert torch.equal(st[k], t[k]), k
+
+
+def test_approx_pass_wide_plan_matches_the_kernels_layout(cuda):
+    from repro_torch.kernels import approx_pass as t_ap
+    lib = t_ap._lib()
+    assert lib.approx_pass_wide_smem_bytes() == t_ap.WIDE_SMEM
+    for cap in (1, 16, 4096, 8192):
+        assert lib.approx_pass_wide_scratch_words(cap) == \
+            t_ap.wide_scratch_words(cap)
 
 
 # -- the LM kernels (moe_ffn, flash_attention) --------------------------------
@@ -1188,3 +1242,77 @@ def test_flash_attention_kernel_at_the_backbone_shape(cuda):
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     o = torch.matmul(e.bfloat16().float(), vf) / e.sum(dim=-1, keepdim=True)
     _close_to_emulation(got, o.transpose(1, 2).bfloat16())
+
+
+# -- the simple engines (bcfw, ssg, fw) --------------------------------------
+
+def _small_ocr(device):
+    X, Y, M = ocr_like(n=120, f=32, num_labels=12, mean_len=7, max_len=10,
+                       seed=0)
+    return chain.make_problem(X, Y, M, 12, device=device)
+
+
+def test_bcfw_and_ssg_replays_equal_eager_steps(cuda):
+    """BCFW's exact pass and SSG's pass, one replay per block, equal their
+    step bodies run eagerly on the card, bit for bit."""
+    from repro_torch.core import bcfw, graphs, subgradient
+    from repro_torch.core.averaging import init_averaging
+    from repro_torch.core.ssvm import init_state
+    problem = _small_ocr(cuda)
+    lam = 1.0 / problem.n
+    perm = np.random.RandomState(5).permutation(problem.n)
+    # BCFW, from a state one pass in.
+    st, avg = init_state(problem, cuda), init_averaging(problem.d, cuda)
+    steps = graphs.StepGraphs()
+    st, avg = bcfw.exact_pass(problem, st, avg, perm, lam, graphs=steps)
+    e_st = st._replace(phi=st.phi.clone(), phi_i=st.phi_i.clone())
+    e_bar = avg.bar_exact.clone()
+    ctl = graphs.new_control(problem.n, problem.d, cuda)
+    graphs.load_control(ctl, perm, k0=avg.k_exact, it=0)
+    for _ in perm:
+        bcfw.exact_step(problem, e_st, e_bar, ctl, lam)
+    ops.reset_launch_counts()
+    st, avg = bcfw.exact_pass(problem, st, avg, perm, lam, graphs=steps)
+    torch.cuda.synchronize()
+    assert steps.replays == 2 * problem.n - 1
+    assert ops.launch_counts()["viterbi_decode"] == problem.n
+    assert torch.equal(st.phi, e_st.phi) and torch.equal(st.phi_i,
+                                                         e_st.phi_i)
+    assert torch.equal(avg.bar_exact, e_bar)
+    # SSG from t = 1.
+    w = torch.zeros(problem.d, device=cuda)
+    t = torch.ones((), dtype=torch.int32, device=cuda)
+    ew, et = w.clone(), t.clone()
+    steps = graphs.StepGraphs()
+    subgradient.ssg_pass(problem, w, t, perm, lam, graphs=steps)
+    ctl = graphs.new_control(problem.n, problem.d, cuda)
+    graphs.load_control(ctl, perm, k0=0, it=0)
+    for _ in perm:
+        subgradient.ssg_step(problem, ew, et, ctl, lam)
+    torch.cuda.synchronize()
+    assert steps.replays == problem.n - 1
+    assert torch.equal(w, ew) and int(t) == int(et) == problem.n + 1
+
+
+@pytest.mark.parametrize("algo", ["fw", "ssg", "bcfw", "bcfw-avg",
+                                  "mpbcfw-avg"])
+def test_simple_engines_card_matches_cpu(cuda, algo):
+    """Three iterations on SMALL ocr, card against CPU: the same schedule
+    and sync counts, objectives within rtol 1e-4 (ssg: no dual)."""
+    rows = {}
+    for dev in (cuda, "cpu"):
+        problem = _small_ocr(dev)
+        rows[str(dev)] = Solver(problem, RunConfig(
+            lam=1.0 / problem.n, algo=algo, max_iters=3, cap=16,
+            approx_batch=4, max_approx_passes=6,
+            cost_model=CostModel(0.3, 1e-4))).run().trace
+    for g, c in zip(rows["cuda"], rows["cpu"]):
+        assert (g.n_exact, g.n_approx, g.approx_passes, g.dispatches,
+                g.host_syncs) == (c.n_exact, c.n_approx, c.approx_passes,
+                                  c.dispatches, c.host_syncs)
+        assert_allclose(g.primal, c.primal, rtol=1e-4)
+        assert_allclose(g.primal_avg, c.primal_avg, rtol=1e-4)
+        if algo == "ssg":
+            assert np.isnan(g.dual) and np.isnan(c.dual)
+        else:
+            assert_allclose(g.dual, c.dual, rtol=1e-4)

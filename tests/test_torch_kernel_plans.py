@@ -245,17 +245,112 @@ def test_approx_pass_plan_takes_every_shape_the_single_buffer_kernel_took(
 @pytest.mark.parametrize("d,cap", [(60000, 4), (60000, 64), (30000, 1)])
 def test_approx_pass_plan_refuses_what_shared_memory_cannot_hold(d, cap,
                                                                   steps):
-    with pytest.raises(ValueError, match="shared memory"):
-        t_ap.plan(d, cap, steps)
+    """Shapes whose layout outgrows shared memory are not staged: they
+    take the wide plan (phi and the average in device memory), which
+    stages nothing."""
+    assert 4 * t_ap._words(d + 1, cap, steps, 0, 1) > SMEM
+    assert t_ap.plan(d, cap, steps) == t_ap.Plan(0, 0, t_ap.WIDE_SMEM,
+                                                 wide=True)
 
 
 @pytest.mark.parametrize("d", [20480, 25000])
 def test_approx_pass_plan_refuses_more_of_phi_than_a_thread_holds(d):
-    """Past 20 elements of phi per thread (d + 1 > 20480) there is no
-    build, though one buffer would fit."""
+    """Past 40 elements of phi per thread (d + 1 > 20480) there is no
+    staged build, though one buffer would fit: the wide plan runs it."""
     assert 4 * t_ap._words(d + 1, 1, 0, 0, 1) <= SMEM
-    with pytest.raises(ValueError, match="registers"):
-        t_ap.plan(d, 1, 0)
+    how = t_ap.plan(d, 1, 0)
+    assert how.wide and how.rows == 0 and how.smem_bytes <= SMEM
+
+
+def _plan_before(d, cap, steps):
+    """The plan before the wide plan existed (None where it raised): the
+    staged kernel's, which every shape it took keeps."""
+    d1 = d + 1
+    for nbuf in (2, 1):
+        base = 4 * t_ap._words(d1, cap, steps, 0, nbuf)
+        if base <= SMEM:
+            if d1 > t_ap.MAX_D1:
+                return None
+            rows = min(cap, (SMEM - base) // (4 * nbuf * t_ap._slot(d1)))
+            return t_ap.Plan(rows, nbuf - 1,
+                             4 * t_ap._words(d1, cap, steps, rows, nbuf))
+    return None
+
+
+# Every shape this file checked before the wide plan, and a sweep around
+# the edges of what the staged kernel holds.
+BEFORE = sorted(set(
+    PASS_SHAPES + TAKEN_BEFORE
+    + [(d, cap, steps) for d in (1, 7, 4004, 10265, 19347, 19400, 20479)
+       for cap in (1, 4, 16, 64, 128, 200, 236, 237, 1000, 3800, 3900)
+       for steps in (0, 10)]))
+
+
+@pytest.mark.parametrize("d,cap,steps", BEFORE)
+def test_approx_pass_plan_is_unchanged_where_the_staged_kernel_ran(d, cap,
+                                                                   steps):
+    before = _plan_before(d, cap, steps)
+    how = t_ap.plan(d, cap, steps)
+    if before is None:
+        assert how.wide
+    else:
+        assert how == before and not how.wide
+
+
+# ROADMAP C6: the widths of the SSVM head over Minitron-8B (20,505),
+# Mistral-NeMo-12B and Qwen2.5-14B (25,625), and d = 60,000; the caps past
+# what shared memory holds in either mode.
+@pytest.mark.parametrize("steps", [0, 10])
+@pytest.mark.parametrize("d", [20479, 20505, 25625, 60000])
+@pytest.mark.parametrize("cap", [1, 16, 64])
+def test_approx_pass_plan_takes_the_wide_widths(d, cap, steps):
+    how = t_ap.plan(d, cap, steps)
+    assert how.wide == (d + 1 > t_ap.MAX_D1)
+    assert how.smem_bytes <= SMEM
+
+
+@pytest.mark.parametrize("d", [7, 4004])
+@pytest.mark.parametrize("cap,steps", [(4096, 0), (8192, 0), (237, 10),
+                                       (238, 10), (256, 10), (512, 10)])
+def test_approx_pass_plan_takes_the_wide_caps(d, cap, steps):
+    """Plain caps in the thousands and Sec-3.5 caps past 236: the wide
+    plan, whose scratch grows with the cap and whose shared memory does
+    not."""
+    how = t_ap.plan(d, cap, steps)
+    assert how.wide
+    assert how.smem_bytes == t_ap.WIDE_SMEM
+    assert t_ap.wide_scratch_words(cap) == 7 * cap + 1
+
+
+@pytest.mark.parametrize("d,cap,steps", [(0, 4, 0), (7, 0, 0), (7, 4, -1)])
+def test_approx_pass_plan_refuses_only_empty_shapes(d, cap, steps):
+    with pytest.raises(ValueError, match="no plan"):
+        t_ap.plan(d, cap, steps)
+
+
+@pytest.mark.parametrize("algo", ["mpbcfw", "mpbcfw-avg", "mpbcfw-gram",
+                                  "mpbcfw-async"])
+def test_solver_refuses_a_refused_plan_when_it_is_built(monkeypatch, algo):
+    """The engines take the pass's plan in init_state, so a shape the
+    kernel refuses fails when the Solver is built (before any pass), and
+    engines without approximate passes do not ask."""
+    from repro_torch.api import RunConfig, Solver, UnsupportedConfigError
+    from repro_torch.core.oracles import chain
+    from repro_torch.data import synthetic
+    X, Y, M = synthetic.ocr_like(n=6, f=4, num_labels=3, mean_len=3,
+                                 max_len=4, seed=0)
+    problem = chain.make_problem(X, Y, M, 3, device="cpu")
+    asked = []
+
+    def refuse(d, cap, steps=0):
+        asked.append((d, cap, steps))
+        raise ValueError("no room")
+    monkeypatch.setattr(t_ap, "plan", refuse)
+    with pytest.raises(UnsupportedConfigError, match="no room"):
+        Solver(problem, RunConfig(lam=0.1, algo=algo, cap=5))
+    assert asked == [(problem.d, 5, 10 if algo == "mpbcfw-gram" else 0)]
+    Solver(problem, RunConfig(lam=0.1, algo="bcfw", cap=5))
+    assert len(asked) == 1
 
 
 # B3 at the paths' shapes (OCR rows of 14 steps over 26 labels, the SSVM

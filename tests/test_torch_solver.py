@@ -286,10 +286,11 @@ def test_solver_stopping_criteria_and_callbacks():
     assert len(list(solver.iterate())) == 0   # resumable, still stopped
 
 
-@pytest.mark.parametrize("algo,match", [("bcfw", "not yet ported"),
-                                        ("mpbcfw-avg", "not yet ported"),
+@pytest.mark.parametrize("algo,match", [("mpbcfw-gap", "not yet ported"),
+                                        ("mpbcfw-shard-tau",
+                                         "not yet ported"),
                                         ("mpbcfw-shard", "not yet ported"),
-                                        ("nope", "not yet ported")])
+                                        ("nope", "unknown algorithm")])
 def test_unported_algorithms_raise(algo, match):
     _, tp = _problems("conftest")
     with pytest.raises(UnsupportedConfigError, match=match):
