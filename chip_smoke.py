@@ -18,6 +18,9 @@ Phases, one JSON line each (seconds on an H100 in brackets):
                  and scratch), plane_select, moe_ffn, flash_attention,
                  gram, and approx_pass (one whole approximate pass per
                  launch, both modes, against the eager per-block loop),
+                 viterbi_decode also at serving rounds' shapes (8 rows of
+                 a bucket with tails of 0-3 masked steps, 2 of them
+                 filler rows) and timed at (8, 16, 26) and (8, 32, 5),
                  each with the launch plan it chose; plane_select at
                  three densities (the path's 2/64, half, all valid) and
                  at k = 64 and 512 rows, each held bit for bit against
@@ -98,6 +101,21 @@ Phases, one JSON line each (seconds on an H100 in brackets):
                  of n=512, f=5120, C=5 (d = 25,625, the SSVM head's width
                  over Mistral-NeMo-12B and Qwen2.5-14B), each with its ms
                  per full wide pass beside its bound [~30].
+ 13e. serve   -- structured serving of the model ``main`` trained (its
+                 weights exported by Solver.servable() right after the
+                 3 iterations): saved, loaded onto the card, and all 6877
+                 training examples, trimmed to their lengths, served by
+                 StructuredServer in rounds of 8 (buckets 4/8/12/16, one
+                 captured CUDA graph each, one replay, dispatch and sync
+                 per round, B3 once per round), every labeling held to the
+                 per-example decode; requests/s, labels/s, latency
+                 quantiles, peak memory [~8].
+ 13f. serve_usps, serve_horseseg -- serving at full usps width (n=7291,
+                 f=256, C=10; every request held to the per-example
+                 decode) and full horseseg width (16x16 lattices, f=649,
+                 40 ICM sweeps; n cut to 512, a seeded sample of 256
+                 held), random weights as benchmarks/serving_bench.py
+                 makes them [~20].
  14. main_lm  -- OLMoE-1B-7B at its published width (16 layers, d_model
                  2048, 64 experts top-8, random weights from a seed): the
                  Server answers 8 requests, then the SSVM head trains on
@@ -106,7 +124,11 @@ Phases, one JSON line each (seconds on an H100 in brackets):
                  and read just after [~15]; routing holds the first and
                  last MoE layers' routing at full width, card against CPU
                  [~5]; then profile_lm traces 8 decode rounds and one
-                 feature pass (device busy share, device time by kernel).
+                 feature pass (device busy share, device time by kernel);
+                 last, serve_lm serves the trained head over its 1024
+                 sequences, B3 at (8, 32, 5) once per round, every
+                 labeling held to the per-example decode [~3].  The
+                 serving phases run after the OCR training paths.
  15. kernels line, the card's name and power limit, and the result line
      ``{"ok": true, "device": {...}}`` last.
 
@@ -166,6 +188,20 @@ WIDE_DATA = dict(n=512, f=5120, num_labels=5, mean_len=8, max_len=14,
                  seed=0)
 WIDE_RUN = dict(max_iters=3, cap=16, approx_batch=8, max_approx_passes=8,
                 gram_steps=10)
+# Structured serving: the reference's and serving_bench.py's batch size and
+# bucket grid; full-width usps (configs/paper.py::USPS) and horseseg
+# (HORSESEG, n cut from 2376 to 512: generating its 1.58 GB of features
+# alone takes ~20 s) with serving_bench.py's weights, RandomState(7).
+SERVE_BATCH, SERVE_GRANULARITY = 8, 4
+# B3's serving shapes: OCR's largest bucket and the SSVM head's rows.
+SERVE_VITERBI = ((16, 26), (32, 5))
+SERVE_USPS = dict(n=7291, f=256, num_classes=10, seed=0)
+SERVE_HORSESEG = dict(n=512, grid=(16, 16), f=649, seed=0)
+HORSESEG_SWEEPS = 40
+SERVE_HORSESEG_CHECKED = 256    # per-example decodes held, a seeded sample
+SERVE_BITS_LIMIT = 2048         # requests whose unary bits are compared
+SERVE_PROFILE = 512             # requests of the round-time breakdown
+NEAR_TIE_RTOL = 1e-5            # a differing label allowed only at a tie
 
 
 def emit(phase: str, **fields) -> None:
@@ -313,12 +349,14 @@ def viterbi_plan(L: int, C: int):
 
 def check_viterbi(torch, gen, masks):
     """B3 against its plain version (bit-equal labels, ties included) on
-    the OCR masks at B = 1 and B = 6877, at L = 32, C = 109 with ties, and
-    on the scratch plan (a chain too long to stage); then timed at B = 1
-    and B = 6877 by :func:`graph_ms` (the calls captured in one CUDA
-    graph, as B = 1 runs inside the captured exact step) beside the event
-    loop, the plain version and the bound, with the plan each shape
-    launches.  ~3 s."""
+    the OCR masks at B = 1 and B = 6877, at L = 32, C = 109 with ties, on
+    the scratch plan (a chain too long to stage), and on serving rounds
+    (8 rows of a bucket, tails of 0-3 masked steps, 2 filler rows) at
+    ``SERVE_VITERBI``; then timed at B = 1, B = 6877 and the serving
+    shapes by :func:`graph_ms` (the calls captured in one CUDA graph, as
+    B3 runs inside the captured exact step and serving round) beside the
+    event loop, the plain version and the bound, with the plan each shape
+    launches.  ~4 s."""
     from repro_torch.kernels import ops, ref
     C = OCR["num_labels"]
     L = masks.shape[1]
@@ -337,6 +375,20 @@ def check_viterbi(torch, gen, masks):
             trans = torch.randn((C, C), generator=gen, device="cuda")
         return unary, trans, mask.contiguous()
 
+    def serve_inputs(L_b, C_s, tie):
+        """A serving round's batch: 6 requests padded to the bucket L_b
+        (tails of 0-3 masked steps) and 2 filler rows copying the last."""
+        tails = torch.randint(0, 4, (6,), generator=gen, device="cuda")
+        unary, trans, _ = inputs(SERVE_BATCH, tie, L=L_b, C=C_s,
+                                 mask=torch.ones((SERVE_BATCH, L_b),
+                                                 dtype=torch.bool,
+                                                 device="cuda"))
+        mask = (torch.arange(L_b, device="cuda")[None, :]
+                < (L_b - tails)[:, None])
+        mask = torch.cat([mask, mask[-1:].expand(2, L_b)])
+        unary[6:] = unary[5]
+        return unary, trans, mask.contiguous()
+
     results = {}
     cases = [(f"B{B}{'_tie' if tie else ''}",
               inputs(B, tie, mask=masks[:B])) for B in (1, masks.shape[0])
@@ -344,6 +396,9 @@ def check_viterbi(torch, gen, masks):
     cases += [("32x109_tie", inputs(9, True, L=32, C=109)),
               ("2000x26_scratch", inputs(3, False, L=2000)),
               ("300x109_scratch_tie", inputs(2, True, L=300, C=109))]
+    cases += [(f"serve_{L_b}x{C_s}{'_tie' if tie else ''}",
+               serve_inputs(L_b, C_s, tie))
+              for L_b, C_s in SERVE_VITERBI for tie in (False, True)]
     for what, (unary, trans, mask) in cases:
         got = ops.viterbi_decode(unary, trans, mask)
         want = ref.viterbi_decode_ref(unary, trans, mask)
@@ -373,8 +428,22 @@ def check_viterbi(torch, gen, masks):
             plain_ms=time_ms(torch, lambda k: ref.viterbi_decode_ref(
                 unary, trans, mask), max(calls // 10, 2)),
             bound_ms=bms, bound_by=by, plan=viterbi_plan(L, C))
+    for L_b, C_s in SERVE_VITERBI:
+        unary, trans, mask = serve_inputs(L_b, C_s, False)
+        nbytes, ops_n = viterbi_work(mask, C_s)
+        bms, by = bound_ms(nbytes, ops_n)
+
+        def kernel(k):
+            return ops.viterbi_decode(unary, trans, mask)
+        timing[f"serve_{SERVE_BATCH}x{L_b}x{C_s}"] = dict(
+            ms=graph_ms(torch, kernel, 200),
+            event_loop_ms=time_ms(torch, kernel, 200),
+            plain_ms=time_ms(torch, lambda k: ref.viterbi_decode_ref(
+                unary, trans, mask), 20),
+            bound_ms=bms, bound_by=by, plan=viterbi_plan(L_b, C_s))
     emit("kernel", name="viterbi_decode", shape=[1, L, C], checks=results,
-         timing={f"B={B}": t for B, t in timing.items()},
+         timing={(f"B={B}" if isinstance(B, int) else B): t
+                 for B, t in timing.items()},
          timing_by="ms: graph_ms; event_loop_ms, plain_ms: time_ms",
          library_ms=None, library_note="no single PyTorch call decodes a "
          "chain; the plain version is a loop of L steps")
@@ -385,7 +454,9 @@ def check_viterbi(torch, gen, masks):
                 ms=t1["ms"], event_loop_ms=t1["event_loop_ms"],
                 plain_ms=t1["plain_ms"], bound_ms=t1["bound_ms"],
                 bound_by=t1["bound_by"], library_ms=None, plan=t1["plan"],
-                at_6877=timing[masks.shape[0]])
+                at_6877=timing[masks.shape[0]],
+                serving={k: t for k, t in timing.items()
+                         if isinstance(k, str)})
 
 
 SELECT_DENSITIES = (("path", 2.0 / 64), ("half", 0.5), ("full", 1.0))
@@ -2021,6 +2092,258 @@ def phase_wide(torch, gen):
     return errs, timing, by_path
 
 
+def decode_objective(torch, model, example, labels) -> float:
+    """What a decode maximizes, ``<w, psi(x, y)> + Delta(y_true, y) +
+    offset(y)``, for one labeling of one example (the spec's own features,
+    loss and offset on a batch of one)."""
+    import numpy as np
+    dev = model.w.device
+    batch = {k: torch.from_numpy(np.array(v)).to(dev)[None]
+             for k, v in example.items()}
+    y = torch.from_numpy(np.array(labels)).to(dev)[None]
+    spec = model.spec
+    score = (spec.features(batch, y) @ model.w + spec.loss(batch, y)
+             + spec.offset(batch, y))
+    return float(score[0])
+
+
+def score_bit_differences(torch, model, engine, reqs):
+    """Over ``reqs`` batched as the server batches them (``SERVE_BATCH``
+    rows padded to their bucket): how many get scores (``spec.scores``,
+    the unaries or class scores, the decode's only sums over features)
+    that differ in any bit from their per-example decode's, when the bucket
+    is scored as one batch, and when each row is scored alone, as the
+    engines do.  ROADMAP §C logs the counts."""
+    import numpy as np
+    from repro_torch.serve import bucket_key
+    spec, w = model.spec, model.w
+    groups = {}
+    for r in reqs:
+        groups.setdefault(bucket_key(engine.shape_key(r), SERVE_GRANULARITY),
+                          []).append(r)
+    batched = rows = 0
+    for bucket, rs in groups.items():
+        for s in range(0, len(rs), SERVE_BATCH):
+            chunk = [engine.pad(r, bucket) for r in rs[s:s + SERVE_BATCH]]
+            padded = chunk + [chunk[-1]] * (SERVE_BATCH - len(chunk))
+            batch = {k: torch.from_numpy(np.stack([p[k] for p in padded]))
+                     .cuda() for k in padded[0]}
+            together = spec.scores(w, batch)
+            for i, r in enumerate(rs[s:s + SERVE_BATCH]):
+                alone = spec.scores(w, {
+                    k: torch.from_numpy(np.array(v)).cuda()[None]
+                    for k, v in r.items()})[0]
+                row = spec.scores(w, {k: v[i:i + 1]
+                                      for k, v in batch.items()})[0]
+                m = alone.shape[0]
+                batched += not torch.equal(together[i][:m], alone)
+                rows += not torch.equal(row[:m], alone)
+    return batched, rows
+
+
+def serve_and_check(torch, phase: str, model, reqs, checked, *,
+                    chain: bool, **info):
+    """Serve ``reqs`` through a :class:`StructuredServer` on the card
+    (``SERVE_BATCH`` rows, buckets on a ``SERVE_GRANULARITY`` grid), all
+    admitted up front, launch counts reset just before and read just
+    after; then hold the served labels of the requests ``checked`` to the
+    model's per-example decode (a differing label passes only as a near
+    tie, its objective within ``NEAR_TIE_RTOL`` of the per-example one),
+    and count the requests whose scores differ in bits from the
+    per-example decode's (:func:`score_bit_differences`, the first
+    ``SERVE_BITS_LIMIT``).
+    Checks one dispatch, one sync and one graph replay per round, one
+    captured graph per occupied bucket, and B3 launched once per round on
+    a chain model and never otherwise.  Emits ``phase``; returns the
+    launch counts."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.serve import StructuredServer, bucket_key
+    server = StructuredServer(model, batch_size=SERVE_BATCH,
+                              bucket_granularity=SERVE_GRANULARITY)
+    engine = server.engine
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        server.submit(r)
+    done = server.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rounds, dispatches, syncs = server.ledger.counts()
+    buckets = sorted({bucket_key(engine.shape_key(r), SERVE_GRANULARITY)
+                      for r in reqs})
+    check(len(done) == len(reqs), f"{phase}: served {len(done)} of "
+          f"{len(reqs)} requests")
+    check(dispatches == syncs == engine.replays == rounds,
+          f"{phase}: {rounds} rounds, {dispatches} dispatches, {syncs} "
+          f"syncs, {engine.replays} graph replays")
+    check(len(engine.programs) == len(buckets),
+          f"{phase}: {len(engine.programs)} captured graphs for "
+          f"{len(buckets)} buckets")
+    want = {k: 0 for k in launches}
+    want["viterbi_decode"] = rounds if chain else 0
+    check(launches == want, f"{phase}: launches {launches}, expected "
+          f"{want}")
+    served = [r.labels for r in sorted(done, key=lambda r: r.rid)]
+    t1 = time.perf_counter()
+    wrong, near_ties = [], []
+    for i in checked:
+        ref = model.decode(reqs[i]).cpu().numpy()
+        if np.array_equal(served[i], ref):
+            continue
+        a = decode_objective(torch, model, reqs[i], served[i])
+        b = decode_objective(torch, model, reqs[i], ref)
+        if abs(a - b) <= NEAR_TIE_RTOL * max(abs(a), abs(b)):
+            near_ties.append([int(i), a, b])
+        else:
+            wrong.append([int(i), a, b])
+    check_s = time.perf_counter() - t1
+    check(not wrong, f"{phase}: {len(wrong)} served labelings differ from "
+          f"the per-example decode beyond a near tie: {wrong[:5]}")
+    bits_reqs = reqs[:SERVE_BITS_LIMIT]
+    bits_batched, bits_rows = score_bit_differences(torch, model, engine,
+                                                    bits_reqs)
+    lat = np.array([r.latency for r in done])
+    labels = sum(int(r.labels.size) for r in done)
+    hist = server.metrics.registry.histogram
+    result = dict(
+        requests=len(reqs), rounds=rounds, dispatches=dispatches,
+        host_syncs=syncs, graph_replays=engine.replays,
+        captured_graphs=len(engine.programs),
+        buckets=[list(b) for b in buckets], batch_size=SERVE_BATCH,
+        seconds=wall, requests_per_s=len(reqs) / wall,
+        labels_per_s=labels / wall, ms_per_round=1e3 * wall / rounds,
+        latency_p50_s=float(np.percentile(lat, 50)),
+        latency_p99_s=float(np.percentile(lat, 99)),
+        metrics_latency_p50_s=server.metrics.latency_quantile(0.5),
+        metrics_latency_p99_s=server.metrics.latency_quantile(0.99),
+        metrics_round_p50_s=hist("serve_round_time").quantile(0.5),
+        metrics_round_p99_s=hist("serve_round_time").quantile(0.99),
+        max_memory_allocated=peak, launches=launches,
+        checked=len(checked), near_ties=near_ties, check_s=check_s,
+        score_bits_compared=len(bits_reqs),
+        score_bits_differ_batched=bits_batched,
+        score_bits_differ_by_row=bits_rows,
+        profile=profile_rounds(torch, server, reqs[:SERVE_PROFILE]),
+        **info)
+    emit(phase, **result)
+    return launches
+
+
+def profile_rounds(torch, server, reqs):
+    """Where a round's time goes, on the server's captured graphs: ``reqs``
+    served again, each round's host time split into padding, stacking,
+    ``decode`` (one pinned copy per leaf and the replay's enqueue) and the
+    sync (waiting for the card, then the labels' copy), in ms per round;
+    then the same rounds traced (device busy share, device us per round).
+    """
+    engine, ledger = server.engine, server.ledger
+    spent = dict(pad=0.0, stack=0.0, decode=0.0, sync=0.0)
+
+    def timed(name, fn):
+        def run(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            spent[name] += time.perf_counter() - t0
+            return out
+        return run
+    engine.pad, engine.stack, engine.decode = (
+        timed("pad", engine.pad), timed("stack", engine.stack),
+        timed("decode", engine.decode))
+    ledger.sync = timed("sync", ledger.sync)
+    r0 = ledger.rounds
+    t0 = time.perf_counter()
+    server.serve(reqs)
+    wall = time.perf_counter() - t0
+    rounds = ledger.rounds - r0
+    del engine.pad, engine.stack, engine.decode, ledger.sync
+    r0 = ledger.rounds
+    tr = traced(torch, lambda: server.serve(reqs))
+    traced_rounds = ledger.rounds - r0
+    return dict(requests=len(reqs), rounds=rounds,
+                ms_per_round=1e3 * wall / rounds,
+                **{f"{k}_ms_per_round": 1e3 * v / rounds
+                   for k, v in spent.items()},
+                traced_device_us_per_round=tr["device_us"] / traced_rounds,
+                traced_device_busy_share=tr["device_busy_share"],
+                traced_top_device_us=tr["top_device_us"])
+
+
+def chain_requests(X, Y, M):
+    """Host requests trimmed to their true lengths."""
+    return [{"x": X[i, :L], "y": Y[i, :L], "mask": M[i, :L]}
+            for i, L in enumerate(M.sum(axis=1).tolist())]
+
+
+def phase_serve(torch, model, data):
+    """The trained full-size OCR model (``main``'s 3 iterations, exported
+    by ``Solver.servable()`` right after them) saved, loaded onto the card
+    and served: all 6877 training examples trimmed to their lengths
+    (buckets 4/8/12/16), 8 rows per round, every labeling held to its
+    per-example decode.  ~8 s."""
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.serve import ServableModel
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        model.save(CheckpointManager(tmp))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = ServableModel.load(CheckpointManager(tmp))
+        load_s = time.perf_counter() - t0
+    check(loaded.w.device.type == "cuda" and torch.equal(loaded.w, model.w)
+          and loaded.spec == model.spec and loaded.meta == model.meta,
+          "serve: the loaded model differs from the export")
+    return serve_and_check(
+        torch, "serve", loaded, chain_requests(*data), range(OCR["n"]),
+        chain=True, scenario="OCR",
+        d=loaded.d, meta=loaded.meta, save_s=save_s, load_s=load_s)
+
+
+def phase_serve_specs(torch):
+    """Full-width usps (n = 7291, f = 256, C = 10; every request checked)
+    and horseseg (16x16 lattices, f = 649, 40 ICM sweeps; n cut to 512,
+    a seeded sample of 256 checked), random weights as serving_bench.py
+    makes them.  ~20 s."""
+    import numpy as np
+    from repro_torch.core.oracles.graph import GraphSpec
+    from repro_torch.core.oracles.multiclass import MulticlassSpec
+    from repro_torch.data import synthetic
+    from repro_torch.serve import ServableModel
+
+    def weights(spec, x):
+        d = spec.dim({"x": x})
+        return torch.from_numpy(np.random.RandomState(7).randn(d).astype(
+            np.float32)).cuda()
+    out = {}
+    x, y = synthetic.usps_like(**SERVE_USPS)
+    spec = MulticlassSpec(SERVE_USPS["num_classes"])
+    model = ServableModel(spec, weights(spec, x))
+    out["serve_usps"] = serve_and_check(
+        torch, "serve_usps", model, [{"x": x[i], "y": y[i]}
+                                     for i in range(len(x))],
+        range(len(x)), chain=False, scenario="USPS", d=model.d)
+    t0 = time.perf_counter()
+    arrays = synthetic.horseseg_like(**SERVE_HORSESEG)
+    data_s = time.perf_counter() - t0
+    keys = ("x", "y", "mask", "edges", "edge_mask", "color")
+    n = SERVE_HORSESEG["n"]
+    reqs = [{k: a[i] for k, a in zip(keys, arrays)} for i in range(n)]
+    spec = GraphSpec(num_sweeps=HORSESEG_SWEEPS)
+    model = ServableModel(spec, weights(spec, arrays[0]))
+    checked = sorted(np.random.RandomState(0).choice(
+        n, SERVE_HORSESEG_CHECKED, replace=False).tolist())
+    out["serve_horseseg"] = serve_and_check(
+        torch, "serve_horseseg", model, reqs, checked, chain=False,
+        scenario="HORSESEG",
+        d=model.d, data_s=data_s)
+    return out
+
+
 def phase_parity_lm(torch):
     """Reduced OLMoE in float32 on the card vs the port on the CPU, from
     the same weights and tokens: backbone features and one decode step's
@@ -2172,13 +2495,21 @@ def phase_main_lm(torch):
                    n_exact=rows[-1].n_exact, n_approx=rows[-1].n_approx,
                    graph_replays=head_replays, launches=head_launches),
          max_memory_allocated=peak)
+
+    head = solver.servable()
+    reqs = chain_requests(*(problem.data[k].cpu().numpy()
+                            for k in ("x", "y", "mask")))
     del solver, problem, x
     routing = compare_routing(torch, cfg, params, tok)
     emit("routing", arch=cfg.name, **routing)
     profile_lm(torch, cfg, params, tok)
+    # 3. Serve the trained head: B3 at (8, 32, tags) once per round.
+    serve_head = serve_and_check(
+        torch, "serve_lm", head, reqs, range(n), chain=True,
+        scenario=f"SSVM head on {cfg.name} features", d=head.d)
     both = {k: serve_launches[k] + head_launches[k] for k in serve_launches}
     return both, {"main_lm_serve": serve_launches,
-                  "main_lm_head": head_launches}
+                  "main_lm_head": head_launches, "serve_lm": serve_head}
 
 
 def traced(torch, fn, kernels=()):
@@ -2324,6 +2655,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_parity(torch)
     launches, solver = phase_main(torch, data)
+    # The weights of main's 3 iterations, exported before profile moves
+    # the state on.
+    ocr_model = solver.servable()
     # The pass kernel's numbers at the main path's shape: a whole pass
     # over the trained full-size state.
     full = phase_profile(torch, solver)
@@ -2354,6 +2688,12 @@ def main() -> int:
         wide_errs.values()))
     kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"],
                                      kernels[-1]["wide_max_abs_err"])
+    # Serving after the OCR training paths, so that they run as before:
+    # its four OCR captures left 128 MiB more allocated under main_gram.
+    serve_paths = {"serve": phase_serve(torch, ocr_model, data)}
+    del ocr_model
+    serve_paths.update(phase_serve_specs(torch))
+    torch.cuda.empty_cache()
     phase_parity_lm(torch)
     launches_lm, lm_paths = phase_main_lm(torch)
     # Each kernel's launches on the path it was ported for; every path's
@@ -2364,7 +2704,7 @@ def main() -> int:
                "approx_pass": "main"}
     by_path = {"main": launches, "main_async": launches_async,
                "main_gram": launches_gram, **simple_paths, **wide_paths,
-               "main_lm": launches_lm, **lm_paths}
+               **serve_paths, "main_lm": launches_lm, **lm_paths}
     for k in kernels:
         k["launches"] = by_path[path_of[k["name"]]][k["name"]]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}

@@ -359,6 +359,20 @@ class Solver:
                 planes_evicted=int(met.ttl_evicted) + int(met.lru_evicted),
                 oracle_share=oracle_share, oracle_overlap=oracle_overlap)
 
+    # -- serving export -----------------------------------------------------
+
+    def servable(self, *, averaged: bool = False,
+                 meta: Optional[dict] = None):
+        """Export the current weights as a
+        :class:`repro_torch.serve.ServableModel` (the problem must have been
+        built from an :class:`~repro_torch.api.oracle.OracleSpec`).  The
+        lazy import keeps training-only processes free of the serving
+        layer."""
+        from ..serve.export import ServableModel
+
+        return ServableModel.from_solver(self, averaged=averaged,
+                                         meta=meta)
+
     # -- checkpoint / resume ------------------------------------------------
 
     def save(self, manager: Optional[CheckpointManager] = None,

@@ -7,9 +7,11 @@ Sequences are padded to a fixed length L with a validity mask: padded
 positions contribute zero score, zero features and zero loss.
 
 :meth:`ChainSpec.decode` computes the unaries with one ``torch.matmul``
-and runs the DP in the Viterbi kernel (:func:`repro_torch.kernels.ops
+(:meth:`ChainSpec.scores`) and runs the DP in the Viterbi kernel
+(:meth:`ChainSpec.decode_scores`, :func:`repro_torch.kernels.ops
 .viterbi_decode`): ``B = 1`` per exact-oracle call, ``B = n`` for the
-evaluation sweep.
+evaluation sweep, a padded bucket of requests per serving round
+(:mod:`repro_torch.serve.engine`).
 """
 from __future__ import annotations
 
@@ -47,16 +49,26 @@ class ChainSpec(OracleSpec):
         return torch.clamp_min(ex["mask"].to(ex["x"].dtype).sum(dim=1), 1.0)
 
     def decode(self, w: torch.Tensor, ex: Dict[str, Any]) -> torch.Tensor:
-        x, y, m = ex["x"], ex["y"], ex["mask"]
+        return self.decode_scores(w, self.scores(w, ex), ex)
+
+    def scores(self, w: torch.Tensor, ex: Dict[str, Any]) -> torch.Tensor:
+        """Loss-augmented unaries <w_c, x_l> + [c != y_l] / L_i, (B, L, C):
+        the decode's only sums over features."""
+        x, y = ex["x"], ex["y"]
         C, f = self.num_labels, x.shape[-1]
         wu = w[: C * f].reshape(C, f)
-        wp = w[C * f:].reshape(C, C)
-        length = self._length(ex)
-        # Loss-augmented unaries: <w_c, x_l> + [c != y_l] / L_i.
-        unary = (torch.matmul(x, wu.T)
-                 + (1.0 - _one_hot(y, C, x.dtype)) / length[:, None, None])
+        return (torch.matmul(x, wu.T)
+                + (1.0 - _one_hot(y, C, x.dtype))
+                / self._length(ex)[:, None, None])
+
+    def decode_scores(self, w: torch.Tensor, unary: torch.Tensor,
+                      ex: Dict[str, Any]) -> torch.Tensor:
+        """The masked Viterbi decode of ``unary`` under the transition
+        weights, each row on its own."""
+        C = self.num_labels
+        wp = w[w.shape[0] - C * C:].reshape(C, C)
         return kops.viterbi_decode(unary.contiguous(), wp.contiguous(),
-                                   m.contiguous())
+                                   ex["mask"].contiguous())
 
     def features(self, ex: Dict[str, Any], y) -> torch.Tensor:
         x, mask = ex["x"], ex["mask"]

@@ -114,14 +114,23 @@ class GraphSpec(OracleSpec):
         return ex["y"]
 
     def decode(self, w: torch.Tensor, ex: Dict[str, Any]) -> torch.Tensor:
+        return self.decode_scores(w, self.scores(w, ex), ex)
+
+    def scores(self, w: torch.Tensor, ex: Dict[str, Any]) -> torch.Tensor:
+        """Loss-augmented unaries <w_c, x_l> + [c != y_l] / L, zero at
+        masked nodes, (B, L, 2): the decode's only sums over features."""
         x, y, m = ex["x"], ex["y"], ex["mask"]
         wc = w.reshape(2, x.shape[-1])
         unary = (torch.matmul(x, wc.T)
                  + (1.0 - F.one_hot(y.long(), 2).to(x.dtype))
                  / _length(ex)[:, None, None])
-        unary = torch.where(m[..., None], unary, torch.zeros_like(unary))
+        return torch.where(m[..., None], unary, torch.zeros_like(unary))
+
+    def decode_scores(self, w: torch.Tensor, unary: torch.Tensor,
+                      ex: Dict[str, Any]) -> torch.Tensor:
+        """Red-black ICM from ``unary``, each row on its own."""
         return icm_decode(unary, ex["edges"], ex["edge_mask"], ex["color"],
-                          m, self.num_sweeps)
+                          ex["mask"], self.num_sweeps)
 
     def features(self, ex: Dict[str, Any], y) -> torch.Tensor:
         x = ex["x"]

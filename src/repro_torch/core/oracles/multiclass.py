@@ -32,12 +32,18 @@ class MulticlassSpec(OracleSpec):
         return ex["y"]
 
     def decode(self, w: torch.Tensor, ex: Dict[str, Any]) -> torch.Tensor:
+        return self.decode_scores(w, self.scores(w, ex), ex)
+
+    def scores(self, w: torch.Tensor, ex: Dict[str, Any]) -> torch.Tensor:
+        """Loss-augmented class scores <w_c, x> + [c != y], (B, C)."""
         x, y = ex["x"], ex["y"]
         wc = w.reshape(self.num_classes, x.shape[-1])
-        # Loss-augmented scores <w_c, x> + [c != y]; the first maximal
-        # class wins, as jnp.argmax.
         eye = torch.eye(self.num_classes, dtype=x.dtype, device=x.device)
-        scores = x @ wc.T + (1.0 - eye[y.long()])
+        return x @ wc.T + (1.0 - eye[y.long()])
+
+    def decode_scores(self, w: torch.Tensor, scores: torch.Tensor,
+                      ex: Dict[str, Any]) -> torch.Tensor:
+        """The first maximal class per row wins, as jnp.argmax."""
         return scores.argmax(dim=1).to(torch.int32)
 
     def features(self, ex: Dict[str, Any], y) -> torch.Tensor:

@@ -125,6 +125,14 @@ def approx_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,
                            steps=steps, go=go)
 
 
+def load(*names: str) -> None:
+    """Build, load and initialise the named kernels without launching
+    them: the work before a kernel's first launch that a CUDA-graph
+    capture cannot record."""
+    for name in names:
+        _KERNELS[name]._lib()
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
     return {name: mod.launches for name, mod in _KERNELS.items()}

@@ -1316,3 +1316,82 @@ def test_simple_engines_card_matches_cpu(cuda, algo):
             assert np.isnan(g.dual) and np.isnan(c.dual)
         else:
             assert_allclose(g.dual, c.dual, rtol=1e-4)
+
+
+# -- structured serving ---------------------------------------------------------
+
+
+def _serve_case(kind, device):
+    """A seeded random-weight model of ``kind`` on ``device`` and its
+    requests: mixed-length chains, odd-width (f = 5, rows at 20-byte
+    offsets) and usps-width multiclass rows, mixed 4x5 / 3x5 lattices."""
+    from repro_torch import serve
+    from repro_torch.core.oracles.graph import GraphSpec
+    from repro_torch.core.oracles.multiclass import MulticlassSpec
+    from repro_torch.data.synthetic import horseseg_like, usps_like
+    if kind == "chain":
+        spec, gran = chain.ChainSpec(num_labels=6), 4
+        X, Y, M = ocr_like(n=40, f=12, num_labels=6, mean_len=6, max_len=13,
+                           seed=3)
+        reqs = [{"x": X[i, :L], "y": Y[i, :L], "mask": M[i, :L]}
+                for i, L in enumerate(M.sum(axis=1))]
+        f = 12
+    elif kind in ("multiclass", "usps"):
+        f, C = (5, 4) if kind == "multiclass" else (256, 10)
+        spec, gran = MulticlassSpec(num_classes=C), 4
+        x, y = usps_like(n=37, f=f, num_classes=C, seed=3)
+        reqs = [{"x": x[i], "y": y[i]} for i in range(37)]
+    else:
+        spec, gran, f = GraphSpec(num_sweeps=6), 8, 7
+        keys = ("x", "y", "mask", "edges", "edge_mask", "color")
+        reqs = []
+        for grid, seed in (((4, 5), 3), ((3, 5), 4)):
+            arrays = horseseg_like(n=9, grid=grid, f=f, seed=seed)
+            reqs += [{k: a[i] for k, a in zip(keys, arrays)}
+                     for i in range(9)]
+    d = spec.dim({"x": np.zeros((1, 1, f) if kind in ("chain", "graph")
+                                else (1, f))})
+    w = torch.from_numpy(np.random.RandomState(9).randn(d).astype(
+        np.float32)).to(device)
+    return serve.ServableModel(spec, w), reqs, gran
+
+
+@pytest.mark.parametrize("batch_size", [1, 3, 8])
+@pytest.mark.parametrize("kind", ["chain", "multiclass", "usps", "graph"])
+def test_served_labels_equal_per_example_on_card(cuda, kind, batch_size):
+    """On the card: every served labeling equals the per-example decode
+    (labels equal); one captured graph per occupied bucket, one replay,
+    one dispatch and one sync per round; B3 launched once per chain
+    round."""
+    from repro_torch import serve
+    model, reqs, gran = _serve_case(kind, cuda)
+    server = serve.StructuredServer(model, batch_size=batch_size,
+                                    bucket_granularity=gran)
+    before = ops.launch_counts()["viterbi_decode"]
+    served = server.serve(reqs)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["viterbi_decode"] - before
+    rounds, dispatches, syncs = server.ledger.counts()
+    buckets = {serve.bucket_key(server.engine.shape_key(r), gran)
+               for r in reqs}
+    assert dispatches == syncs == rounds == server.engine.replays > 0
+    assert len(server.engine.programs) == len(buckets)
+    assert launches == (rounds if kind == "chain" else 0)
+    for i, (ex, lab) in enumerate(zip(reqs, served)):
+        assert np.array_equal(lab, model.decode(ex).cpu().numpy()), i
+
+
+def test_served_labels_follow_new_weights_on_card(cuda):
+    """The bucket graphs bake in ``w``: a model given new weights captures
+    anew, and serves the new weights' per-example labels."""
+    from repro_torch import serve
+    model, reqs, gran = _serve_case("chain", cuda)
+    server = serve.StructuredServer(model, batch_size=4,
+                                    bucket_granularity=gran)
+    first = server.serve(reqs)
+    model.w = -model.w
+    second = server.serve(reqs)
+    assert server.engine.replays == server.ledger.rounds
+    assert any(not np.array_equal(a, b) for a, b in zip(first, second))
+    for ex, lab in zip(reqs, second):
+        assert np.array_equal(lab, model.decode(ex).cpu().numpy())
