@@ -17,7 +17,8 @@ Phases, one JSON line each (seconds on an H100 in brackets):
                  plane_scores, viterbi_decode (both launch plans, staged
                  and scratch), plane_select, moe_ffn, flash_attention,
                  gram, and approx_pass (one whole approximate pass per
-                 launch, both modes, against the eager per-block loop),
+                 launch, both modes, against the eager per-block loop;
+                 the plain mode's gap output build too),
                  viterbi_decode also at serving rounds' shapes (8 rows of
                  a bucket with tails of 0-3 masked steps, 2 of them
                  filler rows) and timed at (8, 16, 26) and (8, 32, 5),
@@ -94,6 +95,29 @@ Phases, one JSON line each (seconds on an H100 in brackets):
                  at B=1 once per exact step (bcfw, ssg: one graph replay
                  per block) or at B=n once per iteration (fw), approx_pass
                  never [~4, ~3, ~1].
+ 13c'. parity_gap -- mpbcfw-gap (the policy layer: gumbel-top-k schedule
+                 on the device, gap-aware eviction, the gap vector written
+                 by the exact step and by approx_pass), 4 iterations on
+                 SMALL ocr, usps and horseseg, card against CPU with the
+                 port's noise: schedules, gap_sampled equal, duals,
+                 primals and gap_total within rtol 1e-4; then approx_pass
+                 with and without its gap output on a trained state:
+                 every other output bit-equal, the gap within 3e-5
+                 (|s| + |s_i|) + 64 float32 ulps of the two scores' sum
+                 of |terms| of the plain version's, and a zeroed or a
+                 stale gap vector failing that check [~15].
+ 13c''. main_gap -- mpbcfw-gap on the full-size OCR scenario with the
+                 reference's defaults, 4 iterations of up to 8 passes:
+                 3438 exact blocks per iteration (one graph replay each),
+                 iteration 1 the blocks 0..3437 in order, every sampled
+                 schedule equal to the CPU's for its gap vector and seed;
+                 seconds, n_exact, gap_sampled, gap_total and passes per
+                 iteration; approx_pass with its gap output over a full
+                 pass of the trained state against the plain version (as
+                 in parity_gap, at the main path's shape), its ms per
+                 pass with and without the gap output beside main's, the
+                 schedule's device ms, an exact window's device ops and
+                 B3 us per block [~25].
  13d. wide    -- ROADMAP C6: approx_pass's wide plan (phi and the average
                  in device memory) against the eager pass at d = 20,505 and
                  25,625 in both modes, plain cap 4096 and Sec-3.5 cap 512;
@@ -147,6 +171,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 TOL = 3e-5                      # kernel vs plain: |err| <= TOL*(1+|ref|)
 REPEATS = 20                    # approx_pass relaunches that must agree
+# A pass's gap output vs the plain version's: |err| <= 3e-5 (|s| + |s_i|)
+# + GAP_ULPS 2^-24 T, T the two scores' dots' sum of |terms| (their
+# float32 rounding scale; the gap is their difference).
+GAP_ULPS = 64
+GAP_TOL = (f"gap output |err| <= 3e-5 (|s| + |s_i|) + {GAP_ULPS} 2^-24 T, T "
+           "the two scores' sum of |terms|")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, data sheet
 FP32_FLOPS = 67e12              # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12             # H100 SXM bf16 tensor cores, dense
@@ -160,6 +190,9 @@ RUN_ASYNC = dict(RUN, algo="mpbcfw-async")
 # The Sec-3.5 path at the main cell's settings: up to 8 gram passes per
 # iteration, so the slope rule decides on this engine at full size.
 RUN_GRAM = dict(RUN, algo="mpbcfw-gram", gram_steps=10)
+# The gap engine with the reference's defaults (gap_frac 0.5, temperature
+# 2.0, floor 0.1), one iteration more: iteration 1 sweeps half the blocks.
+RUN_GAP = dict(RUN, algo="mpbcfw-gap", max_iters=4)
 ORACLE_COST, PLANE_COST = 0.3, 1e-4
 GRAM_RTOL, GRAM_ATOL = 3e-5, 3e-4  # |err| <= RTOL |p_a| |p_b| + ATOL
 
@@ -732,14 +765,15 @@ def check_approx_pass(torch, gen):
     batch on SMALL ocr states trained on the card.  One pass: activity
     stamps equal, phi, phi_i and the average within TOL (1 + |ref|); a
     batch: duals within rtol 1e-4.  REPEATS more launches from the same
-    state must give the same bits.  Timed at 512 blocks beside the plain
-    version and the bound; the main path's full-pass times come from
-    phase_profile.  ~20 s."""
+    state must give the same bits.  In the plain mode also the gap
+    output's build on the same 512 blocks (:func:`check_gap_pass`).  Timed
+    at 512 blocks beside the plain version and the bound; the main path's
+    full-pass times come from phase_profile.  ~20 s."""
     from repro_torch.core import mpbcfw
     from repro_torch.core.ssvm import dual_value
     from repro_torch.kernels import ops
     lam = 1.0 / OCR["n"]
-    errs, timing = {}, {}
+    errs, timing, gap_checks = {}, {}, {}
     for steps in (None, 10):
         mode = "plain" if steps is None else "gram"
         planes, valid, gram, state = _approx_state(torch, gen, 512, 64, 4004,
@@ -757,6 +791,13 @@ def check_approx_pass(torch, gen):
         torch.cuda.synchronize()
         errs[f"512x64x4004_{mode}"] = _pass_close(torch, got, want,
                                                   f"approx_pass 512 {mode}")
+        if steps is None:
+            # The gap output's build on the same inputs (every block seen
+            # for the first time).
+            gap_checks["512x64x4004"] = check_gap_pass(
+                torch, "approx_pass 512 plain", planes, valid, state,
+                torch.full((512,), 1e30, device="cuda"), perm, lam=lam,
+                k0=7000, outer_it=5)
         # A pass is deterministic: the same launch from the same state
         # gives the same bits (resume's bit-for-bit guarantee needs it).
         for _ in range(REPEATS):
@@ -831,7 +872,7 @@ def check_approx_pass(torch, gen):
                 "lax.scan; no pallas_call)",
                 max_abs_err=max(v for k, v in errs.items()
                                 if not k.endswith("duals")),
-                library_ms=None, at_512_blocks=timing)
+                library_ms=None, at_512_blocks=timing, gap_checks=gap_checks)
 
 
 def compare_traces(what: str, traces) -> list:
@@ -894,12 +935,13 @@ def phase_parity(torch):
          rows=compare_traces("parity", traces))
 
 
-def drive(torch, solver, phase: str, dual: bool = True):
+def drive(torch, solver, phase: str, dual: bool = True, after=None):
     """Run ``solver`` to its end, each row timed to a device sync and
     emitted as ``<phase>_row``, then check the rows: all ``max_iters`` ran,
     the dual never decreased, gap >= -1e-5 |primal|, finite objectives.
     Without ``dual`` (an engine with no dual certificate, ssg) only the
-    primal is checked.  Returns ``(rows, walls)``."""
+    primal is checked.  ``after(row)`` runs after each row, outside its
+    timed window.  Returns ``(rows, walls)``."""
     walls, rows = [], []
     rows_iter = solver.iterate()
     while True:
@@ -911,6 +953,8 @@ def drive(torch, solver, phase: str, dual: bool = True):
         walls.append(time.perf_counter() - t0)
         rows.append(row)
         emit(f"{phase}_row", wall_s=walls[-1], **row.__dict__)
+        if after is not None:
+            after(row)
     check(len(rows) == solver.cfg.max_iters,
           f"{phase}: {len(rows)} iterations ran")
     prev = -float("inf")
@@ -1992,6 +2036,358 @@ def phase_main_simple(torch, data, phase: str, algo: str):
     return launches
 
 
+# -- mpbcfw-gap: the policy layer on the card ------------------------------
+
+
+class ScheduleLog:
+    """Wraps ``GapSampling.schedule`` while active and keeps each call's
+    ids (the tensor it returned, on its device), seed and policy: one list
+    append per call, nothing copied, timed or read on the host.
+    :meth:`snapshot` keeps a copy of the gap vector that the next schedule
+    reads; the caller takes it between iterations."""
+
+    def __init__(self, torch):
+        from repro_torch.policy import GapSampling
+        self.torch, self.cls = torch, GapSampling
+        self.inner = GapSampling.schedule
+        self.calls, self.gaps = [], []
+
+    def __enter__(self):
+        inner, calls = self.inner, self.calls
+
+        def recorded(policy, cache, perm, key):
+            ids = inner(policy, cache, perm, key)
+            calls.append(dict(ids=ids, key=key, policy=policy))
+            return ids
+        self.cls.schedule = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.schedule = self.inner
+
+    def snapshot(self, gap):
+        self.gaps.append(gap.clone())
+
+    def ids(self):
+        return [c["ids"].cpu() for c in self.calls]
+
+    def cpu_equal(self) -> bool:
+        """Every schedule equal to the CPU's for its seed and the gap
+        vector it read (the t-th snapshot for the t-th call)."""
+        from repro_torch import cache as tcache
+        check(len(self.gaps) >= len(self.calls),
+              f"{len(self.gaps)} gap snapshots for {len(self.calls)} "
+              "schedules")
+        ok = True
+        for c, gap in zip(self.calls, self.gaps):
+            cpu = tcache.init(tcache.CacheLayout(cap=1, track_gap=True),
+                              gap.shape[0], 1, "cpu")
+            cpu.gap.copy_(gap.cpu())
+            ok &= bool(self.torch.equal(
+                self.inner(c["policy"], cpu, None, c["key"]),
+                c["ids"].cpu()))
+        return ok
+
+
+def gap_pass_replay(torch, planes, valid, st0, gap0, perm, *, lam, k0,
+                    outer_it):
+    """The plain version with the gap output over ``perm``, one block per
+    call (the same pass), from copies of ``st0`` (phi, phi_i, bar, last)
+    and ``gap0``.  Returns the gap vector and, per block, the two scores
+    its gap differences (the chosen plane's ``s`` and the iterate's
+    ``s_i``): ``|s| + |s_i|`` and their dots' sum of |terms|."""
+    from repro_torch import cache as tcache
+    from repro_torch.core import mpbcfw
+    from repro_torch.core.bcfw import plane_score
+    from repro_torch.core.ssvm import weights_of
+    st = {k: v.clone() for k, v in st0.items()}
+    gap = gap0.clone()
+    view = tcache.PlaneCache(planes=planes, valid=valid,
+                             last_active=st["last"])
+    scale, terms = torch.zeros_like(gap), torch.zeros_like(gap)
+    one = gap.new_ones(1)
+    for pos, i in enumerate(perm.tolist()):
+        w = weights_of(st["phi"], lam)
+        p, _, s = tcache.approx_oracle(view, i, w)
+        row, wa = st["phi_i"][i], torch.cat([w.abs(), one])
+        scale[i] = s.abs() + plane_score(row, w).abs()
+        terms[i] = p.abs() @ wa + row.abs() @ wa
+        mpbcfw.eager_pass(st["phi"], st["phi_i"], st["bar"], planes, valid,
+                          st["last"], perm[pos:pos + 1], lam=lam,
+                          k0=k0 + pos, outer_it=outer_it, gap=gap)
+    return gap, scale, terms
+
+
+def check_gap_pass(torch, what, planes, valid, st0, gap0, perm, *, lam, k0,
+                   outer_it):
+    """approx_pass with and without its gap output from one state ``st0``
+    (phi, phi_i, bar, last) and gap vector ``gap0``, one pass over
+    ``perm``: every other output bit-equal between the two launches, the
+    launch without it leaving the gap vector alone; each visited block's
+    gap >= 0 and within 3e-5 (|s| + |s_i|) + GAP_ULPS 2^-24 T of the plain
+    version's (:func:`gap_pass_replay`; the gap is a difference of two
+    nearly equal scores, so no relative tolerance on it means anything),
+    the unvisited blocks' untouched.  The check's power on this state: a
+    zeroed gap vector and the stale one (``gap0``: a launch that wrote
+    nothing) must each fail it, and the blocks at which they fail are
+    counted.  Returns the readings."""
+    from repro_torch.kernels import ops
+    outs = []
+    for with_gap in (False, True):
+        st = {k: v.clone() for k, v in st0.items()}
+        gap = gap0.clone()
+        ops.approx_pass(st["phi"], st["phi_i"], st["bar"], planes, valid,
+                        st["last"], perm, lam=lam, k0=k0, outer_it=outer_it,
+                        gap=gap if with_gap else None)
+        outs.append((st, gap))
+    (a, gap_a), (b, got) = outs
+    check(all(torch.equal(a[k], b[k]) for k in a),
+          f"{what}: the gap output moved another output's bits")
+    check(torch.equal(gap_a, gap0),
+          f"{what}: a launch without the gap output wrote the gap vector")
+    t0 = time.perf_counter()
+    want, scale, terms = gap_pass_replay(torch, planes, valid, st0, gap0,
+                                         perm, lam=lam, k0=k0,
+                                         outer_it=outer_it)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    seen = torch.zeros_like(valid[:, 0])
+    seen[perm] = True
+    allowed = (3e-5 * scale + GAP_ULPS * 2.0 ** -24 * terms)[seen]
+    tiny = torch.finfo(torch.float32).tiny
+
+    def failing(g):
+        return int(((g - want).abs()[seen] > allowed).sum())
+    err = (got - want).abs()[seen]
+    out = dict(
+        blocks=int(seen.sum()), max_abs_err=float(err.max()),
+        err_over_allowed=float((err / allowed.clamp_min(tiny)).max()),
+        err_in_ulps_of_terms=float((err / (2.0 ** -24 * terms[seen])
+                                    .clamp_min(tiny)).max()),
+        positive=int((want[seen] > 0).sum()),
+        median_gap=float(want[seen].median()),
+        median_allowed=float(allowed.median()),
+        fail_if_zeroed=failing(torch.zeros_like(got)),
+        fail_if_stale=failing(gap0), replay_s=replay_s)
+    emit("gap_output", what=what, **out)
+    check(failing(got) == 0, f"{what}: gap output max err {out['max_abs_err']}"
+          f", {out['err_over_allowed']} of the allowance")
+    check(bool((got[seen] >= 0).all()), f"{what}: a negative gap")
+    check(torch.equal(got[~seen], gap0[~seen]),
+          f"{what}: the gap of a block the pass did not visit moved")
+    check(out["fail_if_zeroed"] > 0 and out["fail_if_stale"] > 0,
+          f"{what}: a zeroed or a stale gap vector passes the check")
+    return out
+
+
+def phase_parity_gap(torch):
+    """mpbcfw-gap on the card vs the CPU, 4 iterations on SMALL ocr, usps
+    and horseseg with the port's own noise: every iteration's schedule
+    equal, the same schedule counts, duals, primals and gap_total within
+    rtol 1e-4, gap_sampled equal.  Then approx_pass with and without the
+    gap output on the trained SMALL ocr state (check_gap_pass).  ~15 s.
+    Returns that check's readings."""
+    out, state = {}, None
+    for name in ("ocr", "usps", "horseseg"):
+        traces, logs = {}, {}
+        for dev in ("cuda", "cpu"):
+            _, solver = small_run(name, dev, "mpbcfw-gap", max_iters=4)
+            with ScheduleLog(torch) as log:
+                traces[dev] = solver.run().trace
+            logs[dev] = log.ids()
+            if name == "ocr" and dev == "cuda":
+                state = solver
+        rows = compare_traces(f"parity_gap {name}", traces)
+        check(len(logs["cuda"]) == len(logs["cpu"]) == 4
+              and all(torch.equal(a, b) for a, b in zip(logs["cuda"],
+                                                        logs["cpu"])),
+              f"parity_gap {name}: the schedules differ")
+        for g, c in zip(traces["cuda"], traces["cpu"]):
+            check(g.gap_sampled == c.gap_sampled
+                  and abs(g.gap_total - c.gap_total)
+                  <= 1e-4 * abs(c.gap_total) + 1e-7,
+                  f"parity_gap {name}: gap columns {g.gap_total}, "
+                  f"{g.gap_sampled} vs {c.gap_total}, {c.gap_sampled}")
+        out[name] = dict(rows=rows, gap_total=[[g.gap_total, c.gap_total]
+                                               for g, c in zip(
+                                                   traces["cuda"],
+                                                   traces["cpu"])],
+                         gap_sampled=[g.gap_sampled
+                                      for g in traces["cuda"]])
+    mp = state.state
+    c = mp.cache
+    n = c.valid.shape[0]
+    perm = torch.randperm(n, device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(1))
+    gap_check = check_gap_pass(
+        torch, "parity_gap SMALL ocr", c.planes, c.valid,
+        dict(phi=mp.inner.phi, phi_i=mp.inner.phi_i, bar=mp.avg.bar_approx,
+             last=c.last_active), c.gap, perm, lam=state.cfg.lam,
+        k0=mp.avg.k_approx, outer_it=mp.outer_it)
+    emit("parity_gap", scenarios=out, gap_output=gap_check,
+         tolerance="duals, primals, gap_total rtol 1e-4; schedules and "
+         f"gap_sampled equal; {GAP_TOL}")
+    return gap_check
+
+
+def schedule_cost(torch, policy, cache, calls: int = 10):
+    """The gap sampler's schedule on a trained cache: one call under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync raises), the
+    host ms per call to enqueue it (``calls`` calls, one sync after), and
+    one call under torch.profiler: its kernels' summed device us, device
+    events and span."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        policy.schedule(cache, None, 12345)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(calls):
+        policy.schedule(cache, None, s)
+    host = (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    tr = traced(torch, lambda: policy.schedule(cache, None, 7))
+    return dict(no_host_sync=True, host_ms_per_call=1e3 * host,
+                device_us=tr["device_us"], device_events=tr["device_events"],
+                device_span_us=tr["device_span_us"],
+                traced_wall_ms=tr["wall_ms"],
+                top_device_us=tr["top_device_us"])
+
+
+def phase_main_gap(torch, data, main_pass_ms: float):
+    """mpbcfw-gap on the full-size OCR scenario with the reference's
+    defaults (gap_frac 0.5, temperature 2.0, floor 0.1), RUN's cache and
+    passes, 4 iterations, launch counts reset just before: one dispatch
+    and one sync per iteration, k = round(0.5 n) = 3438 exact blocks per
+    iteration (one graph replay each), iteration 1 the blocks 0..3437 in
+    order; from iteration 2 on no block is unseen (the approximate passes
+    wrote a gap, 0 for the blocks no exact step reached) and each
+    schedule, sampled on the card, equals the CPU's for its gap vector and
+    seed (the schedules are logged without a copy or a sync; the gap
+    vectors they read are copied between iterations, outside the timed
+    windows).  Then, on the trained state: approx_pass with its gap output
+    over a full pass against the plain version (:func:`check_gap_pass`,
+    the main path's shape), its ms per full pass with and without the gap
+    output (beside ``main_pass_ms``, main's), the schedule's cost
+    (:func:`schedule_cost`), an exact window's device ops and B3 us per
+    block.  Returns the run's launch counts, the gap output's timing and
+    its check.  ~25 s."""
+    import numpy as np
+    from repro_torch.api import CostModel, RunConfig, Solver
+    from repro_torch.core import mpbcfw
+    from repro_torch.core.oracles import chain
+    from repro_torch.core.types import index_tensor
+    from repro_torch.kernels import ops
+    X, Y, M = data
+    n = OCR["n"]
+    problem = chain.make_problem(X, Y, M, OCR["num_labels"], device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    solver = Solver(problem, RunConfig(
+        lam=1.0 / n, cost_model=CostModel(oracle_cost=ORACLE_COST,
+                                          plane_cost=PLANE_COST),
+        **RUN_GAP))
+    k = max(1, round(0.5 * n))
+    torch.cuda.synchronize()
+    log = ScheduleLog(torch)
+
+    def snapshot(row=None):
+        log.snapshot(solver.state.cache.gap)
+        torch.cuda.synchronize()            # the copy outside the next window
+    snapshot()
+    ops.reset_launch_counts()
+    with log:
+        rows, walls = drive(torch, solver, "main_gap", after=snapshot)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_syncs("main_gap", rows, dispatches=1)
+    for r in rows:
+        check(r.gap_sampled == k and r.n_exact == k * (r.iteration + 1),
+              f"main_gap: gap_sampled {r.gap_sampled}, n_exact {r.n_exact}"
+              f" at iteration {r.iteration}")
+        check(r.gap_total is not None and math.isfinite(r.gap_total)
+              and r.gap_total >= 0, f"main_gap: gap_total {r.gap_total}")
+    last = rows[-1]
+    passes = sum(r.approx_passes for r in rows)
+    check(last.n_approx == n * passes, f"main_gap: n_approx {last.n_approx}")
+    check(launches["approx_pass"] == RUN_GAP["approx_batch"] * len(rows)
+          and passes > 0, f"main_gap: approx_pass launches "
+          f"{launches['approx_pass']} for {passes} passes")
+    check(launches["viterbi_decode"] >= last.n_exact,
+          f"main_gap: viterbi launches {launches['viterbi_decode']}")
+    check(launches["plane_scores"] == 0 and launches["plane_select"] == 0,
+          f"main_gap: plane_scores {launches['plane_scores']}, "
+          f"plane_select {launches['plane_select']}")
+    replays = check_replays("main_gap", solver, last.n_exact, captured=1)
+    ids = log.ids()
+    check(len(ids) == len(rows) and torch.equal(ids[0], torch.arange(k)),
+          "main_gap: iteration 1 is not the blocks 0..k-1 in order")
+    g2 = log.gaps[1]
+    check(bool((g2[k:] == 0).all()) and not bool((g2 >= 1e29).any()),
+          "main_gap: after iteration 1 a block is still unseen, or a block "
+          "no exact step reached has a gap")
+    check(log.cpu_equal(), "main_gap: a card schedule differs from the "
+          "CPU's for the same gap vector and seed")
+    w = solver.result().w
+    check(w.shape == (problem.d,) and all(map(math.isfinite, w.tolist())),
+          "main_gap: weights not finite")
+    # The approximate pass with and without the gap output on the trained
+    # state: held against the plain version at this shape, then timed,
+    # alternated; then an exact window of the gap step.
+    mp, lam = solver.state, solver.cfg.lam
+    c = mp.cache
+    perm = index_tensor(np.random.RandomState(2).permutation(n), "cuda")
+    gap_check = check_gap_pass(
+        torch, "main_gap OCR", c.planes, c.valid,
+        dict(phi=mp.inner.phi, phi_i=mp.inner.phi_i, bar=mp.avg.bar_approx,
+             last=c.last_active), c.gap, perm, lam=lam, k0=mp.avg.k_approx,
+        outer_it=mp.outer_it)
+
+    def one(gap):
+        ops.approx_pass(mp.inner.phi, mp.inner.phi_i, mp.avg.bar_approx,
+                        c.planes, c.valid, c.last_active, perm, lam=lam,
+                        k0=mp.avg.k_approx, outer_it=mp.outer_it, gap=gap)
+    timing = {"ms_without_gap": [], "ms_with_gap": []}
+    for _ in range(2):
+        timing["ms_without_gap"].append(time_ms(torch, lambda i: one(None),
+                                                3, warmup=1))
+        timing["ms_with_gap"].append(time_ms(torch, lambda i: one(c.gap), 3,
+                                             warmup=1))
+    timing["main_ms_without_gap"] = main_pass_ms
+    timing["gap_over_plain"] = (sum(timing["ms_with_gap"])
+                                / sum(timing["ms_without_gap"]))
+    sched = schedule_cost(torch, log.calls[-1]["policy"], c)
+    graphs = solver.engine.graphs
+    window = 1024
+    exact = graph_window(torch, lambda: mpbcfw.exact_pass(
+        problem, mp, perm[:window], lam, graphs=graphs), graphs, window,
+        kernels=("viterbi",))
+    b3 = exact.pop("kernel_us")["viterbi"]
+    check(exact["replays_per_block"] == 1.0 and b3["calls"] == window,
+          f"main_gap: exact window {exact['replays_per_block']} replays, "
+          f"{b3['calls']} viterbi kernels per {window} blocks")
+    emit("main_gap", scenario="OCR", n=n, d=problem.d, k=k,
+         iterations=len(rows), wall_s_per_iteration=walls,
+         n_exact=[r.n_exact for r in rows],
+         gap_sampled=[r.gap_sampled for r in rows],
+         gap_total=[r.gap_total for r in rows],
+         approx_passes=[r.approx_passes for r in rows],
+         dual=[r.dual for r in rows], primal=[r.primal for r in rows],
+         schedule_heads=[x[:8].tolist() for x in ids],
+         unvisited_in_schedule=[int((x >= k).sum()) for x in ids],
+         schedule=sched, max_memory_allocated=peak,
+         launches=launches, graph_replays=replays,
+         approx_pass_full=timing, gap_output=gap_check,
+         exact_window=dict(device_ops_per_block=exact[
+             "device_ops_per_block"], viterbi_us_per_block=b3["us"] / window,
+             device_us_per_block=exact["device_us_per_block"],
+             host_ms_per_block=exact["host_ms_per_block"],
+             ms_per_block=exact["ms_per_block"]))
+    return launches, timing, gap_check
+
+
 def phase_wide(torch, gen):
     """ROADMAP C6 on the card.  The wide plan against the eager pass at
     WIDE_PASSES (one pass each: stamps equal, phi, phi_i and the average
@@ -2683,6 +3079,14 @@ def main() -> int:
     simple_paths = {phase: phase_main_simple(torch, data, phase, algo)
                     for phase, algo in SIMPLE_MAIN}
     torch.cuda.empty_cache()
+    gap_checks = dict(kernels[-1].pop("gap_checks"))
+    gap_checks["small_ocr"] = phase_parity_gap(torch)
+    launches_gap, gap_timing, gap_checks["main_gap"] = phase_main_gap(
+        torch, data, full["ms"])
+    kernels[-1]["gap_output"] = dict(
+        max_abs_err=max(v["max_abs_err"] for v in gap_checks.values()),
+        tolerance=GAP_TOL, checks=gap_checks, **gap_timing)
+    torch.cuda.empty_cache()
     wide_errs, wide_timing, wide_paths = phase_wide(torch, gen)
     kernels[-1].update(wide=wide_timing, wide_max_abs_err=max(
         wide_errs.values()))
@@ -2703,7 +3107,8 @@ def main() -> int:
                "flash_attention": "main_lm", "gram": "main_gram",
                "approx_pass": "main"}
     by_path = {"main": launches, "main_async": launches_async,
-               "main_gram": launches_gram, **simple_paths, **wide_paths,
+               "main_gram": launches_gram, **simple_paths,
+               "main_gap": launches_gap, **wide_paths,
                **serve_paths, "main_lm": launches_lm, **lm_paths}
     for k in kernels:
         k["launches"] = by_path[path_of[k["name"]]][k["name"]]

@@ -1,15 +1,14 @@
 """Run configuration and trace/result value types (PyTorch port).
 
-The fields of ``repro/api/config.py`` that the ported engines read; a
-later slice adds the rest with the engines that consume them (``mesh``
-and ``tau`` with the multi-device engines, ``policies`` with the policy
-layer; :func:`repro_torch.api.engine.validate_config` already checks
+The fields of ``repro/api/config.py`` that the ported engines read, in
+its order; a later slice adds ``mesh`` and ``tau`` with the multi-device
+engines (:func:`repro_torch.api.engine.validate_config` already checks
 them where a config carries them).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, TYPE_CHECKING
+from typing import List, Optional, Tuple, TYPE_CHECKING
 
 import numpy as np
 
@@ -31,6 +30,16 @@ class RunConfig:
     cost_model: Optional["CostModel"] = None  # None => wall clock
     gap_tol: Optional[float] = None   # stop once duality gap <= gap_tol
     time_budget: Optional[float] = None  # stop once clock.now() >= budget
+    policies: Optional[Tuple[str, ...]] = None  # repro_torch.policy bundle
+    #                         names (one sampling + one eviction + one
+    #                         oracle policy); None keeps the engine's own
+    gap_frac: float = 0.5   # gap-topk: fraction of blocks whose exact
+    #                         oracle runs per iteration (k = max(1,
+    #                         round(gap_frac * n)))
+    gap_temperature: float = 2.0  # gap-topk gumbel temperature: 1 =
+    #                         proportional, > 1 flatter, < 1 greedier
+    gap_floor: float = 0.1  # gap-topk min-probability floor, relative to
+    #                         the mean gap over seen blocks
 
 
 @dataclass
@@ -51,6 +60,12 @@ class TraceRow:
     planes_evicted: int = 0       # TTL + LRU evictions this iteration
     oracle_share: float = 1.0     # modeled share of time in the exact pass
     oracle_overlap: float = 0.0   # async: hidden share of the oracle time
+    # Gap-policy columns (engines tracking per-block duality gaps; the
+    # defaults are what the other engines report):
+    gap_total: Optional[float] = None  # sum of visited blocks' gap
+    #                               estimates after the exact pass
+    gap_sampled: int = 0          # blocks the sampling policy scheduled
+    #                               for the exact pass this iteration
 
 
 @dataclass

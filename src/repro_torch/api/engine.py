@@ -5,9 +5,10 @@ An *engine* owns the passes of one optimizer family and is driven by
 :class:`repro_torch.api.Solver` through a fixed seam:
 
   * ``init_state(cap)`` builds the optimizer state on the problem's device;
-  * ``outer_iteration(state, perm, perms, clock, ttl=...)`` enqueues one
-    outer iteration without reading the device and returns
-    ``(state, clock, stats)``;
+  * ``outer_iteration(state, perm, perms, clock, ttl=..., key=...)``
+    enqueues one outer iteration without reading the device and returns
+    ``(state, clock, stats)`` (``key``, the iteration's seed, only for
+    engines whose capabilities declare ``needs_key``);
   * ``continue_passes(state, perms, clock)`` enqueues an overflow batch of
     approximate passes (multipass engines only);
   * ``read_stats(stats)`` is the iteration's one host sync;
@@ -29,9 +30,9 @@ are then drivable as ``RunConfig(algo=<their name>)``.
 
 A name the reference registers that the port does not run yet raises
 "not yet ported"; any other unknown name raises "unknown algorithm".  The
-port's ``RunConfig`` has no ``mesh``, ``tau`` or ``policies`` yet, so
-their checks run only where a config carries the field; the capability
-fields that govern them are carried as in the reference.
+port's ``RunConfig`` has no ``mesh`` or ``tau`` yet, so their checks run
+only where a config carries the field; the capability fields that govern
+them are carried as in the reference.
 """
 from __future__ import annotations
 
@@ -64,7 +65,7 @@ class EngineCapabilities:
                   mesh.
       mesh_optional: one program without a mesh, the mesh path with one.
       policy_capable: accepts ``RunConfig.policies``.
-      needs_key:  consumes a per-iteration PRNG key.
+      needs_key:  consumes a per-iteration seed (the reference's PRNG key).
       async_oracle: pipelines the exact oracle with the cache passes as
                   two programs per iteration (<= 2 dispatches + 1 host
                   sync), with the oracle-overlap accounting on its ledger.
@@ -107,7 +108,8 @@ class Engine(Protocol):
     def init_state(self, cap: int) -> Any: ...
 
     def outer_iteration(self, state: Any, perm, perms, clock, *,
-                        ttl: int) -> Tuple[Any, Any, Any]: ...
+                        ttl: int, key: Any = None
+                        ) -> Tuple[Any, Any, Any]: ...
 
     def continue_passes(self, state: Any, perms,
                         clock) -> Tuple[Any, Any, Any]: ...
@@ -134,9 +136,8 @@ _BUILTINS_LOADED = False
 
 # The names the reference registers that the port does not run yet
 # (repro/api/engines.py): looking one up says so.
-NOT_YET_PORTED = ("mpbcfw-gap", "mpbcfw-shard-async", "mpbcfw-shard",
-                  "mpbcfw-shard-avg", "mpbcfw-shard-tau",
-                  "mpbcfw-shard-gram")
+NOT_YET_PORTED = ("mpbcfw-shard-async", "mpbcfw-shard", "mpbcfw-shard-avg",
+                  "mpbcfw-shard-tau", "mpbcfw-shard-gram")
 
 # Hooks called with every EngineEntry as it registers; raising vetoes it.
 RegistrationHook = Callable[[EngineEntry], None]
@@ -284,12 +285,14 @@ def validate_config(entry: EngineEntry, cfg: RunConfig) -> None:
         raise UnsupportedConfigError(
             f"ttl must be >= 1 for {entry.name!r} (planes must survive "
             f"at least the iteration that inserted them), got {cfg.ttl}")
-    if getattr(cfg, "policies", None) is not None:
+    if cfg.policies is not None:
         if not caps.policy_capable:
             policy_algos = _names_with(lambda c: c.policy_capable)
             raise UnsupportedConfigError(
                 f"RunConfig.policies is only consumed by {policy_algos}; "
                 f"{entry.name!r} predates the policy layer.")
-        raise UnsupportedConfigError(
-            "RunConfig.policies: the policy layer is not yet ported to "
-            "repro_torch (ROADMAP A6)")
+        from ..policy import make_bundle
+        # Names, kinds and parameter ranges, at Solver construction (the
+        # engine's factory builds the bundle again with the real n; n=1
+        # here only changes a fractional budget's rounding).
+        make_bundle(cfg.policies, cfg, 1)

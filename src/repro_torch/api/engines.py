@@ -9,14 +9,18 @@ the port runs into the :mod:`repro_torch.api.engine` registry:
     iteration, driven by the Solver's simple loop.  BCFW's and SSG's
     passes replay one captured CUDA graph per block on the card; FW runs
     one batched oracle over all blocks;
-  * ``mpbcfw``, ``mpbcfw-avg`` and ``mpbcfw-gram`` (:class:`FusedEngine`;
-    the gram variant keeps Sec-3.5 Gram blocks in its plane cache);
+  * ``mpbcfw``, ``mpbcfw-avg``, ``mpbcfw-gap`` and ``mpbcfw-gram``
+    (:class:`FusedEngine`; ``mpbcfw-gap`` runs the
+    :mod:`repro_torch.policy` gap bundle, the gram variant keeps Sec-3.5
+    Gram blocks in its plane cache);
   * ``mpbcfw-async`` (:class:`AsyncEngine`, the pipelined oracle).
 
-The ``-avg`` engines report ``primal_avg`` at the Sec-3.6 averaged
-iterate; the others keep the averages (``extract`` returns them) and
-report the primal again.  The reference's ``mpbcfw-gap`` and
-``mpbcfw-shard*`` engines are not ported yet: looking one up raises
+The MP-BCFW engines take ``RunConfig.policies`` (a bundle of
+:mod:`repro_torch.policy`).  The ``-avg`` engines report ``primal_avg``
+at the Sec-3.6 averaged iterate; the others keep the averages
+(``extract`` returns them) and report the primal again.  The reference's
+``mpbcfw-shard*`` engines, and ``mpbcfw-gap`` on a mesh, are not ported
+yet: looking one up raises
 :class:`~repro_torch.api.errors.UnsupportedConfigError` ("not yet
 ported").  Capabilities equal the reference's, entry for entry.  The
 engines' states are tensors and NamedTuples of tensors in the reference's
@@ -40,6 +44,7 @@ from ..core.ssvm import init_state as init_bcfw_state, weights_of
 from ..core.types import SSVMProblem
 from ..kernels import approx_pass as approx_kernel
 from . import solver as solver_mod
+from .config import RunConfig
 from .engine import EngineCapabilities, register_engine
 from .errors import UnsupportedConfigError
 
@@ -58,6 +63,24 @@ _SINGLE_DEVICE_BUDGET = dict(collectives_per_pass=0, collectives_setup=0,
                              host_callbacks=0)
 _SHARD_BUDGET = dict(collectives_per_pass=1, collectives_setup=1,
                      host_callbacks=0)
+
+
+def _policies(problem: SSVMProblem, cfg: RunConfig, *,
+              allow_key: bool = False, default=None):
+    """Resolve ``cfg.policies`` (or the engine's ``default`` names) into
+    a :class:`repro_torch.policy.PolicyBundle`, or None for the baked-in
+    pre-policy behaviour."""
+    from ..policy import make_bundle
+    names = cfg.policies if cfg.policies is not None else default
+    if names is None:
+        return None
+    bundle = make_bundle(names, cfg, problem.n)
+    if bundle.needs_key and not allow_key:
+        raise UnsupportedConfigError(
+            f"policy bundle {tuple(names)} contains a keyed sampler "
+            f"({bundle.sampling.name!r}), but {cfg.algo!r} does not "
+            "thread per-iteration PRNG keys; use algo='mpbcfw-gap'.")
+    return bundle
 
 
 def _device(problem: SSVMProblem) -> torch.device:
@@ -102,9 +125,12 @@ class FusedEngine(_EngineBase):
     to the state's host counters.  A ``gram_steps`` count keeps Gram
     blocks in the plane cache, which switches the approximate passes to
     the Sec-3.5 scheme, ``gram_steps`` updates per block.  ``averaged``
-    reports ``primal_avg`` at the averaged iterate (``mpbcfw-avg``).  On
-    CUDA the exact pass replays one captured CUDA graph per block, kept
-    in ``graphs`` while the state's tensors live
+    reports ``primal_avg`` at the averaged iterate (``mpbcfw-avg``).
+    ``policies`` is a :class:`repro_torch.policy.PolicyBundle` or None;
+    a bundle that needs the gap vector makes the cache track it
+    (``track_gap``), which the Sec-3.5 scheme refuses.  On CUDA the exact
+    pass replays one captured CUDA graph per block, kept in ``graphs``
+    while the state's tensors live
     (:class:`~repro_torch.core.graphs.StepGraphs`).
 
     ``init_state`` takes the ``approx_pass`` kernel's launch plan for the
@@ -120,11 +146,19 @@ class FusedEngine(_EngineBase):
                                       **_SINGLE_DEVICE_BUDGET)
 
     def __init__(self, problem: SSVMProblem, lam: float, *,
-                 gram_steps: Optional[int] = None, averaged: bool = False):
+                 gram_steps: Optional[int] = None, averaged: bool = False,
+                 policies=None):
         super().__init__(problem, lam)
         self.gram_steps = gram_steps
         self.use_gram = gram_steps is not None
         self.averaged = averaged
+        self.policies = policies
+        self.track_gap = policies is not None and policies.needs_gap
+        if self.track_gap and self.use_gram:
+            raise UnsupportedConfigError(
+                "gap-tracking policies are unsupported with the Sec-3.5 "
+                "gram scheme (the gram pass body exposes no per-visit "
+                "scores to fold into the gap vector)")
 
     def _check_plan(self, cap: int) -> None:
         try:
@@ -137,21 +171,25 @@ class FusedEngine(_EngineBase):
     def init_state(self, cap: int) -> mpbcfw.MPState:
         self._check_plan(cap)
         return mpbcfw.init_mp_state(
-            self.problem, CacheLayout(cap=cap, gram=self.use_gram))
+            self.problem, CacheLayout(cap=cap, gram=self.use_gram,
+                                      track_gap=self.track_gap))
 
-    def outer_iteration(self, mp, perm, perms, clock, *, ttl: int):
+    def outer_iteration(self, mp, perm, perms, clock, *, ttl: int,
+                        key=None):
         self.ledger.dispatched()
         return mpbcfw.outer_iteration(self.problem, mp, perm, perms, clock,
                                       lam=self.lam, ttl=ttl,
                                       steps=self.gram_steps,
-                                      graphs=self.graphs)
+                                      graphs=self.graphs,
+                                      policies=self.policies, key=key)
 
     def continue_passes(self, mp, perms, clock):
         """Overflow batch of approximate passes (only when an iteration
         runs more than ``approx_batch`` passes)."""
         self.ledger.dispatched()
         return mpbcfw.multi_approx_pass(mp, perms, clock, lam=self.lam,
-                                        steps=self.gram_steps)
+                                        steps=self.gram_steps,
+                                        policies=self.policies)
 
     def read_stats(self, stats):
         return self.ledger.sync(stats)
@@ -205,6 +243,10 @@ class AsyncEngine(FusedEngine):
     carries the modeled oracle overlap (``TraceRow.oracle_overlap``), read
     in the same sync as the stats.  ``outcome_fn(iteration, k) -> (k,)
     bool`` injects oracle arrivals (stragglers); None means all arrive.
+    A bundle's sampler schedules the oracle program's blocks at iteration
+    entry, its eviction and oracle policies run in the cache program; a
+    gap vector (``gap-ttl``) is written by the approximate passes only,
+    as in the reference (the fold writes none).
     """
 
     capabilities = EngineCapabilities(multipass=True,
@@ -215,8 +257,8 @@ class AsyncEngine(FusedEngine):
                                                 "slope"),
                                       **_SINGLE_DEVICE_BUDGET)
 
-    def __init__(self, problem: SSVMProblem, lam: float):
-        super().__init__(problem, lam)
+    def __init__(self, problem: SSVMProblem, lam: float, *, policies=None):
+        super().__init__(problem, lam, policies=policies)
         self.outcome_fn = None
         self._overlap_pending = None
         self._it = 0
@@ -230,7 +272,8 @@ class AsyncEngine(FusedEngine):
 
     def init_state(self, cap: int) -> mpbcfw.AsyncMPState:
         self._check_plan(cap)
-        return mpbcfw.init_async_state(self.problem, cap)
+        return mpbcfw.init_async_state(
+            self.problem, CacheLayout(cap=cap, track_gap=self.track_gap))
 
     def _done_mask(self, k: int) -> np.ndarray:
         self._it += 1
@@ -262,8 +305,11 @@ class AsyncEngine(FusedEngine):
         self.oracle_span = (start, ready)
         return ids, planes
 
-    def outer_iteration(self, state, perm, perms, clock, *, ttl: int):
+    def outer_iteration(self, state, perm, perms, clock, *, ttl: int,
+                        key=None):
         mp, pending = state.mp, state.pending
+        # The oracle program's blocks, from the iteration-entry cache.
+        perm = mpbcfw.exact_schedule(self.policies, mp.cache, perm, key)
         w_ready = None
         if mp.inner.phi.device.type == "cuda":
             main = torch.cuda.current_stream(mp.inner.phi.device)
@@ -293,7 +339,8 @@ class AsyncEngine(FusedEngine):
             oracle.append(self._dispatch_oracle(w, w_ready, perm))
         mp2, clock2, stats = mpbcfw.async_cache_program(
             mp, pending, perms, clock, lam=self.lam, ttl=ttl,
-            graphs=self.graphs, after_fold=after_fold)
+            graphs=self.graphs, after_fold=after_fold,
+            policies=self.policies)
         ids, planes = oracle[0]
         new_pending = mpbcfw.PendingOracle(
             ids=ids, planes=planes, done=self._done_mask(len(ids)),
@@ -310,7 +357,7 @@ class AsyncEngine(FusedEngine):
     def continue_passes(self, state, perms, clock):
         self.ledger.dispatched()
         mp2, clock2, stats = mpbcfw.multi_approx_pass(
-            state.mp, perms, clock, lam=self.lam)
+            state.mp, perms, clock, lam=self.lam, policies=self.policies)
         return state._replace(mp=mp2), clock2, stats
 
     def count_passes(self, state, st):
@@ -462,6 +509,16 @@ class BCFWEngine(_EngineBase):
 # clear of the duplicate guard.
 
 
+def _gap_factory(problem: SSVMProblem, cfg: RunConfig) -> FusedEngine:
+    """``mpbcfw-gap``: gap-proportional gumbel-top-k sampling and gap-aware
+    eviction (default bundle ``GAP_POLICIES``; ``RunConfig.policies``
+    overrides it) on the single-device engine.  The reference's mesh
+    branch waits for ``RunConfig.mesh`` (ROADMAP A item 6)."""
+    from ..policy import GAP_POLICIES
+    return FusedEngine(problem, cfg.lam, policies=_policies(
+        problem, cfg, allow_key=True, default=GAP_POLICIES))
+
+
 def _register(name, factory, capabilities):
     def make(problem, cfg, _factory=factory, _caps=capabilities):
         engine = _factory(problem, cfg)
@@ -480,14 +537,29 @@ _register("bcfw", lambda p, cfg: BCFWEngine(p, cfg.lam),
           BCFWEngine.capabilities)
 _register("bcfw-avg", lambda p, cfg: BCFWEngine(p, cfg.lam, averaged=True),
           BCFWEngine.capabilities)
-_register("mpbcfw", lambda p, cfg: FusedEngine(p, cfg.lam),
+_register("mpbcfw",
+          lambda p, cfg: FusedEngine(p, cfg.lam, policies=_policies(p, cfg)),
           FusedEngine.capabilities)
 _register("mpbcfw-avg",
-          lambda p, cfg: FusedEngine(p, cfg.lam, averaged=True),
+          lambda p, cfg: FusedEngine(p, cfg.lam, averaged=True,
+                                     policies=_policies(p, cfg)),
           FusedEngine.capabilities)
 _register(
+    "mpbcfw-gap", _gap_factory,
+    EngineCapabilities(
+        multipass=True, supports_averaging=True, supports_mesh=True,
+        mesh_optional=True, policy_capable=True, needs_key=True,
+        policies=("gap-topk", "gap-ttl", "slope"), **_SHARD_BUDGET,
+        note="Gap-proportional sampling (gumbel-top-k over per-block "
+             "duality gaps) with gap-aware eviction; RunConfig.gap_frac "
+             "sets the exact-pass fraction.  With RunConfig.mesh the "
+             "sampled schedule runs the sequential (tau=1) exact path; "
+             "a 1-device mesh is bit-for-bit equal to the single-device "
+             "program."))
+_register(
     "mpbcfw-gram",
-    lambda p, cfg: FusedEngine(p, cfg.lam, gram_steps=cfg.gram_steps),
+    lambda p, cfg: FusedEngine(p, cfg.lam, gram_steps=cfg.gram_steps,
+                               policies=_policies(p, cfg)),
     EngineCapabilities(
         multipass=True, supports_gram=True, supports_averaging=True,
         supports_mesh=True, uses_tau=True, tau_requires_mesh=True,
@@ -498,7 +570,8 @@ _register(
              "shards with the blocks), which also consumes "
              "RunConfig.tau."))
 _register(
-    "mpbcfw-async", lambda p, cfg: AsyncEngine(p, cfg.lam),
+    "mpbcfw-async",
+    lambda p, cfg: AsyncEngine(p, cfg.lam, policies=_policies(p, cfg)),
     dataclasses.replace(
         AsyncEngine.capabilities,
         note="Pipelined oracle: two programs dispatched per outer "

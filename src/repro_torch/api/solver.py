@@ -10,9 +10,10 @@ block permutations from ``np.random.RandomState(cfg.seed)`` in exactly the
 reference's order (``repro/api/solver.py``): per outer iteration one
 permutation for the exact pass (only when the engine ``needs_perm``),
 then, in the MP-BCFW loop, ``min(approx_batch, max_approx_passes)`` for
-the approximate batch, used or not, then one more batch per overflow
-continuation.  The same seed therefore gives both packages the same block
-schedule.
+the approximate batch, used or not, then, for an engine that
+``needs_key`` (``mpbcfw-gap``), one ``randint(0, 2**31 - 1)`` seed for its
+sampler, then one more batch per overflow continuation.  The same seed
+therefore gives both packages the same block schedule.
 
 Sync accounting: the approximate passes are gated on the device by the
 slope rule, so the engine reads each dispatch's telemetry once and
@@ -291,8 +292,13 @@ class Solver:
             perm = rng.permutation(n)
             perms = _draw_perms(rng, n, min(cfg.approx_batch,
                                             cfg.max_approx_passes))
+            # A keyed sampler's seed, drawn after the permutations (the
+            # reference's order and call), so every engine without the
+            # capability keeps its RNG stream.
+            key_kw = ({"key": int(rng.randint(0, 2 ** 31 - 1))}
+                      if self.caps.needs_key else {})
             mp, clock_dev, stats = engine.outer_iteration(
-                mp, perm, perms, clock_dev, ttl=cfg.ttl)
+                mp, perm, perms, clock_dev, ttl=cfg.ttl, **key_kw)
             st = engine.read_stats(stats)
             mp = engine.count_passes(mp, st)
             met = st.metrics
@@ -313,9 +319,11 @@ class Solver:
             oracle_overlap = (ovl_hidden / ovl_total if ovl_total > 0
                               else 0.0)
 
-            # Charge the device-chosen pass schedule to the virtual clock.
+            # Charge the device-chosen pass schedule to the virtual clock; a
+            # sampled schedule runs fewer exact oracle calls than n.
             if cm is not None:
-                clock.exact(n)
+                clock.exact(n if met.gap_sampled is None
+                            else int(met.gap_sampled))
                 for n_planes in planes_all:
                     clock.approx(n_planes)
                 # Pipelined engines: the oracle and cache programs ran
@@ -347,6 +355,11 @@ class Solver:
             w_total = w_exact + sum(self._est_plane * max(p, 1)
                                     for p in planes_all)
             oracle_share = w_exact / w_total if w_total > 0 else 1.0
+            # The gap columns ride the same sync; engines without a gap
+            # vector report the TraceRow defaults.
+            gap_kw = ({} if met.gap_total is None else dict(
+                gap_total=float(met.gap_total),
+                gap_sampled=int(met.gap_sampled)))
             with clock.exclude():
                 primal, dual, primal_avg = engine.evaluate(mp)
             self._state = mp
@@ -357,7 +370,8 @@ class Solver:
                 led1[0] - led0[0], led1[2] - led0[2],
                 cache_hit_rate=int(met.nonempty_blocks) / n,
                 planes_evicted=int(met.ttl_evicted) + int(met.lru_evicted),
-                oracle_share=oracle_share, oracle_overlap=oracle_overlap)
+                oracle_share=oracle_share, oracle_overlap=oracle_overlap,
+                **gap_kw)
 
     # -- serving export -----------------------------------------------------
 
@@ -434,9 +448,7 @@ class Solver:
         solver._state = unpack(tree) if unpack is not None else tree
         solver._it = int(extra.get("iteration", manifest["step"]))
         if extra.get("last_row") is not None:
-            solver._last_row = TraceRow(**{
-                k: v for k, v in extra["last_row"].items()
-                if k in _TRACE_FIELDS})
+            solver._last_row = TraceRow(**extra["last_row"])
         if "rng_state" in extra:
             solver._rng.set_state(_rng_state_from_json(extra["rng_state"]))
         now = float(extra.get("clock_now", 0.0))
@@ -460,7 +472,3 @@ class Solver:
         solver._wall_y = [float(y) for y in cal.get("wall_y", [])]
         return solver
 
-
-# A reference checkpoint's last row also has the gap-policy columns, which
-# the port's TraceRow does not carry yet (ROADMAP A6).
-_TRACE_FIELDS = frozenset(f.name for f in dataclasses.fields(TraceRow))

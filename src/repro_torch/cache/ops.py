@@ -14,6 +14,9 @@ one ``w``).  Invalid slots score :data:`NEG_INF` so they never win an
 argmax.  The Gram rows of a ``CacheLayout(gram=True)`` cache are inner
 products of one block's rows with one vector, :func:`row_dots`: the same
 per-row reduction as the scores, so equal rows get bit-equal entries.
+The gap vector of a ``CacheLayout(track_gap=True)`` cache starts at
+:data:`GAP_UNSEEN`; :func:`update_gap` folds in a block's estimate and
+:func:`evict_gap_stale` is the gap-aware TTL rule.
 """
 from __future__ import annotations
 
@@ -21,11 +24,16 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from ..core.types import index_tensor, row_of
+from ..core.types import index_tensor, row_of, set_row
 from ..kernels import ops as kops
 from .state import CacheLayout, PlaneCache
 
 NEG_INF = kops.INVALID_SCORE
+
+# Gap of a block no oracle call has visited: above every real gap (so a
+# gap-proportional sampler schedules unseen blocks first) and finite in
+# float32; the score sentinel's magnitude, not a second constant.
+GAP_UNSEEN = -kops.INVALID_SCORE
 
 # The int32 key of an empty slot in the LRU choice: below every activity
 # stamp, so empty slots are taken first.
@@ -37,10 +45,6 @@ def init(layout: Union[CacheLayout, int], n: int, d: int,
     """Empty cache for ``n`` blocks of ``(d+1)``-planes on ``device``."""
     if not isinstance(layout, CacheLayout):
         layout = CacheLayout(cap=int(layout))
-    if layout.track_gap:
-        raise NotImplementedError(
-            "CacheLayout(track_gap=True): per-block gap tracking is not "
-            "ported yet (ROADMAP A6)")
     if layout.dtype != torch.float32:
         raise NotImplementedError("the port's plane cache is float32 only")
     cap = layout.cap
@@ -51,7 +55,9 @@ def init(layout: Union[CacheLayout, int], n: int, d: int,
         last_active=torch.full((n, cap), -1, dtype=torch.int32,
                                device=device),
         gram=(torch.zeros((n, cap, cap), dtype=torch.float32, device=device)
-              if layout.gram else None))
+              if layout.gram else None),
+        gap=(torch.full((n,), GAP_UNSEEN, dtype=torch.float32, device=device)
+             if layout.track_gap else None))
 
 
 def row_dots(rows: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -129,6 +135,28 @@ def evict_stale(cache: PlaneCache, it: int, ttl: int) -> PlaneCache:
     return cache
 
 
+def update_gap(cache: PlaneCache, i, gap: torch.Tensor) -> PlaneCache:
+    """Fold a fresh gap estimate (a () or (1,) float32 tensor) for block
+    ``i`` (a host int or a (1,) int64 device index) into the gap vector,
+    clamped at 0: an approximate oracle scoring below the iterate, or
+    float noise at an exact optimum, gives a negative estimate.  A no-op
+    when the layout does not track gaps."""
+    if cache.gap is not None:
+        set_row(cache.gap, i, torch.clamp_min(gap.reshape(()), 0.0))
+    return cache
+
+
+def evict_gap_stale(cache: PlaneCache, it: int, ttl: int, ttl_cold: int,
+                    gap_cold: float) -> PlaneCache:
+    """Gap-aware TTL: a block whose gap estimate is at most ``gap_cold``
+    keeps its planes ``ttl_cold`` outer iterations, the others ``ttl``
+    (unseen blocks hold :data:`GAP_UNSEEN`, so they get ``ttl``).
+    Elementwise over the blocks."""
+    ttl_eff = torch.where(cache.gap > gap_cold, ttl, ttl_cold)
+    cache.valid.logical_and_(it - cache.last_active <= ttl_eff[:, None])
+    return cache
+
+
 def gather(cache: PlaneCache, ids) -> PlaneCache:
     """Sub-cache of the rows in ``ids``: a copy of shape ``(len(ids), cap,
     ...)``, so later updates of either cache do not reach the other.  The
@@ -137,7 +165,8 @@ def gather(cache: PlaneCache, ids) -> PlaneCache:
     idx = index_tensor(ids, cache.planes.device)
     return PlaneCache(planes=cache.planes[idx], valid=cache.valid[idx],
                       last_active=cache.last_active[idx],
-                      gram=None if cache.gram is None else cache.gram[idx])
+                      gram=None if cache.gram is None else cache.gram[idx],
+                      gap=None if cache.gap is None else cache.gap[idx])
 
 
 def flat_view(cache: PlaneCache

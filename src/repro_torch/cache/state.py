@@ -4,8 +4,11 @@
 the dense ``(n, cap, d+1)`` plane ring, the ``valid`` occupancy mask, the
 ``last_active`` activity clock behind LRU eviction and the TTL rule, and,
 when the Sec-3.5 scheme is on, the per-block Gram matrices, refreshed on
-insertion.  :class:`CacheLayout` is its configuration.  The operations in
-:mod:`repro_torch.cache.ops` update the tensors in place.
+insertion.  When the layout tracks per-block duality gaps
+(``track_gap=True``) the cache also carries the ``(n,)`` gap vector that
+the gap policies read (:mod:`repro_torch.policy`).  :class:`CacheLayout`
+is its configuration.  The operations in :mod:`repro_torch.cache.ops`
+update the tensors in place.
 """
 from __future__ import annotations
 
@@ -27,12 +30,19 @@ class PlaneCache(NamedTuple):
                    ``G[i, a, b] = <phi_a*, phi_b*>`` (paper Sec. 3.5), or
                    None when the layout does not keep them.  A slot's row
                    and column are refreshed when a plane lands in it.
+      gap:         (n,) float32 per-block duality-gap estimates (Osokin
+                   et al., arXiv:1605.09346), or None when the layout does
+                   not track them.  The exact step writes the true block
+                   gap, an approximate pass the cache's underestimate;
+                   blocks never visited hold
+                   :data:`repro_torch.cache.GAP_UNSEEN`.
     """
 
     planes: torch.Tensor
     valid: torch.Tensor
     last_active: torch.Tensor
     gram: Optional[torch.Tensor] = None
+    gap: Optional[torch.Tensor] = None
 
     @property
     def occupancy(self) -> torch.Tensor:
@@ -49,9 +59,8 @@ class PlaneCache(NamedTuple):
 class CacheLayout:
     """Plane-cache configuration.
 
-    ``gram`` keeps the Sec-3.5 Gram blocks in the cache.  ``track_gap``
-    (the per-block gap vector of the gap policies) is not ported yet;
-    :func:`repro_torch.cache.ops.init` raises for it.
+    ``gram`` keeps the Sec-3.5 Gram blocks in the cache; ``track_gap``
+    the ``(n,)`` per-block gap vector of the gap policies.
     """
 
     cap: int = 64

@@ -4,6 +4,7 @@
 in the reference's ``MPState`` layout (``inner.phi_i``, ``inner.phi``,
 ``inner.n_exact``, ``inner.n_approx``, ``cache.planes``, ``cache.valid``,
 ``cache.last_active``, ``cache.gram`` (None without Gram blocks),
+``cache.gap`` (None without a gap vector),
 ``avg.bar_exact``, ``avg.bar_approx``,
 ``avg.k_exact``, ``avg.k_approx``, ``outer_it``), into the port's
 :class:`~repro_torch.core.mpbcfw.MPState` on a device.  A reference state
@@ -38,10 +39,8 @@ def mp_state_from_numpy(tree: Any, device) -> MPState:
     """The port's state from a reference ``MPState`` of numpy arrays."""
     f32, dev = torch.float32, torch.device(device)
     inner, cache, avg = tree.inner, tree.cache, tree.avg
-    if getattr(cache, "gap", None) is not None:
-        raise NotImplementedError("the gap cache field is not ported yet "
-                                  "(ROADMAP A6)")
     gram = getattr(cache, "gram", None)
+    gap = getattr(cache, "gap", None)
     return MPState(
         inner=BCFWState(phi_i=_t(inner.phi_i, f32, dev),
                         phi=_t(inner.phi, f32, dev),
@@ -50,7 +49,8 @@ def mp_state_from_numpy(tree: Any, device) -> MPState:
         cache=PlaneCache(planes=_t(cache.planes, f32, dev),
                          valid=_t(cache.valid, torch.bool, dev),
                          last_active=_t(cache.last_active, torch.int32, dev),
-                         gram=None if gram is None else _t(gram, f32, dev)),
+                         gram=None if gram is None else _t(gram, f32, dev),
+                         gap=None if gap is None else _t(gap, f32, dev)),
         avg=AveragingState(bar_exact=_t(avg.bar_exact, f32, dev),
                            bar_approx=_t(avg.bar_approx, f32, dev),
                            k_exact=int(avg.k_exact),
@@ -68,6 +68,7 @@ def mp_state_to_numpy(mp: MPState) -> Dict[str, Any]:
             "last_active": host(mp.cache.last_active),
             "gram": (None if mp.cache.gram is None
                      else host(mp.cache.gram)),
+            "gap": None if mp.cache.gap is None else host(mp.cache.gap),
             "bar_exact": host(mp.avg.bar_exact),
             "bar_approx": host(mp.avg.bar_approx),
             "k_exact": mp.avg.k_exact, "k_approx": mp.avg.k_approx,

@@ -11,7 +11,7 @@ the same ``w`` and a closed-form line search.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,20 +54,32 @@ def block_update(state: BCFWState, i, phi_hat: torch.Tensor,
     return state, gamma
 
 
+def plane_score(plane: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``<plane, [w 1]>``: the plane's value at ``w``, () float32."""
+    return torch.dot(plane[:-1], w) + plane[-1]
+
+
 def block_step(problem: SSVMProblem, st: BCFWState, bar: torch.Tensor,
-               ctl: StepControl, lam: float
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               ctl: StepControl, lam: float, *, with_gap: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor,
+                          Optional[torch.Tensor]]:
     """One exact BCFW block step, in place, with the block read on the
     device: the spec's oracle at ``w = -phi*/lam`` on block
     ``ctl.ids[cursor]``, the line search and an exact-track averaging step
-    of ``bar`` with the pass's weights.  Returns the block id ((1,) int64)
-    and its oracle plane; the caller advances the cursor."""
+    of ``bar`` with the pass's weights.  Returns the block id ((1,) int64),
+    its oracle plane and, ``with_gap``, the block's duality gap at the
+    step's ``w`` (the oracle plane's score minus that of ``phi_i``'s row
+    before the update, () float32; else None).  The caller advances the
+    cursor."""
     i = ctl.block()
     example = {k: v.index_select(0, i) for k, v in problem.data.items()}
-    phi_hat = problem.oracle(weights_of(st.phi, lam), example)[0]
+    w = weights_of(st.phi, lam)
+    phi_hat = problem.oracle(w, example)[0]
+    gap = (plane_score(phi_hat, w) - plane_score(row_of(st.phi_i, i), w)
+           if with_gap else None)
     block_update(st, i, phi_hat, lam)
     average_step(bar, st.phi, ctl.weight(), ctl.scratch)
-    return i, phi_hat
+    return i, phi_hat, gap
 
 
 def exact_step(problem: SSVMProblem, st: BCFWState, bar: torch.Tensor,

@@ -74,10 +74,12 @@ def fallback_planes(ws, block_ids, w: torch.Tensor):
 
 def state_tensors(mp: MPState):
     """Every tensor a block step reads or writes in the dual state, the
-    cache and the exact-track average: the key of its captured graph."""
+    cache (its Gram leaf and gap vector when it has them) and the
+    exact-track average: the key of its captured graph."""
     c = mp.cache
     return (mp.inner.phi, mp.inner.phi_i, mp.avg.bar_exact, c.planes,
-            c.valid, c.last_active) + (() if c.gram is None else (c.gram,))
+            c.valid, c.last_active) + tuple(
+                t for t in (c.gram, c.gap) if t is not None)
 
 
 def fold_step(mp: MPState, ctl: StepControl, lam: float, *,

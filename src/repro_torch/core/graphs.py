@@ -95,16 +95,21 @@ def _upload(dst: torch.Tensor, a: np.ndarray) -> None:
     dst[:src.shape[0]].copy_(src, non_blocking=True)
 
 
-def load_control(ctl: StepControl, ids: np.ndarray, *, k0: int, it: int,
+def load_control(ctl: StepControl, ids, *, k0: int, it: int,
                  planes: Optional[torch.Tensor] = None,
                  fb_planes: Optional[torch.Tensor] = None,
                  fb_slots: Optional[torch.Tensor] = None) -> None:
-    """Set up a pass over the blocks ``ids``: averaging weights for ``k =
-    k0, k0+1, ...`` (:func:`repro_torch.core.averaging.weight_table`), the
-    stamp ``it``, the cursor at 0 and, for the fold, its candidates.
-    Enqueued on the current stream; nothing waits for the device."""
+    """Set up a pass over the blocks ``ids`` (a host array, or an int64
+    tensor on the control's device, taken by one device-to-device copy):
+    averaging weights for ``k = k0, k0+1, ...``
+    (:func:`repro_torch.core.averaging.weight_table`), the stamp ``it``,
+    the cursor at 0 and, for the fold, its candidates.  Enqueued on the
+    current stream; nothing waits for the device."""
     m = len(ids)
-    _upload(ctl.ids, np.asarray(ids, np.int64))
+    if isinstance(ids, torch.Tensor):
+        ctl.ids[:m].copy_(ids)
+    else:
+        _upload(ctl.ids, np.asarray(ids, np.int64))
     _upload(ctl.weights, weight_table(k0, m))
     ctl.it.fill_(int(it))
     ctl.cursor.zero_()

@@ -31,6 +31,15 @@ The pipelined variant (``mpbcfw-async``) splits an outer iteration into
 an oracle program and a cache program (:func:`async_oracle_program`,
 :func:`async_cache_program`); see the section at the end of this module.
 
+A :class:`repro_torch.policy.PolicyBundle` (``policies``) replaces the
+baked-in decisions: its eviction policy runs instead of the TTL rule, its
+sampler turns the host permutation into the exact pass's schedule (the
+gap sampler's on the device, read by the captured step through its
+control buffers), and its oracle policy replaces the slope rule.  A cache
+with a gap vector (``CacheLayout(track_gap=True)``) has it written by the
+exact step (the true block gap) and by every approximate pass (the
+cache's underestimate).
+
 State tensors are updated in place (see :mod:`repro_torch.core.types`).
 """
 from __future__ import annotations
@@ -72,33 +81,40 @@ def exact_step(problem: SSVMProblem, mp: MPState, ctl: StepControl,
     oracle at ``w = -phi*/lam`` on block ``ctl.ids[cursor]``, the line
     search and an exact-track averaging step with the pass's weights), then
     the cache insert (LRU slot, Gram row) stamped ``ctl.it``, which reads
-    nothing the averaging step writes.  Advances the cursor.  The body of
-    :func:`exact_pass`'s loop, and of its captured graph on CUDA."""
-    i, phi_hat = bcfw.block_step(problem, mp.inner, mp.avg.bar_exact, ctl,
-                                 lam)
+    nothing the averaging step writes, and, with a gap vector, the block's
+    true gap at the step's ``w`` (:func:`repro_torch.cache.update_gap`).
+    Advances the cursor.  The body of :func:`exact_pass`'s loop, and of its
+    captured graph on CUDA."""
+    i, phi_hat, gap = bcfw.block_step(problem, mp.inner, mp.avg.bar_exact,
+                                      ctl, lam,
+                                      with_gap=mp.cache.gap is not None)
     plane_cache.insert(mp.cache, i, phi_hat, ctl.it)
+    plane_cache.update_gap(mp.cache, i, gap)
     ctl.cursor.add_(1)
 
 
 def exact_pass(problem: SSVMProblem, mp: MPState, perm, lam: float, *,
                graphs: StepGraphs) -> MPState:
     """Paper Alg. 3 step 3: BCFW pass with the real oracle + plane caching,
-    over the blocks of the host permutation ``perm``.
+    over the blocks of ``perm``: a host permutation, or an int64 tensor on
+    the state's device (a sampler's schedule, never read on the host).
 
     One :func:`exact_step` per block: a plain loop on the CPU; on CUDA one
     replay per block of the step's captured graph, kept in ``graphs`` (an
-    engine's :class:`~repro_torch.core.graphs.StepGraphs`).  The host counters ``n_exact`` and ``k_exact``
-    advance by the pass's length.
+    engine's :class:`~repro_torch.core.graphs.StepGraphs`).  The host
+    counters ``n_exact`` and ``k_exact`` advance by the pass's length.
     """
-    ids = np.asarray(perm, np.int64).reshape(-1)
+    if not isinstance(perm, torch.Tensor):
+        perm = np.asarray(perm, np.int64).reshape(-1)
+    m = len(perm)
     ctl = graphs.control("exact", state_tensors(mp) + tuple(
-        problem.data.values()), (lam, problem.oracle), len(ids), problem.d)
-    load_control(ctl, ids, k0=mp.avg.k_exact, it=mp.outer_it)
+        problem.data.values()), (lam, problem.oracle), m, problem.d)
+    load_control(ctl, perm, k0=mp.avg.k_exact, it=mp.outer_it)
     graphs.run("exact", "exact", lambda: exact_step(problem, mp, ctl, lam),
-               len(ids))
+               m)
     return mp._replace(
-        inner=mp.inner._replace(n_exact=mp.inner.n_exact + len(ids)),
-        avg=mp.avg._replace(k_exact=mp.avg.k_exact + len(ids)))
+        inner=mp.inner._replace(n_exact=mp.inner.n_exact + m),
+        avg=mp.avg._replace(k_exact=mp.avg.k_exact + m))
 
 
 def eager_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,
@@ -106,7 +122,8 @@ def eager_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,
                last_active: torch.Tensor, perm: torch.Tensor, *, lam: float,
                k0: int, outer_it: int, gram: Optional[torch.Tensor] = None,
                steps: Optional[int] = None,
-               go: Optional[torch.Tensor] = None) -> None:
+               go: Optional[torch.Tensor] = None,
+               gap: Optional[torch.Tensor] = None) -> None:
     """One approximate pass over the blocks of ``perm``, in place, as a
     loop of per-block device ops: the plain version of the ``approx_pass``
     kernel (:func:`repro_torch.kernels.ops.approx_pass`, same arguments),
@@ -120,13 +137,19 @@ def eager_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,
     (:func:`repro_torch.core.gram.multi_step_block_update`) and stamps the
     planes they picked.  After each block, one averaging step of ``bar``
     with ``k = k0 + position``.  A false ``go`` flag leaves everything
-    untouched (on the CPU reading it is no device sync).  The host
-    counters are the caller's (:func:`count_passes`).
+    untouched (on the CPU reading it is no device sync).  In the plain mode
+    a ``gap`` vector takes each block's gap estimate: the chosen plane's
+    score minus ``<phi_i, [w 1]>`` of the row before its update, clamped
+    at 0 (:func:`repro_torch.cache.update_gap`).  The host counters are the
+    caller's (:func:`count_passes`).
     """
     if go is not None and not bool(go):
         return
+    if gap is not None and steps is not None:
+        raise ValueError("eager_pass: the gap output is the plain mode's; "
+                         "the Sec-3.5 mode has none")
     cache = PlaneCache(planes=planes, valid=valid, last_active=last_active,
-                       gram=gram)
+                       gram=gram, gap=gap)
     st = BCFWState(phi_i=phi_i, phi=phi, n_exact=0, n_approx=0)
     ids = block_ids(perm.cpu())
     weights = torch.from_numpy(weight_table(int(k0), len(ids))).to(
@@ -135,10 +158,15 @@ def eager_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,
     for pos, i in enumerate(ids):
         if steps is None:
             w = weights_of(phi, lam)
-            phi_hat, slot, _ = plane_cache.approx_oracle(cache, i, w)
+            phi_hat, slot, score = plane_cache.approx_oracle(cache, i, w)
+            # The cache's gap underestimate (H~_i <= H_i): the best cached
+            # plane's score minus the current iterate's.
+            g = (score - bcfw.plane_score(phi_i[i], w) if gap is not None
+                 else None)
             block_update(st, i, phi_hat, lam)
             # A plane is "active" if the (approximate) oracle returned it.
             plane_cache.mark_active(cache, i, slot, outer_it)
+            plane_cache.update_gap(cache, i, g)
         else:
             new_phi_i, new_phi, won = multi_step_block_update(
                 planes[i], valid[i], gram[i], phi, phi_i[i], lam, steps)
@@ -156,14 +184,16 @@ def run_pass(mp: MPState, perm: torch.Tensor, lam: float,
     CUDA, its plain version :func:`eager_pass` on the CPU.  ``steps`` runs
     the Sec-3.5 scheme over the cache's Gram blocks.  ``k0`` is the
     averaging count at pass start (default: the state's); a false ``go``
-    flag makes the pass a no-op.  The host counters are left to the caller
+    flag makes the pass a no-op.  A plain pass writes the cache's gap
+    vector, when it has one.  The host counters are left to the caller
     (:func:`count_passes`)."""
     c = mp.cache
     fn = eager_pass if mp.inner.phi.device.type == "cpu" else kops.approx_pass
     fn(mp.inner.phi, mp.inner.phi_i, mp.avg.bar_approx, c.planes, c.valid,
        c.last_active, perm, lam=lam,
        k0=mp.avg.k_approx if k0 is None else k0, outer_it=mp.outer_it,
-       gram=c.gram if steps is not None else None, steps=steps, go=go)
+       gram=c.gram if steps is not None else None, steps=steps, go=go,
+       gap=c.gap if steps is None else None)
 
 
 def count_passes(mp: MPState, passes: int, blocks: int,
@@ -188,11 +218,16 @@ def approx_pass(problem: Optional[SSVMProblem], mp: MPState, perm,
     return count_passes(mp, 1, ids.numel())
 
 
-def begin_iteration(mp: MPState, ttl: int) -> MPState:
-    """TTL eviction + outer-iteration increment (paper Sec. 3.4, N/T)."""
+def begin_iteration(mp: MPState, ttl: int, eviction=None) -> MPState:
+    """Eviction + outer-iteration increment (paper Sec. 3.4, N/T).
+
+    ``eviction`` is an optional :class:`repro_torch.policy.EvictionPolicy`;
+    None keeps the paper's TTL rule with the explicit ``ttl``.
+    """
     it = mp.outer_it + 1
-    return mp._replace(cache=plane_cache.evict_stale(mp.cache, it, ttl),
-                       outer_it=it)
+    cache = (plane_cache.evict_stale(mp.cache, it, ttl)
+             if eviction is None else eviction.evict(mp.cache, it))
+    return mp._replace(cache=cache, outer_it=it)
 
 
 def make_slope_clock(t0, f0, t, plane_cost, device) -> SlopeClock:
@@ -206,7 +241,7 @@ def make_slope_clock(t0, f0, t, plane_cost, device) -> SlopeClock:
 def slope_batched_loop(n_batch: int, clock: SlopeClock, *,
                        step: Callable, f_entry: torch.Tensor,
                        cost: torch.Tensor, planes_per_pass: torch.Tensor,
-                       run_all: bool = False):
+                       run_all: bool = False, continue_fn=None):
     """Up to ``n_batch`` passes governed by the slope rule, with no host
     read: the reference's ``lax.while_loop`` unrolled into gated passes.
 
@@ -216,10 +251,13 @@ def slope_batched_loop(n_batch: int, clock: SlopeClock, *,
     ``more`` is the reference's loop condition, on the device: once the
     rule says stop, the later passes do nothing and their telemetry stays
     zero.  The rule is the reference's float32 arithmetic (``t + cost``
-    accumulated in float32).  ``run_all`` disables the rule.  Returns
+    accumulated in float32).  ``continue_fn`` swaps the stopping rule (an
+    :class:`repro_torch.policy.OraclePolicy`'s device decision; None keeps
+    the slope rule); ``run_all`` disables it.  Returns
     ``(t_end, stats)``; ``stats.passes_run`` and ``stats.more`` are device
     tensors, read with the rest of the stats in the caller's one sync.
     """
+    cont_fn = slope_continue_t if continue_fn is None else continue_fn
     dev = f_entry.device
     duals = torch.zeros((n_batch,), dtype=torch.float32, device=dev)
     times = torch.zeros((n_batch,), dtype=torch.float32, device=dev)
@@ -233,7 +271,7 @@ def slope_batched_loop(n_batch: int, clock: SlopeClock, *,
         if run_all:
             cont = torch.ones((), dtype=torch.bool, device=dev)
         else:
-            cont = slope_continue_t(clock.f0, clock.t0, f, t, f_new, t_new)
+            cont = cont_fn(clock.f0, clock.t0, f, t, f_new, t_new)
         # Only where pass k ran: the reference's loop never reaches it.
         duals[k] = torch.where(more, f_new, duals[k])
         times[k] = torch.where(more, t_new, times[k])
@@ -252,7 +290,7 @@ def slope_batched_loop(n_batch: int, clock: SlopeClock, *,
 
 def multi_approx_pass(mp: MPState, perms, clock: SlopeClock, *, lam: float,
                       steps: Optional[int] = None,
-                      run_all: bool = False
+                      run_all: bool = False, policies=None
                       ) -> Tuple[MPState, SlopeClock, ApproxBatchStats]:
     """Up to ``len(perms)`` approximate passes under the slope rule, with
     no host read.
@@ -266,7 +304,8 @@ def multi_approx_pass(mp: MPState, perms, clock: SlopeClock, *, lam: float,
     left for :func:`count_passes` once the stats are read
     (``FusedEngine.count_passes``).  A cache with Gram blocks runs the
     Sec-3.5 scheme, ``steps`` updates per block (required there, unread
-    without Gram blocks).
+    without Gram blocks).  ``policies`` (a bundle) supplies the stopping
+    rule, its oracle policy's ``continue_fn``.
     """
     f_entry = dual_value(mp.inner.phi, lam)
     # Approximate passes never insert or evict planes, so the per-pass
@@ -288,7 +327,8 @@ def multi_approx_pass(mp: MPState, perms, clock: SlopeClock, *, lam: float,
 
     t, stats = slope_batched_loop(
         len(perms), clock, step=step, f_entry=f_entry, cost=cost,
-        planes_per_pass=total_planes, run_all=run_all)
+        planes_per_pass=total_planes, run_all=run_all,
+        continue_fn=None if policies is None else policies.oracle.continue_fn)
     zero = torch.zeros((), dtype=torch.int32, device=f_entry.device)
     metrics = ObsMetrics(ttl_evicted=zero, lru_evicted=zero,
                          occupancy=total_planes,
@@ -297,32 +337,64 @@ def multi_approx_pass(mp: MPState, perms, clock: SlopeClock, *, lam: float,
                                                    blocks=blocks)
 
 
+def exact_schedule(policies, cache: PlaneCache, perm, key: Optional[int]):
+    """The blocks the exact oracle visits: ``perm``, or the bundle's
+    sampler's schedule of it (``key``: the iteration's seed)."""
+    if policies is None:
+        return perm
+    return policies.sampling.schedule(cache, perm, key)
+
+
 def outer_iteration(problem: SSVMProblem, mp: MPState, perm, perms,
                     clock: SlopeClock, *, lam: float, ttl: int,
                     graphs: StepGraphs, steps: Optional[int] = None,
-                    run_all: bool = False):
-    """One MP-BCFW outer iteration: TTL eviction, the exact pass (its
-    captured step kept in ``graphs``), and the slope-ruled batch of
-    approximate passes (``steps`` per block with Gram blocks).
+                    run_all: bool = False, policies=None,
+                    key: Optional[int] = None):
+    """One MP-BCFW outer iteration: eviction, the exact pass (its captured
+    step kept in ``graphs``), and the slope-ruled batch of approximate
+    passes (``steps`` per block with Gram blocks).
 
     ``clock.f0`` is re-seeded on the device from the dual at iteration
     entry; the host supplies ``clock.t`` (the modeled exact-pass cost) and
-    ``clock.plane_cost``.  Returns ``(mp, clock, stats)``.
+    ``clock.plane_cost``.  ``policies`` (a
+    :class:`repro_torch.policy.PolicyBundle`) replaces the baked-in
+    decisions: its eviction policy runs instead of the TTL rule, its
+    sampler turns ``perm`` into the exact pass's schedule (``key`` is the
+    iteration's host-drawn seed, for samplers that declared
+    ``needs_key``), and its oracle policy replaces the slope rule.  None,
+    and the default uniform/ttl-lru/slope bundle, run what the engines run
+    without a bundle.  With a gap vector the stats' metrics carry
+    ``gap_total`` (the post-exact-pass sum over visited blocks, on the
+    device) and ``gap_sampled`` (the schedule's length).  Returns ``(mp,
+    clock, stats)``.
     """
+    eviction = None if policies is None else policies.eviction
     occ0 = mp.cache.occupancy                 # before eviction
-    mp = begin_iteration(mp, ttl)
+    mp = begin_iteration(mp, ttl, eviction=eviction)
     occ1 = mp.cache.occupancy                 # after eviction
     clock = clock._replace(f0=dual_value(mp.inner.phi, lam))
+    perm = exact_schedule(policies, mp.cache, perm, key)
     mp = exact_pass(problem, mp, perm, lam, graphs=graphs)
     occ2 = mp.cache.occupancy                 # after the insert scan
+    gap_fields = {}
+    if mp.cache.gap is not None:
+        # The gap mass over visited blocks after the exact pass (unseen
+        # blocks hold GAP_UNSEEN and are left out).
+        gap = mp.cache.gap
+        gap_fields = dict(
+            gap_total=torch.where(gap < plane_cache.GAP_UNSEEN, gap,
+                                  0.0).sum(),
+            gap_sampled=len(perm))
     mp, clock, stats = multi_approx_pass(mp, perms, clock, lam=lam,
-                                         steps=steps, run_all=run_all)
-    # Eviction accounting, on the device: TTL dropped occ0-occ1 planes;
-    # the exact pass inserted one plane per visited block, so the LRU
-    # overwrites are the inserts that did not grow the cache.
+                                         steps=steps, run_all=run_all,
+                                         policies=policies)
+    # Eviction accounting, on the device: eviction dropped occ0-occ1
+    # planes; the exact pass inserted one plane per visited block, so the
+    # LRU overwrites are the inserts that did not grow the cache.
     n_inserts = len(perm)
     metrics = stats.metrics._replace(ttl_evicted=occ0 - occ1,
-                                     lru_evicted=occ1 + n_inserts - occ2)
+                                     lru_evicted=occ1 + n_inserts - occ2,
+                                     **gap_fields)
     return mp, clock, stats._replace(metrics=metrics)
 
 
@@ -409,7 +481,11 @@ def async_oracle_program(problem: SSVMProblem, w: torch.Tensor, perm
     The exact max-oracle of every block of ``perm`` at the one stale ``w``
     (the caller's snapshot of the iteration-entry weights): one batched
     oracle call over the gathered examples.  Reads nothing the cache
-    program writes.  Returns ``(ids, planes)``.
+    program writes.  ``perm`` is the iteration's schedule
+    (:func:`exact_schedule`), which the engine takes at iteration entry:
+    the reference's oracle program schedules from the entry cache, and
+    here the cache program updates the cache in place before this program
+    is enqueued.  Returns ``(ids, planes)``.
     """
     ids = np.asarray(perm, np.int64).reshape(-1)
     return ids, parallel_oracles(problem, w, ids)
@@ -418,7 +494,8 @@ def async_oracle_program(problem: SSVMProblem, w: torch.Tensor, perm
 def async_cache_program(mp: MPState, pending: PendingOracle, perms,
                         clock: SlopeClock, *, lam: float, ttl: int,
                         graphs: StepGraphs,
-                        after_fold: Optional[Callable[[], None]] = None):
+                        after_fold: Optional[Callable[[], None]] = None,
+                        policies=None):
     """The cache half of the pipelined iteration.
 
     TTL eviction, the fold-in of ``pending`` (straggler blocks fold their
@@ -428,11 +505,14 @@ def async_cache_program(mp: MPState, pending: PendingOracle, perms,
     ``after_fold()`` is called once the fold is enqueued, before the
     passes: the engine enqueues the next oracle program there, so that on
     the card it runs beside the fold.  ``clock.f0`` is seeded before the fold,
-    so the slope rule's chord includes its gain.  Returns ``(mp, clock,
-    stats)``.
+    so the slope rule's chord includes its gain.  ``policies`` supplies the
+    eviction policy and the stopping rule; the fold writes no gap (as in
+    the reference), the approximate passes do when the cache has a gap
+    vector.  Returns ``(mp, clock, stats)``.
     """
+    eviction = None if policies is None else policies.eviction
     occ0 = mp.cache.occupancy                 # before eviction
-    mp = begin_iteration(mp, ttl)
+    mp = begin_iteration(mp, ttl, eviction=eviction)
     occ1 = mp.cache.occupancy                 # after eviction
     clock = clock._replace(f0=dual_value(mp.inner.phi, lam))
     fbp = fbs = None
@@ -444,7 +524,8 @@ def async_cache_program(mp: MPState, pending: PendingOracle, perms,
     occ2 = mp.cache.occupancy                 # after the fold's inserts
     if after_fold is not None:
         after_fold()
-    mp, clock, stats = multi_approx_pass(mp, perms, clock, lam=lam)
+    mp, clock, stats = multi_approx_pass(mp, perms, clock, lam=lam,
+                                         policies=policies)
     # Eviction accounting (cf. outer_iteration): the fold inserts one plane
     # per arrived block (fallbacks only refresh activity), when live.
     n_inserts = int(np.sum(pending.done)) if pending.live else 0

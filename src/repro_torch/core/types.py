@@ -85,6 +85,10 @@ class ObsMetrics(NamedTuple):
     lru_evicted: Any      # planes overwritten by LRU insert
     occupancy: Any        # total cached planes (after the exact pass)
     nonempty_blocks: Any  # blocks with >= 1 cached plane
+    # Gap-policy extras (None unless the engine tracks per-block gaps):
+    gap_total: Any = None    # () f32 sum of visited blocks' gap estimates
+    #                          after the exact pass
+    gap_sampled: Any = None  # blocks the sampler scheduled (host int)
 
 
 class ApproxBatchStats(NamedTuple):

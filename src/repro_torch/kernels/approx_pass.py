@@ -10,8 +10,10 @@ Each block's phi_i row, valid plane rows and Gram leaf are staged in
 shared memory by bulk copies (the TMA engine) while the block before it
 computes, as :func:`plan` lays out.  A device ``go`` flag gates the
 launch, so passes can be queued behind the slope rule's on-device
-decision.  Latency-bound (a sequential chain of per-block reductions).
-See the source for the design.
+decision.  In the plain mode an optional ``gap`` vector takes each
+visited block's gap estimate (the gap policies' input), from one more
+dot product per block on an idle warp.  Latency-bound (a sequential
+chain of per-block reductions).  See the source for the design.
 
 Shapes the staged kernel cannot hold (``d + 1`` past :data:`MAX_D1`, a
 layout past shared memory, Sec-3.5 caps past :data:`MAX_SEC35_CAP`) take
@@ -49,7 +51,7 @@ MAX_SEC35_CAP = 8 * 32
 # The wide kernel's shared memory: 4 floats of per-block scalars.
 WIDE_SMEM = 16
 
-_SIGNATURE = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + \
+_SIGNATURE = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] + \
     [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_longlong] + \
     [ctypes.c_int] * 2 + [ctypes.c_void_p]
 _WIDE_SIGNATURE = _SIGNATURE[:-3] + [ctypes.c_void_p] * 2
@@ -154,7 +156,8 @@ def approx_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,
                 lam: float, k0: int, outer_it: int,
                 gram: Optional[torch.Tensor] = None,
                 steps: Optional[int] = None,
-                go: Optional[torch.Tensor] = None) -> None:
+                go: Optional[torch.Tensor] = None,
+                gap: Optional[torch.Tensor] = None) -> None:
     """One approximate pass over ``perm`` in place (see
     :func:`repro_torch.kernels.ops.approx_pass`)."""
     global launches
@@ -188,6 +191,14 @@ def approx_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,
         if go.numel() != 1:
             raise ValueError("approx_pass: go must be a one-element flag")
         want.append(("go", go, torch.bool))
+    if gap is not None:
+        if steps is not None:
+            raise ValueError("approx_pass: the gap output is the plain "
+                             "mode's; the Sec-3.5 mode has none")
+        if tuple(gap.shape) != (n,):
+            raise ValueError(f"approx_pass: gap must be ({n},), got "
+                             f"{tuple(gap.shape)}")
+        want.append(("gap", gap, torch.float32))
     for name, t, dtype in want:
         if t.dtype != dtype or t.device != dev:
             raise ValueError(f"approx_pass: {name} must be {dtype} on {dev}")
@@ -205,7 +216,8 @@ def approx_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,
     args = (phi.data_ptr(), phi_i.data_ptr(), bar.data_ptr(),
             planes.data_ptr(), valid.data_ptr(), last_active.data_ptr(),
             gram.data_ptr() if steps is not None else None, perm.data_ptr(),
-            go.data_ptr() if go is not None else None, n, perm.numel(), cap,
+            go.data_ptr() if go is not None else None,
+            gap.data_ptr() if gap is not None else None, n, perm.numel(), cap,
             d1 - 1, nsteps, int(outer_it), float(lam), inverse_lam(lam),
             int(k0))
     if how.wide:

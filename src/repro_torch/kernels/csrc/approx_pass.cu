@@ -23,7 +23,16 @@
 //   k = k0 + (position of i in perm) (core/averaging.py).
 // A `go` flag (device bool, may be null) gates the launch: false returns
 // at once, so a batch of passes queued behind the slope rule's on-device
-// flag runs only the passes the rule allows.
+// flag runs only the passes the rule allows.  In the plain mode a `gap`
+// vector (float32 (n,), may be null) takes each visited block's gap
+// estimate, the cache's underestimate of its duality gap, as
+// core/mpbcfw.py's eager pass computes it: gap[i] = max(s - (<phi_i*, w>
+// + phi_i o), 0) at the block's w, with s the chosen plane's score (0 for
+// an empty set) and phi_i the row before its update.  The extra dot
+// product runs on the warp with the fewest rows to score, beside them,
+// and writes nothing else.  The gap output is a build of its own (the
+// kGap flag of the plain mode's kernels, the vector a parameter after
+// Args): a launch without it runs the kernel that has none.
 //
 // Bound.  A pass reads each visited block's valid planes, its phi_i row
 // (read and written) and, in the Sec-3.5 mode, its Gram leaf: ~16 KB x
@@ -336,6 +345,27 @@ __device__ __forceinline__ void plain_row(const float* p, const float* phi,
   den = warp_sum(de);
 }
 
+// <p*, w> + p_o alone (w_j = -phi_j * fl32(1/lam)): plain_row's score,
+// for the gap output's <phi_i*, w> + phi_i o.
+__device__ __forceinline__ float score_row(const float* p, const float* phi,
+                                           int d, int lane, float inv_lam) {
+  float acc = 0.0f;
+  int j = lane;
+  for (; j + 7 * kWarp < d; j += 8 * kWarp) {
+    float x[8], f[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      x[u] = p[j + u * kWarp];
+      f[u] = phi[j + u * kWarp];
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      acc = fmaf(x[u], __fmul_rn(-f[u], inv_lam), acc);
+  }
+  for (; j < d; j += kWarp) acc = fmaf(p[j], __fmul_rn(-phi[j], inv_lam), acc);
+  return warp_sum(acc) + p[d];
+}
+
 // <phi_i*, phi*> and |phi_i*|^2: the line search against the zero plane
 // (plain mode), e and c of the Sec-3.5 recurrence.
 __device__ __forceinline__ void self_dots(const float* pi, const float* phi,
@@ -509,9 +539,9 @@ __device__ __forceinline__ void compact(int* meta, int cap, int lane,
   if (lane == 0) meta[2 * cap] = count;
 }
 
-template <int NJ, bool kSec35>
+template <int NJ, bool kSec35, bool kGap>
 __global__ void __launch_bounds__(kThreads, 1)
-approx_pass_kernel(const Args args) {
+approx_pass_kernel(const Args args, float* gap) {
   if (args.go != nullptr && !*args.go) return;
   extern __shared__ __align__(16) float smem[];
   const int d1 = args.d + 1, d = args.d, cap = args.cap;
@@ -694,6 +724,12 @@ approx_pass_kernel(const Args args) {
             s_scal[1] = c0;
           }
         }
+        // The gap output's score of the staged phi_i row, before it is
+        // rewritten, on a warp with the fewest rows.
+        if (kGap && warp == nv % kWarps) {
+          const float sw = score_row(pi, s_vec, d, lane, inv_lam);
+          if (lane == 0) s_scal[4] = sw;
+        }
         __syncthreads();
         // Warp 0 picks the row and the step size for all: the first
         // maximum over the valid rows in slot order (a valid plane scores
@@ -721,6 +757,9 @@ approx_pass_kernel(const Args args) {
             s_scal[2] = __int_as_float(any ? kb : -1);
             s_scal[3] = g;
             args.last_active[i * cap + (any ? list[kb] : 0)] = args.outer_it;
+            if (kGap)
+              gap[i] =
+                  fmaxf(__fsub_rn(any ? s_a[kb] : 0.0f, s_scal[4]), 0.0f);
           }
         }
         __syncthreads();
@@ -994,9 +1033,9 @@ __device__ float recurrence_wide(const int* pos, float* s_a, float* s_b,
   return beta0;
 }
 
-template <bool kSec35>
+template <bool kSec35, bool kGap>
 __global__ void __launch_bounds__(kThreads, 1)
-approx_pass_wide_kernel(const Args args, int* scratch) {
+approx_pass_wide_kernel(const Args args, int* scratch, float* gap) {
   if (args.go != nullptr && !*args.go) return;
   __shared__ float s_scal[kWideScalars];
   const int d1 = args.d + 1, d = args.d, cap = args.cap;
@@ -1054,6 +1093,13 @@ approx_pass_wide_kernel(const Args args, int* scratch) {
           s_scal[1] = c0;
         }
       }
+      // The gap output's score of the iterate's row, in the first word
+      // of the mix list (the Sec-3.5 mode's; unused here).
+      float* g_score = reinterpret_cast<float*>(s_mix);
+      if (kGap && warp == nv % kWarps) {
+        const float sw = score_row(pi, phi, d, lane, inv_lam);
+        if (lane == 0) *g_score = sw;
+      }
       __syncthreads();
       if (warp == 0) {
         // The first maximum over the valid rows: each lane the first of
@@ -1081,6 +1127,9 @@ approx_pass_wide_kernel(const Args args, int* scratch) {
           s_scal[2] = __int_as_float(any ? kb : -1);
           s_scal[3] = g;
           args.last_active[i * cap + (any ? list[kb] : 0)] = args.outer_it;
+          if (kGap)
+            gap[i] =
+                fmaxf(__fsub_rn(any ? s_a[kb] : 0.0f, *g_score), 0.0f);
         }
       }
       __syncthreads();
@@ -1189,32 +1238,36 @@ approx_pass_wide_kernel(const Args args, int* scratch) {
   }
 }
 
-template <int NJ, bool kSec35>
+template <int NJ, bool kSec35, bool kGap>
 cudaError_t allow() {
-  return cudaFuncSetAttribute(approx_pass_kernel<NJ, kSec35>,
+  return cudaFuncSetAttribute(approx_pass_kernel<NJ, kSec35, kGap>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               kSmemLimit);
 }
 
-template <bool kSec35>
+template <bool kSec35, bool kGap>
 cudaError_t allow_all() {
-  cudaError_t err = allow<8, kSec35>();
-  if (err == cudaSuccess) err = allow<16, kSec35>();
-  if (err == cudaSuccess) err = allow<24, kSec35>();
-  if (err == cudaSuccess) err = allow<40, kSec35>();
+  cudaError_t err = allow<8, kSec35, kGap>();
+  if (err == cudaSuccess) err = allow<16, kSec35, kGap>();
+  if (err == cudaSuccess) err = allow<24, kSec35, kGap>();
+  if (err == cudaSuccess) err = allow<40, kSec35, kGap>();
   return err;
 }
 
-template <bool kSec35>
-void launch(const Args& args, long long d1, size_t bytes, cudaStream_t s) {
+template <bool kSec35, bool kGap>
+void launch(const Args& args, float* gap, long long d1, size_t bytes,
+            cudaStream_t s) {
   if (d1 <= 8 * kThreads)
-    approx_pass_kernel<8, kSec35><<<1, kThreads, bytes, s>>>(args);
+    approx_pass_kernel<8, kSec35, kGap><<<1, kThreads, bytes, s>>>(args, gap);
   else if (d1 <= 16 * kThreads)
-    approx_pass_kernel<16, kSec35><<<1, kThreads, bytes, s>>>(args);
+    approx_pass_kernel<16, kSec35, kGap><<<1, kThreads, bytes, s>>>(args,
+                                                                    gap);
   else if (d1 <= 24 * kThreads)
-    approx_pass_kernel<24, kSec35><<<1, kThreads, bytes, s>>>(args);
+    approx_pass_kernel<24, kSec35, kGap><<<1, kThreads, bytes, s>>>(args,
+                                                                    gap);
   else
-    approx_pass_kernel<40, kSec35><<<1, kThreads, bytes, s>>>(args);
+    approx_pass_kernel<40, kSec35, kGap><<<1, kThreads, bytes, s>>>(args,
+                                                                    gap);
 }
 
 }  // namespace
@@ -1231,8 +1284,9 @@ extern "C" long long approx_pass_smem_bytes(int d, int cap, int steps,
 // Once, when the library loads (never inside a graph capture): dynamic
 // shared memory above 48 KB for every build.  Returns a cudaError_t.
 extern "C" int approx_pass_init(void) {
-  cudaError_t err = allow_all<false>();
-  if (err == cudaSuccess) err = allow_all<true>();
+  cudaError_t err = allow_all<false, false>();
+  if (err == cudaSuccess) err = allow_all<false, true>();
+  if (err == cudaSuccess) err = allow_all<true, false>();
   return static_cast<int>(err);
 }
 
@@ -1245,7 +1299,7 @@ extern "C" long long approx_pass_wide_scratch_words(int cap) {
 // The wide kernel's shared memory in bytes (plan's smem_bytes for it).
 extern "C" long long approx_pass_wide_smem_bytes(void) {
   cudaFuncAttributes attr;
-  if (cudaFuncGetAttributes(&attr, approx_pass_wide_kernel<false>) !=
+  if (cudaFuncGetAttributes(&attr, approx_pass_wide_kernel<false, false>) !=
       cudaSuccess)
     return -1;
   return static_cast<long long>(attr.sharedSizeBytes);
@@ -1259,13 +1313,15 @@ extern "C" int approx_pass_wide_launch(float* phi, float* phi_i, float* bar,
                                        const bool* valid, int* last_active,
                                        const float* gram,
                                        const long long* perm, const bool* go,
-                                       long long n, int n_perm, int cap,
+                                       float* gap, long long n, int n_perm,
+                                       int cap,
                                        int d, int steps, int outer_it,
                                        float lam, float inv_lam,
                                        long long k0, int* scratch,
                                        void* stream) {
   if (n_perm < 0 || cap < 1 || d < 1 || steps < 0 ||
-      (steps > 0 && gram == nullptr) || scratch == nullptr)
+      (steps > 0 && (gram == nullptr || gap != nullptr)) ||
+      scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_perm == 0) return 0;
   Args args{phi,  phi_i, bar,   planes, valid, last_active, gram,
@@ -1273,26 +1329,34 @@ extern "C" int approx_pass_wide_launch(float* phi, float* phi_i, float* bar,
             outer_it, 0, 1, lam, inv_lam, k0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (steps > 0)
-    approx_pass_wide_kernel<true><<<1, kThreads, 0, s>>>(args, scratch);
+    approx_pass_wide_kernel<true, false><<<1, kThreads, 0, s>>>(
+        args, scratch, nullptr);
+  else if (gap != nullptr)
+    approx_pass_wide_kernel<false, true><<<1, kThreads, 0, s>>>(
+        args, scratch, gap);
   else
-    approx_pass_wide_kernel<false><<<1, kThreads, 0, s>>>(args, scratch);
+    approx_pass_wide_kernel<false, false><<<1, kThreads, 0, s>>>(
+        args, scratch, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// steps == 0 runs the plain pass (gram unread), steps > 0 the Sec-3.5 one;
-// `rows` and `nbuf` are the plan's (kernels/approx_pass.py::plan).
+// steps == 0 runs the plain pass (gram unread; `gap` may take the gap
+// estimates), steps > 0 the Sec-3.5 one (gap must be null); `rows` and
+// `nbuf` are the plan's (kernels/approx_pass.py::plan).
 extern "C" int approx_pass_launch(float* phi, float* phi_i, float* bar,
                                   const float* planes, const bool* valid,
                                   int* last_active, const float* gram,
                                   const long long* perm, const bool* go,
-                                  long long n, int n_perm, int cap, int d,
+                                  float* gap, long long n, int n_perm,
+                                  int cap, int d,
                                   int steps, int outer_it, float lam,
                                   float inv_lam, long long k0, int rows,
                                   int nbuf, void* stream) {
   const long long d1 = static_cast<long long>(d) + 1;
   if (n_perm < 0 || cap < 1 || d < 1 || steps < 0 ||
-      (steps > 0 && gram == nullptr) || rows < 0 || rows > cap ||
+      (steps > 0 && (gram == nullptr || gap != nullptr)) || rows < 0 ||
+      rows > cap ||
       (nbuf != 1 && nbuf != 2) || d1 > kMaxD1 ||
       (steps > 0 && cap > 8 * kWarp))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1305,8 +1369,10 @@ extern "C" int approx_pass_launch(float* phi, float* phi_i, float* bar,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t bytes = static_cast<size_t>(smem);
   if (steps > 0)
-    launch<true>(args, d1, bytes, s);
+    launch<true, false>(args, nullptr, d1, bytes, s);
+  else if (gap != nullptr)
+    launch<false, true>(args, gap, d1, bytes, s);
   else
-    launch<false>(args, d1, bytes, s);
+    launch<false, false>(args, nullptr, d1, bytes, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -107,14 +107,19 @@ def approx_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,
                 lam: float, k0: int, outer_it: int,
                 gram: Optional[torch.Tensor] = None,
                 steps: Optional[int] = None,
-                go: Optional[torch.Tensor] = None) -> None:
+                go: Optional[torch.Tensor] = None,
+                gap: Optional[torch.Tensor] = None) -> None:
     """One approximate pass of MP-BCFW over the blocks of ``perm`` (int64,
     on the state's device), in place on the dual state ``phi (d+1,)``,
     ``phi_i (n, d+1)``, the approximate-track average ``bar (d+1,)`` (its
     count at pass start is ``k0``) and the cache's ``last_active``
     stamps (``outer_it``).  ``steps`` selects the Sec-3.5 scheme over the
     ``gram`` leaf.  A ``go`` flag (one-element bool tensor) that is false
-    makes the pass a no-op; the kernel reads it, not the host.
+    makes the pass a no-op; the kernel reads it, not the host.  In the
+    plain mode a ``gap`` vector (float32 ``(n,)``) takes each visited
+    block's gap estimate, ``max(s - <phi_i, [w 1]>, 0)`` with ``s`` the
+    chosen plane's score (0 for an empty set) and ``phi_i`` the row
+    before its update; the Sec-3.5 mode refuses it.
 
     CUDA tensors only.  The plain version is built from the core's block
     steps, so it lives in the core (:func:`repro_torch.core.mpbcfw.
@@ -122,7 +127,7 @@ def approx_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,
     between the two by the state's device."""
     return _ap.approx_pass(phi, phi_i, bar, planes, valid, last_active, perm,
                            lam=lam, k0=k0, outer_it=outer_it, gram=gram,
-                           steps=steps, go=go)
+                           steps=steps, go=go, gap=gap)
 
 
 def load(*names: str) -> None:

@@ -287,12 +287,20 @@ def test_approx_oracle_matches_jax(d):
 
 def test_unported_cache_layouts_raise():
     """The Gram leaf is ported (its shape here, its rows in
-    tests/test_torch_gram.py); the gap vector still raises."""
+    tests/test_torch_gram.py), and so is the gap vector: a (n,) float32
+    vector filled with GAP_UNSEEN, as the reference's; only float32
+    planes are taken."""
     c = tcache.init(CacheLayout(cap=4, gram=True), 2, 3, "cpu")
     assert c.gram.shape == (2, 4, 4) and c.gram.dtype == torch.float32
+    assert c.gap is None
     assert tcache.init(CacheLayout(cap=4), 2, 3, "cpu").gram is None
-    with pytest.raises(NotImplementedError, match="A6"):
-        tcache.init(CacheLayout(cap=4, track_gap=True), 2, 3, "cpu")
+    g = tcache.init(CacheLayout(cap=4, track_gap=True), 2, 3, "cpu").gap
+    want = np.asarray(jcache.init(jcache.CacheLayout(cap=4, track_gap=True),
+                                  2, 3).gap)
+    assert g.dtype == torch.float32 and (g.numpy() == want).all()
+    assert (g == tcache.GAP_UNSEEN).all()
+    with pytest.raises(NotImplementedError, match="float32"):
+        tcache.init(CacheLayout(cap=4, dtype=torch.float64), 2, 3, "cpu")
 
 
 # -- data, configs, chain oracle ---------------------------------------------
@@ -427,7 +435,9 @@ def test_port_never_imports_jax_or_the_reference_package():
             "kernels/moe_ffn.py", "kernels/flash_attention.py",
             "trainer/ssvm_head.py", "launch/serve.py", "obs/metrics.py",
             "serve/__init__.py", "serve/export.py", "serve/engine.py",
-            "serve/batcher.py", "serve/metrics.py"} <= names
+            "serve/batcher.py", "serve/metrics.py", "policy/__init__.py",
+            "policy/base.py", "policy/sampling.py", "policy/eviction.py",
+            "policy/oracle.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

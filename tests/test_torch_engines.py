@@ -30,7 +30,7 @@ from repro_torch.core.ssvm import init_state, weights_of
 
 torch.set_num_threads(1)
 PORTED = ("fw", "ssg", "bcfw", "bcfw-avg", "mpbcfw", "mpbcfw-avg",
-          "mpbcfw-gram", "mpbcfw-async")
+          "mpbcfw-gap", "mpbcfw-gram", "mpbcfw-async")
 
 
 @pytest.fixture(scope="module")
@@ -71,7 +71,8 @@ def test_capabilities_equal_the_references(name, problem):
 
 
 @pytest.mark.parametrize("algo,match", [
-    ("mpbcfw-gap", "not yet ported"), ("mpbcfw-shard", "not yet ported"),
+    ("mpbcfw-shard-gram", "not yet ported"),
+    ("mpbcfw-shard", "not yet ported"),
     ("mpbcfw-shard-async", "not yet ported"), ("nope", "unknown algorithm"),
     ("", "unknown algorithm")])
 def test_lookup_of_a_name_the_port_does_not_run(algo, match):
@@ -161,7 +162,7 @@ def test_a_hook_vetoes_by_raising_and_late_hooks_can_skip_the_past():
             entry.capabilities, collectives_per_pass=None)))
 
     try:
-        with pytest.raises(ValueError, match="mpbcfw-gram: undeclared"):
+        with pytest.raises(ValueError, match="mpbcfw-gap: undeclared"):
             add_registration_hook(strict)
     finally:
         remove_registration_hook(strict)
@@ -174,11 +175,13 @@ def test_a_hook_vetoes_by_raising_and_late_hooks_can_skip_the_past():
     ("mpbcfw", dict(gap_tol=-1.0), "gap_tol"),
     ("mpbcfw", dict(ttl=0), "ttl must be >= 1"),
     ("mpbcfw-async", dict(ttl=-2), "ttl must be >= 1"),
-    ("bcfw", dict(mesh="data"), "only consumed by \\('mpbcfw-gram',\\)"),
+    ("bcfw", dict(mesh="data"),
+     "only consumed by \\('mpbcfw-gap', 'mpbcfw-gram'\\)"),
     ("mpbcfw", dict(tau=4), "tau-nice chunk size"),
     ("mpbcfw-gram", dict(tau=4), "only consumes RunConfig.tau on a mesh"),
     ("bcfw", dict(policies=("uniform",)), "predates the policy layer"),
-    ("mpbcfw", dict(policies=("uniform",)), "not yet ported")])
+    ("mpbcfw", dict(policies=("uniform",)),
+     "missing a eviction/oracle policy")])
 def test_validate_config_refuses_by_capability(algo, kw, match):
     with pytest.raises(UnsupportedConfigError, match=match):
         validate_config(engine_entry(algo), _MeshConfig(lam=0.1, algo=algo,

@@ -1395,3 +1395,226 @@ def test_served_labels_follow_new_weights_on_card(cuda):
     assert any(not np.array_equal(a, b) for a, b in zip(first, second))
     for ex, lab in zip(reqs, second):
         assert np.array_equal(lab, model.decode(ex).cpu().numpy())
+
+
+# -- the gap output of approx_pass, and mpbcfw-gap on the card ----------------
+
+def _eager_gap_replay(t, perm, lam=1.0 / 6877, k0=7000):
+    """The plain version with the gap output, one block per call (the same
+    pass), recording for each block its last visit's two scores: the
+    chosen plane's ``s`` and the iterate's ``s_i = <phi_i, [w 1]>``.
+    Returns the state, the gap vector and per block the allowance of its
+    gap (:func:`_gap_allowed`) and ``s - s_i``."""
+    from repro_torch import cache as tcache
+    from repro_torch.core.bcfw import plane_score
+    from repro_torch.core.ssvm import weights_of
+    st = {k: t[k].clone() for k in ("phi", "phi_i", "bar", "last")}
+    gap = t["gap"].clone()
+    cache = tcache.PlaneCache(planes=t["planes"], valid=t["valid"],
+                              last_active=st["last"])
+    n = gap.shape[0]
+    allowed = torch.zeros(n, dtype=torch.float32, device=gap.device)
+    raw = torch.zeros_like(allowed)
+    one = gap.new_ones(1)
+    for pos, i in enumerate(perm.tolist()):
+        w = weights_of(st["phi"], lam)
+        p, _, s = tcache.approx_oracle(cache, i, w)
+        row, wa = st["phi_i"][i], torch.cat([w.abs(), one])
+        s_i = plane_score(row, w)
+        allowed[i] = _gap_allowed(s.abs() + s_i.abs(),
+                                  p.abs() @ wa + row.abs() @ wa)
+        raw[i] = s - s_i
+        eager_pass(st["phi"], st["phi_i"], st["bar"], t["planes"],
+                   t["valid"], st["last"], perm[pos:pos + 1], lam=lam,
+                   k0=k0 + pos, outer_it=5, gap=gap)
+    return st, gap, allowed, raw
+
+
+def _gap_allowed(scale, terms):
+    """A block gap's allowance: 3e-5 (|s| + |s_i|) plus 64 float32 ulps
+    of the two scores' dots' sum of |terms| (their rounding scale; the gap
+    is their difference, so no relative tolerance on it holds)."""
+    return 3e-5 * scale + 64 * 2.0 ** -24 * terms
+
+
+GAP_CASES = [(512, 64, 4004), (33, 5, 7), (40, 16, 10265),
+             (12, 16, 25625), (6, 4096, 7), (12, 16, 20505)]
+
+
+@pytest.mark.parametrize("n,cap,d", GAP_CASES)
+def test_approx_pass_gap_output_matches_plain(cuda, n, cap, d):
+    """approx_pass with the gap output, staged and wide plans, against the
+    plain version: each visited block's gap within its allowance
+    (:func:`_gap_allowed`) of the plain one's, 0 exactly where the plain
+    value clamps a clear negative (and for an empty block whose iterate
+    scores above 0),
+    unvisited blocks untouched; every other output bit-equal to the
+    launch without the gap output, and equal to the plain pass within
+    TOL."""
+    from repro_torch.kernels import approx_pass as t_ap
+    t, _, perm = _pass_state(n, cap, d, None, 31 * n + cap, cuda)
+    t["valid"][perm[: max(1, n // 8)]] = False          # empty blocks
+    # An empty block whose iterate scores far above 0 (its phi_i row
+    # negated): the plain gap is clearly negative and clamps to 0.
+    t["phi_i"][perm[0]] *= -1.0
+    if n > 8:
+        perm = perm[: n - 2].contiguous()               # two unvisited
+    r = np.random.RandomState(n + d)
+    gap0 = np.where(r.rand(n) < 0.5, np.float32(1e30),
+                    r.rand(n)).astype(np.float32)
+    t["gap"] = torch.from_numpy(gap0).to(cuda)
+    keys = ("phi", "phi_i", "bar", "last")
+    got = {k: t[k].clone() for k in keys}
+    got_gap = t["gap"].clone()
+    plain = {k: t[k].clone() for k in keys}
+    before = ops.launch_counts()["approx_pass"]
+    _run_pass(ops.approx_pass, got, t["planes"], t["valid"], None, perm,
+              None)
+    got_state = {k: v.clone() for k, v in got.items()}
+    got = {k: t[k].clone() for k in keys}
+    ops.approx_pass(got["phi"], got["phi_i"], got["bar"], t["planes"],
+                    t["valid"], got["last"], perm, lam=1.0 / 6877, k0=7000,
+                    outer_it=5, gap=got_gap)
+    _run_pass(ops.approx_pass, plain, t["planes"], t["valid"], None, perm,
+              None)
+    assert ops.launch_counts()["approx_pass"] == before + 3
+    for k in keys:
+        assert torch.equal(got[k], got_state[k]), k
+        assert torch.equal(plain[k], got_state[k]), k
+    want, want_gap, allowed, raw = _eager_gap_replay(t, perm)
+    assert torch.equal(got["last"], want["last"])
+    for k in ("phi", "phi_i", "bar"):
+        assert_allclose(got[k].cpu().numpy(), want[k].cpu().numpy(), **TOL)
+    seen = torch.zeros(n, dtype=torch.bool, device=cuda)
+    seen[perm] = True
+    err = (got_gap - want_gap).abs()
+    assert bool((err[seen] <= allowed[seen]).all()), float(err[seen].max())
+    assert torch.equal(got_gap[~seen], t["gap"][~seen])
+    clear = seen & (raw < -allowed)
+    assert bool((got_gap[clear] == 0).all()) and bool(clear.any())
+    assert bool((got_gap[seen] >= 0).all())
+    assert t_ap.plan(d, cap).wide == (d >= 20480 or cap == 4096)
+
+
+@pytest.mark.parametrize("n,cap,d", [(512, 64, 4004), (12, 16, 25625)])
+def test_approx_pass_gap_output_is_deterministic(cuda, n, cap, d):
+    t, _, perm = _pass_state(n, cap, d, None, 3, cuda)
+    first = None
+    for _ in range(10):
+        st = {k: t[k].clone() for k in ("phi", "phi_i", "bar", "last")}
+        gap = torch.full((n,), 1e30, device=cuda)
+        ops.approx_pass(st["phi"], st["phi_i"], st["bar"], t["planes"],
+                        t["valid"], st["last"], perm, lam=1.0 / 6877,
+                        k0=7000, outer_it=5, gap=gap)
+        first = first or (st, gap)
+        assert torch.equal(gap, first[1])
+        for k in st:
+            assert torch.equal(st[k], first[0][k]), k
+
+
+def test_approx_pass_refuses_the_gap_output_in_the_sec35_mode(cuda):
+    t, gram, perm = _pass_state(8, 4, 16, 10, 1, cuda)
+    st = {k: t[k].clone() for k in ("phi", "phi_i", "bar", "last")}
+    with pytest.raises(ValueError, match="plain mode"):
+        ops.approx_pass(st["phi"], st["phi_i"], st["bar"], t["planes"],
+                        t["valid"], st["last"], perm, lam=0.1, k0=0,
+                        outer_it=1, gram=gram, steps=10,
+                        gap=torch.zeros(8, device=cuda))
+    with pytest.raises(ValueError, match="gap must be"):
+        ops.approx_pass(st["phi"], st["phi_i"], st["bar"], t["planes"],
+                        t["valid"], st["last"], perm, lam=0.1, k0=0,
+                        outer_it=1, gap=torch.zeros(9, device=cuda))
+
+
+def test_gap_schedule_on_card_equals_cpu(cuda):
+    """The gumbel-top-k on the card equals the CPU's for the same gap
+    vector and seed (the noise is drawn on the host either way), the
+    all-unseen vector in index order at k < n and k = n."""
+    from repro_torch import cache as tcache
+    from repro_torch.policy import GAP_POLICIES, make_bundle
+    for case in range(8):
+        r = np.random.RandomState(case)
+        n = (16, 6877, 200, 120)[case % 4]
+        gap = (r.rand(n) * 10.0 ** r.uniform(-6, 0, n)).astype(np.float32)
+        gap[r.rand(n) < 0.2] = np.float32(1e30)
+        if case == 0:
+            gap[:] = np.float32(1e30)
+        for k in (1, round(0.5 * n), n):
+            b = make_bundle(GAP_POLICIES, RunConfig(lam=0.1,
+                                                    gap_frac=k / n), n)
+            ids = {}
+            for dev in ("cpu", cuda):
+                c = tcache.init(tcache.CacheLayout(cap=1, track_gap=True),
+                                n, 1, dev)
+                c.gap.copy_(torch.from_numpy(gap))
+                ids[str(dev)] = b.sampling.schedule(c, None, 77 + case)
+            assert ids["cuda"].device.type == "cuda"
+            assert torch.equal(ids["cuda"].cpu(), ids["cpu"]), (case, k)
+            if case == 0:
+                assert torch.equal(ids["cpu"], torch.arange(k))
+
+
+def test_gap_solver_on_card_matches_cpu_run(cuda):
+    """mpbcfw-gap, 4 iterations of SMALL ocr: every schedule equal, duals,
+    primals and gap_total within rtol 1e-4, one dispatch and one sync per
+    iteration, one replay per exact block."""
+    from repro_torch.configs.paper import SMALL
+    from repro_torch.policy import GapSampling
+    sc = SMALL["ocr"]
+    X, Y, M = ocr_like(n=sc.n, f=sc.f, num_labels=sc.num_classes,
+                       mean_len=sc.mean_len, max_len=sc.max_len, seed=0)
+    logs = {}
+    inner = GapSampling.schedule
+    runs = {}
+    for dev in ("cpu", cuda):
+        log = logs.setdefault(str(dev), [])
+
+        def recorded(self, cache, perm, key, log=log):
+            ids = inner(self, cache, perm, key)
+            log.append(ids.cpu())
+            return ids
+        GapSampling.schedule = recorded
+        try:
+            solver = Solver(
+                chain.make_problem(X, Y, M, sc.num_classes, device=dev),
+                RunConfig(lam=1 / sc.n, algo="mpbcfw-gap", max_iters=4,
+                          cap=16, approx_batch=8, max_approx_passes=8,
+                          cost_model=CostModel(0.3, 1e-4)))
+            runs[str(dev)] = (solver, solver.run().trace)
+        finally:
+            GapSampling.schedule = inner
+    (gs, g_rows), (_, c_rows) = runs["cuda"], runs["cpu"]
+    k = round(0.5 * sc.n)
+    for it, (g, c) in enumerate(zip(g_rows, c_rows)):
+        assert torch.equal(logs["cuda"][it], logs["cpu"][it]), it
+        assert (g.n_exact, g.n_approx, g.approx_passes, g.gap_sampled) == (
+            c.n_exact, c.n_approx, c.approx_passes, c.gap_sampled)
+        assert g.gap_sampled == k
+        assert (g.dispatches, g.host_syncs) == (1, 1)
+        for f in ("dual", "primal", "gap_total"):
+            assert_allclose(getattr(g, f), getattr(c, f), rtol=1e-4)
+    assert torch.equal(logs["cuda"][0], torch.arange(k))
+    assert gs.engine.graphs.replays == 4 * k - 1
+
+
+def test_exact_graph_is_keyed_by_the_gap_vector(cuda):
+    """One StepGraphs, a plain state then a gap-tracking one: the second
+    captures its own body (which writes the gap vector) instead of
+    replaying the first's."""
+    from repro_torch.cache import CacheLayout
+    from repro_torch.core import mpbcfw
+    from repro_torch.core.graphs import StepGraphs
+    X, Y, M = ocr_like(n=24, f=8, num_labels=5, mean_len=6, max_len=8,
+                       seed=1)
+    prob = chain.make_problem(X, Y, M, 5, device=cuda)
+    graphs = StepGraphs()
+    lam = 1.0 / 24
+    plain = mpbcfw.init_mp_state(prob, CacheLayout(cap=4))
+    mpbcfw.exact_pass(prob, plain, np.arange(8), lam, graphs=graphs)
+    assert graphs.replays == 7
+    gap = mpbcfw.init_mp_state(prob, CacheLayout(cap=4, track_gap=True))
+    ids = torch.arange(8, device=cuda)
+    mpbcfw.exact_pass(prob, gap, ids, lam, graphs=graphs)
+    assert graphs.replays == 14           # one more eager warm-up step
+    assert bool((gap.cache.gap[:8] < 1e29).all())
+    assert bool((gap.cache.gap[8:] == 1e30).all())

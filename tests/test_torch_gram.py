@@ -235,9 +235,13 @@ def test_convert_carries_the_gram_leaf(gram_midrun):
         host._replace(cache=host.cache._replace(gram=None)), "cpu")
     assert plain.cache.gram is None
     assert convert.mp_state_to_numpy(plain)["gram"] is None
-    with pytest.raises(NotImplementedError, match="A6"):
-        convert.mp_state_from_numpy(host._replace(cache=host.cache._replace(
-            gap=np.zeros(host.cache.valid.shape[0], np.float32))), "cpu")
+    # A gap vector beside the Gram leaf is carried too, both ways.
+    gap = np.linspace(0.0, 1.0, host.cache.valid.shape[0], dtype=np.float32)
+    both = convert.mp_state_from_numpy(host._replace(
+        cache=host.cache._replace(gap=gap)), "cpu")
+    assert (both.cache.gap.numpy() == gap).all()
+    assert (convert.mp_state_to_numpy(both)["gap"] == gap).all()
+    assert (convert.mp_state_to_numpy(both)["gram"] == host.cache.gram).all()
 
 
 # -- whole Solver runs -------------------------------------------------------

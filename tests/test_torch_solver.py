@@ -286,7 +286,8 @@ def test_solver_stopping_criteria_and_callbacks():
     assert len(list(solver.iterate())) == 0   # resumable, still stopped
 
 
-@pytest.mark.parametrize("algo,match", [("mpbcfw-gap", "not yet ported"),
+@pytest.mark.parametrize("algo,match", [("mpbcfw-shard-avg",
+                                         "not yet ported"),
                                         ("mpbcfw-shard-tau",
                                          "not yet ported"),
                                         ("mpbcfw-shard", "not yet ported"),
