@@ -49,6 +49,24 @@ Phases, one JSON line each (seconds on an H100 in brackets):
                  (device busy share, kernels per block step, device time
                  by kernel); the pass kernel's full-pass ms and us per
                  block beside the eager loop's, with its plan [~15].
+  5b. obs     -- main again with a RunRecorder (repro_torch.obs): a fresh
+                 mpbcfw at main's settings and seed, every recorder
+                 callback under torch.cuda.set_sync_debug_mode("error");
+                 rows bit-equal to main's, launch counts equal, the JSONL
+                 schema-valid, its summary one sync and one dispatch per
+                 iteration within budget, its Chrome-trace export written;
+                 the recorder's host ms per iteration beside main's
+                 seconds per iteration [~4].
+  5c. obs_wall -- the same run in wall mode with approx_batch 2 and at
+                 most 8 passes, 2 iterations from the wall-mode defaults
+                 reported first, then 3 from profile's measured
+                 constants, checked: one sync and one measured segment per
+                 dispatch, the Solver's slope-rule constants the
+                 recorder's fit of the segments, measured approx_passes
+                 spans for the continuations, each iteration's phase spans
+                 tiling its outer_iteration span; the fitted (exact_cost,
+                 plane_cost) beside profile's exact and approximate pass
+                 [~6].
   6. parity_async  -- mpbcfw-async on the card against the CPU on the
                  CI-sized OCR scenario, with the same straggler mask.
   7. main_async    -- the pipelined path: Solver + mpbcfw-async on the
@@ -78,6 +96,13 @@ Phases, one JSON line each (seconds on an H100 in brackets):
                  [~60].
  11. resume   -- mpbcfw-gram on the card, CI-sized OCR: 2 iterations, save,
                  restore, 2 more, bit for bit against 4 uninterrupted ones.
+ 11b. obs_checkpoint -- SMALL ocr, a recorded mpbcfw run saves after 2
+                 iterations, a recorded restore resumes it:
+                 checkpoint_save/checkpoint_restore spans, the manifest's
+                 metrics the registry snapshot, the restored snapshot
+                 equal; then 2 iterations under RunRecorder(profile=True)
+                 inside torch.profiler, one outer_iteration range each
+                 [~5].
  12. parity_specs -- the multiclass and graph scenarios (SMALL usps and
                  horseseg), mpbcfw on the card against the CPU.
  13. parity_lm -- the LM substrate on the card against the port on the
@@ -134,6 +159,12 @@ Phases, one JSON line each (seconds on an H100 in brackets):
                  per round, B3 once per round), every labeling held to the
                  per-example decode; requests/s, labels/s, latency
                  quantiles, peak memory [~8].
+ 13e'. serve_obs -- the same model and requests served with a RunRecorder:
+                 labels equal to serve's, serve_round spans = rounds = B3
+                 launches, one serve_request event per request, the file
+                 schema-valid, callbacks under sync-debug "error"; ms per
+                 round without and with the recorder on one warmed engine
+                 [~8].
  13f. serve_usps, serve_horseseg -- serving at full usps width (n=7291,
                  f=256, C=10; every request held to the per-example
                  decode) and full horseseg width (16x16 lattices, f=649,
@@ -1035,7 +1066,7 @@ def phase_main(torch, data):
          iterations=len(rows), wall_s_per_iteration=walls,
          max_memory_allocated=peak, launches=launches,
          n_exact=last.n_exact, n_approx=last.n_approx, graph_replays=replays)
-    return launches, solver
+    return launches, solver, walls
 
 
 def graph_window(torch, run, graphs, blocks: int, kernels=()):
@@ -1153,7 +1184,7 @@ def phase_profile(torch, solver, n_exact: int = 1024):
                   plan=approx_plan(problem.d, c.valid.shape[1]))
     timing["us_per_block"] = 1e3 * timing["ms"] / n
     emit("profile", scenario="OCR", approx_pass_full=timing, **out)
-    return timing
+    return dict(timing, exact_ms_per_block=out["exact"]["ms_per_block"])
 
 
 def phase_parity_async(torch):
@@ -2538,7 +2569,7 @@ def score_bit_differences(torch, model, engine, reqs):
 
 
 def serve_and_check(torch, phase: str, model, reqs, checked, *,
-                    chain: bool, **info):
+                    chain: bool, keep=None, **info):
     """Serve ``reqs`` through a :class:`StructuredServer` on the card
     (``SERVE_BATCH`` rows, buckets on a ``SERVE_GRANULARITY`` grid), all
     admitted up front, launch counts reset just before and read just
@@ -2551,7 +2582,8 @@ def serve_and_check(torch, phase: str, model, reqs, checked, *,
     Checks one dispatch, one sync and one graph replay per round, one
     captured graph per occupied bucket, and B3 launched once per round on
     a chain model and never otherwise.  Emits ``phase``; returns the
-    launch counts."""
+    launch counts, and puts the served labels, in request order, under
+    ``keep["served"]`` when ``keep`` is a dict."""
     import numpy as np
     from repro_torch.kernels import ops
     from repro_torch.serve import StructuredServer, bucket_key
@@ -2585,6 +2617,8 @@ def serve_and_check(torch, phase: str, model, reqs, checked, *,
     check(launches == want, f"{phase}: launches {launches}, expected "
           f"{want}")
     served = [r.labels for r in sorted(done, key=lambda r: r.rid)]
+    if keep is not None:
+        keep["served"] = served
     t1 = time.perf_counter()
     wrong, near_ties = [], []
     for i in checked:
@@ -2675,7 +2709,7 @@ def chain_requests(X, Y, M):
             for i, L in enumerate(M.sum(axis=1).tolist())]
 
 
-def phase_serve(torch, model, data):
+def phase_serve(torch, model, data, keep=None):
     """The trained full-size OCR model (``main``'s 3 iterations, exported
     by ``Solver.servable()`` right after them) saved, loaded onto the card
     and served: all 6877 training examples trimmed to their lengths
@@ -2696,7 +2730,7 @@ def phase_serve(torch, model, data):
           "serve: the loaded model differs from the export")
     return serve_and_check(
         torch, "serve", loaded, chain_requests(*data), range(OCR["n"]),
-        chain=True, scenario="OCR",
+        chain=True, keep=keep, scenario="OCR",
         d=loaded.d, meta=loaded.meta, save_s=save_s, load_s=load_s)
 
 
@@ -2738,6 +2772,431 @@ def phase_serve_specs(torch):
         scenario="HORSESEG",
         d=model.d, data_s=data_s)
     return out
+
+
+# -- observability on the card ------------------------------------------------
+
+
+def sync_checked_recorder(torch, path, **kw):
+    """A :class:`repro_torch.obs.RunRecorder` whose every callback (the
+    Solver's row callback and phase fit, the server's spans and events,
+    open and close) runs under ``torch.cuda.set_sync_debug_mode("error")``,
+    so a host sync inside one raises; it counts its callbacks and their
+    host seconds by callback (outermost calls only; ``host_s`` the rows'
+    and phase fits' alone, the per-iteration cost, without open and
+    close)."""
+    from repro_torch.obs import RunRecorder
+
+    class SyncChecked(RunRecorder):
+        def __init__(self, *a, **k):
+            self.calls, self._depth, self.host_by = 0, 0, {}
+            super().__init__(*a, **k)
+
+        @property
+        def host_s(self):
+            return sum(v for k, v in self.host_by.items()
+                       if k not in ("open_run", "open_custom", "close"))
+
+        def _guard(self, fn, *a, **k):
+            if self._depth:
+                return fn(*a, **k)
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            self._depth += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                name = fn.__name__
+                self.host_by[name] = (self.host_by.get(name, 0.0)
+                                      + time.perf_counter() - t0)
+                self.calls += 1
+                self._depth -= 1
+                torch.cuda.set_sync_debug_mode(prev)
+
+        def open_run(self, solver):
+            return self._guard(super().open_run, solver)
+
+        def open_custom(self, **k):
+            return self._guard(super().open_custom, **k)
+
+        def __call__(self, solver, row):
+            return self._guard(super().__call__, solver, row)
+
+        def observe_phases(self, segments):
+            return self._guard(super().observe_phases, segments)
+
+        def span_record(self, *a, **k):
+            return self._guard(super().span_record, *a, **k)
+
+        def event(self, *a, **k):
+            return self._guard(super().event, *a, **k)
+
+        def close(self):
+            return self._guard(super().close)
+    return SyncChecked(path, **kw)
+
+
+def check_phase_tiling(phase: str, run) -> float:
+    """Each iteration's phase spans tile its ``outer_iteration`` span: the
+    first starts at its start, each next one where the previous ended, the
+    last no later than its end.  Returns the largest uncovered tail (the
+    loop's host work after the iteration's last sync), seconds."""
+    tail = 0.0
+    for outer in (s for s in run["spans"] if s["name"] == "outer_iteration"):
+        it = outer["iteration"]
+        ph = sorted(((s["t0"], s["t1"]) for s in run["spans"]
+                     if s.get("iteration") == it
+                     and s["name"] != "outer_iteration"))
+        check(ph and ph[0][0] == outer["t0"],
+              f"{phase}: iteration {it}'s phases start at {ph[:1]}, its "
+              f"span at {outer['t0']}")
+        for (_, a1), (b0, _) in zip(ph, ph[1:]):
+            check(abs(b0 - a1) <= 1e-9 * max(1.0, abs(a1)),
+                  f"{phase}: iteration {it}'s phases leave a gap "
+                  f"{a1}..{b0}")
+        check(ph[-1][1] <= outer["t1"] + 1e-9,
+              f"{phase}: iteration {it}'s phases end at {ph[-1][1]}, after "
+              f"its span's end {outer['t1']}")
+        tail = max(tail, outer["t1"] - ph[-1][1])
+    return tail
+
+
+def check_trace_file(phase: str, path, rows: int):
+    """The recorded file: valid under the port's schema, its summary's
+    contract one sync and one dispatch per iteration within budget, its
+    Chrome-trace export holding X, C and M events.  Returns the summary."""
+    from repro_torch.obs import (export_chrome_trace, load_run, summarize,
+                                 validate_file)
+    count, errs = validate_file(path)
+    check(not errs, f"{phase}: schema errors {errs[:5]}")
+    run = load_run(path)
+    s = summarize(run)
+    check(s["iterations"] == rows, f"{phase}: {s['iterations']} rows in "
+          f"the file for {rows} iterations")
+    out = Path(str(path) + ".trace.json")
+    n = export_chrome_trace(path, out)
+    phs = {e["ph"] for e in json.loads(out.read_text())["traceEvents"]}
+    check({"X", "C", "M"} <= phs, f"{phase}: trace event kinds {phs}")
+    return run, s, dict(records=count, trace_events=n,
+                        trace_kinds=sorted(phs))
+
+
+def phase_obs(torch, data, main_rows, main_launches, main_walls):
+    """``main`` again with a RunRecorder: a fresh mpbcfw on the full-size
+    OCR scenario, main's RUN, CostModel and seed, every recorder callback
+    under sync-debug "error".  Rows bit-equal to main's, launch counts
+    equal, the file schema-valid with one sync and one dispatch per
+    iteration within budget, its Chrome-trace export written.  Returns the
+    launch counts.  ~6 s."""
+    t_phase = time.perf_counter()
+    import dataclasses
+    import tempfile
+    from repro_torch.api import CostModel, RunConfig, Solver
+    from repro_torch.core.oracles import chain
+    from repro_torch.kernels import ops
+    X, Y, M = data
+    n = OCR["n"]
+    problem = chain.make_problem(X, Y, M, OCR["num_labels"], device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "obs.jsonl"
+        rec = sync_checked_recorder(torch, path)
+        solver = Solver(problem, RunConfig(
+            lam=1.0 / n, cost_model=CostModel(oracle_cost=ORACLE_COST,
+                                              plane_cost=PLANE_COST),
+            **RUN), recorder=rec)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        rows, walls = drive(torch, solver, "obs")
+        launches = ops.launch_counts()
+        rec.close()
+        calls, host_s, host_by = rec.calls, rec.host_s, rec.host_by
+        check(calls == 2 + len(rows), f"obs: {calls} recorder callbacks "
+              f"under sync-debug error for {len(rows)} rows")
+        check(len(rows) == len(main_rows) and all(
+            dataclasses.astuple(a) == dataclasses.astuple(b)
+            for a, b in zip(rows, main_rows)),
+            f"obs: rows differ from main's: {rows} vs {main_rows}")
+        check(launches == main_launches,
+              f"obs: launches {launches}, main's {main_launches}")
+        check(launches["viterbi_decode"] > 0 and launches["approx_pass"] > 0,
+              f"obs: launches {launches}")
+        run, s, info = check_trace_file("obs", path, len(rows))
+        c = s["contract"]
+        check(c["host_syncs_per_iter_max"] == c["dispatches_per_iter_max"]
+              == 1 and c["within_budget"], f"obs: contract {c}")
+        tail = check_phase_tiling("obs", run)
+    emit("obs", scenario="OCR", iterations=len(rows), launches=launches,
+         seconds=time.perf_counter() - t_phase,
+         rows_bit_equal_to_main=True, recorder_callbacks=calls,
+         sync_debug_mode="error",
+         recorder_host_ms_per_iteration=1e3 * host_s / len(rows),
+         recorder_host_ms_by_callback={k: 1e3 * v for k, v in
+                                       host_by.items()},
+         wall_s_per_iteration=walls, main_wall_s_per_iteration=main_walls,
+         contract=c, calls_to_gap=s["calls_to_gap"],
+         phase_time=s["phase_time"], untiled_tail_s=tail, **info)
+    return launches
+
+
+def phase_obs_wall(torch, data, profile_timing):
+    """The recorded run in wall mode (cost_model=None) with approx_batch 2
+    and at most 8 passes, so overflow continuations give approximate-only
+    segments: one sync per dispatch and one segment per dispatch, the
+    Solver's slope-rule constants the recorder's fit whenever it has one,
+    measured approx_passes spans once a continuation ran, and each
+    iteration's phase spans tiling its outer_iteration span.  Prints the
+    fitted (exact_cost, plane_cost) beside profile's exact pass and
+    approximate pass on the same card.  Returns the launch counts.
+    The wall-mode defaults (1 s per exact pass, 1 ms per plane step) stop
+    the slope rule after one pass at this size, so no continuation comes
+    and the first segments' plane counts leave the fit unidentified: 2
+    iterations from the defaults are run and reported first
+    (``from_defaults``).  The checked run then starts from profile's
+    measured exact pass and per-plane cost, as a resumed run starts from
+    its checkpoint's calibration.  ~10 s."""
+    t_phase = time.perf_counter()
+    import dataclasses
+    import tempfile
+    from repro_torch.api import RunConfig, Solver
+    from repro_torch.core.oracles import chain
+    from repro_torch.kernels import ops
+    X, Y, M = data
+    n = OCR["n"]
+    problem = chain.make_problem(X, Y, M, OCR["num_labels"], device="cuda")
+    cfg = RunConfig(lam=1.0 / n, cost_model=None,
+                    **dict(RUN, approx_batch=2, max_approx_passes=8))
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = sync_checked_recorder(torch, Path(tmp) / "defaults.jsonl")
+        solver = Solver(problem, dataclasses.replace(cfg, max_iters=2),
+                        recorder=rec)
+        rows = list(solver.iterate())
+        rec.close()
+        check(all(r.host_syncs == r.dispatches for r in rows),
+              f"obs_wall: syncs and dispatches from the defaults {rows}")
+        from_defaults = dict(
+            approx_passes=[r.approx_passes for r in rows],
+            dispatches=[r.dispatches for r in rows], fit=rec._phase_fit,
+            constants=[solver._est_exact, solver._est_plane])
+        del solver
+        path = Path(tmp) / "obs_wall.jsonl"
+        rec = sync_checked_recorder(torch, path)
+        segs_seen, fits = [], []
+        inner = rec.observe_phases
+
+        def observe(segments):
+            segs_seen.append([list(s) for s in segments])
+            return inner(segments)
+        rec.observe_phases = observe
+        solver = Solver(problem, cfg, recorder=rec)
+        seed = (profile_timing["exact_ms_per_block"] * n * 1e-3,
+                profile_timing["ms"] * 1e-3 / profile_timing["valid_planes"])
+        solver._est_exact, solver._est_plane = seed
+
+        def after(row):
+            segs = segs_seen[-1]
+            check(row.host_syncs == row.dispatches == len(segs),
+                  f"obs_wall: {row.host_syncs} syncs, {row.dispatches} "
+                  f"dispatches, {len(segs)} segments at iteration "
+                  f"{row.iteration}")
+            fit = rec._phase_fit
+            if fit is not None:
+                check((solver._est_exact, solver._est_plane) == fit,
+                      f"obs_wall: the solver's constants "
+                      f"{(solver._est_exact, solver._est_plane)} are not "
+                      f"the recorder's fit {fit}")
+            fits.append(fit)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        rows, walls = drive(torch, solver, "obs_wall", after=after)
+        launches = ops.launch_counts()
+        rec.close()
+        check(rec.calls == 2 + len(rows) + len(segs_seen),
+              f"obs_wall: {rec.calls} recorder callbacks")
+        run, s, info = check_trace_file("obs_wall", path, len(rows))
+        measured = [sp for sp in run["spans"]
+                    if sp["name"] == "approx_passes" and sp.get("measured")]
+        continuations = sum(len(sg) - 1 for sg in segs_seen)
+        check(len(measured) == continuations,
+              f"obs_wall: {len(measured)} measured approx spans for "
+              f"{continuations} continuations")
+        check(continuations > 0, "obs_wall: no overflow continuation ran")
+        tail = check_phase_tiling("obs_wall", run)
+    exact_s = profile_timing["exact_ms_per_block"] * n * 1e-3
+    emit("obs_wall", scenario="OCR", iterations=len(rows),
+         seconds=time.perf_counter() - t_phase,
+         launches=launches, segments=segs_seen, fits=fits,
+         from_defaults=from_defaults, seeded_constants=seed,
+         recorder_host_ms_by_callback={k: 1e3 * v for k, v in
+                                       rec.host_by.items()},
+         continuations=continuations,
+         dispatches=[r.dispatches for r in rows],
+         approx_passes=[r.approx_passes for r in rows],
+         fitted_exact_cost_s=fits[-1][0] if fits[-1] else None,
+         fitted_plane_cost_s=fits[-1][1] if fits[-1] else None,
+         profile_exact_pass_s=exact_s,
+         profile_approx_pass_ms=profile_timing["ms"],
+         profile_valid_planes=profile_timing["valid_planes"],
+         profile_plane_cost_s=(profile_timing["ms"] * 1e-3
+                               / profile_timing["valid_planes"]),
+         recorder_host_ms_per_iteration=1e3 * rec.host_s / len(rows),
+         wall_s_per_iteration=walls, untiled_tail_s=tail,
+         phase_time=s["phase_time"], **info)
+    return launches
+
+
+def phase_obs_checkpoint(torch):
+    """SMALL ocr on the card: a recorded mpbcfw run saves after 2
+    iterations and a recorded restore resumes it.  checkpoint_save and
+    checkpoint_restore spans written, the manifest's metrics the registry
+    snapshot, the restored solver's snapshot equal; then 2 iterations
+    under RunRecorder(profile=True) inside torch.profiler, one
+    outer_iteration range per iteration.  ~3 s."""
+    t_phase = time.perf_counter()
+    import shutil
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api import Solver
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.obs import load_run
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    try:
+        mgr = CheckpointManager(str(Path(tmp) / "ckpt"))
+        rec = sync_checked_recorder(torch, Path(tmp) / "save.jsonl")
+        prob, s1 = small_run("ocr", "cuda", "mpbcfw", max_iters=4)
+        s1 = Solver(prob, s1.cfg, recorder=rec)
+        it = s1.iterate()
+        [next(it) for _ in range(2)]
+        step = s1.save(mgr)
+        rec.close()
+        manifest = mgr.load_manifest(step)
+        snap = s1.metrics.snapshot()
+        check(manifest["metrics"] == snap and
+              snap["iterations"]["value"] == 2,
+              f"obs_checkpoint: manifest metrics {manifest['metrics']} vs "
+              f"the registry's {snap}")
+        rec2 = sync_checked_recorder(torch, Path(tmp) / "restore.jsonl")
+        s2 = Solver.restore(prob, s1.cfg, mgr, recorder=rec2)
+        check(s2.metrics.snapshot() == snap,
+              "obs_checkpoint: the restored snapshot differs")
+        rest = list(s2.iterate())
+        rec2.close()
+        saved = [sp["name"] for sp in load_run(Path(tmp) / "save.jsonl")[
+            "spans"]]
+        resumed = load_run(Path(tmp) / "restore.jsonl")
+        check(saved.count("checkpoint_save") == 1 and [
+            sp["name"] for sp in resumed["spans"]].count(
+                "checkpoint_restore") == 1 and len(rest) == 2,
+            f"obs_checkpoint: spans {saved}, {resumed['spans'][:2]}, "
+            f"{len(rest)} resumed rows")
+        check(resumed["summary"]["iterations"]["value"] == 4,
+              f"obs_checkpoint: resumed series {resumed['summary']}")
+        rec3 = sync_checked_recorder(torch, Path(tmp) / "prof.jsonl",
+                                     profile=True)
+        _, s3 = small_run("ocr", "cuda", "mpbcfw", max_iters=2)
+        s3 = Solver(s3.problem, s3.cfg, recorder=rec3)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            s3.run()
+            torch.cuda.synchronize()
+        rec3.close()
+        # The host ranges; with CUDA activity the profiler also mirrors
+        # them onto the device timeline as user annotations (3 for 2
+        # ranges on an H100), which are not what is counted here.
+        ranges = [e for e in prof.events() if e.name == "outer_iteration"]
+        marks = [e for e in ranges
+                 if e.device_type == torch.autograd.DeviceType.CPU]
+        check(len(marks) == 2, f"obs_checkpoint: {len(marks)} host "
+              "outer_iteration ranges for 2 iterations")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("obs_checkpoint", scenario="SMALL[ocr]", step=step,
+         seconds=time.perf_counter() - t_phase,
+         metrics_in_manifest=True, restored_snapshot_equal=True,
+         profile_ranges=len(marks),
+         profile_device_annotations=len(ranges) - len(marks),
+         profile_range_ms=[e.cpu_time_total * 1e-3 for e in marks])
+
+
+def phase_serve_obs(torch, model, data, served):
+    """``serve`` again with a RunRecorder: main's trained model on the
+    same 6877 requests, labels equal to the unrecorded serve's, one
+    serve_round span per round (= ledger rounds = B3 launches), one
+    serve_request event per request, the file schema-valid, every
+    recorder callback under sync-debug "error".  Then ms per round without
+    and with a (plain) recorder on one warmed engine, alternated plain,
+    recorded, recorded, plain, plain, recorded.  Returns the recorded
+    run's launch counts.  ~10 s."""
+    t_phase = time.perf_counter()
+    import tempfile
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.obs import RunRecorder, load_run, validate_file
+    from repro_torch.serve import StructuredServer
+    reqs = chain_requests(*data)
+    warm = StructuredServer(model, batch_size=SERVE_BATCH,
+                            bucket_granularity=SERVE_GRANULARITY)
+    warm.serve(reqs)
+    engine = warm.engine
+
+    def run(recorder):
+        server = StructuredServer(model, batch_size=SERVE_BATCH,
+                                  bucket_granularity=SERVE_GRANULARITY,
+                                  engine=engine, recorder=recorder)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        labels = server.serve(reqs)
+        torch.cuda.synchronize()
+        return labels, time.perf_counter() - t0, server.ledger.counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "serve.jsonl"
+        rec = sync_checked_recorder(torch, path)
+        ops.reset_launch_counts()
+        labels, _, (rounds, dispatches, syncs) = run(rec)
+        launches = ops.launch_counts()
+        rec.close()
+        check(all(np.array_equal(a, b) for a, b in zip(labels, served))
+              and len(labels) == len(served),
+              "serve_obs: labels differ from the unrecorded serve's")
+        count, errs = validate_file(path)
+        check(not errs, f"serve_obs: schema errors {errs[:5]}")
+        tr = load_run(path)
+        spans = [s for s in tr["spans"] if s["name"] == "serve_round"]
+        events = [e for e in tr["events"] if e["name"] == "serve_request"]
+        check(len(spans) == rounds == dispatches == syncs
+              == launches["viterbi_decode"],
+              f"serve_obs: {len(spans)} serve_round spans, {rounds} "
+              f"rounds, {launches['viterbi_decode']} B3 launches")
+        check(len(events) == len(reqs), f"serve_obs: {len(events)} "
+              f"serve_request events for {len(reqs)} requests")
+        want = {k: 0 for k in launches}
+        want["viterbi_decode"] = rounds
+        check(launches == want, f"serve_obs: launches {launches}")
+        check(rec.calls == 2 + len(spans) + len(events),
+              f"serve_obs: {rec.calls} recorder callbacks")
+        host_ms = 1e3 * rec.host_s / rounds
+        # The timed runs record through a plain RunRecorder: the checked
+        # one's mode switches (two per callback, 1 + 8 callbacks a round)
+        # would be timed with it.
+        walls = {"plain": [], "recorded": []}
+        for i, kind in enumerate(("plain", "recorded", "recorded", "plain",
+                                  "plain", "recorded")):
+            r = (RunRecorder(Path(tmp) / f"timed{i}.jsonl")
+                 if kind == "recorded" else None)
+            walls[kind].append(run(r)[1])
+            if r is not None:
+                r.close()
+    emit("serve_obs", scenario="OCR", requests=len(reqs), rounds=rounds,
+         seconds=time.perf_counter() - t_phase,
+         launches=launches, records=count, labels_equal_to_serve=True,
+         recorder_host_ms_per_round=host_ms,
+         ms_per_round={k: [1e3 * w / rounds for w in v]
+                       for k, v in walls.items()},
+         recorder_share_of_round=(
+             (sum(walls["recorded"]) - sum(walls["plain"]))
+             / sum(walls["plain"])))
+    return launches
 
 
 def phase_parity_lm(torch):
@@ -3050,7 +3509,8 @@ def main() -> int:
                check_approx_pass(torch, gen)]
     torch.cuda.empty_cache()
     phase_parity(torch)
-    launches, solver = phase_main(torch, data)
+    launches, solver, main_walls = phase_main(torch, data)
+    main_rows = list(solver.trace)
     # The weights of main's 3 iterations, exported before profile moves
     # the state on.
     ocr_model = solver.servable()
@@ -3063,6 +3523,12 @@ def main() -> int:
                                                "us_per_block", "plan")})
     del solver
     torch.cuda.empty_cache()
+    # main and main's run in wall mode again, each with a RunRecorder.
+    obs_paths = {"obs": phase_obs(torch, data, main_rows, launches,
+                                  main_walls)}
+    torch.cuda.empty_cache()
+    obs_paths["obs_wall"] = phase_obs_wall(torch, data, full)
+    torch.cuda.empty_cache()
     phase_parity_async(torch)
     launches_async, solver = phase_main_async(torch, data)
     phase_profile_async(torch, solver)
@@ -3074,6 +3540,7 @@ def main() -> int:
     del solver
     torch.cuda.empty_cache()
     phase_resume(torch)
+    phase_obs_checkpoint(torch)
     phase_parity_specs(torch)
     phase_parity_simple(torch)
     simple_paths = {phase: phase_main_simple(torch, data, phase, algo)
@@ -3094,8 +3561,11 @@ def main() -> int:
                                      kernels[-1]["wide_max_abs_err"])
     # Serving after the OCR training paths, so that they run as before:
     # its four OCR captures left 128 MiB more allocated under main_gram.
-    serve_paths = {"serve": phase_serve(torch, ocr_model, data)}
-    del ocr_model
+    kept = {}
+    serve_paths = {"serve": phase_serve(torch, ocr_model, data, keep=kept)}
+    serve_paths["serve_obs"] = phase_serve_obs(torch, ocr_model, data,
+                                               kept["served"])
+    del ocr_model, kept
     serve_paths.update(phase_serve_specs(torch))
     torch.cuda.empty_cache()
     phase_parity_lm(torch)
@@ -3106,7 +3576,7 @@ def main() -> int:
                "plane_select": "main_async", "moe_ffn": "main_lm",
                "flash_attention": "main_lm", "gram": "main_gram",
                "approx_pass": "main"}
-    by_path = {"main": launches, "main_async": launches_async,
+    by_path = {"main": launches, **obs_paths, "main_async": launches_async,
                "main_gram": launches_gram, **simple_paths,
                "main_gap": launches_gap, **wide_paths,
                **serve_paths, "main_lm": launches_lm, **lm_paths}

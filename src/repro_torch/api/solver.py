@@ -35,15 +35,27 @@ with the host control loop's state (iteration, last row, RNG stream,
 clock, slope-rule calibration) through :class:`repro_torch.checkpoint
 .CheckpointManager`, in the reference's format: a resumed run continues
 bit for bit, and a checkpoint of either package resumes in the other.
-The port has no recorder and no metrics registry yet (ROADMAP A9): the
-manifest's ``metrics`` is written empty and ignored on load.
+The manifest's ``metrics`` carries :attr:`Solver.metrics`' snapshot, which
+:meth:`Solver.restore` loads, so the metric series continues across a
+resume in either package.
+
+Observability: ``Solver(..., recorder=RunRecorder(path))`` installs a
+:class:`repro_torch.obs.RunRecorder` after the user's callbacks; it owns
+the metrics registry and writes the reference's run trace (rows, phase
+spans, events; ``checkpoint_save``/``checkpoint_restore`` spans).  In wall
+mode the loop timestamps the host syncs it already pays (one segment per
+dispatch) and, with a recorder, takes the slope rule's cost constants
+from the recorder's fit of those segments
+(:meth:`~repro_torch.obs.RunRecorder.observe_phases`).  Neither the
+registry nor the recorder reads a tensor.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from contextlib import contextmanager
-from typing import Callable, Iterable, Iterator, List, Optional
+from contextlib import contextmanager, nullcontext
+from typing import (TYPE_CHECKING, Callable, Iterable, Iterator, List,
+                    Optional)
 
 import numpy as np
 import torch
@@ -54,10 +66,14 @@ from ..core.selection import CostModel, attribute_wall_time
 from ..core.ssvm import batched_oracle, dual_value, primal_value, weights_of
 from ..core.averaging import extract as extract_average
 from ..core.types import SSVMProblem
+from ..obs.metrics import MetricsRegistry
 from .config import RunConfig, RunResult, TraceRow
 from .engine import engine_entry, validate_config
 from .stopping import (MaxIters, StopContext, StopOnGap, StoppingCriterion,
                        WallTimeBudget)
+
+if TYPE_CHECKING:  # annotation only
+    from ..obs.recorder import RunRecorder
 
 Callback = Callable[["Solver", TraceRow], None]
 
@@ -168,13 +184,15 @@ class Solver:
     :class:`RunResult`; :meth:`save` and :meth:`restore` checkpoint and
     resume.  With ``checkpoint`` and ``checkpoint_every > 0`` the loop
     saves after every ``checkpoint_every``-th iteration, off the clock.
+    ``recorder`` writes the run's JSONL trace (:mod:`repro_torch.obs`).
     """
 
     def __init__(self, problem: SSVMProblem, cfg: RunConfig, *,
                  stop: Iterable[StoppingCriterion] = (),
                  callbacks: Iterable[Callback] = (),
                  checkpoint: Optional[CheckpointManager] = None,
-                 checkpoint_every: int = 0):
+                 checkpoint_every: int = 0,
+                 recorder: Optional["RunRecorder"] = None):
         entry = engine_entry(cfg.algo)
         validate_config(entry, cfg)
         self.problem = problem
@@ -184,6 +202,16 @@ class Solver:
         self.callbacks = list(callbacks)
         self.checkpoint = checkpoint
         self.checkpoint_every = int(checkpoint_every)
+        # One metrics registry always, so a checkpoint carries the series:
+        # the recorder's (it runs as the last row callback and feeds it),
+        # else the Solver's own, fed in iterate().
+        self.recorder = recorder
+        if recorder is not None:
+            self.metrics: MetricsRegistry = recorder.registry
+            self.callbacks.append(recorder)
+            recorder.open_run(self)
+        else:
+            self.metrics = MetricsRegistry()
         self.stop_criteria: List[StoppingCriterion] = [
             MaxIters(cfg.max_iters)]
         if cfg.gap_tol is not None:
@@ -236,11 +264,24 @@ class Solver:
         self._clock.start()
         inner = (self._iterate_multipass() if self.caps.multipass
                  else self._iterate_simple())
+        ledger = getattr(self.engine, "ledger", None)
         while not self._should_stop():
-            row = next(inner)
+            ann = (self.recorder.step_annotation(self._it)
+                   if self.recorder is not None else nullcontext())
+            coll0 = getattr(ledger, "collectives", 0)
+            bytes0 = getattr(ledger, "collective_bytes", 0)
+            with ann:
+                row = next(inner)
             self.trace.append(row)
             self._last_row = row
             self._it += 1
+            if self.recorder is None:
+                # With a recorder its row callback feeds the registry.
+                self.metrics.observe_row(
+                    row,
+                    collectives=getattr(ledger, "collectives", 0) - coll0,
+                    collective_bytes=getattr(ledger, "collective_bytes",
+                                             0) - bytes0)
             for cb in self.callbacks:
                 cb(self, row)
             if (self.checkpoint is not None and self.checkpoint_every > 0
@@ -300,10 +341,18 @@ class Solver:
             mp, clock_dev, stats = engine.outer_iteration(
                 mp, perm, perms, clock_dev, ttl=cfg.ttl, **key_kw)
             st = engine.read_stats(stats)
+            # Right after the sync, where the host waited for the card.
+            t_sync = clock.now()
             mp = engine.count_passes(mp, st)
             met = st.metrics
             ws_total = int(st.ws_total)
             planes_all = [int(x) for x in st.planes[:st.passes_run]]
+            # Measured program-boundary segments (plane steps, seconds),
+            # one per dispatch, from the syncs the loop pays anyway:
+            # segment 0 spans the exact pass and the first batch, later
+            # ones approximate-only continuations (the recorder's
+            # calibration in wall mode).
+            segs = [(sum(max(p, 1) for p in planes_all), t_sync - t0)]
             while st.more and len(planes_all) < cfg.max_approx_passes:
                 batch = min(cfg.approx_batch,
                             cfg.max_approx_passes - len(planes_all))
@@ -311,8 +360,12 @@ class Solver:
                 mp, clock_dev, stats = engine.continue_passes(mp, perms,
                                                               clock_dev)
                 st = engine.read_stats(stats)
+                t_prev, t_sync = t_sync, clock.now()
                 mp = engine.count_passes(mp, st)
-                planes_all += [int(x) for x in st.planes[:st.passes_run]]
+                b_planes = [int(x) for x in st.planes[:st.passes_run]]
+                planes_all += b_planes
+                segs.append((sum(max(p, 1) for p in b_planes),
+                             t_sync - t_prev))
             led1 = engine.ledger.counts()
             ovl_total = engine.ledger.oracle_time_total - ovl0[0]
             ovl_hidden = engine.ledger.oracle_time_hidden - ovl0[1]
@@ -337,19 +390,27 @@ class Solver:
                 weights = [self._est_exact] + [self._est_plane * max(p, 1)
                                                for p in planes_all]
                 durs = attribute_wall_time(elapsed, weights)
-                # Calibrate the rule's cost constants: regress elapsed ~
+                # Calibrate the rule's cost constants.  With a recorder,
+                # from its fit of the measured segments (None keeps the
+                # current constants); without one, regress elapsed ~
                 # a + b * plane_steps across iterations, else pro rata.
                 self._wall_x.append(float(sum(max(p, 1)
                                               for p in planes_all)))
                 self._wall_y.append(float(elapsed))
-                fit = _fit_pass_costs(self._wall_x, self._wall_y)
-                if fit is not None:
-                    self._est_exact, self._est_plane = fit
+                if self.recorder is not None:
+                    fit = self.recorder.observe_phases(segs)
+                    if fit is not None:
+                        self._est_exact, self._est_plane = fit
                 else:
-                    self._est_exact = max(durs[0], 1e-9)
-                    if planes_all:
-                        tot = sum(max(p, 1) for p in planes_all)
-                        self._est_plane = max(sum(durs[1:]) / tot, 1e-12)
+                    fit = _fit_pass_costs(self._wall_x, self._wall_y)
+                    if fit is not None:
+                        self._est_exact, self._est_plane = fit
+                    else:
+                        self._est_exact = max(durs[0], 1e-9)
+                        if planes_all:
+                            tot = sum(max(p, 1) for p in planes_all)
+                            self._est_plane = max(sum(durs[1:]) / tot,
+                                                  1e-12)
 
             w_exact = self._est_exact
             w_total = w_exact + sum(self._est_plane * max(p, 1)
@@ -422,7 +483,11 @@ class Solver:
             "wall_x": self._wall_x,
             "wall_y": self._wall_y,
         }
-        manager.save(step, tree, extra=extra, metrics={})
+        span = (self.recorder.span("checkpoint_save", step=step)
+                if self.recorder is not None else nullcontext())
+        with span:
+            manager.save(step, tree, extra=extra,
+                         metrics=self.metrics.snapshot())
         return step
 
     @classmethod
@@ -430,9 +495,20 @@ class Solver:
                 manager: CheckpointManager, step: Optional[int] = None,
                 **solver_kwargs) -> "Solver":
         """A solver resumed from a checkpoint (default: the latest step)
-        at the saved iteration, RNG stream and clock.  Under a CostModel
-        the rest of the run is bit for bit the uninterrupted one."""
+        at the saved iteration, RNG stream, clock and metric series.  Under
+        a CostModel the rest of the run is bit for bit the uninterrupted
+        one.  A recorder in ``solver_kwargs`` records a
+        ``checkpoint_restore`` span."""
         solver = cls(problem, cfg, **solver_kwargs)
+        span = (solver.recorder.span("checkpoint_restore")
+                if solver.recorder is not None else nullcontext())
+        with span:
+            return cls._restore_into(solver, cfg, manager, step)
+
+    @classmethod
+    def _restore_into(cls, solver: "Solver", cfg: RunConfig,
+                      manager: CheckpointManager,
+                      step: Optional[int]) -> "Solver":
         if step is None:
             step = manager.latest_step()
         manifest = manager.load_manifest(step)
@@ -470,5 +546,6 @@ class Solver:
         solver._est_plane = float(cal["est_plane"])
         solver._wall_x = [float(x) for x in cal.get("wall_x", [])]
         solver._wall_y = [float(y) for y in cal.get("wall_y", [])]
+        solver.metrics.load(manifest.get("metrics"))
         return solver
 

@@ -7,8 +7,9 @@ a served round's latency), never a device tensor, so the registry adds
 no host sync, dispatch or kernel launch to the paths it observes.
 
 Snapshots are JSON-ready dicts; :meth:`MetricsRegistry.load` restores
-one.  The recorder, the trace schema and the run summary of the
-reference's ``repro/obs`` wait for ROADMAP §A item 5.
+one.  A checkpoint carries the snapshot as its manifest's ``metrics``
+(:meth:`repro_torch.api.Solver.save`), and a run's JSONL as its
+``summary`` record (:class:`repro_torch.obs.RunRecorder`).
 """
 from __future__ import annotations
 

@@ -14,9 +14,11 @@ Round structure is asserted: :class:`~repro_torch.serve.metrics
 .ServeLedger` brackets each round and raises unless it dispatched
 exactly once, and its :meth:`~repro_torch.serve.metrics.ServeLedger.sync`
 is the round's one device -> host copy.  Latency, queue and throughput
-series ride :class:`~repro_torch.serve.metrics.ServeMetrics`.  The
-reference's recorder hooks (``serve_round`` spans, ``serve_request``
-events) wait for the observability port (ROADMAP §A item 5).
+series ride :class:`~repro_torch.serve.metrics.ServeMetrics`.  A
+:class:`~repro_torch.obs.RunRecorder` passed as ``recorder`` gets the
+reference's trace: a ``serve:<spec>`` meta record, one ``serve_request``
+event per request and one host-timebase ``serve_round`` span per round,
+all from host values read after the round's one sync.
 """
 from __future__ import annotations
 
@@ -67,7 +69,8 @@ class StructuredServer:
 
     Drive it with ``submit`` + ``step`` / ``drain``, or ``serve`` a list.
     ``clock`` is injectable so tests can run on a virtual clock.
-    ``recorder`` is the reference's trace hook; it is not yet ported.
+    ``recorder`` (a :class:`~repro_torch.obs.RunRecorder`) records the
+    rounds and requests.
     """
 
     def __init__(self, model: ServableModel, *, batch_size: int = 8,
@@ -77,10 +80,6 @@ class StructuredServer:
                  recorder=None, clock=time.perf_counter):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
-        if recorder is not None:
-            raise NotImplementedError(
-                "StructuredServer(recorder=...) is not yet ported "
-                "(ROADMAP §A item 5)")
         self.model = model
         self.engine = engine if engine is not None \
             else decode_engine_for(model)
@@ -88,12 +87,19 @@ class StructuredServer:
         self.granularity = int(bucket_granularity)
         self.ledger = ServeLedger()
         self.metrics = metrics if metrics is not None else ServeMetrics()
+        self.recorder = recorder
         self.clock = clock
         self._rid = itertools.count()
         # bucket -> FIFO of waiting requests; round scheduling picks the
         # bucket holding the oldest head-of-line request (no bucket
         # starves).
         self._queues: Dict[ShapeKey, List[ServeRequest]] = {}
+        if self.recorder is not None:
+            self.recorder.open_custom(
+                algo=f"serve:{type(self.model.spec).__name__}",
+                n=self.batch_size, d=self.model.d,
+                engine_budgets={"dispatches_per_round": 1,
+                                "host_syncs_per_round": 1})
 
     # -- admission ----------------------------------------------------------
 
@@ -154,10 +160,20 @@ class StructuredServer:
             req.labels = np.asarray(self.engine.unpad(labels[i], req.key))
             req.t_done = t1
             self.metrics.observe_request(req.latency, req.labels.size)
+            if self.recorder is not None:
+                self.recorder.event("serve_request", t=t1, rid=req.rid,
+                                    latency=req.latency,
+                                    labels=int(req.labels.size))
         self.metrics.observe_round(
             batch=len(reqs), fill=len(reqs) / self.batch_size,
             round_s=t1 - t0, bucket=bucket)
         self.metrics.set_queue_depth(self.pending)
+        if self.recorder is not None:
+            self.recorder.span_record("serve_round", t0, t1,
+                                      timebase="host",
+                                      bucket=list(bucket),
+                                      batch=len(reqs),
+                                      slots=self.batch_size)
         return reqs
 
     def drain(self) -> List[ServeRequest]:

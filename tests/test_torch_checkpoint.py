@@ -274,3 +274,67 @@ def test_jax_resumes_a_port_checkpoint(tmp_path, chain_problems, algo):
                                      JManager(str(tmp_path / "t"))))
     assert js.iteration == 2
     _assert_tail_matches(list(js.iterate()), tfull.trace[2:])
+
+
+# -- the metric series across packages ----------------------------------------
+
+@pytest.mark.parametrize("algo", ALGOS)
+def test_port_loads_the_metric_series_of_a_jax_checkpoint(
+        tmp_path, chain_problems, algo):
+    """A JAX checkpoint's manifest ``metrics`` (its registry snapshot) is
+    the port's ``Solver.metrics`` after restore, and the series goes on."""
+    jp, tp = chain_problems
+    js = _stragglers(JSolver(jp, _jcfg(jp.n, algo, max_iters=4)))
+    it = js.iterate()
+    [next(it) for _ in range(2)]
+    js.metrics.counter("user_events").inc(5)
+    step = js.save(JManager(str(tmp_path / "j")))
+    want = js.metrics.snapshot()
+    manifest = CheckpointManager(str(tmp_path / "j")).load_manifest(step)
+    assert manifest["metrics"] == want
+    assert want["iterations"]["value"] == 2
+    ts = _stragglers(Solver.restore(tp, _cfg(tp.n, algo, max_iters=4),
+                                    CheckpointManager(str(tmp_path / "j"))))
+    assert ts.metrics.snapshot() == want
+    ts.run()
+    # The series goes on as the reference's resumed from the same
+    # checkpoint: counters equal, gauges and histogram sums within rtol.
+    jr = _stragglers(JSolver.restore(jp, _jcfg(jp.n, algo, max_iters=4),
+                                     JManager(str(tmp_path / "j"))))
+    jr.run()
+    snap, jsnap = ts.metrics.snapshot(), jr.metrics.snapshot()
+    assert snap["iterations"]["value"] == 4
+    assert snap["user_events"] == want["user_events"]
+    assert sorted(snap) == sorted(jsnap)
+    for name, entry in jsnap.items():
+        got = snap[name]
+        if entry["kind"] == "counter":
+            assert got == entry, name
+        elif entry["kind"] == "gauge":
+            assert_allclose(got["value"], entry["value"], rtol=1e-4)
+        else:
+            assert (got["counts"], got["count"]) == (entry["counts"],
+                                                     entry["count"]), name
+            assert_allclose(got["total"], entry["total"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("algo", ALGOS)
+def test_jax_loads_the_metric_series_of_a_port_checkpoint(
+        tmp_path, chain_problems, algo):
+    """The port's manifest ``metrics`` is its registry snapshot, and the
+    JAX package restores it as its ``Solver.metrics``."""
+    jp, tp = chain_problems
+    ts = _stragglers(Solver(tp, _cfg(tp.n, algo, max_iters=4)))
+    it = ts.iterate()
+    [next(it) for _ in range(2)]
+    ts.metrics.gauge("user_level").set(0.25)
+    step = ts.save(CheckpointManager(str(tmp_path / "t")))
+    want = ts.metrics.snapshot()
+    assert JManager(str(tmp_path / "t")).load_manifest(step)[
+        "metrics"] == want
+    assert want["iterations"]["value"] == 2
+    assert want["host_syncs"]["value"] == sum(r.host_syncs
+                                              for r in ts.trace)
+    js = _stragglers(JSolver.restore(jp, _jcfg(jp.n, algo, max_iters=4),
+                                     JManager(str(tmp_path / "t"))))
+    assert js.metrics.snapshot() == want

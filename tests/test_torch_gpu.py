@@ -1618,3 +1618,70 @@ def test_exact_graph_is_keyed_by_the_gap_vector(cuda):
     assert graphs.replays == 14           # one more eager warm-up step
     assert bool((gap.cache.gap[:8] < 1e29).all())
     assert bool((gap.cache.gap[8:] == 1e30).all())
+
+
+# -- observability: the recorder adds no sync on the card -------------------
+
+def _sync_checked(path, **kw):
+    """A RunRecorder whose callbacks run under sync-debug "error" (a host
+    sync inside one raises), counting them."""
+    from repro_torch.obs import RunRecorder
+
+    class SyncChecked(RunRecorder):
+        calls = 0
+
+        def _guarded(self, fn, *a, **k):
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+                self.calls += 1
+
+        def __call__(self, solver, row):
+            return self._guarded(super().__call__, solver, row)
+
+        def observe_phases(self, segments):
+            return self._guarded(super().observe_phases, segments)
+    return SyncChecked(path, **kw)
+
+
+@pytest.mark.parametrize("algo", ["mpbcfw", "mpbcfw-gram", "mpbcfw-async",
+                                  "mpbcfw-gap", "bcfw"])
+def test_recorded_run_equals_unrecorded_on_the_card(cuda, tmp_path, algo):
+    from repro_torch.obs import validate_file
+    X, Y, M = ocr_like(n=120, f=32, num_labels=12, mean_len=7, max_len=10,
+                       seed=0)
+    prob = chain.make_problem(X, Y, M, 12, device=cuda)
+    kw = dict(lam=1 / 120, algo=algo, max_iters=3, cap=16, approx_batch=4,
+              max_approx_passes=6)
+    if algo == "mpbcfw-gram":
+        kw["gram_steps"] = 10
+    # A CostModel is the run's clock: one each.
+    bare = Solver(prob, RunConfig(cost_model=CostModel(0.3, 1e-4),
+                                  **kw)).run().trace
+    rec = _sync_checked(tmp_path / "run.jsonl")
+    with rec:
+        got = Solver(prob, RunConfig(cost_model=CostModel(0.3, 1e-4), **kw),
+                     recorder=rec).run().trace
+    assert got == bare
+    assert rec.calls == 3
+    assert validate_file(tmp_path / "run.jsonl")[1] == []
+
+
+def test_wall_mode_recorder_fit_on_the_card(cuda, tmp_path):
+    X, Y, M = ocr_like(n=120, f=32, num_labels=12, mean_len=7, max_len=10,
+                       seed=0)
+    prob = chain.make_problem(X, Y, M, 12, device=cuda)
+    rec = _sync_checked(tmp_path / "wall.jsonl")
+    with rec:
+        solver = Solver(prob, RunConfig(
+            lam=1 / 120, max_iters=4, cap=16, approx_batch=2,
+            max_approx_passes=8, cost_model=None), recorder=rec)
+        for row in solver.iterate():
+            assert row.host_syncs == row.dispatches
+            if rec._phase_fit is not None:
+                assert (solver._est_exact, solver._est_plane) == \
+                    rec._phase_fit
+    assert rec.calls == 8

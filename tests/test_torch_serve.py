@@ -450,8 +450,31 @@ def test_server_refusals():
                                 torch.zeros((8,), dtype=torch.float32))
     with pytest.raises(ValueError, match="batch_size must be >= 1"):
         serve.StructuredServer(model, batch_size=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 5"):
-        serve.StructuredServer(model, recorder=object())
+
+
+def test_server_records_rounds_and_requests(tmp_path):
+    """With a RunRecorder: one serve_round span per round and one
+    serve_request event per request, the served labels those of a server
+    without it, and one dispatch and sync per round either way."""
+    from repro_torch.obs import RunRecorder, load_run, validate_file
+    model, reqs, _ = _model("chain")
+    path = tmp_path / "serve.jsonl"
+    with RunRecorder(path) as rec:
+        server = serve.StructuredServer(model, batch_size=3, recorder=rec)
+        got = server.serve(reqs)
+    bare = serve.StructuredServer(model, batch_size=3)
+    want = bare.serve(reqs)
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert server.ledger.counts() == bare.ledger.counts()
+    assert validate_file(path)[1] == []
+    run = load_run(path)
+    assert run["meta"]["algo"] == "serve:ChainSpec"
+    rounds = [s for s in run["spans"] if s["name"] == "serve_round"]
+    assert len(rounds) == server.ledger.rounds
+    assert sum(s["batch"] for s in rounds) == len(reqs)
+    assert sorted(e["rid"] for e in run["events"]
+                  if e["name"] == "serve_request") == list(range(len(reqs)))
+    assert run["rows"] == []
 
 
 def test_virtual_clock_latencies():
