@@ -103,6 +103,32 @@ Phases, one JSON line each (seconds on an H100 in brackets):
                  equal; then 2 iterations under RunRecorder(profile=True)
                  inside torch.profiler, one outer_iteration range each
                  [~5].
+ 11c. parity_shard -- the shard engines (repro_torch.shard) at world
+                 size 1, card (an NCCL mesh) against CPU (gloo): every
+                 mpbcfw-shard* engine and mpbcfw-gram/mpbcfw-gap with a
+                 mesh on SMALL ocr, mpbcfw-shard and -shard-tau on usps
+                 and horseseg; schedules, collectives and bytes equal,
+                 objectives within rtol 1e-4 [~17].
+ 11d. main_shard -- main's run under mpbcfw-shard: rows bit-equal to
+                 main's, launch counts equal, 1 + passes all-reduces
+                 charged per iteration (1 + 8 enqueued), every engine
+                 dispatch under sync-debug "error"; an all-reduce's
+                 device events and ms by CUDA events [~8].
+ 11e. main_shard_tau -- full OCR under mpbcfw-shard-tau at tau = 23 (299
+                 chunks): B3 at B = 23 and B2 on 23 rows per chunk, the
+                 fold's steps graph replays; B3 and B2 at those shapes by
+                 graph_ms beside their bounds; a tau-nice epoch's seconds
+                 beside a sequential exact pass's [~10].
+ 11f. main_shard_gram -- main_gram's run under mpbcfw-shard-gram: rows
+                 bit-equal to main_gram's, launch counts equal [~8].
+ 11g. shard_stride -- approx_pass at k_stride 2 and 4 over 2 and 4 rank
+                 slices of the trained states (plain and Sec-3.5),
+                 recombined as the engine does, against its plain
+                 version; the stride-1 pass over all blocks by CUDA
+                 events beside its bound [~10].
+ 11h. resume_shard -- a world-size-1 sharded checkpoint (SMALL ocr):
+                 restore_resharded gives the saved state, the run resumes
+                 bit for bit, and its files resume mpbcfw [~5].
  12. parity_specs -- the multiclass and graph scenarios (SMALL usps and
                  horseseg), mpbcfw on the card against the CPU.
  13. parity_lm -- the LM substrate on the card against the port on the
@@ -225,6 +251,30 @@ RUN_GRAM = dict(RUN, algo="mpbcfw-gram", gram_steps=10)
 # 2.0, floor 0.1), one iteration more: iteration 1 sweeps half the blocks.
 RUN_GAP = dict(RUN, algo="mpbcfw-gap", max_iters=4)
 ORACLE_COST, PLANE_COST = 0.3, 1e-4
+# The shard engine at world size 1 on the card (an NCCL mesh): main's run
+# under mpbcfw-shard, tau = 23 under -shard-tau (6877 = 13 x 23^2: 299
+# chunks of 23), main_gram's under -shard-gram.
+RUN_SHARD = dict(RUN, algo="mpbcfw-shard")
+RUN_SHARD_TAU = dict(RUN, algo="mpbcfw-shard-tau", tau=23)
+RUN_SHARD_GRAM = dict(RUN_GRAM, algo="mpbcfw-shard-gram")
+# Card vs CPU at world size 1 (scenario, engine, RunConfig fields over
+# small_run's).  The pipelined engine runs one pass per iteration: from
+# its second iteration its dual stalls, and the slope rule's stop turns
+# on the last bits of the card's and the CPU's sums (ROADMAP's quirks).
+SHARD_PARITY = (("ocr", "mpbcfw-shard", {}), ("ocr", "mpbcfw-shard-avg", {}),
+                ("ocr", "mpbcfw-shard-tau", {"tau": 8}),
+                ("ocr", "mpbcfw-shard-gram", {}), ("ocr", "mpbcfw-gram", {}),
+                ("ocr", "mpbcfw-gap", {}),
+                ("ocr", "mpbcfw-shard-async",
+                 {"approx_batch": 1, "max_approx_passes": 1}),
+                ("usps", "mpbcfw-shard", {}),
+                ("usps", "mpbcfw-shard-tau", {"tau": 8}),
+                ("horseseg", "mpbcfw-shard", {}),
+                ("horseseg", "mpbcfw-shard-tau", {"tau": 8}))
+# approx_pass at k_stride S over S rank slices of the trained states: the
+# first blocks of main_shard's (plain) and main_shard_gram's (Sec-3.5).
+STRIDE_RANKS = (2, 4)
+STRIDE_BLOCKS = {"plain": 2048, "sec35": 256}
 GRAM_RTOL, GRAM_ATOL = 3e-5, 3e-4  # |err| <= RTOL |p_a| |p_b| + ATOL
 
 # The LM paths: OLMoE-1B-7B serving, and the SSVM head on its features.
@@ -1873,7 +1923,7 @@ def phase_main_gram(torch, data):
          graph_replays=replays, launches=launches,
          valid_pairs=int(both.sum()),
          gram_leaf_max_abs_err=gram_err, recompute_s=recompute_s)
-    return launches, solver
+    return launches, solver, run_launches
 
 
 def phase_profile_gram(torch, solver, blocks: int = 128,
@@ -1978,6 +2028,385 @@ def phase_resume(torch):
     emit("resume", scenario="SMALL[ocr]", algo="mpbcfw-gram",
          checkpoint_bytes=ckpt_bytes, save_s=save_s, restore_s=restore_s,
          bitwise=True, duals=[r.dual for r in rows])
+
+
+def rows_bit_equal(phase: str, rows, want) -> None:
+    import dataclasses
+    check(len(rows) == len(want), f"{phase}: {len(rows)} rows, "
+          f"{len(want)} expected")
+    for a, b in zip(rows, want):
+        check(dataclasses.asdict(a) == dataclasses.asdict(b),
+              f"{phase}: iteration {b.iteration} differs: {a} vs {b}")
+
+
+def shard_meshes(torch):
+    """World-size-1 data meshes of one process group: NCCL on the card,
+    gloo on the CPU (repro_torch.launch.mesh)."""
+    from repro_torch.launch.mesh import make_data_mesh
+    meshes = {"cuda": make_data_mesh(device="cuda"),
+              "cpu": make_data_mesh(device="cpu")}
+    check(meshes["cuda"].backend == "nccl" and meshes["cuda"].size == 1,
+          f"card mesh {meshes['cuda']} on {meshes['cuda'].backend}")
+    return meshes
+
+
+def phase_parity_shard(torch, meshes):
+    """The shard engines at world size 1, card (NCCL) against CPU (gloo):
+    SHARD_PARITY's cases on the CI-sized scenarios, 3 iterations each:
+    the same schedule, duals and primals within rtol 1e-4.  ~15 s."""
+    from repro_torch.api import CostModel, RunConfig, Solver
+    out = []
+    t0 = time.perf_counter()
+    for name, algo, kw in SHARD_PARITY:
+        traces, coll = {}, {}
+        for dev in ("cuda", "cpu"):
+            sc, prob = small_problem(name, dev)
+            solver = Solver(prob, RunConfig(**{
+                **dict(lam=1.0 / sc.n, algo=algo, max_iters=3, cap=16,
+                       approx_batch=4, max_approx_passes=6,
+                       mesh=meshes[dev], cost_model=CostModel(
+                           sc.oracle_cost, sc.plane_cost)), **kw}))
+            traces[dev] = solver.run().trace
+            coll[dev] = (solver.engine.ledger.collectives,
+                         solver.engine.ledger.collective_bytes)
+        what = f"parity_shard {name} {algo}"
+        check(coll["cuda"] == coll["cpu"], f"{what}: collectives {coll}")
+        check([r.gap_sampled for r in traces["cuda"]]
+              == [r.gap_sampled for r in traces["cpu"]],
+              f"{what}: sampled schedules differ")
+        out.append(dict(scenario=f"SMALL[{name}]", algo=algo, **kw,
+                        collectives=coll["cuda"],
+                        rows=compare_traces(what, traces)))
+    emit("parity_shard", seconds=time.perf_counter() - t0,
+         backends={d: m.backend for d, m in meshes.items()}, cases=out)
+
+
+def phase_main_shard(torch, data, mesh, main_rows, main_launches):
+    """main's run under mpbcfw-shard on the world-size-1 NCCL mesh: rows
+    bit-equal to main's, launch counts equal (B3 once per exact step and
+    per evaluation, one approx_pass per queued pass), one sync per
+    iteration, 1 + passes all-reduces charged (1 + approx_batch enqueued);
+    every engine dispatch (eviction, the exact pass's replays, the
+    all-reduces, the gated passes) under sync-debug "error".  Then a
+    pass's and the setup's all-reduce alone: the device events the trace
+    sees and their us, and ms per call by CUDA events.  ~8 s."""
+    from repro_torch.api import CostModel, RunConfig, Solver
+    from repro_torch.core.oracles import chain
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    X, Y, M = data
+    n = OCR["n"]
+    problem = chain.make_problem(X, Y, M, OCR["num_labels"], device="cuda")
+    solver = Solver(problem, RunConfig(
+        lam=1.0 / n, mesh=mesh, cost_model=CostModel(
+            oracle_cost=ORACLE_COST, plane_cost=PLANE_COST), **RUN_SHARD))
+    eng = solver.engine
+    dispatch = eng.outer_iteration
+
+    def checked(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    eng.outer_iteration = checked
+    torch.cuda.synchronize()
+    issued0, bytes0 = mesh.issued, mesh.issued_bytes
+    ops.reset_launch_counts()
+    rows, walls = drive(torch, solver, "main_shard")
+    launches = ops.launch_counts()
+    rows_bit_equal("main_shard", rows, main_rows)
+    check(launches == main_launches,
+          f"main_shard launches {launches}, main's {main_launches}")
+    check_syncs("main_shard", rows, dispatches=1)
+    passes = sum(r.approx_passes for r in rows)
+    led = eng.ledger
+    check(led.collectives == len(rows) + passes,
+          f"main_shard: {led.collectives} collectives for {passes} passes")
+    enqueued = mesh.issued - issued0
+    enqueued_bytes = mesh.issued_bytes - bytes0
+    check(enqueued == len(rows) * (1 + RUN["approx_batch"]),
+          f"main_shard: {enqueued} all-reduces enqueued")
+    d1 = problem.d + 1
+    payload = {"pass": torch.zeros((2, d1), device="cuda"),
+               "setup": torch.zeros((4,), dtype=torch.int32, device="cuda")}
+    allreduce = {}
+    for tag, buf in payload.items():
+        # At world size 1 NCCL may run nothing on the card: the trace
+        # counts the device events an all-reduce makes, CUDA events its
+        # time on the stream, paced by the host's enqueue.
+        tr = traced(torch, lambda: [mesh.all_reduce(buf)
+                                    for _ in range(20)])
+        allreduce[tag] = dict(bytes=buf.numel() * buf.element_size(),
+                              device_events_per_call=tr["device_events"]
+                              / 20, device_us_per_call=tr["device_us"] / 20,
+                              top_device_us=tr["top_device_us"][:3],
+                              event_ms_per_call=time_ms(
+                                  torch, lambda k: mesh.all_reduce(buf),
+                                  100))
+    emit("main_shard", scenario="OCR", n=n, d=problem.d, world_size=1,
+         backend=mesh.backend, iterations=len(rows),
+         wall_s_per_iteration=walls, launches=launches,
+         rows_bit_equal_to="main", sync_debug_mode="error",
+         collectives=led.collectives, collective_bytes=led.collective_bytes,
+         enqueued_collectives=enqueued, enqueued_bytes=enqueued_bytes,
+         graph_replays=eng.graphs.replays, allreduce=allreduce,
+         seconds=time.perf_counter() - t_phase)
+    return launches, solver
+
+
+def phase_main_shard_tau(torch, data, mesh):
+    """Full OCR under mpbcfw-shard-tau at tau = 23 (299 chunks): the dual
+    never decreases, one sync per iteration; per chunk B3 at B = 23 and B2
+    on the chunk's 23 rows (plus B3 at B = n per evaluation), the fold's
+    steps graph replays.  On the trained state B3 at (23, 14, 26) and B2
+    on 23 rows timed by graph_ms beside their bounds, and one tau-nice
+    epoch's seconds beside one sequential exact pass's.  ~10 s."""
+    import numpy as np
+    from repro_torch.api import CostModel, RunConfig, Solver
+    from repro_torch.core import mpbcfw
+    from repro_torch.core.oracles import chain
+    from repro_torch.core.ssvm import weights_of
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    X, Y, M = data
+    n, tau = OCR["n"], RUN_SHARD_TAU["tau"]
+    chunks = n // tau
+    problem = chain.make_problem(X, Y, M, OCR["num_labels"], device="cuda")
+    solver = Solver(problem, RunConfig(
+        lam=1.0 / n, mesh=mesh, cost_model=CostModel(
+            oracle_cost=ORACLE_COST, plane_cost=PLANE_COST),
+        **RUN_SHARD_TAU))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rows, walls = drive(torch, solver, "main_shard_tau")
+    launches = ops.launch_counts()
+    check_syncs("main_shard_tau", rows, dispatches=1)
+    last = rows[-1]
+    check(last.n_exact == n * len(rows), f"n_exact {last.n_exact}")
+    check(launches["viterbi_decode"] == (chunks + 1) * len(rows),
+          f"main_shard_tau: viterbi launches {launches['viterbi_decode']}")
+    check(launches["plane_select"] == chunks * len(rows),
+          f"main_shard_tau: plane_select launches "
+          f"{launches['plane_select']}")
+    check(launches["approx_pass"] == RUN["approx_batch"] * len(rows),
+          f"main_shard_tau: approx_pass launches {launches['approx_pass']}")
+    eng = solver.engine.eng
+    mp, lam = solver.state, solver.cfg.lam
+    c = mp.cache
+    rng = np.random.RandomState(5)
+    ids = torch.from_numpy(rng.permutation(n)[:tau]).cuda()
+    w = weights_of(mp.inner.phi, lam)
+    _, b2_bms, b2_by = select_bound(torch, c.valid, ids, problem.d)
+    b2 = dict(rows=tau, valid_slots=int(c.valid[ids].sum()),
+              graph_ms=graph_ms(torch, lambda k: ops.plane_select(
+                  c.planes[:, :, :-1], w, c.planes[:, :, -1], c.valid,
+                  rows=ids), 50),
+              bound_ms=b2_bms, bound_by=b2_by,
+              plan=select_plan(tau, c.valid.shape[1], problem.d))
+    mask = problem.data["mask"][ids]
+    C = OCR["num_labels"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    unary = torch.randn((tau, mask.shape[1], C), generator=gen,
+                        device="cuda")
+    trans = torch.randn((C, C), generator=gen, device="cuda")
+    nbytes, ops_n = viterbi_work(mask, C)
+    b3_bms, b3_by = bound_ms(nbytes, ops_n)
+    b3 = dict(shape=[tau, int(mask.shape[1]), C],
+              graph_ms=graph_ms(torch, lambda k: ops.viterbi_decode(
+                  unary, trans, mask), 50),
+              bound_ms=b3_bms, bound_by=b3_by,
+              plan=viterbi_plan(int(mask.shape[1]), C))
+    perm = rng.permutation(n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mp = eng.tau_nice_pass(mp, perm, tau)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    # The sequential step's first pass captures its graph: time the next.
+    mp = mpbcfw.exact_pass(problem, mp, perm, lam, graphs=eng.graphs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mpbcfw.exact_pass(problem, mp, perm, lam, graphs=eng.graphs)
+    torch.cuda.synchronize()
+    exact_s = time.perf_counter() - t0
+    emit("main_shard_tau", scenario="OCR", n=n, tau=tau, chunks=chunks,
+         iterations=len(rows), wall_s_per_iteration=walls,
+         approx_passes=[r.approx_passes for r in rows],
+         duals=[r.dual for r in rows], launches=launches,
+         collectives=solver.engine.ledger.collectives,
+         fold_gathers=eng.gathers, graph_replays=eng.graphs.replays,
+         viterbi_b23=b3, plane_select_23_rows=b2,
+         tau_epoch_s=epoch_s, sequential_exact_pass_s=exact_s,
+         seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def phase_main_shard_gram(torch, data, mesh, gram_rows, gram_launches):
+    """main_gram's run under mpbcfw-shard-gram on the NCCL mesh: rows
+    bit-equal to main_gram's, the run's launch counts equal, one sync per
+    iteration.  ~8 s (without main_gram's B4 recompute)."""
+    from repro_torch.api import CostModel, RunConfig, Solver
+    from repro_torch.core.oracles import chain
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    X, Y, M = data
+    n = OCR["n"]
+    problem = chain.make_problem(X, Y, M, OCR["num_labels"], device="cuda")
+    solver = Solver(problem, RunConfig(
+        lam=1.0 / n, mesh=mesh, cost_model=CostModel(
+            oracle_cost=ORACLE_COST, plane_cost=PLANE_COST),
+        **RUN_SHARD_GRAM))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rows, walls = drive(torch, solver, "main_shard_gram")
+    launches = ops.launch_counts()
+    rows_bit_equal("main_shard_gram", rows, gram_rows)
+    check(launches == gram_launches,
+          f"main_shard_gram launches {launches}, main_gram's "
+          f"{gram_launches}")
+    check_syncs("main_shard_gram", rows, dispatches=1)
+    led = solver.engine.ledger
+    emit("main_shard_gram", scenario="OCR", n=n, iterations=len(rows),
+         wall_s_per_iteration=walls, launches=launches,
+         rows_bit_equal_to="main_gram", collectives=led.collectives,
+         collective_bytes=led.collective_bytes,
+         approx_passes=[r.approx_passes for r in rows],
+         seconds=time.perf_counter() - t_phase)
+    return launches, solver
+
+
+def ranks_pass(torch, fn, mp, perm, lam, S, steps=None):
+    """One pass over ``mp``'s first blocks (``perm`` a permutation of
+    them) as S ranks of repro_torch.shard run it: rank r walks its
+    contiguous share in perm's visit order from the shared phi, its
+    averaging count advancing by S per block (``k_stride``), then the
+    engine's damped recombination (phi + sum delta / S, phi_i0 + (phi_i -
+    phi_i0) / S, the ranks' mean average).  On copies; returns phi, phi_i,
+    the average and the activity stamps."""
+    from repro_torch.shard.engine import local_schedules
+    nb = perm.numel()
+    nl = nb // S
+    c, phi0, bar0 = mp.cache, mp.inner.phi, mp.avg.bar_approx
+    red0, red1 = torch.zeros_like(phi0), torch.zeros_like(bar0)
+    phi_i, last = [], []
+    for r in range(S):
+        lo, hi = r * nl, (r + 1) * nl
+        sched = torch.from_numpy(local_schedules(
+            perm.cpu().numpy()[None], lo, nl)[0]).cuda()
+        st = dict(phi=phi0.clone(), phi_i=mp.inner.phi_i[lo:hi].clone(),
+                  bar=bar0.clone(), last=c.last_active[lo:hi].clone())
+        fn(st["phi"], st["phi_i"], st["bar"], c.planes[lo:hi],
+           c.valid[lo:hi], st["last"], sched, lam=lam, k0=mp.avg.k_approx,
+           outer_it=mp.outer_it,
+           gram=None if steps is None else c.gram[lo:hi], steps=steps,
+           k_stride=S)
+        red0 += st["phi"] - phi0
+        red1 += st["bar"] / S
+        phi_i.append(mp.inner.phi_i[lo:hi]
+                     + (st["phi_i"] - mp.inner.phi_i[lo:hi]) / S)
+        last.append(st["last"])
+    return dict(phi=phi0 + red0 / S, phi_i=torch.cat(phi_i), bar=red1,
+                last=torch.cat(last))
+
+
+def phase_shard_stride(torch, plain_solver, gram_solver):
+    """approx_pass at k_stride 2 and 4 (a rank of S's averaging count)
+    against its plain version over S rank slices of the trained states
+    (main_shard's first 2048 blocks plain, main_shard_gram's first 256 in
+    the Sec-3.5 mode), recombined as the engine recombines them: stamps
+    equal, phi, phi_i and the average within TOL (1 + |ref|).  Then the
+    stride-1 pass over all blocks of each trained state, ms by CUDA
+    events beside its bound (scripts/approx_pass_timing.py times it
+    against a parent tree).  ~10 s."""
+    import numpy as np
+    from repro_torch.core import mpbcfw
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    errs, timing = {}, {}
+    for mode, solver, steps in (("plain", plain_solver, None),
+                                ("sec35", gram_solver,
+                                 gram_solver.cfg.gram_steps)):
+        mp, lam = solver.state, solver.cfg.lam
+        nb = STRIDE_BLOCKS[mode]
+        perm = torch.from_numpy(np.random.RandomState(7).permutation(nb))
+        for S in STRIDE_RANKS:
+            before = ops.launch_counts()["approx_pass"]
+            got = ranks_pass(torch, ops.approx_pass, mp, perm, lam, S, steps)
+            check(ops.launch_counts()["approx_pass"] == before + S,
+                  f"shard_stride: {S} launches expected")
+            want = ranks_pass(torch, mpbcfw.eager_pass, mp, perm, lam, S,
+                              steps)
+            errs[f"{mode}_S{S}"] = _pass_close(
+                torch, got, want, f"shard_stride {mode} S={S}")
+        n = solver.problem.n
+        ids = torch.from_numpy(np.random.RandomState(8).permutation(n)
+                               ).cuda()
+        c = mp.cache
+        nbytes, ops_n = approx_pass_work(c.valid, ids, solver.problem.d,
+                                         steps)
+        bms, by = bound_ms(nbytes, ops_n)
+        timing[mode] = dict(
+            blocks=n, valid_planes=int(c.valid.sum()), bound_ms=bms,
+            bound_by=by, ms=time_ms(torch, lambda k: mpbcfw.run_pass(
+                mp, ids, lam, steps), 3, warmup=1),
+            plan=approx_plan(solver.problem.d, c.valid.shape[1], steps))
+    emit("shard_stride", ranks=list(STRIDE_RANKS), blocks=STRIDE_BLOCKS,
+         max_abs_err=errs, tolerance=f"{TOL} (1 + |ref|)",
+         stride1_full_pass=timing, seconds=time.perf_counter() - t_phase)
+    return max(errs.values()), timing
+
+
+def phase_resume_shard(torch, mesh):
+    """A world-size-1 sharded checkpoint (mpbcfw-shard on the card, SMALL
+    ocr, 2 of 4 iterations): restore_resharded gives the saved state bit
+    for bit, Solver.restore resumes the run bit for bit, and its files
+    (the global arrays a single-device run writes), under the
+    single-device engine's name, resume mpbcfw as mpbcfw's own run goes
+    on.  ~5 s."""
+    import shutil
+    import tempfile
+    from repro_torch.api import CostModel, RunConfig, Solver
+    from repro_torch.checkpoint import CheckpointManager, restore_resharded
+    t_phase = time.perf_counter()
+    sc, prob = small_problem("ocr", "cuda")
+
+    def cfg(algo, **kw):
+        return RunConfig(lam=1.0 / sc.n, algo=algo, max_iters=4, cap=16,
+                         approx_batch=4, max_approx_passes=6,
+                         cost_model=CostModel(sc.oracle_cost,
+                                              sc.plane_cost), **kw)
+    full = Solver(prob, cfg("mpbcfw-shard", mesh=mesh)).run().trace
+    twin = Solver(prob, cfg("mpbcfw")).run().trace
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_shard_ckpt_")
+    try:
+        mgr = CheckpointManager(str(Path(tmp) / "shard"))
+        head = Solver(prob, cfg("mpbcfw-shard", mesh=mesh))
+        it = head.iterate()
+        rows = [next(it) for _ in range(2)]
+        step = head.save(mgr)
+        tree, manifest = restore_resharded(mgr, head.state, mesh)
+        leaves = [(a, b) for x, y in zip(tree, head.state)
+                  for a, b in (zip(x, y) if isinstance(x, tuple)
+                               else [(x, y)])]
+        check(all(torch.equal(a, b) if isinstance(a, torch.Tensor)
+                  else a == b for a, b in leaves),
+              "resume_shard: restore_resharded differs from the saved state")
+        tail = Solver.restore(prob, cfg("mpbcfw-shard", mesh=mesh), mgr)
+        rows += list(tail.iterate())
+        rows_bit_equal("resume_shard", rows, full)
+        extra = dict(manifest["extra"], algo="mpbcfw")
+        single = CheckpointManager(str(Path(tmp) / "single"))
+        single.save(step, tree, extra=extra, metrics=manifest["metrics"])
+        resumed = Solver.restore(prob, cfg("mpbcfw"), single)
+        rows_bit_equal("resume_shard (mpbcfw)", list(resumed.iterate()),
+                       twin[2:])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("resume_shard", scenario="SMALL[ocr]", algo="mpbcfw-shard",
+         world_size=1, step=step, bitwise=True,
+         duals=[r.dual for r in rows], seconds=time.perf_counter() - t_phase)
 
 
 def phase_parity_specs(torch):
@@ -3535,12 +3964,30 @@ def main() -> int:
     del solver
     torch.cuda.empty_cache()
     phase_parity_gram(torch)
-    launches_gram, solver = phase_main_gram(torch, data)
+    launches_gram, solver, gram_run_launches = phase_main_gram(torch, data)
+    gram_rows = list(solver.trace)
     kernels[-1]["sec35_full"] = phase_profile_gram(torch, solver)
     del solver
     torch.cuda.empty_cache()
     phase_resume(torch)
     phase_obs_checkpoint(torch)
+    # The shard engine at world size 1 (NCCL on the card).
+    meshes = shard_meshes(torch)
+    phase_parity_shard(torch, meshes)
+    launches_shard, shard_solver = phase_main_shard(
+        torch, data, meshes["cuda"], main_rows, launches)
+    launches_shard_tau = phase_main_shard_tau(torch, data, meshes["cuda"])
+    torch.cuda.empty_cache()
+    launches_shard_gram, shard_gram_solver = phase_main_shard_gram(
+        torch, data, meshes["cuda"], gram_rows, gram_run_launches)
+    stride_err, stride_timing = phase_shard_stride(torch, shard_solver,
+                                                   shard_gram_solver)
+    kernels[-1].update(stride_max_abs_err=stride_err,
+                       stride1_full_pass=stride_timing)
+    kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], stride_err)
+    del shard_solver, shard_gram_solver
+    torch.cuda.empty_cache()
+    phase_resume_shard(torch, meshes["cuda"])
     phase_parity_specs(torch)
     phase_parity_simple(torch)
     simple_paths = {phase: phase_main_simple(torch, data, phase, algo)
@@ -3577,7 +4024,10 @@ def main() -> int:
                "flash_attention": "main_lm", "gram": "main_gram",
                "approx_pass": "main"}
     by_path = {"main": launches, **obs_paths, "main_async": launches_async,
-               "main_gram": launches_gram, **simple_paths,
+               "main_gram": launches_gram,
+               "main_shard": launches_shard,
+               "main_shard_tau": launches_shard_tau,
+               "main_shard_gram": launches_shard_gram, **simple_paths,
                "main_gap": launches_gap, **wide_paths,
                **serve_paths, "main_lm": launches_lm, **lm_paths}
     for k in kernels:
@@ -3590,6 +4040,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

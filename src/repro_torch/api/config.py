@@ -1,14 +1,13 @@
 """Run configuration and trace/result value types (PyTorch port).
 
-The fields of ``repro/api/config.py`` that the ported engines read, in
-its order; a later slice adds ``mesh`` and ``tau`` with the multi-device
-engines (:func:`repro_torch.api.engine.validate_config` already checks
-them where a config carries them).
+The fields of ``repro/api/config.py``, in its order.  ``mesh`` is a
+:class:`repro_torch.launch.mesh.DataMesh` (one rank of a
+``torch.distributed`` group) where the reference takes a JAX mesh.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple, TYPE_CHECKING
+from typing import Any, List, Optional, Tuple, TYPE_CHECKING
 
 import numpy as np
 
@@ -28,6 +27,12 @@ class RunConfig:
     gram_steps: int = 10    # repeats per block for the Sec-3.5 scheme
     seed: int = 0
     cost_model: Optional["CostModel"] = None  # None => wall clock
+    mesh: Optional[Any] = None   # mpbcfw-shard*: 1-D data mesh, a
+    #                              launch.mesh.DataMesh (None => a mesh of
+    #                              the default process group, on the
+    #                              problem's device)
+    tau: Optional[int] = None    # mpbcfw-shard*: tau-nice chunk size
+    #                              (None => #shards; must divide n)
     gap_tol: Optional[float] = None   # stop once duality gap <= gap_tol
     time_budget: Optional[float] = None  # stop once clock.now() >= budget
     policies: Optional[Tuple[str, ...]] = None  # repro_torch.policy bundle

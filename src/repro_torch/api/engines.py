@@ -13,16 +13,20 @@ the port runs into the :mod:`repro_torch.api.engine` registry:
     (:class:`FusedEngine`; ``mpbcfw-gap`` runs the
     :mod:`repro_torch.policy` gap bundle, the gram variant keeps Sec-3.5
     Gram blocks in its plane cache);
-  * ``mpbcfw-async`` (:class:`AsyncEngine`, the pipelined oracle).
+  * ``mpbcfw-async`` (:class:`AsyncEngine`, the pipelined oracle);
+  * ``mpbcfw-shard-async``, ``mpbcfw-shard``, ``mpbcfw-shard-avg``,
+    ``mpbcfw-shard-tau`` and ``mpbcfw-shard-gram``
+    (:class:`ShardDriverEngine`, :class:`ShardAsyncDriverEngine`: the
+    :mod:`repro_torch.shard` engine on the ``RunConfig.mesh`` data mesh,
+    one rank per process), and ``mpbcfw-gram`` and ``mpbcfw-gap`` given
+    a mesh.
 
 The MP-BCFW engines take ``RunConfig.policies`` (a bundle of
 :mod:`repro_torch.policy`).  The ``-avg`` engines report ``primal_avg``
 at the Sec-3.6 averaged iterate; the others keep the averages
-(``extract`` returns them) and report the primal again.  The reference's
-``mpbcfw-shard*`` engines, and ``mpbcfw-gap`` on a mesh, are not ported
-yet: looking one up raises
-:class:`~repro_torch.api.errors.UnsupportedConfigError` ("not yet
-ported").  Capabilities equal the reference's, entry for entry.  The
+(``extract`` returns them) and report the primal again.  Every name the
+reference registers is registered here, in its order, with its
+capabilities, entry for entry.  The
 engines' states are tensors and NamedTuples of tensors in the reference's
 layout, which :class:`repro_torch.checkpoint.CheckpointManager` saves as
 they are, so each package resumes the other's checkpoints.
@@ -43,6 +47,8 @@ from ..core.selection import SyncLedger
 from ..core.ssvm import init_state as init_bcfw_state, weights_of
 from ..core.types import SSVMProblem
 from ..kernels import approx_pass as approx_kernel
+from ..launch.mesh import ensure_data_mesh
+from ..shard import ShardEngine
 from . import solver as solver_mod
 from .config import RunConfig
 from .engine import EngineCapabilities, register_engine
@@ -57,8 +63,8 @@ class IterStats(NamedTuple):
 
 
 # Contract budgets: single-device engines issue no collectives and no host
-# callbacks; the shard engines (not ported yet) one setup all-reduce per
-# program and one per approximate pass.
+# callbacks; the shard engines one setup all-reduce per program and one per
+# approximate pass.
 _SINGLE_DEVICE_BUDGET = dict(collectives_per_pass=0, collectives_setup=0,
                              host_callbacks=0)
 _SHARD_BUDGET = dict(collectives_per_pass=1, collectives_setup=1,
@@ -378,6 +384,135 @@ class AsyncEngine(FusedEngine):
         return super().extract(state.mp)
 
 
+class ShardDriverEngine(FusedEngine):
+    """The :class:`repro_torch.shard.ShardEngine` behind the engine
+    protocol: each outer iteration (eviction, the exact epoch, the
+    approximate batch) one dispatch on this rank of the mesh, read once.
+    ``tau`` is the tau-nice chunk size (None: the rank count; 1 runs the
+    sequential exact pass).  Checkpoints hold the global arrays
+    (``pack_state`` gathers them on every rank; the Solver writes on rank
+    0) and restore at any world size (``unpack_state`` slices them)."""
+
+    capabilities = EngineCapabilities(multipass=True, supports_mesh=True,
+                                      supports_averaging=True,
+                                      uses_tau=True, policy_capable=True,
+                                      policies=("uniform", "ttl-lru",
+                                                "slope"),
+                                      **_SHARD_BUDGET)
+
+    def __init__(self, problem: SSVMProblem, lam: float, mesh,
+                 tau: Optional[int], *, averaged: bool = False,
+                 use_gram: bool = False, gram_steps: int = 10,
+                 policies=None):
+        super().__init__(problem, lam,
+                         gram_steps=gram_steps if use_gram else None,
+                         averaged=averaged, policies=policies)
+        self.eng = ShardEngine(problem, mesh, lam=lam, use_gram=use_gram,
+                               gram_steps=gram_steps, policies=policies)
+        self.mesh = mesh
+        self.tau = int(tau) if tau is not None else self.eng.n_shards
+        self.ledger = self.eng.ledger
+        self.graphs = self.eng.graphs
+
+    def init_state(self, cap: int):
+        self._check_plan(cap)
+        return self.eng.init_state(cap)
+
+    def outer_iteration(self, mp, perm, perms, clock, *, ttl: int,
+                        key=None):
+        return self.eng.outer_iteration(mp, perm, perms, clock,
+                                        tau=self.tau, ttl=ttl, key=key)
+
+    def continue_passes(self, mp, perms, clock):
+        return self.eng.multi_approx_pass(mp, perms, clock)
+
+    def read_stats(self, stats):
+        return self.eng.read_stats(stats)
+
+    def pack_state(self, state):
+        return self.eng.gather(state)
+
+    def unpack_state(self, tree):
+        return self.eng.place(tree)
+
+
+class ShardAsyncDriverEngine(AsyncEngine):
+    """Pipelined mesh engine (``mpbcfw-shard-async``): per outer iteration
+    the oracle program (:meth:`repro_torch.shard.ShardEngine
+    .async_oracle_pass`: the exact oracles of all blocks at the
+    iteration-entry ``w``, ``n / S`` per rank) and the cache program
+    (:meth:`~repro_torch.shard.ShardEngine.async_cache_pass`: eviction,
+    the fold of the previous oracle results, the sharded approximate
+    batch), two dispatches and one host sync, with the serial shard
+    engines' collective budget.  The oracle program is enqueued first, on
+    the same stream: the state is updated in place, so it reads ``w``
+    before the cache program moves ``phi``.  Uniform schedules only, as
+    in the reference."""
+
+    capabilities = EngineCapabilities(multipass=True, supports_mesh=True,
+                                      supports_averaging=True,
+                                      policy_capable=True,
+                                      async_oracle=True,
+                                      policies=("uniform", "ttl-lru",
+                                                "slope"),
+                                      **_SHARD_BUDGET)
+
+    def __init__(self, problem: SSVMProblem, lam: float, mesh, *,
+                 gram_steps: int = 10, policies=None):
+        super().__init__(problem, lam, policies=policies)
+        if policies is not None and policies.sampling.name != "uniform":
+            raise UnsupportedConfigError(
+                "mpbcfw-shard-async runs the uniform exact schedule (the "
+                "pipelined oracle program shards the whole permutation); "
+                f"sampler {policies.sampling.name!r} is unsupported — use "
+                "mpbcfw-async for sampled schedules.")
+        self.eng = ShardEngine(problem, mesh, lam=lam,
+                               gram_steps=gram_steps, policies=policies)
+        self.mesh = mesh
+        self.ledger = self.eng.ledger
+        self.graphs = self.eng.graphs
+
+    def init_state(self, cap: int) -> mpbcfw.AsyncMPState:
+        self._check_plan(cap)
+        return mpbcfw.AsyncMPState(
+            mp=self.eng.init_state(cap),
+            pending=mpbcfw.init_pending(self.problem.n, self.problem.d,
+                                        self.mesh.device))
+
+    def outer_iteration(self, state, perm, perms, clock, *, ttl: int,
+                        key=None):
+        del key
+        ids, planes = self.eng.async_oracle_pass(state.mp.inner.phi, perm)
+        mp2, clock2, stats = self.eng.async_cache_pass(
+            state.mp, state.pending, perms, clock, ttl=ttl)
+        new_pending = mpbcfw.PendingOracle(
+            ids=ids, planes=planes, done=self._done_mask(len(ids)),
+            live=True)
+        self._overlap_pending = (
+            clock.t, torch.minimum(clock.t, clock2.t - clock.t))
+        return (mpbcfw.AsyncMPState(mp=mp2, pending=new_pending), clock2,
+                stats)
+
+    def continue_passes(self, state, perms, clock):
+        mp2, clock2, stats = self.eng.multi_approx_pass(state.mp, perms,
+                                                        clock)
+        return state._replace(mp=mp2), clock2, stats
+
+    def read_stats(self, stats):
+        pend, self._overlap_pending = self._overlap_pending, None
+        if pend is None:
+            return self.eng.read_stats(stats)
+        st, (total, hidden) = self.eng.read_stats(stats, extra=pend)
+        self.ledger.overlapped(float(total), float(hidden))
+        return st
+
+    def pack_state(self, state):
+        return state._replace(mp=self.eng.gather(state.mp))
+
+    def unpack_state(self, tree):
+        return tree._replace(mp=self.eng.place(tree.mp))
+
+
 # ---------------------------------------------------------------------------
 # Single-program engines (one exact pass per outer iteration)
 #
@@ -504,19 +639,54 @@ class BCFWEngine(_EngineBase):
 
 
 # ---------------------------------------------------------------------------
-# Registration, in the reference's order (the names not yet ported are
-# skipped).  overwrite=True keeps a re-import after a failed first import
-# clear of the duplicate guard.
+# Registration, in the reference's order.  overwrite=True keeps a re-import
+# after a failed first import clear of the duplicate guard.
 
 
-def _gap_factory(problem: SSVMProblem, cfg: RunConfig) -> FusedEngine:
+def _shard_factory(problem: SSVMProblem, cfg: RunConfig,
+                   averaged: bool = False,
+                   use_gram: bool = False) -> ShardDriverEngine:
+    """The shard engines on ``RunConfig.mesh`` (None: a mesh of the
+    default process group, on the problem's device)."""
+    return ShardDriverEngine(
+        problem, cfg.lam, ensure_data_mesh(cfg.mesh,
+                                           device=_device(problem)),
+        cfg.tau, averaged=averaged, use_gram=use_gram,
+        gram_steps=cfg.gram_steps, policies=_policies(problem, cfg))
+
+
+def _gram_factory(problem: SSVMProblem, cfg: RunConfig):
+    """``mpbcfw-gram`` resolves by configuration: the single-device engine
+    without a mesh, the sharded gram engine with one."""
+    if cfg.mesh is not None:
+        return _shard_factory(problem, cfg, use_gram=True)
+    return FusedEngine(problem, cfg.lam, gram_steps=cfg.gram_steps,
+                       policies=_policies(problem, cfg))
+
+
+def _shard_async_factory(problem: SSVMProblem,
+                         cfg: RunConfig) -> ShardAsyncDriverEngine:
+    return ShardAsyncDriverEngine(
+        problem, cfg.lam, ensure_data_mesh(cfg.mesh,
+                                           device=_device(problem)),
+        gram_steps=cfg.gram_steps, policies=_policies(problem, cfg))
+
+
+def _gap_factory(problem: SSVMProblem, cfg: RunConfig):
     """``mpbcfw-gap``: gap-proportional gumbel-top-k sampling and gap-aware
     eviction (default bundle ``GAP_POLICIES``; ``RunConfig.policies``
-    overrides it) on the single-device engine.  The reference's mesh
-    branch waits for ``RunConfig.mesh`` (ROADMAP A item 6)."""
+    overrides it).  With a mesh the sampled schedule needs the sequential
+    exact path, so tau is pinned to 1 (``RunConfig.tau`` is refused by
+    the capability check), which only a world size of 1 divides, as in
+    the reference."""
     from ..policy import GAP_POLICIES
-    return FusedEngine(problem, cfg.lam, policies=_policies(
-        problem, cfg, allow_key=True, default=GAP_POLICIES))
+    bundle = _policies(problem, cfg, allow_key=True, default=GAP_POLICIES)
+    if cfg.mesh is not None:
+        return ShardDriverEngine(
+            problem, cfg.lam, ensure_data_mesh(cfg.mesh,
+                                               device=_device(problem)),
+            1, gram_steps=cfg.gram_steps, policies=bundle)
+    return FusedEngine(problem, cfg.lam, policies=bundle)
 
 
 def _register(name, factory, capabilities):
@@ -557,9 +727,7 @@ _register(
              "a 1-device mesh is bit-for-bit equal to the single-device "
              "program."))
 _register(
-    "mpbcfw-gram",
-    lambda p, cfg: FusedEngine(p, cfg.lam, gram_steps=cfg.gram_steps,
-                               policies=_policies(p, cfg)),
+    "mpbcfw-gram", _gram_factory,
     EngineCapabilities(
         multipass=True, supports_gram=True, supports_averaging=True,
         supports_mesh=True, uses_tau=True, tau_requires_mesh=True,
@@ -580,3 +748,26 @@ _register(
              "current state), <= 2 dispatches + 1 host sync, proven by "
              "analysis rule J009; TraceRow.oracle_overlap reports the "
              "hidden fraction of the modeled oracle time."))
+_register(
+    "mpbcfw-shard-async", _shard_async_factory,
+    dataclasses.replace(
+        ShardAsyncDriverEngine.capabilities,
+        note="Pipelined oracle on the 1-D data mesh: the per-shard "
+             "oracle program (zero collectives) overlaps the "
+             "psum-synchronized cache passes; collective budgets match "
+             "the serial shard family."))
+_register("mpbcfw-shard", _shard_factory, ShardDriverEngine.capabilities)
+_register("mpbcfw-shard-avg",
+          lambda p, cfg: _shard_factory(p, cfg, averaged=True),
+          ShardDriverEngine.capabilities)
+_register("mpbcfw-shard-tau", _shard_factory,
+          dataclasses.replace(ShardDriverEngine.capabilities,
+                              requires_tau=True))
+_register(
+    "mpbcfw-shard-gram",
+    lambda p, cfg: _shard_factory(p, cfg, use_gram=True),
+    dataclasses.replace(ShardDriverEngine.capabilities,
+                        supports_gram=True,
+                        note="Sec-3.5 Gram scheme on the mesh-sharded "
+                             "plane cache; bit-for-bit equal to "
+                             "mpbcfw-gram on a 1-device mesh."))

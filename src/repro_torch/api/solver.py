@@ -39,6 +39,12 @@ The manifest's ``metrics`` carries :attr:`Solver.metrics`' snapshot, which
 :meth:`Solver.restore` loads, so the metric series continues across a
 resume in either package.
 
+On a data mesh (the shard engines, ``RunConfig.mesh``) every rank runs
+the same Solver: the same RNG stream, the same reduced telemetry, so the
+same trace on every rank.  :meth:`Solver.save` gathers the global state
+on every rank and writes it on rank 0 alone, then waits for the ranks; a
+recorder is taken on rank 0 only (another rank's is refused).
+
 Observability: ``Solver(..., recorder=RunRecorder(path))`` installs a
 :class:`repro_torch.obs.RunRecorder` after the user's callbacks; it owns
 the metrics registry and writes the reference's run trace (rows, phase
@@ -199,6 +205,13 @@ class Solver:
         self.cfg = cfg
         self.engine = entry.factory(problem, cfg)
         self.caps = entry.capabilities
+        # The engine's data mesh, on the mesh engines: rank 0 writes.
+        self.mesh = getattr(self.engine, "mesh", None)
+        self.rank = 0 if self.mesh is None else self.mesh.rank
+        if recorder is not None and self.rank != 0:
+            raise ValueError(
+                f"a RunRecorder writes on rank 0 only; pass recorder=None "
+                f"on rank {self.rank}")
         self.callbacks = list(callbacks)
         self.checkpoint = checkpoint
         self.checkpoint_every = int(checkpoint_every)
@@ -454,7 +467,9 @@ class Solver:
              step: Optional[int] = None) -> int:
         """Checkpoint the engine state and the control loop's host state
         under ``step`` (default: the current iteration); returns it.  The
-        ``extra`` keys are the reference's, legacy flat keys included."""
+        ``extra`` keys are the reference's, legacy flat keys included.  On
+        a mesh every rank calls it: the state is gathered on every rank,
+        rank 0 writes, and the ranks wait for the write."""
         manager = manager or self.checkpoint
         if manager is None:
             raise ValueError("no CheckpointManager: pass one to save() or "
@@ -486,8 +501,11 @@ class Solver:
         span = (self.recorder.span("checkpoint_save", step=step)
                 if self.recorder is not None else nullcontext())
         with span:
-            manager.save(step, tree, extra=extra,
-                         metrics=self.metrics.snapshot())
+            if self.rank == 0:
+                manager.save(step, tree, extra=extra,
+                             metrics=self.metrics.snapshot())
+        if self.mesh is not None:
+            self.mesh.barrier()
         return step
 
     @classmethod

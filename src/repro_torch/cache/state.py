@@ -59,11 +59,16 @@ class PlaneCache(NamedTuple):
 class CacheLayout:
     """Plane-cache configuration.
 
-    ``gram`` keeps the Sec-3.5 Gram blocks in the cache; ``track_gap``
-    the ``(n,)`` per-block gap vector of the gap policies.
+    ``gram`` keeps the Sec-3.5 Gram blocks in the cache; ``axis`` names
+    the mesh axis the block dimension is partitioned over (None: one
+    device), read by :func:`repro_torch.cache.partition_specs` and the
+    shard layout; ``track_gap`` keeps the ``(n,)`` per-block gap vector of
+    the gap policies.  The reference's ``fold_scatter`` has no field: the
+    port folds in place, so its two strategies are one program.
     """
 
     cap: int = 64
     dtype: Any = torch.float32
     gram: bool = False
+    axis: Optional[str] = None
     track_gap: bool = False

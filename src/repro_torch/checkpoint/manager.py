@@ -16,8 +16,8 @@ counters as Python ints and bools and the pending buffer's ids and flags
 as numpy arrays; they are stored as the reference stores its device
 scalars: 0-d int32 and bool arrays, ids as int32.  A leaf that is None is
 absent.  bfloat16 is widened to float32 (lossless); the template's dtype
-restores it.  Restoring onto another mesh (the reference's
-``restore_resharded``) waits for the multi-device port (ROADMAP A10).
+restores it.  A sharded run writes the same files, its state gathered
+first, and :func:`restore_resharded` places them on any data mesh.
 """
 from __future__ import annotations
 
@@ -172,3 +172,18 @@ class CheckpointManager:
         with np.load(d / "arrays.npz") as data:
             tree = _unflatten(template, data)
         return tree, manifest
+
+
+def restore_resharded(mgr: CheckpointManager, template: Any, mesh,
+                      step: Optional[int] = None):
+    """Elastic restart: the checkpoint's global arrays, placed on ``mesh``
+    (a :class:`repro_torch.launch.mesh.DataMesh`): an MP-BCFW state (or
+    the ``mp`` of a pipelined one) sliced to this rank's blocks, every
+    other tensor moved to the mesh's device.  The world size that wrote
+    the files does not matter (they hold the global arrays, as a
+    single-device run writes them), nor does the package.  ``template``
+    gives the structure, types and dtypes (a global or a rank's state).
+    Returns ``(tree, manifest)``."""
+    from ..shard.layout import place_tree
+    tree, manifest = mgr.restore(template, step)
+    return place_tree(tree, mesh), manifest

@@ -22,12 +22,14 @@ def init_averaging(d: int, device) -> AveragingState:
                           k_approx=0)
 
 
-def weight_table(k0: int, m: int) -> np.ndarray:
-    """``(m, 2)`` float32: ``(k/(k+2), 2/(k+2))`` for ``k = k0 .. k0+m-1``.
+def weight_table(k0: int, m: int, stride: int = 1) -> np.ndarray:
+    """``(m, 2)`` float32: ``(k/(k+2), 2/(k+2))`` for ``k = k0 + stride
+    t``, ``t = 0 .. m-1`` (the shard engine's ranks step by the rank
+    count).
 
     The reference computes both from a float32 ``k``, in float32; the same
     roundings here give bit-equal weights."""
-    kf = np.arange(k0, k0 + m, dtype=np.int64).astype(np.float32)
+    kf = (k0 + stride * np.arange(m, dtype=np.int64)).astype(np.float32)
     two = np.float32(2.0)
     return np.stack([kf / (kf + two), two / (kf + two)], axis=1)
 

@@ -17,8 +17,10 @@ on ``done`` (a numpy bool array) and ``live`` (a Python bool): the
 reference's ``jnp.where`` over both branches becomes one of two block
 steps taken, each a captured CUDA graph on the card
 (:mod:`repro_torch.core.graphs`).
-The fused ``shard_map`` epoch of ``repro.shard`` is not ported (ROADMAP
-A10); :func:`host_tau_nice_pass` is the single-device chunk loop.
+:func:`host_tau_nice_pass` is the single-device chunk loop; the shard
+engine (:mod:`repro_torch.shard`) runs the same chunk body on each rank
+of a data mesh, the oracles split over the ranks
+(:func:`parallel_oracles` with a mesh).
 """
 from __future__ import annotations
 
@@ -47,15 +49,30 @@ def gather_examples(problem: SSVMProblem, block_ids):
     return {k: v[idx] for k, v in problem.data.items()}
 
 
+def local_block_ids(block_ids, mesh) -> np.ndarray:
+    """This rank's share of ``block_ids`` (a host array of ``tau`` ids):
+    the contiguous ``tau / S`` of them at its rank, as the reference's
+    ``P('data')`` sharding of the ids gives each device."""
+    ids = np.asarray(block_ids, np.int64).reshape(-1)
+    if len(ids) % mesh.size:
+        raise ValueError(f"{len(ids)} blocks do not split over "
+                         f"{mesh.size} ranks")
+    m = len(ids) // mesh.size
+    return ids[mesh.rank * m:(mesh.rank + 1) * m]
+
+
 def parallel_oracles(problem: SSVMProblem, w: torch.Tensor, block_ids,
                      mesh: Optional[Any] = None) -> torch.Tensor:
-    """The max-oracles of ``block_ids`` at one shared ``w``: one batched
-    oracle call, ``(tau, d+1)`` planes."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "parallel_oracles over a mesh: multi-device execution is not "
-            "ported yet (ROADMAP A10)")
-    return problem.oracle(w, gather_examples(problem, block_ids))
+    """The max-oracles of ``block_ids`` at one shared ``w``: ``(tau, d+1)``
+    planes.  Without a mesh, one batched oracle call; with a
+    :class:`~repro_torch.launch.mesh.DataMesh`, each rank runs its
+    ``tau / S`` of them (:func:`local_block_ids`; the data is replicated,
+    so any rank can) and one all-gather hands every rank all ``tau``."""
+    if mesh is None:
+        return problem.oracle(w, gather_examples(problem, block_ids))
+    mine = local_block_ids(block_ids, mesh)
+    planes = problem.oracle(w, gather_examples(problem, mine))
+    return mesh.all_gather(planes).reshape(-1, planes.shape[-1])
 
 
 def fallback_planes(ws, block_ids, w: torch.Tensor):

@@ -123,7 +123,8 @@ def eager_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,
                k0: int, outer_it: int, gram: Optional[torch.Tensor] = None,
                steps: Optional[int] = None,
                go: Optional[torch.Tensor] = None,
-               gap: Optional[torch.Tensor] = None) -> None:
+               gap: Optional[torch.Tensor] = None,
+               k_stride: int = 1) -> None:
     """One approximate pass over the blocks of ``perm``, in place, as a
     loop of per-block device ops: the plain version of the ``approx_pass``
     kernel (:func:`repro_torch.kernels.ops.approx_pass`, same arguments),
@@ -136,12 +137,12 @@ def eager_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,
     Gram leaf) it runs the Sec-3.5 recurrences
     (:func:`repro_torch.core.gram.multi_step_block_update`) and stamps the
     planes they picked.  After each block, one averaging step of ``bar``
-    with ``k = k0 + position``.  A false ``go`` flag leaves everything
-    untouched (on the CPU reading it is no device sync).  In the plain mode
-    a ``gap`` vector takes each block's gap estimate: the chosen plane's
-    score minus ``<phi_i, [w 1]>`` of the row before its update, clamped
-    at 0 (:func:`repro_torch.cache.update_gap`).  The host counters are the
-    caller's (:func:`count_passes`).
+    with ``k = k0 + k_stride * position``.  A false ``go`` flag leaves
+    everything untouched (on the CPU reading it is no device sync).  In
+    the plain mode a ``gap`` vector takes each block's gap estimate: the
+    chosen plane's score minus ``<phi_i, [w 1]>`` of the row before its
+    update, clamped at 0 (:func:`repro_torch.cache.update_gap`).  The
+    host counters are the caller's (:func:`count_passes`).
     """
     if go is not None and not bool(go):
         return
@@ -152,8 +153,8 @@ def eager_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,
                        gram=gram, gap=gap)
     st = BCFWState(phi_i=phi_i, phi=phi, n_exact=0, n_approx=0)
     ids = block_ids(perm.cpu())
-    weights = torch.from_numpy(weight_table(int(k0), len(ids))).to(
-        phi.device)
+    weights = torch.from_numpy(weight_table(int(k0), len(ids),
+                                            int(k_stride))).to(phi.device)
     scratch = torch.empty_like(phi)
     for pos, i in enumerate(ids):
         if steps is None:
@@ -178,12 +179,13 @@ def eager_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,
 
 def run_pass(mp: MPState, perm: torch.Tensor, lam: float,
              steps: Optional[int] = None, *, k0: Optional[int] = None,
-             go: Optional[torch.Tensor] = None) -> None:
+             go: Optional[torch.Tensor] = None, k_stride: int = 1) -> None:
     """One approximate pass over the blocks of ``perm`` (an int64 tensor on
     the state's device), in place: one ``approx_pass`` kernel launch on
     CUDA, its plain version :func:`eager_pass` on the CPU.  ``steps`` runs
     the Sec-3.5 scheme over the cache's Gram blocks.  ``k0`` is the
-    averaging count at pass start (default: the state's); a false ``go``
+    averaging count at pass start (default: the state's), advancing by
+    ``k_stride`` per block; a false ``go``
     flag makes the pass a no-op.  A plain pass writes the cache's gap
     vector, when it has one.  The host counters are left to the caller
     (:func:`count_passes`)."""
@@ -193,7 +195,7 @@ def run_pass(mp: MPState, perm: torch.Tensor, lam: float,
        c.last_active, perm, lam=lam,
        k0=mp.avg.k_approx if k0 is None else k0, outer_it=mp.outer_it,
        gram=c.gram if steps is not None else None, steps=steps, go=go,
-       gap=c.gap if steps is None else None)
+       gap=c.gap if steps is None else None, k_stride=k_stride)
 
 
 def count_passes(mp: MPState, passes: int, blocks: int,

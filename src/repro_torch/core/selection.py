@@ -94,19 +94,24 @@ def _to_host(tree):
 class SyncLedger:
     """Control-loop synchronization telemetry.
 
-    Counts device->host round-trips (``host_syncs``) and program
-    dispatches; ``collectives`` stays 0 on one device.  Only :meth:`sync`
-    blocks.
+    Counts device->host round-trips (``host_syncs``), program dispatches
+    and cross-device collectives (``collectives``, 0 on the single-device
+    engines).  Only :meth:`sync` blocks.  The shard engine charges its
+    collectives with :meth:`collected` after each read, as the reference
+    does: per-program site counts (:mod:`repro_torch.shard.telemetry`)
+    times the passes that ran, with their payload bytes in
+    ``collective_bytes``.
 
-    The pipelined engine also charges its oracle-overlap accounting here
+    The pipelined engines also charge their oracle-overlap accounting here
     (:meth:`overlapped`): modeled oracle seconds issued and the part
-    hidden behind the concurrent cache program.  Those two fields are not
-    part of :meth:`counts`.
+    hidden behind the concurrent cache program.  ``collective_bytes`` and
+    those two fields are not part of :meth:`counts`.
     """
 
     host_syncs: int = 0
     collectives: int = 0
     dispatches: int = 0
+    collective_bytes: int = 0
     oracle_time_total: float = 0.0
     oracle_time_hidden: float = 0.0
 
@@ -125,6 +130,11 @@ class SyncLedger:
 
     def dispatched(self, n: int = 1) -> None:
         self.dispatches += n
+
+    def collected(self, n: int = 1, nbytes: int = 0) -> None:
+        """Charge ``n`` collectives moving ``nbytes`` payload bytes."""
+        self.collectives += n
+        self.collective_bytes += nbytes
 
     def overlapped(self, total: float, hidden: float) -> None:
         """Charge one iteration's oracle overlap: ``total`` modeled oracle

@@ -10,8 +10,10 @@ Each block's phi_i row, valid plane rows and Gram leaf are staged in
 shared memory by bulk copies (the TMA engine) while the block before it
 computes, as :func:`plan` lays out.  A device ``go`` flag gates the
 launch, so passes can be queued behind the slope rule's on-device
-decision.  In the plain mode an optional ``gap`` vector takes each
-visited block's gap estimate (the gap policies' input), from one more
+decision.  The averaging count advances by ``k_stride`` per block (1 on
+one device; S on a rank of the shard engine's S, whose blocks are visited
+in step with the other ranks').  In the plain mode an optional ``gap``
+vector takes each visited block's gap estimate (the gap policies' input), from one more
 dot product per block on an idle warp.  Latency-bound (a sequential
 chain of per-block reductions).  See the source for the design.
 
@@ -52,7 +54,7 @@ MAX_SEC35_CAP = 8 * 32
 WIDE_SMEM = 16
 
 _SIGNATURE = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] + \
-    [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_longlong] + \
+    [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_longlong] * 2 + \
     [ctypes.c_int] * 2 + [ctypes.c_void_p]
 _WIDE_SIGNATURE = _SIGNATURE[:-3] + [ctypes.c_void_p] * 2
 
@@ -157,7 +159,8 @@ def approx_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,
                 gram: Optional[torch.Tensor] = None,
                 steps: Optional[int] = None,
                 go: Optional[torch.Tensor] = None,
-                gap: Optional[torch.Tensor] = None) -> None:
+                gap: Optional[torch.Tensor] = None,
+                k_stride: int = 1) -> None:
     """One approximate pass over ``perm`` in place (see
     :func:`repro_torch.kernels.ops.approx_pass`)."""
     global launches
@@ -207,6 +210,9 @@ def approx_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,
     if dev.index != torch.cuda.current_device():
         raise ValueError(f"approx_pass: tensors on {dev}, but the current "
                          f"device is {torch.cuda.current_device()}")
+    if k_stride < 1:
+        raise ValueError(f"approx_pass: k_stride must be >= 1, got "
+                         f"{k_stride}")
     if perm.numel() == 0:
         return
     nsteps = 0 if steps is None else int(steps)
@@ -219,7 +225,7 @@ def approx_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,
             go.data_ptr() if go is not None else None,
             gap.data_ptr() if gap is not None else None, n, perm.numel(), cap,
             d1 - 1, nsteps, int(outer_it), float(lam), inverse_lam(lam),
-            int(k0))
+            int(k0), int(k_stride))
     if how.wide:
         # Freed on return: the caching allocator hands it out again only
         # to work queued on this stream behind the pass.

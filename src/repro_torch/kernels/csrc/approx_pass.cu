@@ -20,7 +20,15 @@
 //     phi_i' = beta0 phi_i + beta P_i, phi' = phi + (phi_i' - phi_i), and
 //     last_active = outer_it on every slot the recurrence picked;
 //   and then one averaging step bar = k/(k+2) bar + 2/(k+2) phi, with
-//   k = k0 + (position of i in perm) (core/averaging.py).
+//   k = k0 + k_stride * (position of i in perm) (core/averaging.py).  The
+//   stride is 1 on one device; a rank of S walking its share of the
+//   blocks in step with S - 1 others advances the count by S per block
+//   (shard/engine.py), as the reference's sharded pass does.  A stride
+//   other than 1 runs builds of its own (kStride), the stride a kernel
+//   parameter after Args that the stride-1 builds do not read: with the
+//   stride a field of Args, or read by every build, ptxas gave the
+//   stride-1 builds other registers and the plain pass ran 5.5-7 % slower
+//   on an H100.
 // A `go` flag (device bool, may be null) gates the launch: false returns
 // at once, so a batch of passes queued behind the slope rule's on-device
 // flag runs only the passes the rule allows.  In the plain mode a `gap`
@@ -539,9 +547,9 @@ __device__ __forceinline__ void compact(int* meta, int cap, int lane,
   if (lane == 0) meta[2 * cap] = count;
 }
 
-template <int NJ, bool kSec35, bool kGap>
+template <int NJ, bool kSec35, bool kGap, bool kStride>
 __global__ void __launch_bounds__(kThreads, 1)
-approx_pass_kernel(const Args args, float* gap) {
+approx_pass_kernel(const Args args, float* gap, long long k_stride) {
   if (args.go != nullptr && !*args.go) return;
   extern __shared__ __align__(16) float smem[];
   const int d1 = args.d + 1, d = args.d, cap = args.cap;
@@ -904,7 +912,9 @@ approx_pass_kernel(const Args args, float* gap) {
       if (lane == 0 && t + 3 < n_perm)
         s_id[(t + 3) & (kIdRing - 1)] = next_id;
       if (lane == 0)
-        avg_weights(args.k0 + t + 1, s_wts[2 * ((t + 1) & 1)],
+        avg_weights(kStride ? args.k0 + k_stride * (t + 1)
+                            : args.k0 + t + 1,
+                    s_wts[2 * ((t + 1) & 1)],
                     s_wts[2 * ((t + 1) & 1) + 1]);
       const long long i2 = t + 2 < n_perm ? id_of(t + 2) : -1;
       if (t + 2 < n_perm) {
@@ -1033,9 +1043,10 @@ __device__ float recurrence_wide(const int* pos, float* s_a, float* s_b,
   return beta0;
 }
 
-template <bool kSec35, bool kGap>
+template <bool kSec35, bool kGap, bool kStride>
 __global__ void __launch_bounds__(kThreads, 1)
-approx_pass_wide_kernel(const Args args, int* scratch, float* gap) {
+approx_pass_wide_kernel(const Args args, int* scratch, float* gap,
+                        long long k_stride) {
   if (args.go != nullptr && !*args.go) return;
   __shared__ float s_scal[kWideScalars];
   const int d1 = args.d + 1, d = args.d, cap = args.cap;
@@ -1061,7 +1072,7 @@ approx_pass_wide_kernel(const Args args, int* scratch, float* gap) {
     const long long i = args.perm[t];
     if (i < 0 || i >= n) continue;   // uniform: every thread read i
     float wa, wb;
-    avg_weights(args.k0 + t, wa, wb);
+    avg_weights(kStride ? args.k0 + k_stride * t : args.k0 + t, wa, wb);
     float* pi = args.phi_i + i * d1;
     if (warp == 0) {
       const bool* V = args.valid + i * cap;
@@ -1238,36 +1249,57 @@ approx_pass_wide_kernel(const Args args, int* scratch, float* gap) {
   }
 }
 
-template <int NJ, bool kSec35, bool kGap>
+template <int NJ, bool kSec35, bool kGap, bool kStride>
 cudaError_t allow() {
-  return cudaFuncSetAttribute(approx_pass_kernel<NJ, kSec35, kGap>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              kSmemLimit);
+  return cudaFuncSetAttribute(
+      approx_pass_kernel<NJ, kSec35, kGap, kStride>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
 }
 
-template <bool kSec35, bool kGap>
+template <bool kSec35, bool kGap, bool kStride>
 cudaError_t allow_all() {
-  cudaError_t err = allow<8, kSec35, kGap>();
-  if (err == cudaSuccess) err = allow<16, kSec35, kGap>();
-  if (err == cudaSuccess) err = allow<24, kSec35, kGap>();
-  if (err == cudaSuccess) err = allow<40, kSec35, kGap>();
+  cudaError_t err = allow<8, kSec35, kGap, kStride>();
+  if (err == cudaSuccess) err = allow<16, kSec35, kGap, kStride>();
+  if (err == cudaSuccess) err = allow<24, kSec35, kGap, kStride>();
+  if (err == cudaSuccess) err = allow<40, kSec35, kGap, kStride>();
   return err;
 }
 
-template <bool kSec35, bool kGap>
-void launch(const Args& args, float* gap, long long d1, size_t bytes,
-            cudaStream_t s) {
+template <bool kSec35, bool kGap, bool kStride>
+void launch_nj(const Args& args, float* gap, long long k_stride,
+               long long d1, size_t bytes, cudaStream_t s) {
   if (d1 <= 8 * kThreads)
-    approx_pass_kernel<8, kSec35, kGap><<<1, kThreads, bytes, s>>>(args, gap);
+    approx_pass_kernel<8, kSec35, kGap, kStride>
+        <<<1, kThreads, bytes, s>>>(args, gap, k_stride);
   else if (d1 <= 16 * kThreads)
-    approx_pass_kernel<16, kSec35, kGap><<<1, kThreads, bytes, s>>>(args,
-                                                                    gap);
+    approx_pass_kernel<16, kSec35, kGap, kStride>
+        <<<1, kThreads, bytes, s>>>(args, gap, k_stride);
   else if (d1 <= 24 * kThreads)
-    approx_pass_kernel<24, kSec35, kGap><<<1, kThreads, bytes, s>>>(args,
-                                                                    gap);
+    approx_pass_kernel<24, kSec35, kGap, kStride>
+        <<<1, kThreads, bytes, s>>>(args, gap, k_stride);
   else
-    approx_pass_kernel<40, kSec35, kGap><<<1, kThreads, bytes, s>>>(args,
-                                                                    gap);
+    approx_pass_kernel<40, kSec35, kGap, kStride>
+        <<<1, kThreads, bytes, s>>>(args, gap, k_stride);
+}
+
+template <bool kSec35, bool kGap>
+void launch(const Args& args, float* gap, long long k_stride, long long d1,
+            size_t bytes, cudaStream_t s) {
+  if (k_stride != 1)
+    launch_nj<kSec35, kGap, true>(args, gap, k_stride, d1, bytes, s);
+  else
+    launch_nj<kSec35, kGap, false>(args, gap, k_stride, d1, bytes, s);
+}
+
+template <bool kSec35, bool kGap>
+void launch_wide(const Args& args, int* scratch, float* gap,
+                 long long k_stride, cudaStream_t s) {
+  if (k_stride != 1)
+    approx_pass_wide_kernel<kSec35, kGap, true><<<1, kThreads, 0, s>>>(
+        args, scratch, gap, k_stride);
+  else
+    approx_pass_wide_kernel<kSec35, kGap, false><<<1, kThreads, 0, s>>>(
+        args, scratch, gap, k_stride);
 }
 
 }  // namespace
@@ -1284,9 +1316,12 @@ extern "C" long long approx_pass_smem_bytes(int d, int cap, int steps,
 // Once, when the library loads (never inside a graph capture): dynamic
 // shared memory above 48 KB for every build.  Returns a cudaError_t.
 extern "C" int approx_pass_init(void) {
-  cudaError_t err = allow_all<false, false>();
-  if (err == cudaSuccess) err = allow_all<false, true>();
-  if (err == cudaSuccess) err = allow_all<true, false>();
+  cudaError_t err = allow_all<false, false, false>();
+  if (err == cudaSuccess) err = allow_all<false, true, false>();
+  if (err == cudaSuccess) err = allow_all<true, false, false>();
+  if (err == cudaSuccess) err = allow_all<false, false, true>();
+  if (err == cudaSuccess) err = allow_all<false, true, true>();
+  if (err == cudaSuccess) err = allow_all<true, false, true>();
   return static_cast<int>(err);
 }
 
@@ -1299,7 +1334,8 @@ extern "C" long long approx_pass_wide_scratch_words(int cap) {
 // The wide kernel's shared memory in bytes (plan's smem_bytes for it).
 extern "C" long long approx_pass_wide_smem_bytes(void) {
   cudaFuncAttributes attr;
-  if (cudaFuncGetAttributes(&attr, approx_pass_wide_kernel<false, false>) !=
+  if (cudaFuncGetAttributes(&attr,
+                            approx_pass_wide_kernel<false, false, false>) !=
       cudaSuccess)
     return -1;
   return static_cast<long long>(attr.sharedSizeBytes);
@@ -1317,9 +1353,9 @@ extern "C" int approx_pass_wide_launch(float* phi, float* phi_i, float* bar,
                                        int cap,
                                        int d, int steps, int outer_it,
                                        float lam, float inv_lam,
-                                       long long k0, int* scratch,
-                                       void* stream) {
-  if (n_perm < 0 || cap < 1 || d < 1 || steps < 0 ||
+                                       long long k0, long long k_stride,
+                                       int* scratch, void* stream) {
+  if (n_perm < 0 || cap < 1 || d < 1 || steps < 0 || k_stride < 1 ||
       (steps > 0 && (gram == nullptr || gap != nullptr)) ||
       scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1329,14 +1365,11 @@ extern "C" int approx_pass_wide_launch(float* phi, float* phi_i, float* bar,
             outer_it, 0, 1, lam, inv_lam, k0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (steps > 0)
-    approx_pass_wide_kernel<true, false><<<1, kThreads, 0, s>>>(
-        args, scratch, nullptr);
+    launch_wide<true, false>(args, scratch, nullptr, k_stride, s);
   else if (gap != nullptr)
-    approx_pass_wide_kernel<false, true><<<1, kThreads, 0, s>>>(
-        args, scratch, gap);
+    launch_wide<false, true>(args, scratch, gap, k_stride, s);
   else
-    approx_pass_wide_kernel<false, false><<<1, kThreads, 0, s>>>(
-        args, scratch, nullptr);
+    launch_wide<false, false>(args, scratch, nullptr, k_stride, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1351,10 +1384,11 @@ extern "C" int approx_pass_launch(float* phi, float* phi_i, float* bar,
                                   float* gap, long long n, int n_perm,
                                   int cap, int d,
                                   int steps, int outer_it, float lam,
-                                  float inv_lam, long long k0, int rows,
-                                  int nbuf, void* stream) {
+                                  float inv_lam, long long k0,
+                                  long long k_stride, int rows, int nbuf,
+                                  void* stream) {
   const long long d1 = static_cast<long long>(d) + 1;
-  if (n_perm < 0 || cap < 1 || d < 1 || steps < 0 ||
+  if (n_perm < 0 || cap < 1 || d < 1 || steps < 0 || k_stride < 1 ||
       (steps > 0 && (gram == nullptr || gap != nullptr)) || rows < 0 ||
       rows > cap ||
       (nbuf != 1 && nbuf != 2) || d1 > kMaxD1 ||
@@ -1369,10 +1403,10 @@ extern "C" int approx_pass_launch(float* phi, float* phi_i, float* bar,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t bytes = static_cast<size_t>(smem);
   if (steps > 0)
-    launch<true, false>(args, nullptr, d1, bytes, s);
+    launch<true, false>(args, nullptr, k_stride, d1, bytes, s);
   else if (gap != nullptr)
-    launch<false, true>(args, gap, d1, bytes, s);
+    launch<false, true>(args, gap, k_stride, d1, bytes, s);
   else
-    launch<false, false>(args, nullptr, d1, bytes, s);
+    launch<false, false>(args, nullptr, k_stride, d1, bytes, s);
   return static_cast<int>(cudaGetLastError());
 }

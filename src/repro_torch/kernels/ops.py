@@ -51,6 +51,19 @@ def plane_scores(planes: torch.Tensor, w: torch.Tensor,
     return _ps.plane_scores(planes, w, offsets)
 
 
+def plane_scores_masked(planes: torch.Tensor, w: torch.Tensor,
+                        offsets: torch.Tensor, valid: torch.Tensor,
+                        neg: float = INVALID_SCORE) -> torch.Tensor:
+    """Masked plane scoring over a flattened cache view: ``planes (m, d)``,
+    ``offsets (m,)`` and ``valid (m,)`` as :func:`repro_torch.cache
+    .flat_view` lays them out (the whole cache, or one rank's ``(n_local
+    * cap, d)`` part of it: the launch scores the rows it is given, with
+    no gather).  :func:`plane_scores`, then ``neg`` on the invalid slots,
+    so they never win an argmax."""
+    scores = plane_scores(planes, w, offsets)
+    return torch.where(valid, scores, torch.full_like(scores, neg))
+
+
 def plane_select(planes: torch.Tensor, w: torch.Tensor,
                  offsets: torch.Tensor, valid: torch.Tensor,
                  rows: Optional[torch.Tensor] = None,
@@ -108,11 +121,13 @@ def approx_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,
                 gram: Optional[torch.Tensor] = None,
                 steps: Optional[int] = None,
                 go: Optional[torch.Tensor] = None,
-                gap: Optional[torch.Tensor] = None) -> None:
+                gap: Optional[torch.Tensor] = None,
+                k_stride: int = 1) -> None:
     """One approximate pass of MP-BCFW over the blocks of ``perm`` (int64,
     on the state's device), in place on the dual state ``phi (d+1,)``,
     ``phi_i (n, d+1)``, the approximate-track average ``bar (d+1,)`` (its
-    count at pass start is ``k0``) and the cache's ``last_active``
+    count at pass start is ``k0``, advancing by ``k_stride`` per block:
+    the shard engine's S) and the cache's ``last_active``
     stamps (``outer_it``).  ``steps`` selects the Sec-3.5 scheme over the
     ``gram`` leaf.  A ``go`` flag (one-element bool tensor) that is false
     makes the pass a no-op; the kernel reads it, not the host.  In the
@@ -127,7 +142,7 @@ def approx_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,
     between the two by the state's device."""
     return _ap.approx_pass(phi, phi_i, bar, planes, valid, last_active, perm,
                            lam=lam, k0=k0, outer_it=outer_it, gram=gram,
-                           steps=steps, go=go, gap=gap)
+                           steps=steps, go=go, gap=gap, k_stride=k_stride)
 
 
 def load(*names: str) -> None:

@@ -385,10 +385,21 @@ def test_host_tau_nice_pass_with_done_mask_matches_jax(midrun):
 
 
 def test_distributed_entry_points_that_are_not_ported_raise():
+    """Every entry point of core.distributed runs in the port now:
+    parallel_oracles over a mesh (one rank here) equals the plain call,
+    and refuses ids that do not split over the mesh's ranks."""
+    from repro_torch.launch.mesh import make_data_mesh
+
+    class TwoRanks:
+        rank, size = 0, 2
+
     _, tp = _problems("conftest")
     w = torch.zeros((tp.d,))
-    with pytest.raises(NotImplementedError, match="A10"):
-        tdist.parallel_oracles(tp, w, np.arange(3), mesh=object())
+    mesh = make_data_mesh(device="cpu")
+    assert torch.equal(tdist.parallel_oracles(tp, w, np.arange(3), mesh),
+                       tdist.parallel_oracles(tp, w, np.arange(3)))
+    with pytest.raises(ValueError, match="do not split over 2 ranks"):
+        tdist.parallel_oracles(tp, w, np.arange(3), mesh=TwoRanks())
 
 
 def test_async_state_converts_both_ways(midrun):

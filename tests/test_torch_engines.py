@@ -5,6 +5,7 @@ the duplicate guard, registration hooks, the capability checks of
 port's Solver, and ``repro_torch.core.driver``'s re-exports.
 """
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -30,7 +31,12 @@ from repro_torch.core.ssvm import init_state, weights_of
 
 torch.set_num_threads(1)
 PORTED = ("fw", "ssg", "bcfw", "bcfw-avg", "mpbcfw", "mpbcfw-avg",
-          "mpbcfw-gap", "mpbcfw-gram", "mpbcfw-async")
+          "mpbcfw-gap", "mpbcfw-gram", "mpbcfw-async", "mpbcfw-shard-async",
+          "mpbcfw-shard", "mpbcfw-shard-avg", "mpbcfw-shard-tau",
+          "mpbcfw-shard-gram")
+MESH_ALGOS = ("mpbcfw-gap", "mpbcfw-gram", "mpbcfw-shard-async",
+              "mpbcfw-shard", "mpbcfw-shard-avg", "mpbcfw-shard-tau",
+              "mpbcfw-shard-gram")
 
 
 @pytest.fixture(scope="module")
@@ -41,22 +47,11 @@ def problem():
     return tchain.make_problem(X, Y, M, 5, device="cpu")
 
 
-@dataclasses.dataclass
-class _MeshConfig(RunConfig):
-    """A RunConfig carrying the reference's mesh, tau and policies fields,
-    which the port's RunConfig gains with the engines that read them."""
-    mesh: object = None
-    tau: object = None
-    policies: object = None
-
-
 # -- names and capabilities --------------------------------------------------
 
 def test_algorithms_are_the_references_in_its_order():
-    assert algorithms() == PORTED
-    assert tuple(n for n in jengine.algorithms() if n in PORTED) == PORTED
-    assert set(jengine.algorithms()) - set(PORTED) == set(
-        tengine.NOT_YET_PORTED)
+    assert algorithms() == PORTED == jengine.algorithms()
+    assert tengine.NOT_YET_PORTED == ()
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -71,9 +66,9 @@ def test_capabilities_equal_the_references(name, problem):
 
 
 @pytest.mark.parametrize("algo,match", [
-    ("mpbcfw-shard-gram", "not yet ported"),
-    ("mpbcfw-shard", "not yet ported"),
-    ("mpbcfw-shard-async", "not yet ported"), ("nope", "unknown algorithm"),
+    ("mpbcfw-shard-gap", "unknown algorithm"),
+    ("mpbcfw-shards", "unknown algorithm"),
+    ("shard-async", "unknown algorithm"), ("nope", "unknown algorithm"),
     ("", "unknown algorithm")])
 def test_lookup_of_a_name_the_port_does_not_run(algo, match):
     with pytest.raises(UnsupportedConfigError, match=match) as err:
@@ -176,7 +171,7 @@ def test_a_hook_vetoes_by_raising_and_late_hooks_can_skip_the_past():
     ("mpbcfw", dict(ttl=0), "ttl must be >= 1"),
     ("mpbcfw-async", dict(ttl=-2), "ttl must be >= 1"),
     ("bcfw", dict(mesh="data"),
-     "only consumed by \\('mpbcfw-gap', 'mpbcfw-gram'\\)"),
+     "only consumed by " + re.escape(str(MESH_ALGOS))),
     ("mpbcfw", dict(tau=4), "tau-nice chunk size"),
     ("mpbcfw-gram", dict(tau=4), "only consumes RunConfig.tau on a mesh"),
     ("bcfw", dict(policies=("uniform",)), "predates the policy layer"),
@@ -184,21 +179,21 @@ def test_a_hook_vetoes_by_raising_and_late_hooks_can_skip_the_past():
      "missing a eviction/oracle policy")])
 def test_validate_config_refuses_by_capability(algo, kw, match):
     with pytest.raises(UnsupportedConfigError, match=match):
-        validate_config(engine_entry(algo), _MeshConfig(lam=0.1, algo=algo,
-                                                        **kw))
+        validate_config(engine_entry(algo), RunConfig(lam=0.1, algo=algo,
+                                                      **kw))
 
 
 def test_validate_config_admits_what_the_capabilities_allow():
     # ttl only matters to multipass engines; a mesh to gram is admitted.
     validate_config(engine_entry("bcfw"), RunConfig(lam=0.1, ttl=0))
     validate_config(engine_entry("mpbcfw-gram"),
-                    _MeshConfig(lam=0.1, mesh="data", tau=2))
+                    RunConfig(lam=0.1, mesh="data", tau=2))
     entry = tengine.EngineEntry(
         "needs-tau", _factory, EngineCapabilities(uses_tau=True,
                                                   requires_tau=True))
     with pytest.raises(UnsupportedConfigError, match="requires RunConfig"):
-        validate_config(entry, _MeshConfig(lam=0.1))
-    validate_config(entry, _MeshConfig(lam=0.1, tau=3))
+        validate_config(entry, RunConfig(lam=0.1))
+    validate_config(entry, RunConfig(lam=0.1, tau=3))
 
 
 # -- a third-party engine ----------------------------------------------------

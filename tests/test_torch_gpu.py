@@ -1685,3 +1685,82 @@ def test_wall_mode_recorder_fit_on_the_card(cuda, tmp_path):
                 assert (solver._est_exact, solver._est_plane) == \
                     rec._phase_fit
     assert rec.calls == 8
+
+
+# -- the shard engine on the card: the averaging stride, NCCL at one rank ----
+
+def _ranks_pass(fn, t, gram, perm, steps, S):
+    """The pass as S ranks run it (``repro_torch.shard``), in one process:
+    each rank walks its contiguous n/S blocks in ``perm``'s visit order
+    from the shared phi, its averaging count advancing by S per block;
+    then the engine's damped recombination, phi + sum(delta)/S, phi_i0 +
+    (phi_i - phi_i0)/S, the average the mean of the ranks'."""
+    from repro_torch.shard.engine import local_schedules
+    n = t["phi_i"].shape[0]
+    nl = n // S
+    phi0, bar0 = t["phi"], t["bar"]
+    red0 = torch.zeros_like(phi0)
+    red1 = torch.zeros_like(bar0)
+    phi_i, last = [], []
+    for r in range(S):
+        lo, hi = r * nl, (r + 1) * nl
+        sched = local_schedules(perm.cpu().numpy()[None], lo, nl)[0]
+        st = dict(phi=phi0.clone(), phi_i=t["phi_i"][lo:hi].clone(),
+                  bar=bar0.clone(), last=t["last"][lo:hi].clone())
+        fn(st["phi"], st["phi_i"], st["bar"], t["planes"][lo:hi],
+           t["valid"][lo:hi], st["last"],
+           torch.from_numpy(sched).to(phi0.device), lam=1.0 / 6877,
+           k0=7000, outer_it=5,
+           gram=None if gram is None else gram[lo:hi], steps=steps,
+           k_stride=S)
+        red0 += st["phi"] - phi0
+        red1 += st["bar"] / S
+        phi_i.append(t["phi_i"][lo:hi]
+                     + (st["phi_i"] - t["phi_i"][lo:hi]) / S)
+        last.append(st["last"])
+    return dict(phi=phi0 + red0 / S, phi_i=torch.cat(phi_i), bar=red1,
+                last=torch.cat(last))
+
+
+@pytest.mark.parametrize("S", [2, 4])
+@pytest.mark.parametrize("steps", [None, 10])
+@pytest.mark.parametrize("n,cap,d", [(512, 64, 4004), (12, 16, 20505)])
+def test_approx_pass_stride_matches_plain_over_rank_slices(cuda, n, cap, d,
+                                                           steps, S):
+    """k_stride = S on the staged (d = 4004) and the wide (d = 20,505)
+    plans: S ranks' passes, recombined, kernel vs the eager loop: stamps
+    equal, phi, phi_i and the average within rtol = atol = 3e-5."""
+    from repro_torch.kernels import approx_pass as t_ap
+    assert t_ap.plan(d, cap, steps or 0).wide == (d > 20000)
+    t, gram, perm = _pass_state(n, cap, d, steps, n + S, cuda)
+    before = ops.launch_counts()["approx_pass"]
+    got = _ranks_pass(ops.approx_pass, t, gram, perm, steps, S)
+    assert ops.launch_counts()["approx_pass"] == before + S
+    want = _ranks_pass(eager_pass, t, gram, perm, steps, S)
+    assert torch.equal(got["last"], want["last"])
+    for k in ("phi", "phi_i", "bar"):
+        assert_allclose(got[k].cpu().numpy(), want[k].cpu().numpy(), **TOL)
+
+
+def test_shard_engine_on_nccl_at_one_rank_equals_mpbcfw(cuda):
+    """mpbcfw-shard on a world-size-1 NCCL mesh on the card: every row
+    equal to mpbcfw's on the card, one all-reduce per pass and one per
+    program charged, each pass one approx_pass launch."""
+    from repro_torch.launch.mesh import make_data_mesh
+    mesh = make_data_mesh(device=cuda)
+    assert mesh.backend == "nccl" and mesh.size == 1
+    X, Y, M = ocr_like(n=120, f=32, num_labels=12, mean_len=7, max_len=10,
+                       seed=0)
+    prob = chain.make_problem(X, Y, M, 12, device=cuda)
+    kw = dict(lam=1 / 120, max_iters=3, cap=16, approx_batch=4,
+              max_approx_passes=6)
+    base = Solver(prob, RunConfig(algo="mpbcfw",
+                                  cost_model=CostModel(0.3, 1e-4), **kw))
+    want = base.run().trace
+    shard = Solver(prob, RunConfig(algo="mpbcfw-shard", mesh=mesh,
+                                   cost_model=CostModel(0.3, 1e-4), **kw))
+    got = shard.run().trace
+    assert got == want
+    assert shard.engine.ledger.collectives == sum(
+        r.host_syncs + r.approx_passes for r in got)
+    assert (shard.result().w == base.result().w).all()

@@ -286,16 +286,20 @@ def test_solver_stopping_criteria_and_callbacks():
     assert len(list(solver.iterate())) == 0   # resumable, still stopped
 
 
-@pytest.mark.parametrize("algo,match", [("mpbcfw-shard-avg",
-                                         "not yet ported"),
-                                        ("mpbcfw-shard-tau",
-                                         "not yet ported"),
-                                        ("mpbcfw-shard", "not yet ported"),
-                                        ("nope", "unknown algorithm")])
-def test_unported_algorithms_raise(algo, match):
+@pytest.mark.parametrize("algo,mesh,match", [
+    ("mpbcfw-shard-lite", False, "unknown algorithm"),
+    ("shard", False, "unknown algorithm"),
+    ("bcfw", True, "only consumed by"),
+    ("nope", False, "unknown algorithm")])
+def test_unported_algorithms_raise(algo, mesh, match):
+    """Every name the reference registers runs in the port; a name it never
+    registered is refused, and so is a mesh given to a single-device
+    engine (the reference's test_mesh_on_single_device_engine_still_refused)."""
+    from repro_torch.launch.mesh import make_data_mesh
     _, tp = _problems("conftest")
+    kw = dict(mesh=make_data_mesh(device="cpu")) if mesh else {}
     with pytest.raises(UnsupportedConfigError, match=match):
-        Solver(tp, RunConfig(lam=0.1, algo=algo))
+        Solver(tp, RunConfig(lam=0.1, algo=algo, **kw))
 
 
 @pytest.mark.parametrize("kw", [dict(approx_batch=0), dict(ttl=0),
