@@ -129,6 +129,15 @@ Phases, one JSON line each (seconds on an H100 in brackets):
  11h. resume_shard -- a world-size-1 sharded checkpoint (SMALL ocr):
                  restore_resharded gives the saved state, the run resumes
                  bit for bit, and its files resume mpbcfw [~5].
+ 11i. contracts -- the program-contract checker (repro_torch.analysis)
+                 in process, --strict --device cuda: all 14 engines (the
+                 mesh-optional two also on the NCCL mesh) and the 3
+                 serving trace cases, each dispatch counted and run under
+                 sync-debug "error", plus the port's AST lint; the
+                 report must be ok; each engine's and serve case's
+                 syncs, collectives, programs and kernel launches, and
+                 the path's launches (counts set to 0 just before the
+                 checker, read just after) [~1].
  12. parity_specs -- the multiclass and graph scenarios (SMALL usps and
                  horseseg), mpbcfw on the card against the CPU.
  13. parity_lm -- the LM substrate on the card against the port on the
@@ -210,7 +219,11 @@ Phases, one JSON line each (seconds on an H100 in brackets):
                  sequences, B3 at (8, 32, 5) once per round, every
                  labeling held to the per-example decode [~3].  The
                  serving phases run after the OCR training paths.
- 15. kernels line, the card's name and power limit, and the result line
+ 15. sync_debug line (the paths whose every engine dispatch ran under
+     sync-debug "error": main, main_async (both programs), main_gram,
+     main_shard, main_shard_tau, main_gap, and the dispatches checked on
+     each, later phases' dispatches of the same engine included), the
+     kernels line, the card's name and power limit, and the result line
      ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -1063,6 +1076,40 @@ def check_syncs(phase: str, rows, dispatches: int):
               f"syncs at iteration {r.iteration}")
 
 
+# Paths whose every engine dispatch ran under sync-debug "error": phase ->
+# dispatches checked (the sync_debug line).
+SYNC_CHECKED = {}
+
+
+def sync_checked(torch, phase: str, engine) -> None:
+    """Run every dispatch of ``engine`` (``outer_iteration``, both
+    programs of the async engines included, and ``continue_passes``)
+    under the checker's ``sync_debug`` (sync-debug "error"): a hidden host
+    sync inside one, a blocking copy from pageable memory included,
+    raises.  Counts the dispatches in ``SYNC_CHECKED[phase]``; a raise is
+    reported on a ``sync_debug_raised`` line (the phase, the
+    ``repro_torch`` line that synced and its caller) before it fails the
+    run."""
+    from repro_torch.analysis import raise_site, sync_debug
+    SYNC_CHECKED.setdefault(phase, 0)
+    cuda = torch.device("cuda")
+
+    def wrap(fn):
+        def dispatch(*args, **kw):
+            try:
+                with sync_debug(cuda):
+                    out = fn(*args, **kw)
+            except RuntimeError as err:
+                emit("sync_debug_raised", path=phase, where=raise_site(err),
+                     error=str(err).splitlines()[0])
+                raise
+            SYNC_CHECKED[phase] += 1
+            return out
+        return dispatch
+    engine.outer_iteration = wrap(engine.outer_iteration)
+    engine.continue_passes = wrap(engine.continue_passes)
+
+
 def check_replays(phase: str, solver, steps: int, captured: int) -> int:
     """One graph replay per block step, but for the eager warm-up step of
     each of the ``captured`` bodies.  Returns the replays."""
@@ -1087,6 +1134,7 @@ def phase_main(torch, data):
                                           plane_cost=PLANE_COST), **RUN))
     torch.cuda.synchronize()
     ops.reset_launch_counts()
+    sync_checked(torch, "main", solver.engine)
     rows, walls = drive(torch, solver, "main")
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -1311,6 +1359,7 @@ def phase_main_async(torch, data):
     solver.engine.outcome_fn = outcome
     torch.cuda.synchronize()
     ops.reset_launch_counts()
+    sync_checked(torch, "main_async", solver.engine)
     rows, walls = drive(torch, solver, "main_async")
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -1875,6 +1924,7 @@ def phase_main_gram(torch, data):
         **RUN_GRAM))
     torch.cuda.synchronize()
     ops.reset_launch_counts()
+    sync_checked(torch, "main_gram", solver.engine)
     rows, walls = drive(torch, solver, "main_gram")
     run_launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -2101,15 +2151,7 @@ def phase_main_shard(torch, data, mesh, main_rows, main_launches):
         lam=1.0 / n, mesh=mesh, cost_model=CostModel(
             oracle_cost=ORACLE_COST, plane_cost=PLANE_COST), **RUN_SHARD))
     eng = solver.engine
-    dispatch = eng.outer_iteration
-
-    def checked(*args, **kw):
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return dispatch(*args, **kw)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    eng.outer_iteration = checked
+    sync_checked(torch, "main_shard", eng)
     torch.cuda.synchronize()
     issued0, bytes0 = mesh.issued, mesh.issued_bytes
     ops.reset_launch_counts()
@@ -2179,6 +2221,7 @@ def phase_main_shard_tau(torch, data, mesh):
         **RUN_SHARD_TAU))
     torch.cuda.synchronize()
     ops.reset_launch_counts()
+    sync_checked(torch, "main_shard_tau", solver.engine)
     rows, walls = drive(torch, solver, "main_shard_tau")
     launches = ops.launch_counts()
     check_syncs("main_shard_tau", rows, dispatches=1)
@@ -2407,6 +2450,49 @@ def phase_resume_shard(torch, mesh):
     emit("resume_shard", scenario="SMALL[ocr]", algo="mpbcfw-shard",
          world_size=1, step=step, bitwise=True,
          duals=[r.dual for r in rows], seconds=time.perf_counter() - t_phase)
+
+
+def phase_contracts(torch):
+    """The program-contract checker on the card, in process:
+    ``python -m repro_torch.analysis --strict --device cuda --json``.
+    Every registered engine (the mesh-optional ones without and with the
+    world-size-1 NCCL mesh) runs two outer iterations and an overflow
+    batch on the tiny multiclass problem, and every serving trace case one
+    decode round, each dispatch under a dispatch counter and sync-debug
+    "error"; the AST lint of ``src/repro_torch``.  The report must be ok.
+    Emits each engine's and serve case's facts: host syncs, collectives,
+    the async programs, kernel launches.  Returns the path's launches:
+    the counts set to 0 just before the checker and read just after.
+    ~1 s on an H100 (0.8-1.3 s; the CLI in a process of its
+    own, with its start-up and kernel loads, ~23 s)."""
+    import contextlib
+    import io
+    from repro_torch.analysis.__main__ import main as analysis_main
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    ops.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        rc = analysis_main(["--strict", "--device", "cuda", "--json"])
+    launches = ops.launch_counts()
+    seconds = time.perf_counter() - t0
+    report = json.loads(out.getvalue())
+    check(rc == 0 and report["ok"], "contracts: findings "
+          f"{report['findings'][:8]}")
+    facts = report["facts"]
+    engines = sorted(k for k in facts if not k.startswith("serve:"))
+    check(len(engines) == 16 and len(facts) - len(engines) == 3,
+          f"contracts: ran {engines} and {len(facts) - len(engines)} "
+          "serve cases")
+    keep = ("outer_syncs", "outer_collectives", "outer_setup", "outer_pass",
+            "outer_programs", "continue_syncs", "continue_collectives",
+            "launches", "device")
+    emit("contracts", seconds=seconds, layers=report["layers"],
+         ok=report["ok"], launches=launches,
+         engines={k: {f: facts[k][f] for f in keep if f in facts[k]}
+                  for k in engines},
+         serve={k: v for k, v in facts.items() if k.startswith("serve:")})
+    return launches
 
 
 def phase_parity_specs(torch):
@@ -2696,12 +2782,10 @@ def schedule_cost(torch, policy, cache, calls: int = 10):
     host ms per call to enqueue it (``calls`` calls, one sync after), and
     one call under torch.profiler: its kernels' summed device us, device
     events and span."""
+    from repro_torch.analysis import sync_debug
     torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    with sync_debug(torch.device("cuda")):
         policy.schedule(cache, None, 12345)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for s in range(calls):
@@ -2759,6 +2843,7 @@ def phase_main_gap(torch, data, main_pass_ms: float):
     snapshot()
     ops.reset_launch_counts()
     with log:
+        sync_checked(torch, "main_gap", solver.engine)
         rows, walls = drive(torch, solver, "main_gap", after=snapshot)
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -3214,7 +3299,9 @@ def sync_checked_recorder(torch, path, **kw):
     host seconds by callback (outermost calls only; ``host_s`` the rows'
     and phase fits' alone, the per-iteration cost, without open and
     close)."""
+    from repro_torch.analysis import sync_debug
     from repro_torch.obs import RunRecorder
+    cuda = torch.device("cuda")
 
     class SyncChecked(RunRecorder):
         def __init__(self, *a, **k):
@@ -3229,19 +3316,17 @@ def sync_checked_recorder(torch, path, **kw):
         def _guard(self, fn, *a, **k):
             if self._depth:
                 return fn(*a, **k)
-            prev = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
             self._depth += 1
             t0 = time.perf_counter()
             try:
-                return fn(*a, **k)
+                with sync_debug(cuda):
+                    return fn(*a, **k)
             finally:
                 name = fn.__name__
                 self.host_by[name] = (self.host_by.get(name, 0.0)
                                       + time.perf_counter() - t0)
                 self.calls += 1
                 self._depth -= 1
-                torch.cuda.set_sync_debug_mode(prev)
 
         def open_run(self, solver):
             return self._guard(super().open_run, solver)
@@ -3988,6 +4073,8 @@ def main() -> int:
     del shard_solver, shard_gram_solver
     torch.cuda.empty_cache()
     phase_resume_shard(torch, meshes["cuda"])
+    launches_contracts = phase_contracts(torch)
+    torch.cuda.empty_cache()
     phase_parity_specs(torch)
     phase_parity_simple(torch)
     simple_paths = {phase: phase_main_simple(torch, data, phase, algo)
@@ -4027,13 +4114,15 @@ def main() -> int:
                "main_gram": launches_gram,
                "main_shard": launches_shard,
                "main_shard_tau": launches_shard_tau,
-               "main_shard_gram": launches_shard_gram, **simple_paths,
+               "main_shard_gram": launches_shard_gram,
+               "contracts": launches_contracts, **simple_paths,
                "main_gap": launches_gap, **wide_paths,
                **serve_paths, "main_lm": launches_lm, **lm_paths}
     for k in kernels:
         k["launches"] = by_path[path_of[k["name"]]][k["name"]]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
+    emit("sync_debug", mode="error", dispatches_checked=dict(SYNC_CHECKED))
     print(json.dumps({"kernels": kernels}), flush=True)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -33,6 +33,7 @@ they are, so each package resumes the other's checkpoints.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple, Optional
 
@@ -94,9 +95,21 @@ def _device(problem: SSVMProblem) -> torch.device:
     return next(iter(problem.data.values())).device
 
 
+_NO_PROGRAM = contextlib.nullcontext()
+
+
 class _EngineBase:
     """Shared plumbing: the ledger, the captured block steps, and the
     default checkpoint pack/unpack hooks."""
+
+    @staticmethod
+    def program(name: str):
+        """The span of program ``name`` of an outer iteration (the async
+        engines' ``async_oracle`` and ``async_cache``): a context that
+        does nothing, which the contract checker
+        (:mod:`repro_torch.analysis.contracts`) replaces on an instance to
+        tell the programs apart."""
+        return _NO_PROGRAM
 
     def __init__(self, problem: SSVMProblem, lam: float):
         self.problem = problem
@@ -342,11 +355,13 @@ class AsyncEngine(FusedEngine):
             if fold_end is not None:
                 fold_end.record(main)
                 self.fold_span = (fold_start, fold_end)
-            oracle.append(self._dispatch_oracle(w, w_ready, perm))
-        mp2, clock2, stats = mpbcfw.async_cache_program(
-            mp, pending, perms, clock, lam=self.lam, ttl=ttl,
-            graphs=self.graphs, after_fold=after_fold,
-            policies=self.policies)
+            with self.program("async_oracle"):
+                oracle.append(self._dispatch_oracle(w, w_ready, perm))
+        with self.program("async_cache"):
+            mp2, clock2, stats = mpbcfw.async_cache_program(
+                mp, pending, perms, clock, lam=self.lam, ttl=ttl,
+                graphs=self.graphs, after_fold=after_fold,
+                policies=self.policies)
         ids, planes = oracle[0]
         new_pending = mpbcfw.PendingOracle(
             ids=ids, planes=planes, done=self._done_mask(len(ids)),
@@ -482,9 +497,12 @@ class ShardAsyncDriverEngine(AsyncEngine):
     def outer_iteration(self, state, perm, perms, clock, *, ttl: int,
                         key=None):
         del key
-        ids, planes = self.eng.async_oracle_pass(state.mp.inner.phi, perm)
-        mp2, clock2, stats = self.eng.async_cache_pass(
-            state.mp, state.pending, perms, clock, ttl=ttl)
+        with self.program("async_oracle"):
+            ids, planes = self.eng.async_oracle_pass(state.mp.inner.phi,
+                                                     perm)
+        with self.program("async_cache"):
+            mp2, clock2, stats = self.eng.async_cache_pass(
+                state.mp, state.pending, perms, clock, ttl=ttl)
         new_pending = mpbcfw.PendingOracle(
             ids=ids, planes=planes, done=self._done_mask(len(ids)),
             live=True)

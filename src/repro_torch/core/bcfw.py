@@ -98,7 +98,8 @@ def exact_pass(problem: SSVMProblem, st: BCFWState, avg: AveragingState,
     plain loop on the CPU and one replay of the step's captured graph per
     block on CUDA, kept in ``graphs``.  The host counters ``n_exact`` and
     ``k_exact`` advance by the pass's length."""
-    ids = np.asarray(perm, np.int64).reshape(-1)
+    ids = np.asarray(  # repro: allow[R004] host permutation
+        perm, np.int64).reshape(-1)
     ctl = graphs.control(
         "bcfw", (st.phi, st.phi_i, avg.bar_exact) + tuple(
             problem.data.values()), (lam, problem.oracle), len(ids),

@@ -53,7 +53,8 @@ def local_block_ids(block_ids, mesh) -> np.ndarray:
     """This rank's share of ``block_ids`` (a host array of ``tau`` ids):
     the contiguous ``tau / S`` of them at its rank, as the reference's
     ``P('data')`` sharding of the ids gives each device."""
-    ids = np.asarray(block_ids, np.int64).reshape(-1)
+    ids = np.asarray(  # repro: allow[R004] host block ids
+        block_ids, np.int64).reshape(-1)
     if len(ids) % mesh.size:
         raise ValueError(f"{len(ids)} blocks do not split over "
                          f"{mesh.size} ranks")
@@ -147,8 +148,10 @@ def fold_planes(mp: MPState, block_ids, planes: torch.Tensor,
     """
     if live is not None and not live:
         return mp
-    ids = np.asarray(block_ids, np.int64).reshape(-1)
-    done = np.asarray(done, dtype=bool).reshape(-1)
+    ids = np.asarray(  # repro: allow[R004] host block ids
+        block_ids, np.int64).reshape(-1)
+    done = np.asarray(  # repro: allow[R004] host done mask
+        done, dtype=bool).reshape(-1)
     if done.shape[0] != len(ids):
         raise ValueError(f"fold_planes: {done.shape[0]} done flags for "
                          f"{len(ids)} blocks")
@@ -156,7 +159,8 @@ def fold_planes(mp: MPState, block_ids, planes: torch.Tensor,
                         mp.inner.phi.shape[0] - 1, fold=True)
     load_control(ctl, ids, k0=mp.avg.k_exact, it=mp.outer_it, planes=planes,
                  fb_planes=fb_planes, fb_slots=fb_slots)
-    for arrived, run in itertools.groupby(done.tolist()):
+    flags = done.tolist()  # repro: allow[R004] host done mask
+    for arrived, run in itertools.groupby(flags):
         name = "arrived" if arrived else "straggler"
         graphs.run("fold", name, functools.partial(
             fold_step, mp, ctl, lam, arrived=arrived), len(list(run)))
@@ -187,7 +191,7 @@ def host_tau_nice_pass(problem: SSVMProblem, mp: MPState, perm, lam: float,
     share one :class:`~repro_torch.core.graphs.StepGraphs`, so on the card
     each body is captured once per epoch.
     """
-    perm = np.asarray(perm).reshape(-1)
+    perm = np.asarray(perm).reshape(-1)  # repro: allow[R004] host permutation
     n = perm.shape[0]
     if tau < 1 or n % tau:
         raise ValueError(f"host_tau_nice_pass: perm length {n} is not a "

@@ -38,6 +38,7 @@ import torch
 
 from ..kernels import ops as kops
 from .averaging import weight_table
+from .types import upload
 
 
 class StepControl(NamedTuple):
@@ -86,15 +87,6 @@ def new_control(m: int, d: int, device, *, fold: bool = False
         fb_slots=z(m, dtype=torch.int64) if fold else None)
 
 
-def _upload(dst: torch.Tensor, a: np.ndarray) -> None:
-    """Copy a host array into the front of ``dst`` without a host sync:
-    from pinned memory, asynchronously, on a CUDA device."""
-    src = torch.from_numpy(np.ascontiguousarray(a))
-    if dst.device.type == "cuda":
-        src = src.pin_memory()
-    dst[:src.shape[0]].copy_(src, non_blocking=True)
-
-
 def load_control(ctl: StepControl, ids, *, k0: int, it: int,
                  planes: Optional[torch.Tensor] = None,
                  fb_planes: Optional[torch.Tensor] = None,
@@ -109,8 +101,8 @@ def load_control(ctl: StepControl, ids, *, k0: int, it: int,
     if isinstance(ids, torch.Tensor):
         ctl.ids[:m].copy_(ids)
     else:
-        _upload(ctl.ids, np.asarray(ids, np.int64))
-    _upload(ctl.weights, weight_table(k0, m))
+        upload(np.asarray(ids, np.int64), out=ctl.ids)
+    upload(weight_table(k0, m), out=ctl.weights)
     ctl.it.fill_(int(it))
     ctl.cursor.zero_()
     for dst, src in ((ctl.planes, planes), (ctl.fb_planes, fb_planes),

@@ -62,7 +62,8 @@ from .graphs import StepControl, StepGraphs, load_control
 from .selection import slope_continue_t
 from .ssvm import dual_value, init_state, weights_of
 from .types import (ApproxBatchStats, AveragingState, BCFWState, ObsMetrics,
-                    SlopeClock, SSVMProblem, block_ids, index_tensor)
+                    SlopeClock, SSVMProblem, block_ids, index_tensor,
+                    upload)
 
 
 class MPState(NamedTuple):
@@ -105,7 +106,8 @@ def exact_pass(problem: SSVMProblem, mp: MPState, perm, lam: float, *,
     counters ``n_exact`` and ``k_exact`` advance by the pass's length.
     """
     if not isinstance(perm, torch.Tensor):
-        perm = np.asarray(perm, np.int64).reshape(-1)
+        perm = np.asarray(  # repro: allow[R004] host permutation
+            perm, np.int64).reshape(-1)
     m = len(perm)
     ctl = graphs.control("exact", state_tensors(mp) + tuple(
         problem.data.values()), (lam, problem.oracle), m, problem.d)
@@ -152,9 +154,9 @@ def eager_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,
     cache = PlaneCache(planes=planes, valid=valid, last_active=last_active,
                        gram=gram, gap=gap)
     st = BCFWState(phi_i=phi_i, phi=phi, n_exact=0, n_approx=0)
-    ids = block_ids(perm.cpu())
-    weights = torch.from_numpy(weight_table(int(k0), len(ids),
-                                            int(k_stride))).to(phi.device)
+    ids = block_ids(perm.cpu())  # repro: allow[R004] plain version, CPU only
+    weights = upload(weight_table(int(k0), len(ids), int(k_stride)),
+                     phi.device)
     scratch = torch.empty_like(phi)
     for pos, i in enumerate(ids):
         if steps is None:
@@ -233,11 +235,10 @@ def begin_iteration(mp: MPState, ttl: int, eviction=None) -> MPState:
 
 
 def make_slope_clock(t0, f0, t, plane_cost, device) -> SlopeClock:
-    """The device timing state of the slope rule (() float32 tensors)."""
-    def f32(x: float) -> torch.Tensor:
-        return torch.tensor(x, dtype=torch.float32, device=device)
-    return SlopeClock(t0=f32(t0), f0=f32(f0), t=f32(t),
-                      plane_cost=f32(plane_cost))
+    """The device timing state of the slope rule (() float32 tensors,
+    uploaded together without a host sync)."""
+    return SlopeClock(*upload(
+        np.array([t0, f0, t, plane_cost], np.float32), device).unbind())
 
 
 def slope_batched_loop(n_batch: int, clock: SlopeClock, *,
@@ -489,7 +490,8 @@ def async_oracle_program(problem: SSVMProblem, w: torch.Tensor, perm
     here the cache program updates the cache in place before this program
     is enqueued.  Returns ``(ids, planes)``.
     """
-    ids = np.asarray(perm, np.int64).reshape(-1)
+    ids = np.asarray(  # repro: allow[R004] host schedule
+        perm, np.int64).reshape(-1)
     return ids, parallel_oracles(problem, w, ids)
 
 

@@ -135,9 +135,35 @@ def set_row(t: torch.Tensor, i, value: torch.Tensor) -> None:
         t[i].copy_(value)
 
 
+def upload(a, device=None, dtype: Optional[torch.dtype] = None, *,
+           out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Values (a numpy array, a list or a tensor) as a tensor on
+    ``device`` in ``dtype`` (default: their own); with ``out``, copied
+    into ``out``'s leading rows instead (in its device and dtype) and
+    ``out`` returned.
+
+    The dispatch path's host-to-device upload (the specs' problem data is
+    copied once at set-up, blocking).  To a CUDA device a host source
+    is pinned first and the copy enqueued with ``non_blocking=True``: a
+    copy from pageable memory waits for the device, a host sync that no
+    ledger counts.  A CPU destination keeps the plain, blocking copy."""
+    if out is not None:
+        device, dtype = out.device, out.dtype
+    device = torch.device(device)
+    src = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(a))
+    if dtype is not None and src.dtype != dtype:
+        src = src.to(dtype)     # where the values are
+    to_card = device.type == "cuda"
+    if to_card and src.device.type == "cpu":
+        src = src.pin_memory()
+    if out is None:
+        return src.to(device, non_blocking=to_card)
+    out[:src.shape[0]].copy_(src, non_blocking=to_card)
+    return out
+
+
 def index_tensor(ids, device) -> torch.Tensor:
     """Block ids (numpy array, list or tensor) as an int64 tensor on
-    ``device``."""
-    if isinstance(ids, torch.Tensor):
-        return ids.to(device=device, dtype=torch.int64)
-    return torch.as_tensor(np.asarray(ids, np.int64), device=device)
+    ``device`` (:func:`upload`: no host sync on CUDA)."""
+    return upload(ids, device, torch.int64)

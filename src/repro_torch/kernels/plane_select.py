@@ -194,7 +194,8 @@ def plane_select(planes: torch.Tensor, w: torch.Tensor,
         planes.data_ptr(), planes.stride(0), planes.stride(1), w.data_ptr(),
         offsets.data_ptr(), offsets.stride(0), offsets.stride(1),
         valid.data_ptr(), valid.stride(0), valid.stride(1),
-        None if rows is None else rows.data_ptr(), k, n, cap, d, float(neg),
+        None if rows is None else rows.data_ptr(), k, n, cap, d,
+        float(neg),  # repro: allow[R004] host sentinel
         best.data_ptr(), idx.data_ptr(), how.rows, how.chunk,
         int(how.w_shared), stream)
     launches += 1

@@ -23,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.types import upload
 from .base import register_policy
 
 
@@ -36,14 +37,6 @@ def gumbel_noise(seed: int, n: int) -> torch.Tensor:
     u = torch.rand((n,), generator=gen, dtype=torch.float32)
     u = torch.clamp_min(u, float(np.finfo(np.float32).tiny))
     return -torch.log(-torch.log(u))
-
-
-def _on(t: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """A CPU tensor on ``device``: one non-blocking copy from pinned memory
-    to a CUDA device, nothing waits for it."""
-    if device.type != "cuda":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
 
 
 @dataclass(frozen=True)
@@ -105,7 +98,7 @@ class GapSampling:
         temp = torch.full((), float(np.float32(max(self.temperature, 1e-6))),
                           dtype=torch.float32, device=dev)
         logits = torch.where(seen, torch.log(w) / temp, 1e9)
-        noise = _on(gumbel_noise(key, gap.shape[0]), dev)
+        noise = upload(gumbel_noise(key, gap.shape[0]), dev)
         order = torch.sort(logits + noise, descending=True, stable=True)[1]
         return order[:self.k]
 

@@ -50,7 +50,8 @@ import numpy as np
 import torch
 
 from ..api.oracle import OracleSpec
-from ..core.graphs import _Graph, _upload
+from ..core.graphs import _Graph
+from ..core.types import upload
 from ..kernels import ops as kops
 from .export import ServableModel
 
@@ -94,7 +95,7 @@ class _BucketProgram:
 
     def run(self, batch: Dict[str, np.ndarray]) -> torch.Tensor:
         for k, v in batch.items():
-            _upload(self.inputs[k], v)
+            upload(v, out=self.inputs[k])
         self.graph.replay()
         return self.labels
 

@@ -33,7 +33,7 @@ from ..core.mpbcfw import MPState
 from ..core.selection import SyncLedger
 from ..core.ssvm import dual_value, weights_of
 from ..core.types import (ApproxBatchStats, BCFWState, ObsMetrics,
-                          SlopeClock, SSVMProblem)
+                          SlopeClock, SSVMProblem, index_tensor, upload)
 from . import layout
 from .telemetry import CollectiveTrace
 
@@ -47,19 +47,10 @@ def local_schedules(perms, lo: int, n_local: int) -> np.ndarray:
     ``perms``.  Computed on the host, from the host permutations every
     rank shares: no device read (the reference sorts masked positions on
     the device, ``_local_schedule``)."""
-    p = np.asarray(perms, np.int64)
+    p = np.asarray(perms, np.int64)  # repro: allow[R004] host permutations
     p = p.reshape(-1, p.shape[-1]) if p.size else p.reshape(0, n_local)
     mask = (p >= lo) & (p < lo + n_local)
     return p[mask].reshape(p.shape[0], n_local) - lo
-
-
-def _device_ids(ids: np.ndarray, device) -> torch.Tensor:
-    """Host ids as an int64 tensor on ``device``; on CUDA through pinned
-    memory, enqueued without a host sync."""
-    t = torch.from_numpy(np.ascontiguousarray(ids, np.int64))
-    if torch.device(device).type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
 
 
 class ShardEngine:
@@ -218,8 +209,8 @@ class ShardEngine:
                                      nonempty_blocks=packed[1])
         cost = clock.plane_cost * torch.clamp_min(total_planes, 1).to(
             torch.float32)
-        scheds = _device_ids(local_schedules(perms, self.lo, self.n_local),
-                             dev)
+        scheds = index_tensor(local_schedules(perms, self.lo, self.n_local),
+                              dev)
         steps = self.gram_steps if self.use_gram else None
         phi, phi_i, bar = inner.phi, inner.phi_i, avg.bar_approx
 
@@ -268,7 +259,8 @@ class ShardEngine:
         clock = mpbcfw.make_slope_clock(0.0, 0.0, 0.0, 0.0,
                                         mp.inner.phi.device)
         mp, _, _ = self.multi_approx_pass(
-            mp, np.asarray(perm, np.int64)[None], clock, run_all=True)
+            mp, np.asarray(  # repro: allow[R004] host permutation
+                perm, np.int64)[None], clock, run_all=True)
         return mpbcfw.count_passes(mp, 1, self.problem.n,
                                    self.gram_steps if self.use_gram
                                    else None)
@@ -309,9 +301,9 @@ class ShardEngine:
         if own.any():
             own_rows = ids[own] - self.lo
             fbp, fbs, _ = distributed.fallback_planes(cache, own_rows, w)
-            at = _device_ids(np.flatnonzero(own), dev)
+            at = index_tensor(np.flatnonzero(own), dev)
             buf[at, o:o + d1] = inner.phi_i.index_select(
-                0, _device_ids(own_rows, dev))
+                0, index_tensor(own_rows, dev))
             buf[at, o + d1:o + 2 * d1] = fbp
             buf[at, o + 2 * d1] = fbs.to(torch.float32)
         mesh.all_reduce(buf)
@@ -323,7 +315,7 @@ class ShardEngine:
         fb_planes = buf[:, o + d1:o + 2 * d1]
         fb_slots = buf[:, o + 2 * d1].to(torch.int64)
         st = BCFWState(phi_i=rows, phi=inner.phi, n_exact=0, n_approx=0)
-        weights = torch.from_numpy(weight_table(avg.k_exact, m)).to(dev)
+        weights = upload(weight_table(avg.k_exact, m), dev)
         scratch = torch.empty_like(inner.phi)
         for b in range(m):
             plane = planes[b] if ok[b] else fb_planes[b]
@@ -367,11 +359,13 @@ class ShardEngine:
         if tau % self.n_shards:
             raise ValueError(
                 f"tau={tau} not divisible by {self.n_shards} shards")
-        chunk_ids = np.asarray(perm, np.int64).reshape(-1, tau)
+        chunk_ids = np.asarray(  # repro: allow[R004] host permutation
+            perm, np.int64).reshape(-1, tau)
         if done is None:
             done = np.ones(chunk_ids.shape, bool)
         else:
-            done = np.asarray(done, bool).reshape(chunk_ids.shape)
+            done = np.asarray(  # repro: allow[R004] host done mask
+                done, bool).reshape(chunk_ids.shape)
         return chunk_ids, done
 
     def tau_nice_pass(self, mp: MPState, perm, tau: int,
@@ -439,7 +433,8 @@ class ShardEngine:
         :meth:`async_cache_pass`."""
         self.ledger.dispatched()
         w = weights_of(phi, self.lam)
-        ids = np.asarray(perm, np.int64).reshape(-1)
+        ids = np.asarray(  # repro: allow[R004] host permutation
+            perm, np.int64).reshape(-1)
         if self.n_shards == 1:
             return mpbcfw.async_oracle_program(self.problem, w, ids)
         planes = distributed.parallel_oracles(self.problem, w, ids,
@@ -464,8 +459,10 @@ class ShardEngine:
         clock = clock._replace(f0=dual_value(mp.inner.phi, self.lam))
         inserts = 0
         if pending.live:
-            ids = np.asarray(pending.ids, np.int64)
-            done = np.asarray(pending.done, bool)
+            ids = np.asarray(  # repro: allow[R004] host block ids
+                pending.ids, np.int64)
+            done = np.asarray(  # repro: allow[R004] host done mask
+                pending.done, bool)
             w = weights_of(mp.inner.phi, self.lam)
             if self.n_shards == 1:
                 fbp, fbs, _ = distributed.fallback_planes(mp.cache, ids, w)
@@ -491,7 +488,9 @@ _ENGINES: "OrderedDict[tuple, ShardEngine]" = OrderedDict()
 
 def _engine(problem: SSVMProblem, mesh, lam: float,
             axis: str) -> ShardEngine:
-    key = (id(problem.oracle), id(problem.data), id(mesh), float(lam), axis)
+    key = (id(problem.oracle), id(problem.data), id(mesh),
+           float(lam),  # repro: allow[R004] host float lam
+           axis)
     eng = _ENGINES.get(key)
     if eng is None:
         eng = _ENGINES[key] = ShardEngine(problem, mesh, lam=lam, axis=axis)

@@ -441,7 +441,9 @@ def test_port_never_imports_jax_or_the_reference_package():
             "obs/schema.py", "obs/recorder.py", "obs/summary.py",
             "obs/trace_export.py", "shard/__init__.py", "shard/engine.py",
             "shard/layout.py", "shard/telemetry.py", "launch/mesh.py",
-            "cache/layout.py"} <= names
+            "cache/layout.py", "analysis/__init__.py",
+            "analysis/__main__.py", "analysis/findings.py",
+            "analysis/lint.py", "analysis/contracts.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

@@ -1764,3 +1764,40 @@ def test_shard_engine_on_nccl_at_one_rank_equals_mpbcfw(cuda):
     assert shard.engine.ledger.collectives == sum(
         r.host_syncs + r.approx_passes for r in got)
     assert (shard.result().w == base.result().w).all()
+
+
+# -- uploads: no host sync from pageable memory -----------------------------
+
+def test_uploads_and_a_main_shaped_batch_take_no_host_sync(cuda):
+    """``index_tensor`` and ``make_slope_clock`` upload from pinned memory,
+    so they and one slope-ruled batch of 8 passes over the full-size OCR
+    state (n = 6877, d = 4004, cap 64, one exact iteration in) run under
+    sync-debug "error"; a pageable copy raises there."""
+    from repro_torch.core import mpbcfw
+    from repro_torch.core.types import index_tensor, upload
+    X, Y, M = ocr_like(n=6877, f=128, num_labels=26, mean_len=8,
+                       max_len=14, seed=0)
+    prob = chain.make_problem(X, Y, M, 26, device=cuda)
+    solver = Solver(prob, RunConfig(lam=1 / 6877, algo="mpbcfw", cap=64,
+                                    max_iters=1, approx_batch=8,
+                                    max_approx_passes=8,
+                                    cost_model=CostModel(0.3, 1e-4)))
+    solver.run()
+    mp = solver.state
+    perms = np.stack([np.random.RandomState(k).permutation(6877)
+                      for k in range(8)])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            torch.as_tensor(perms, device=cuda)       # the pageable copy
+        ids = index_tensor(perms, cuda)
+        noise = upload(torch.arange(4.0), cuda)
+        clock = mpbcfw.make_slope_clock(0.0, 0.0, 1.0, 1e-4, cuda)
+        mp, clock, stats = mpbcfw.multi_approx_pass(mp, perms, clock,
+                                                    lam=1 / 6877)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(ids.cpu(), torch.from_numpy(perms))
+    assert noise.cpu().tolist() == [0.0, 1.0, 2.0, 3.0]
+    assert 1 <= int(stats.passes_run) <= 8
