@@ -219,10 +219,33 @@ Phases, one JSON line each (seconds on an H100 in brackets):
                  sequences, B3 at (8, 32, 5) once per round, every
                  labeling held to the per-example decode [~3].  The
                  serving phases run after the OCR training paths.
+ 14b. train_lm -- LM training through repro_torch.launch.train.train_lm:
+                 qwen2-0.5b at its published width and depth (24 layers,
+                 d 896, vocab 151,936, bf16 weights from seed 0), 30 steps
+                 of 8 x 128 tokens: a finite loss every step, the last
+                 below the first, flash_attention launched 24 x 30 times
+                 (its backward recomputed in torch), moe_ffn never; then
+                 a fresh state's steady steps (one under sync-debug
+                 "error"): ms per step, tokens/s, peak memory, busy share
+                 and device time by kernel, beside the FLOP bound 6 N
+                 tokens / 989 TFLOP/s [~30].
+ 14c. lm_grad -- one full-width step's gradients, leaf by leaf, with the
+                 flash kernel in the forward and with the chunked forward,
+                 each against the fp32 gradient; reduced qwen2-0.5b and
+                 OLMoE-1B-7B in fp32, card against CPU, rel. L2 <= 1e-3
+                 [~10].
+ 14d. lm_resume -- reduced qwen2-0.5b, 10 steps saving every 5; a fresh
+                 run resumed from step 5 gives the same losses [~5].
+ 14e. train_ssvm -- train_ssvm on SMALL usps, ocr, horseseg, card
+                 against CPU, rtol 1e-4 [~10].
+ 14f. examples -- the five repro_torch.examples main()s on the card at
+                 their reference sizes (lm_train at 30 steps), launches
+                 read [~15].
  15. sync_debug line (the paths whose every engine dispatch ran under
      sync-debug "error": main, main_async (both programs), main_gram,
-     main_shard, main_shard_tau, main_gap, and the dispatches checked on
-     each, later phases' dispatches of the same engine included), the
+     main_shard, main_shard_tau, main_gap, one train_lm step, and the
+     dispatches checked on each, later phases' dispatches of the same
+     engine included), the
      kernels line, the card's name and power limit, and the result line
      ``{"ok": true, "device": {...}}`` last.
 
@@ -299,6 +322,19 @@ HEAD = dict(n=1024, L=32, tags=5)
 HEAD_RUN = dict(algo="mpbcfw", max_iters=3, cap=16, approx_batch=8,
                 max_approx_passes=8)
 HEAD_ORACLE_COST = 0.5
+
+# LM training (repro_torch.launch.train): qwen2-0.5b at its published width
+# and depth, bf16 weights from seed 0; the reduced configs for the
+# gradient parity and the resume.
+TRAIN = dict(arch="qwen2-0.5b", steps=30, batch_size=8, seq_len=128)
+TRAIN_PROFILED_STEPS = 3
+# A bf16 gradient's distance from the fp32 one (relative L2, per leaf):
+# the kernel path's at most 1.25x the chunked path's, + 1e-3.
+GRAD_NOISE_RATIO, GRAD_NOISE_ATOL = 1.25, 1e-3
+GRAD_RTOL = 1e-3                # card vs CPU in fp32, per leaf (rel. L2)
+RESUME = dict(steps=10, save_every=5, batch_size=8, seq_len=32)
+EXAMPLES = ("quickstart", "sequence_labeling", "segmentation_distributed",
+            "ssvm_head", "lm_train")
 
 # The engines the registry added: card vs CPU on SMALL ocr, and three of
 # them at full OCR size (phase, algorithm).
@@ -992,23 +1028,12 @@ def compare_traces(what: str, traces) -> list:
 
 
 def small_problem(name: str, device: str):
-    """The CI-sized scenario ``SMALL[name]`` on ``device``."""
+    """The CI-sized scenario ``SMALL[name]`` on ``device``, built by the
+    trainer's :func:`repro_torch.trainer.ssvm_head.build_problem`."""
     from repro_torch.configs.paper import SMALL
-    from repro_torch.core.oracles import chain, graph, multiclass
-    from repro_torch.data import synthetic
+    from repro_torch.trainer.ssvm_head import build_problem
     sc = SMALL[name]
-    if sc.kind == "multiclass":
-        x, y = synthetic.usps_like(n=sc.n, f=sc.f, num_classes=sc.num_classes)
-        return sc, multiclass.make_problem(x, y, sc.num_classes,
-                                           device=device)
-    if sc.kind == "graph":
-        arrays = synthetic.horseseg_like(n=sc.n, grid=sc.grid, f=sc.f)
-        return sc, graph.make_problem(*arrays, num_sweeps=sc.oracle_sweeps,
-                                      device=device)
-    X, Y, M = synthetic.ocr_like(n=sc.n, f=sc.f, num_labels=sc.num_classes,
-                                 mean_len=sc.mean_len, max_len=sc.max_len,
-                                 seed=0)
-    return sc, chain.make_problem(X, Y, M, sc.num_classes, device=device)
+    return sc, build_problem(sc, device=device)
 
 
 def small_run(name: str, device: str, algo: str, max_iters: int = 3):
@@ -1809,8 +1834,11 @@ def check_flash_attention(torch, gen):
     plain_ms = time_ms(torch, lambda i: ref.flash_attention_ref(q, k, v), 5)
     library_ms = time_ms(torch, lambda i: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True), 20)
+    del q, k, v, qt, kt, vt
+    train = flash_train_shape(torch, rand, compare)
     emit("kernel", name="flash_attention", shape=[B, S, H, D], dtype="bf16",
          ragged=ragged, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+         train_shape=train,
          library="scaled_dot_product_attention(is_causal=True)",
          bound_ms=bms, bound_by=by, tolerance="f32: |err| <= 3e-4 (1+|ref|) "
          "vs plain; bf16: relative L2 <= 2^-9 and |err| <= 2^-5 (|ref|+rms) "
@@ -1820,7 +1848,32 @@ def check_flash_attention(torch, gen):
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:75",
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=library_ms, **errs)
+                library_ms=library_ms, train_shape=train, **errs)
+
+
+def flash_train_shape(torch, rand, compare):
+    """B5 at the trainer's shape (qwen2-0.5b: q (8, 128, 14, 64), 2 kv
+    heads, bf16) against its plain version, timed beside it, beside SDPA
+    over the kv heads repeated (outside the timed call) and beside its
+    bound."""
+    from repro_torch.kernels import ops, ref
+    F = torch.nn.functional
+    B, S, H, K, D = 8, 128, 14, 2, 64
+    q = rand(B, S, H, D, dtype=torch.bfloat16)
+    k, v = (rand(B, S, K, D, dtype=torch.bfloat16) for _ in range(2))
+    errs = compare(q, k, v, f"train shape {B}x{S}x{H}:{K}x{D} bf16")
+    qt = q.transpose(1, 2)
+    kt, vt = (t.repeat_interleave(H // K, dim=2).transpose(1, 2)
+              for t in (k, v))
+    bms, by = bound_ms(2 * B * S * D * (2 * H + 2 * K),
+                       2 * 2 * B * H * D * S * (S + 1) / 2, BF16_FLOPS)
+    return dict(
+        shape=[B, S, H, K, D], bound_ms=bms, bound_by=by,
+        ms=time_ms(torch, lambda i: ops.flash_attention(q, k, v), 50),
+        plain_ms=time_ms(torch, lambda i: ref.flash_attention_ref(q, k, v),
+                         10),
+        library_ms=time_ms(torch, lambda i: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 50), **errs)
 
 
 def gram_close(torch, got, want, what: str):
@@ -3992,6 +4045,345 @@ def profile_lm(torch, cfg, params, tok):
          feature_pass=traced(torch, features))
 
 
+def quiet(fn, *args, **kw):
+    """``fn(*args, **kw)`` with its standard output captured: ``(result,
+    the captured lines)``, so the smoke's own lines stay readable."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    return out, buf.getvalue().splitlines()
+
+
+def lm_batch(torch, cfg, batch_size: int, seq_len: int, step: int = 0):
+    """The trainer's batch ``step`` (repro_torch.data.lm) on the card."""
+    from repro_torch.data.lm import DataConfig, TokenDataset
+    data = TokenDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                   batch_size=batch_size, seq_len=seq_len))
+    return {k: v.cuda() for k, v in data.batch(step).items()}
+
+
+def phase_train_lm(torch):
+    """LM training through the entry point a user calls:
+    ``train_lm("qwen2-0.5b", steps=30, batch_size=8, seq_len=128,
+    reduced=False)`` at the published width and depth, bf16 weights from
+    seed 0, launch counts reset just before and read just after.  Checks:
+    a finite loss every step, the last below the first, B5 launched once
+    per layer per step (its backward recomputes in torch) and B6 never.
+    Then a fresh state's steady steps: ms per step by the host clock to a
+    sync, tokens/s, and under torch.profiler the device busy share and the
+    device time by kernel, beside the step's FLOP bound 6 N tokens over
+    the bf16 peak [~20]."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamWConfig, cosine_schedule
+    cfg = configs.get_config(TRAIN["arch"])
+    steps, B, S = TRAIN["steps"], TRAIN["batch_size"], TRAIN["seq_len"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, lines = quiet(train.train_lm, TRAIN["arch"], steps, B, S,
+                       reduced=False, log_every=10)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["step_losses"]
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"train_lm: losses {losses}")
+    check(losses[-1] < losses[0], f"train_lm: loss {losses[0]} -> "
+          f"{losses[-1]}")
+    check(launches["flash_attention"] == cfg.num_layers * steps
+          and launches["moe_ffn"] == 0, f"train_lm: launches {launches}")
+    grad_norms = out["grad_norms"]
+    del out
+    torch.cuda.empty_cache()
+
+    # Steady state: a fresh state, one warm step, then timed and traced.
+    ocfg = AdamWConfig(lr=3e-4)
+    state = {"s": train.init_state(cfg, ocfg, torch.device("cuda"))}
+    batch = lm_batch(torch, cfg, B, S)
+    lr = cosine_schedule(25, peak_lr=ocfg.lr, warmup=20, total=steps)
+
+    def step():
+        state["s"], loss, _ = train.train_step(state["s"], cfg, batch, ocfg,
+                                               lr)
+        return loss
+    step()
+    torch.cuda.synchronize()
+    # One step under sync-debug "error": no hidden host sync in a step.
+    from repro_torch.analysis import raise_site, sync_debug
+    try:
+        with sync_debug(torch.device("cuda")):
+            step()
+    except RuntimeError as err:
+        emit("sync_debug_raised", path="train_lm", where=raise_site(err),
+             error=str(err).splitlines()[0])
+        raise
+    SYNC_CHECKED["train_lm"] = 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 5
+    prof = traced(torch, lambda: [step() for _ in range(TRAIN_PROFILED_STEPS)],
+                  kernels=("flash_attention",))
+    del state
+    torch.cuda.empty_cache()
+    n_params = cfg.param_count()
+    tokens = B * S
+    bms = 6.0 * n_params * tokens / BF16_FLOPS * 1e3
+    emit("train_lm", arch=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab_size, params=n_params,
+         steps=steps, batch_size=B, seq_len=S, seconds=wall,
+         first_loss=losses[0], last_loss=losses[-1], losses=losses,
+         grad_norms=grad_norms, launches=launches,
+         max_memory_allocated=peak, ms_per_step=ms,
+         tokens_per_s=tokens / (ms * 1e-3), bound_ms=bms,
+         bound_by="operations (6 N tokens / bf16 peak)",
+         profiled_steps=TRAIN_PROFILED_STEPS, profile=prof,
+         log=lines[-3:])
+    return launches
+
+
+def raw_grads(torch, params, cfg, batch):
+    """``(loss, grads)`` by autograd over the parameter leaves, None kept
+    for a leaf the loss does not reach (the trainer zero-fills those)."""
+    from repro_torch.models import common, registry
+    from repro_torch.optim.adamw import tree_zip
+    live = tree_zip(lambda p: p.detach().requires_grad_(), params)
+    loss = registry.loss_fn(live, cfg, batch)
+    return loss.detach(), list(torch.autograd.grad(
+        loss, common.leaves(live), allow_unused=True))
+
+
+def grad_table(torch, got, want):
+    """Per-leaf relative L2 of two gradient lists (None for a leaf whose
+    ``want`` is all zero), after checking that neither has a leaf without
+    a gradient or all zero where the other's is not."""
+    rels = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g is not None and w is not None, f"leaf {i} has no gradient")
+        gz, wz = not bool(g.any()), not bool(w.any())
+        check(gz == wz, f"leaf {i} all zero on one side only")
+        rels.append(None if wz else rel_l2(torch, g, w.to(g.device)))
+    return rels
+
+
+def leaf_names(tree, prefix=""):
+    """The parameter tree's leaf paths, in :func:`common.leaves`'s order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}/{k}" if prefix
+                                    else k)]
+    return [prefix]
+
+
+def phase_lm_grad(torch):
+    """Gradients through the kernels.  One step of qwen2-0.5b at full
+    width, bf16: every parameter's gradient with the flash kernel in the
+    forward (its backward recomputed in torch) and with the all-chunked
+    forward on the card, each against the chunked forward in fp32 (the
+    same weights widened).  No gradient None or all zero where another's
+    is not; per leaf, the kernel path no farther from the fp32 gradient
+    than 1.25x the chunked path's distance + 1e-3 (both bf16 paths sit
+    1-2.5 % from it: the bf16 rounding of 24 layers, so the two paths'
+    distance from each other is no tighter).  Then reduced qwen2-0.5b and
+    reduced OLMoE-1B-7B in fp32 (B6's backward too), card against CPU:
+    the loss and each leaf's gradient within relative L2 1e-3 [~10]."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import common, registry
+    t_phase = time.perf_counter()
+    cfg = configs.get_config(TRAIN["arch"])
+    gen = torch.Generator("cuda")
+    gen.manual_seed(0)
+    params = common.init_params(registry.param_specs(cfg), gen, "cuda")
+    names = leaf_names(params)
+    batch = lm_batch(torch, cfg, TRAIN["batch_size"], TRAIN["seq_len"])
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    loss_k, g_k = raw_grads(torch, params, cfg, batch)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check(launches["flash_attention"] == cfg.num_layers,
+          f"lm_grad: launches {launches}")
+    kernel = ops.flash_attention
+    ops.flash_attention = ops.attention_math    # the chunked forward
+    try:
+        loss_c, g_c = raw_grads(torch, params, cfg, batch)
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        p32 = common.tree_map(lambda t: t.float(), params)
+        del params
+        loss_32, g_32 = raw_grads(torch, p32, cfg32, batch)
+        del p32
+    finally:
+        ops.flash_attention = kernel
+    check(ops.launch_counts() == launches, "lm_grad: the chunked forward "
+          "launched a kernel")
+    k_c = grad_table(torch, g_k, g_c)
+    k_32 = grad_table(torch, g_k, g_32)
+    c_32 = grad_table(torch, g_c, g_32)
+    for n, k, c in zip(names, k_32, c_32):
+        check(k <= GRAD_NOISE_RATIO * c + GRAD_NOISE_ATOL,
+              f"lm_grad: {n}'s gradient {k} from fp32 through the kernel, "
+              f"{c} through the chunked forward")
+    full = dict(arch=cfg.name, loss_kernel=float(loss_k),
+                loss_chunked=float(loss_c), loss_fp32=float(loss_32),
+                leaves=len(g_k), launches=launches,
+                max_rel_l2_kernel_vs_chunked=max(k_c),
+                max_ratio_to_chunked=max(k / c for k, c in zip(k_32, c_32)),
+                rel_l2_kernel_vs_chunked_vs_fp32={
+                    n: [a, b, c] for n, a, b, c in zip(names, k_c, k_32,
+                                                       c_32)})
+    del g_k, g_c, g_32
+    torch.cuda.empty_cache()
+
+    reduced = {}
+    for arch in ("qwen2-0.5b", "olmoe-1b-7b"):
+        rcfg = dataclasses.replace(configs.reduced_config(arch),
+                                   dtype=torch.float32)
+        gen = torch.Generator("cpu")
+        gen.manual_seed(0)
+        p_cpu = common.init_params(registry.param_specs(rcfg), gen, "cpu")
+        p_gpu = common.tree_map(lambda t: t.cuda(), p_cpu)
+        b_gpu = lm_batch(torch, rcfg, 4, 32)
+        b_cpu = {k: v.cpu() for k, v in b_gpu.items()}
+        ops.reset_launch_counts()
+        lg, gg = raw_grads(torch, p_gpu, rcfg, b_gpu)
+        torch.cuda.synchronize()
+        red_launches = ops.launch_counts()
+        lc, gc = raw_grads(torch, p_cpu, rcfg, b_cpu)
+        check(abs(float(lg) - float(lc)) <= GRAD_RTOL * abs(float(lc)),
+              f"lm_grad {arch}: loss {float(lg)} vs {float(lc)}")
+        want = {"flash_attention": rcfg.num_layers,
+                "moe_ffn": rcfg.num_layers if rcfg.moe else 0}
+        check(all(red_launches[k] == v for k, v in want.items()),
+              f"lm_grad {arch}: launches {red_launches}")
+        rels = grad_table(torch, [g.cpu() for g in gg], gc)
+        worst = max(r for r in rels if r is not None)
+        check(worst <= GRAD_RTOL, f"lm_grad {arch}: leaf relative L2 "
+              f"{worst}")
+        reduced[arch] = dict(loss_cuda=float(lg), loss_cpu=float(lc),
+                             max_leaf_rel_l2=worst, launches=red_launches)
+    emit("lm_grad", seconds=time.perf_counter() - t_phase,
+         full_width_bf16=full, reduced_fp32=reduced,
+         tolerance="full width bf16, per leaf: relative L2 from the fp32 "
+         "gradient through the kernel <= 1.25 x the chunked forward's + "
+         "1e-3; reduced fp32, card vs CPU: loss and per-leaf relative L2 "
+         "<= 1e-3")
+    return launches
+
+
+def phase_lm_resume(torch):
+    """Restart: reduced qwen2-0.5b trains 10 steps with save_every=5; a
+    fresh train_lm then resumes from the step-5 checkpoint alone and runs
+    steps 5-9.  Its losses must equal the uninterrupted run's, bit for bit
+    unless an op on the path is not deterministic (then within rtol 1e-3,
+    and the phase says so) [~10]."""
+    import shutil
+    import tempfile
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    t_phase = time.perf_counter()
+    kw = dict(batch_size=RESUME["batch_size"], seq_len=RESUME["seq_len"],
+              reduced=True, save_every=RESUME["save_every"], log_every=100)
+    steps, at = RESUME["steps"], RESUME["save_every"]
+    with tempfile.TemporaryDirectory() as d:
+        ops.reset_launch_counts()
+        whole, _ = quiet(train.train_lm, TRAIN["arch"], steps,
+                         ckpt_dir=f"{d}/a", **kw)
+        launches = ops.launch_counts()
+        shutil.copytree(f"{d}/a/step_{at:010d}", f"{d}/b/step_{at:010d}")
+        resumed, _ = quiet(train.train_lm, TRAIN["arch"], steps,
+                           ckpt_dir=f"{d}/b", **kw)
+    want, got = whole["step_losses"][at:], resumed["step_losses"]
+    check(len(got) == steps - at, f"lm_resume: resumed {len(got)} steps")
+    bit_equal = got == want
+    if not bit_equal:
+        check(all(abs(a - b) <= 1e-3 * abs(b) for a, b in zip(got, want)),
+              f"lm_resume: {got} vs {want}")
+    emit("lm_resume", arch=TRAIN["arch"], reduced=True, steps=steps,
+         resumed_at=at, losses_whole=want, losses_resumed=got,
+         bit_equal=bit_equal,
+         tolerance=("bit for bit" if bit_equal else "rtol 1e-3: the "
+                    "embedding's backward (index_put_ accumulate) and "
+                    "cuBLAS may order their sums differently per run"),
+         launches=launches, seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def phase_train_ssvm(torch):
+    """The trainer's ssvm mode: ``train_ssvm`` on SMALL usps, ocr and
+    horseseg, 3 iterations, on the card and on the CPU: the same schedule,
+    duals and primals within rtol 1e-4; launches read per scenario
+    [~10]."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    paths = {}
+    for name in ("usps", "ocr", "horseseg"):
+        traces = {}
+        t0 = time.perf_counter()
+        for dev in ("cuda", "cpu"):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            out, _ = quiet(train.train_ssvm, name, 3, device=dev)
+            torch.cuda.synchronize()
+            traces[dev] = out["trace"]
+            if dev == "cuda":
+                paths[f"train_ssvm_{name}"] = ops.launch_counts()
+        emit("train_ssvm", scenario=f"SMALL[{name}]",
+             rows=compare_traces(f"train_ssvm {name}", traces),
+             launches=paths[f"train_ssvm_{name}"],
+             seconds=time.perf_counter() - t0)
+    return paths
+
+
+def phase_examples(torch):
+    """The five examples' ``main()`` on the card at their reference sizes
+    (``lm_train`` at 30 steps), each with launch counts reset just before
+    and read just after; each must return, and its figures hold [~60]."""
+    import importlib
+    from repro_torch.kernels import ops
+    paths = {}
+    for name in EXAMPLES:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        argv = ["--steps", "30"] if name == "lm_train" else []
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out, lines = quiet(mod.main, argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        paths[f"example_{name}"] = launches
+        if name == "quickstart":
+            check(out["served_equal"] and out["accuracy"] >= 0.9,
+                  f"quickstart: {out}")
+        elif name == "sequence_labeling":
+            check(out["token_accuracy"] >= 0.9
+                  and launches["viterbi_decode"] > 0, f"{name}: {out}")
+        elif name == "lm_train":
+            check(out["final_loss"] < out["losses"][0][1]
+                  and launches["flash_attention"] == 4 * 30,
+                  f"lm_train: {out['losses']}, {launches}")
+        elif name == "ssvm_head":
+            check(launches["flash_attention"] == 4 and math.isfinite(
+                out["gap"]), f"ssvm_head: {launches}")
+        else:
+            check(math.isfinite(out["dual"]) and out["host_syncs"]
+                  == out["dispatches"], f"{name}: {out}")
+        emit("examples", example=name, seconds=seconds, launches=launches,
+             lines=len(lines), tail=lines[-2:])
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4104,11 +4496,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_parity_lm(torch)
     launches_lm, lm_paths = phase_main_lm(torch)
-    # Each kernel's launches on the path it was ported for; every path's
-    # counts stand beside them.
+    torch.cuda.empty_cache()
+    # LM training, the trainer's ssvm mode and the examples.
+    train_paths = {"train_lm": phase_train_lm(torch)}
+    train_paths["lm_grad"] = phase_lm_grad(torch)
+    train_paths["lm_resume"] = phase_lm_resume(torch)
+    torch.cuda.empty_cache()
+    train_paths.update(phase_train_ssvm(torch))
+    train_paths.update(phase_examples(torch))
+    # Each kernel's launches on the path it was ported for (B5's is now
+    # the trainer's); every path's counts stand beside them.
     path_of = {"plane_scores": "main_gram", "viterbi_decode": "main",
                "plane_select": "main_async", "moe_ffn": "main_lm",
-               "flash_attention": "main_lm", "gram": "main_gram",
+               "flash_attention": "train_lm", "gram": "main_gram",
                "approx_pass": "main"}
     by_path = {"main": launches, **obs_paths, "main_async": launches_async,
                "main_gram": launches_gram,
@@ -4117,7 +4517,8 @@ def main() -> int:
                "main_shard_gram": launches_shard_gram,
                "contracts": launches_contracts, **simple_paths,
                "main_gap": launches_gap, **wide_paths,
-               **serve_paths, "main_lm": launches_lm, **lm_paths}
+               **serve_paths, "main_lm": launches_lm, **lm_paths,
+               **train_paths}
     for k in kernels:
         k["launches"] = by_path[path_of[k["name"]]][k["name"]]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}

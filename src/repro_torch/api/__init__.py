@@ -6,7 +6,7 @@ from .engine import (Engine, EngineCapabilities, EngineEntry,  # noqa: F401
                      register_engine, unregister_engine, validate_config)
 from .engines import AsyncEngine, FusedEngine  # noqa: F401
 from .errors import UnsupportedConfigError  # noqa: F401
-from .oracle import OracleSpec, build_problem  # noqa: F401
+from .oracle import Oracle, OracleSpec, build_problem  # noqa: F401
 from .solver import Solver, evaluate_objectives  # noqa: F401
 from .stopping import (MaxIters, StopContext, StopOnGap,  # noqa: F401
                        StoppingCriterion, WallTimeBudget)
@@ -16,7 +16,7 @@ __all__ = ["RunConfig", "RunResult", "TraceRow", "Engine",
            "EngineCapabilities", "EngineEntry", "algorithms",
            "capabilities_of", "engine_entry", "register_engine",
            "unregister_engine", "validate_config", "AsyncEngine",
-           "FusedEngine", "UnsupportedConfigError", "OracleSpec",
+           "FusedEngine", "UnsupportedConfigError", "Oracle", "OracleSpec",
            "build_problem", "Solver", "evaluate_objectives", "MaxIters",
            "StopContext", "StopOnGap", "StoppingCriterion", "WallTimeBudget",
            "CostModel"]

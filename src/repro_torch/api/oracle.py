@@ -15,11 +15,26 @@ oracle then serves the exact pass (one example) and the evaluation sweep
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Protocol, runtime_checkable
 
 import torch
 
 from ..core.types import SSVMProblem
+
+
+@runtime_checkable
+class Oracle(Protocol):
+    """The runtime max-oracle contract consumed by the optimizer.
+
+    ``batch`` is ``data`` with every leaf sliced along its leading
+    dimension (one example is a batch of one); the return value holds,
+    per example, the plane ``phi^{iy} in R^{d+1}`` (linear part
+    ``phi_star = (psi(x,y') - psi(x,y)) / n`` and offset ``phi_circ =
+    Delta / n``): ``(B, d+1)``.  The reference's oracle takes one example
+    and is ``vmap``-ed; the batched form replaces the ``vmap``.
+    """
+
+    def __call__(self, w: torch.Tensor, batch: Any) -> torch.Tensor: ...
 
 
 class OracleSpec:

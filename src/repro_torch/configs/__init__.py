@@ -1,10 +1,10 @@
 """Model configs of the ported architectures (one module per arch) and the
 paper's scenarios (:mod:`.paper`).
 
-A copy of ``repro/configs/__init__.py``'s ``get_config`` and
-``reduced_config``, with ``ARCHS`` limited to the archs whose families
-the port runs: OLMoE-1B-7B (MoE) and qwen2-0.5b (dense, the backbone of
-``examples/ssvm_head.py``).
+A copy of ``repro/configs/__init__.py``'s ``get_config``,
+``long_context_overrides`` and ``reduced_config``, with ``ARCHS`` limited
+to the archs whose families the port runs: OLMoE-1B-7B (MoE) and
+qwen2-0.5b (dense, the backbone of ``examples/ssvm_head.py``).
 """
 import dataclasses
 import importlib
@@ -20,6 +20,13 @@ def get_config(name: str):
         raise KeyError(f"unknown arch {name!r}; ported: {sorted(ARCHS)}")
     mod = importlib.import_module(f"repro_torch.configs.{ARCHS[name]}")
     return mod.CONFIG
+
+
+def long_context_overrides(name: str) -> dict:
+    """The arch's long-context config overrides (none for the ported
+    archs; the reference's zamba2 sets a sliding window)."""
+    mod = importlib.import_module(f"repro_torch.configs.{ARCHS[name]}")
+    return getattr(mod, "LONG_CONTEXT_OVERRIDES", {})
 
 
 def reduced_config(name: str):

@@ -15,7 +15,11 @@ goes the other way, into a flat dict of the same field names.
 same for the pipelined engine's ``AsyncMPState``: the ``mp`` fields plus
 the pending buffer ``pending.{ids, planes, done, live}``.
 :func:`lm_params_from_numpy` and :func:`lm_params_to_numpy` carry an LM's
-parameter tree (a nested dict, the reference's layout) across.
+parameter tree (a nested dict, the reference's layout) across;
+:func:`adamw_state_from_numpy` and :func:`adamw_state_to_numpy` its AdamW
+state (``step``, ``m``, ``v``), and :func:`lm_train_state_from_numpy` and
+:func:`lm_train_state_to_numpy` the trainer's whole state, ``{"params",
+"opt"}``, as ``repro.launch.train`` keeps it.
 """
 from __future__ import annotations
 
@@ -97,9 +101,11 @@ def async_state_to_numpy(state: AsyncMPState) -> Dict[str, Any]:
         "done": np.array(p.done, dtype=bool), "live": bool(p.live)}}
 
 
-def lm_params_from_numpy(tree: Any, cfg, device) -> Dict[str, Any]:
+def lm_params_from_numpy(tree: Any, cfg, device,
+                         dtype: Any = None) -> Dict[str, Any]:
     """The port's parameters from a reference parameter tree of numpy
-    arrays (``jax.device_get(params)``), in each spec's dtype on ``device``.
+    arrays (``jax.device_get(params)``), in each spec's dtype (or
+    ``dtype``) on ``device``.
 
     JAX's bfloat16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
     ``torch.from_numpy`` rejects; they go through float32, which holds
@@ -117,7 +123,8 @@ def lm_params_from_numpy(tree: Any, cfg, device) -> Dict[str, Any]:
         if tuple(a.shape) != tuple(spec.shape):
             raise ValueError(f"lm_params_from_numpy: {path} has shape "
                              f"{a.shape}, the spec {spec.shape}")
-        return _t(a.astype(np.float32), spec.dtype, torch.device(device))
+        return _t(a.astype(np.float32), dtype or spec.dtype,
+                  torch.device(device))
     return walk(specs, tree, "")
 
 
@@ -126,6 +133,40 @@ def lm_params_to_numpy(params: Any) -> Any:
     if isinstance(params, dict):
         return {k: lm_params_to_numpy(v) for k, v in params.items()}
     return params.detach().float().cpu().numpy()
+
+
+def adamw_state_from_numpy(tree: Any, cfg, device,
+                           state_dtype: Any = torch.float32):
+    """The port's :class:`~repro_torch.optim.AdamWState` from a reference
+    ``AdamWState`` of numpy arrays: the step counter a host int, the
+    moments trees of the config's parameter layout in ``state_dtype``."""
+    from .optim import AdamWState
+    return AdamWState(
+        step=int(tree.step),
+        m=lm_params_from_numpy(tree.m, cfg, device, state_dtype),
+        v=lm_params_from_numpy(tree.v, cfg, device, state_dtype))
+
+
+def adamw_state_to_numpy(state) -> Dict[str, Any]:
+    """``{"step": int, "m", "v"}``, the moments as float32 numpy trees."""
+    return {"step": int(state.step), "m": lm_params_to_numpy(state.m),
+            "v": lm_params_to_numpy(state.v)}
+
+
+def lm_train_state_from_numpy(tree: Any, cfg, device,
+                              state_dtype: Any = torch.float32) -> dict:
+    """The trainer's ``{"params", "opt"}`` from the reference's, fetched
+    to the host (``jax.device_get(state)``)."""
+    return {"params": lm_params_from_numpy(tree["params"], cfg, device),
+            "opt": adamw_state_from_numpy(tree["opt"], cfg, device,
+                                          state_dtype)}
+
+
+def lm_train_state_to_numpy(state: dict) -> dict:
+    """The trainer's state as ``{"params", "opt"}`` of float32 numpy
+    trees (:func:`lm_params_to_numpy`, :func:`adamw_state_to_numpy`)."""
+    return {"params": lm_params_to_numpy(state["params"]),
+            "opt": adamw_state_to_numpy(state["opt"])}
 
 
 def problem_from_numpy(features: np.ndarray, labels: np.ndarray,

@@ -22,6 +22,21 @@ def init_averaging(d: int, device) -> AveragingState:
                           k_approx=0)
 
 
+def update_average(avg: AveragingState, phi: torch.Tensor, *,
+                   exact: bool) -> AveragingState:
+    """Incremental weighted-average update after one oracle call, as a new
+    state (the reference's functional form; the passes step a track in
+    place with :func:`average_step`).  Both weights are float32, computed
+    from a float32 ``k`` as the reference computes them."""
+    k = avg.k_exact if exact else avg.k_approx
+    a, b = (float(x) for x in weight_table(k, 1)[0])  # exact in float32
+    if exact:
+        return avg._replace(bar_exact=a * avg.bar_exact + b * phi,
+                            k_exact=k + 1)
+    return avg._replace(bar_approx=a * avg.bar_approx + b * phi,
+                        k_approx=k + 1)
+
+
 def weight_table(k0: int, m: int, stride: int = 1) -> np.ndarray:
     """``(m, 2)`` float32: ``(k/(k+2), 2/(k+2))`` for ``k = k0 + stride
     t``, ``t = 0 .. m-1`` (the shard engine's ranks step by the rank

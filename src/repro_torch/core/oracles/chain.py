@@ -27,6 +27,21 @@ from ...kernels import ops as kops
 from ..types import SSVMProblem
 
 
+def viterbi_decode(unary: torch.Tensor, trans: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+    """argmax_y sum_l unary[l, y_l] + sum_l trans[y_l, y_{l+1}] (masked).
+
+    unary: (L, C); trans: (C, C); mask: (L,) bool with mask[0] true.
+    Transitions into padded positions are zeroed, so the path score is the
+    valid prefix's.  Returns (L,) int32 labels (arbitrary on padded
+    positions).  One chain of :func:`repro_torch.kernels.ops
+    .viterbi_decode`: the Viterbi kernel on a CUDA tensor, its plain
+    version on a CPU tensor."""
+    return kops.viterbi_decode(unary[None].float().contiguous(),
+                               trans.float().contiguous(),
+                               mask[None].bool().contiguous())[0]
+
+
 def _one_hot(y: torch.Tensor, C: int, dtype) -> torch.Tensor:
     return F.one_hot(y.long(), C).to(dtype)
 

@@ -44,6 +44,14 @@ def primal_value(problem: SSVMProblem, w: torch.Tensor,
     return 0.5 * lam * torch.dot(w, w) + hinge
 
 
+def duality_gap(problem: SSVMProblem, state: BCFWState,
+                lam: float) -> torch.Tensor:
+    """gap = P(w(phi)) - F(phi) >= 0 (certificate of suboptimality), a ()
+    float32 tensor."""
+    w = weights_of(state.phi, lam)
+    return primal_value(problem, w, lam) - dual_value(state.phi, lam)
+
+
 def init_state(problem: SSVMProblem, device) -> BCFWState:
     """Start from the ground-truth planes phi^{i y_i} = 0 (so w = 0)."""
     return BCFWState(

@@ -65,6 +65,14 @@ class SSVMProblem(NamedTuple):
     spec: Any = None
 
 
+class PassStats(NamedTuple):
+    """Telemetry returned by one optimization pass (for the slope rule)."""
+
+    dual: torch.Tensor   # F(phi) after the pass, a () float32 tensor
+    n_exact: int         # cumulative exact oracle calls
+    n_approx: int        # cumulative approximate calls
+
+
 class SlopeClock(NamedTuple):
     """Device timing state of the slope rule (paper Sec. 3.4).
 

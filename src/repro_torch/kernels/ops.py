@@ -14,6 +14,18 @@ the kernels.  A wrapper counts when it launches; a kernel captured into a
 CUDA graph launches again on every replay, which the graph's runner adds
 with :func:`add_launches`.
 
+Two kernels sit on a path that needs gradients: training runs
+:func:`flash_attention` and :func:`moe_ffn` in every forward.  A kernel
+launch through ``ctypes`` carries no ``grad_fn``, so when an input needs
+a gradient, each wrapper launches its kernel inside a
+``torch.autograd.Function`` (:class:`FlashAttention`, :class:`MoeFFN`)
+whose backward recomputes, at the saved inputs, the differentiable math
+the reference's training runs (it never differentiates a Pallas kernel)
+and takes its vector-Jacobian product: the chunked causal attention over
+the repeated kv heads, and the einsum SwiGLU.  Inputs that need no
+gradient take the plain launch, so serving and feature extraction are
+unchanged.
+
 The reference's ``kernels/ops.py`` defines ``viterbi_step`` twice (lines
 78 and 107).  Here the max-plus step exists once, as
 :func:`.ref.viterbi_step_ref`, and the kernel layer exposes the
@@ -37,6 +49,9 @@ from . import viterbi as _vit
 # The one invalid-slot score sentinel (defined in :mod:`.ref`, whose plain
 # versions mask with it).
 INVALID_SCORE = ref.INVALID_SCORE
+# The query chunk of the attention backward's recompute
+# (``ModelConfig.attn_chunk``'s default).
+ATTN_CHUNK = 1024
 
 _KERNELS = {"plane_scores": _ps, "plane_select": _psel,
             "viterbi_decode": _vit, "moe_ffn": _moe,
@@ -95,12 +110,100 @@ def viterbi_decode(unary: torch.Tensor, trans: torch.Tensor,
     return _vit.viterbi_decode(unary, trans, mask)
 
 
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _vjp(fn, inputs, needs, grad_out) -> tuple:
+    """``fn``'s vector-Jacobian product with ``grad_out``, recomputed with
+    autograd at ``inputs``, for the inputs that ``needs`` marks (None for
+    the others)."""
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_(bool(n)) for t, n in zip(inputs,
+                                                                 needs)]
+        out = fn(*xs)
+        got = iter(torch.autograd.grad(out, [x for x in xs
+                                             if x.requires_grad], grad_out))
+    return tuple(next(got) if n else None for n in needs)
+
+
+def moe_ffn_math(xs: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                 wd: torch.Tensor) -> torch.Tensor:
+    """The expert FFN as the reference computes it off the TPU
+    (``repro/models/moe.py:66-70``): three einsums in the input type, the
+    function whose gradient :class:`MoeFFN` takes."""
+    g = torch.einsum("ecd,edf->ecf", xs, wg)
+    u = torch.einsum("ecd,edf->ecf", xs, wu)
+    return torch.einsum("ecf,efd->ecd", torch.nn.functional.silu(g) * u, wd)
+
+
+class MoeFFN(torch.autograd.Function):
+    """The expert FFN with a gradient: the forward launches the kernel
+    (the plain version for CPU tensors), the backward is the VJP of
+    :func:`moe_ffn_math` at the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, xs, wg, wu, wd):
+        ctx.save_for_backward(xs, wg, wu, wd)
+        if xs.device.type == "cpu":
+            return ref.moe_ffn_ref(xs, wg, wu, wd)
+        return _moe.moe_ffn(xs, wg, wu, wd)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return _vjp(moe_ffn_math, ctx.saved_tensors, ctx.needs_input_grad,
+                    grad_out)
+
+
+def attention_math(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Causal attention as the reference's model computes it in training
+    (``repro/models/attention.py:158``, whatever the device): the chunked
+    causal attention of :mod:`repro_torch.models.attention` over the kv
+    heads repeated to q's, in ``ModelConfig.attn_chunk``'s default query
+    chunks (chunking splits rows, not sums).  Takes :func:`flash_attention`'s
+    shapes; the function whose gradient :class:`FlashAttention` takes."""
+    from ..models.attention import chunked_causal_attention, repeat_kv
+    if q.dim() == 3:
+        return attention_math(q[:, :, None], k[:, :, None], v[:, :, None],
+                              sm_scale)[:, :, 0]
+    D = q.shape[3]
+    if sm_scale is not None and sm_scale != D ** -0.5:
+        q = q * (sm_scale * D ** 0.5)
+    H = q.shape[2]
+    return chunked_causal_attention(q, repeat_kv(k, H), repeat_kv(v, H),
+                                    ATTN_CHUNK)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Causal attention with a gradient: the forward launches the flash
+    kernel (the plain version for CPU tensors), the backward is the VJP of
+    :func:`attention_math` at the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.sm_scale = sm_scale
+        if q.device.type == "cpu":
+            return ref.flash_attention_ref(q, k, v, sm_scale)
+        return _fa.flash_attention(q, k, v, sm_scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return _vjp(lambda q, k, v: attention_math(q, k, v, ctx.sm_scale),
+                    ctx.saved_tensors, ctx.needs_input_grad[:3],
+                    grad_out) + (None,)
+
+
 def moe_ffn(xs: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
             wd: torch.Tensor) -> torch.Tensor:
     """Grouped SwiGLU expert FFN: ``xs (E, C, D)``, ``wg``/``wu (E, D,
-    F)``, ``wd (E, F, D)`` -> ``(E, C, D)`` in ``xs``'s dtype."""
+    F)``, ``wd (E, F, D)`` -> ``(E, C, D)`` in ``xs``'s dtype.  On CUDA
+    tensors that need a gradient, through :class:`MoeFFN`."""
     if xs.device.type == "cpu":
         return ref.moe_ffn_ref(xs, wg, wu, wd)
+    if _needs_grad(xs, wg, wu, wd):
+        return MoeFFN.apply(xs, wg, wu, wd)
     return _moe.moe_ffn(xs, wg, wu, wd)
 
 
@@ -108,9 +211,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """Causal attention over ``(BH, S, D)`` q, k, v, or ``(B, S, H, D)`` q
     with ``(B, S, K, D)`` k, v (K divides H: grouped kv heads), in q's
-    dtype and shape."""
+    dtype and shape.  On CUDA tensors that need a gradient, through
+    :class:`FlashAttention`."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, sm_scale)
+    if _needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, sm_scale)
     return _fa.flash_attention(q, k, v, sm_scale)
 
 

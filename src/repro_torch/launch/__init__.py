@@ -1,1 +1,1 @@
-"""Launch entry points of the port (serving)."""
+"""Launch entry points of the port (training, serving, the data mesh)."""

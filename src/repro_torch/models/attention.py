@@ -7,7 +7,7 @@ which reads the grouped kv heads in place); on a CPU tensor it runs
 :func:`chunked_causal_attention`, the function the JAX model computes.
 Decode (``gqa_decode``) takes a one-token query against a preallocated KV
 cache, which it updates in place.  The MLA half (deepseek-v3) is not
-ported yet (ROADMAP A13).
+ported yet (ROADMAP §A item 8).
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ from .layers import apply_rope
 def _no_mla(cfg: ModelConfig) -> None:
     if cfg.mla:
         raise NotImplementedError("MLA attention is not ported yet "
-                                  "(ROADMAP A13)")
+                                  "(ROADMAP §A item 8)")
 
 
 def attn_specs(cfg: ModelConfig, prefix_shape=()) -> dict:
@@ -63,7 +63,9 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
     softmax, as the reference's perf knob."""
     B, S, H, hd = q.shape
     sdt = torch.bfloat16 if score_dtype == "bf16" else torch.float32
-    scale = torch.tensor(hd ** -0.5, dtype=sdt, device=q.device)
+    # Filled on the device: a tensor built from a host value would be a
+    # blocking upload in the training backward, which recomputes this.
+    scale = torch.full((), hd ** -0.5, dtype=sdt, device=q.device)
     chunk = min(chunk, S)
     kT = k.permute(0, 2, 3, 1).to(sdt)       # (B, H, hd, S)
     vT = v.permute(0, 2, 1, 3).to(sdt)       # (B, H, S, vd)
@@ -100,7 +102,7 @@ def _kernel_config(cfg: ModelConfig) -> None:
     if unsupported:
         raise NotImplementedError(
             f"the CUDA flash-attention path does not compute "
-            f"{', '.join(unsupported)} (ROADMAP A13)")
+            f"{', '.join(unsupported)} (ROADMAP §A item 8)")
 
 
 def _qkv(p: dict, x: torch.Tensor, positions: torch.Tensor,

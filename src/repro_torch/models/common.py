@@ -6,8 +6,8 @@ nested dict of tensors with the reference's tree and shapes: layers stay
 *stacked* with a leading L axis, so a reference parameter tree converts
 one to one (:mod:`repro_torch.convert`), and the layer loops index ``l``.
 
-Left out: the mesh and sharding rules (ROADMAP A10), ``remat_wrap`` and
-the scan probe; a forward-only port on one card needs none of them.
+Left out: the mesh and sharding rules (ROADMAP §A item 8), ``remat_wrap``
+and the scan probe; a port on one card needs none of them.
 """
 from __future__ import annotations
 
@@ -44,7 +44,7 @@ class ModelConfig:
     num_shared_experts: int = 0
     first_dense_layers: int = 0
     capacity_factor: float = 1.25
-    # --- not ported yet (ROADMAP A13): a config that sets one raises ---
+    # --- not ported yet (ROADMAP §A item 8): a config that sets one raises
     mla: bool = False               # deepseek-v3 attention
     mtp: bool = False               # multi-token-prediction head
     vision_tokens: int = 0          # VLM stub frontend

@@ -1,5 +1,5 @@
-"""Common neural layers: norms, RoPE, SwiGLU MLP, embeddings (PyTorch port
-of ``repro/models/layers.py``; ``cross_entropy`` waits for training)."""
+"""Common neural layers: norms, RoPE, SwiGLU MLP, embeddings and the token
+cross entropy (PyTorch port of ``repro/models/layers.py``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -77,3 +77,18 @@ def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     head = (params["embedding"].T if cfg.tie_embeddings
             else params["lm_head"])
     return torch.matmul(x, head)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross entropy; logits (..., V), labels (...).  The
+    log-sum-exp in float32; with ``mask``, the mean over the masked-in
+    tokens (at least one)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        m = mask.float()
+        return torch.sum(nll * m) / torch.clamp_min(torch.sum(m), 1.0)
+    return torch.mean(nll)

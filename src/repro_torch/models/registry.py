@@ -1,7 +1,10 @@
 """Family registry: dispatches the model entry points by ``cfg.family``
 (PyTorch port of ``repro/models/registry.py``).  The ``dense`` and ``moe``
-families are ported; the others raise, naming ROADMAP A13."""
+families are ported; the others raise, naming ROADMAP §A item 8."""
 from __future__ import annotations
+
+import numpy as np
+import torch
 
 from . import transformer
 from .common import ModelConfig
@@ -12,12 +15,16 @@ _MODULES = {"dense": transformer, "moe": transformer}
 def module_for(cfg: ModelConfig):
     if cfg.family not in _MODULES:
         raise NotImplementedError(f"model family {cfg.family!r} is not "
-                                  "ported yet (ROADMAP A13)")
+                                  "ported yet (ROADMAP §A item 8)")
     return _MODULES[cfg.family]
 
 
 def param_specs(cfg: ModelConfig):
     return module_for(cfg).param_specs(cfg)
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    return module_for(cfg).loss_fn(params, cfg, batch)
 
 
 def prefill(params, cfg: ModelConfig, batch):
@@ -30,3 +37,15 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos):
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, device=None):
     return module_for(cfg).init_cache(cfg, batch, seq, device)
+
+
+def make_train_batch(cfg: ModelConfig, batch: int, seq: int, rng) -> dict:
+    """A random batch, ``{"tokens", "labels"}`` (B, S) int32 CPU tensors,
+    labels equal to tokens: the reference's draws from
+    ``numpy.random.RandomState(rng)``.  (The VLM and audio inputs belong
+    to families the port does not run.)"""
+    module_for(cfg)
+    r = np.random.RandomState(rng)
+    tokens = torch.from_numpy(
+        r.randint(0, cfg.vocab_size, (batch, seq)).astype(np.int32))
+    return {"tokens": tokens, "labels": tokens}

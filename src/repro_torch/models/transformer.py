@@ -6,15 +6,18 @@ and run in a Python loop over ``l``; a layer's parameters are views of
 the stacked tensors.  Entry points:
 
   * ``param_specs(cfg)``                       tree of ParamSpec
+  * ``loss_fn(params, cfg, batch)``            mean-token CE (training;
+    autograd differentiates it, the kernels included)
   * ``backbone(params, cfg, x, positions)``    final hidden states
   * ``prefill(params, cfg, batch)``            last-position logits
   * ``init_cache(cfg, batch, seq, device)``
   * ``decode_step(params, cfg, cache, tokens, pos)``  one-token step; the
     cache is updated in place and returned
 
-``loss_fn``, multi-token prediction and the vision stub wait for the
-training slice (ROADMAP A13); a config that asks for MTP or the vision
-stub raises.
+Multi-token prediction and the vision stub are not ported (ROADMAP §A
+item 8); a config that asks for either raises.  The reference runs each
+block under ``jax.checkpoint``; that changes memory, not values, and the
+port keeps a block's activations for the backward.
 """
 from __future__ import annotations
 
@@ -26,15 +29,15 @@ from ..core.oracles.chain import resolve_device
 from . import attention as attn
 from . import moe as moe_mod
 from .common import ModelConfig, ParamSpec
-from .layers import embed_specs, embed_tokens, lm_logits, mlp_specs, \
-    rms_norm, swiglu
+from .layers import cross_entropy, embed_specs, embed_tokens, lm_logits, \
+    mlp_specs, rms_norm, swiglu
 
 
 def _not_ported(cfg: ModelConfig) -> None:
     for name in ("mtp", "vision_tokens"):
         if getattr(cfg, name):
             raise NotImplementedError(f"{name} is not ported yet "
-                                      "(ROADMAP A13)")
+                                      "(ROADMAP §A item 8)")
 
 
 def _block_specs(cfg: ModelConfig, kind: str, n_layers: int) -> dict:
@@ -96,9 +99,10 @@ def _block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
     return x + _ffn(cfg, kind, p, h)
 
 
-@torch.no_grad()
 def backbone(params: dict, cfg: ModelConfig, x: torch.Tensor,
              positions: torch.Tensor) -> torch.Tensor:
+    """Final hidden states; differentiable (callers that extract features
+    run it under ``torch.no_grad()``)."""
     for name, kind, n in _layer_groups(cfg):
         for l in range(n):
             x = _block(cfg, kind, _layer(params[name], l), x, positions)
@@ -112,6 +116,17 @@ def _embed_inputs(params: dict, cfg: ModelConfig, batch: dict):
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
     return x, positions
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Mean-token cross entropy of ``batch`` (``tokens``, ``labels`` (B, S)
+    int, optional ``mask``): the logits at positions 0..S-2 against the
+    labels at 1..S-1, as the reference shifts them."""
+    x, positions = _embed_inputs(params, cfg, batch)
+    h = backbone(params, cfg, x, positions)
+    logits = lm_logits(params, h, cfg)
+    return cross_entropy(logits[:, :-1], batch["labels"][:, 1:],
+                         batch.get("mask", None))
 
 
 @torch.no_grad()

@@ -1024,7 +1024,7 @@ def test_gqa_forward_on_card_raises_for_unported_attention(cuda):
     assert attention.gqa_forward(p, x, pos, cfg).shape == x.shape
     for bad in (dict(sliding_window=3), dict(attn_score_dtype="bf16"),
                 dict(attn_impl="stub")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        with pytest.raises(NotImplementedError, match="ROADMAP §A item 8"):
             attention.gqa_forward(p, x, pos, dataclasses.replace(cfg, **bad))
 
 
@@ -1801,3 +1801,130 @@ def test_uploads_and_a_main_shaped_batch_take_no_host_sync(cuda):
     assert torch.equal(ids.cpu(), torch.from_numpy(perms))
     assert noise.cpu().tolist() == [0.0, 1.0, 2.0, 3.0]
     assert 1 <= int(stats.passes_run) <= 8
+
+
+# -- the kernels' gradients (training) ----------------------------------------
+# The Functions' backward recomputes the reference's training math, so on
+# equal inputs and output gradients their gradients equal autograd through
+# that math exactly (rtol = atol = 1e-5 stated for float32 sums); the
+# forward is the kernel's (f32 within 3e-4 (1 + |ref|) of the plain
+# version, bf16 within relative L2 2e-2).
+
+def _grad_inputs(cuda, shapes, dtype, seed):
+    g = torch.Generator(cuda)
+    g.manual_seed(seed)
+    return [torch.randn(s, generator=g, device=cuda).to(dtype)
+            .requires_grad_() for s in shapes]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shapes", [((8, 128, 14, 64), (8, 128, 2, 64)),
+                                    ((3, 77, 8, 32), (3, 77, 8, 32)),
+                                    ((6, 50, 16), (6, 50, 16))])
+def test_flash_attention_gradient_on_card(cuda, shapes, dtype, monkeypatch):
+    q, k, v = _grad_inputs(cuda, (shapes[0], shapes[1], shapes[1]), dtype,
+                           len(shapes[0]))
+    before = ops.launch_counts()["flash_attention"]
+    out = ops.flash_attention(q, k, v)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert out.grad_fn is not None
+    gout = torch.randn_like(out)
+    want_out = ops.attention_math(q, k, v)
+    want = torch.autograd.grad(want_out, (q, k, v), gout)
+
+    def boom(*a, **kw):
+        raise AssertionError("the backward called kernels/ref.py")
+    monkeypatch.setattr(ref, "flash_attention_ref", boom)
+    got = torch.autograd.grad(out, (q, k, v), gout)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                        rtol=1e-5, atol=1e-5)
+    o, w = out.detach().float(), want_out.detach().float()
+    if dtype == torch.float32:
+        assert bool(((o - w).abs() <= 3e-4 * (1 + w.abs())).all())
+    else:
+        assert float((o - w).norm() / w.norm()) <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_ffn_gradient_on_card(cuda, dtype, monkeypatch):
+    xs, wg, wu, wd = _grad_inputs(
+        cuda, ((8, 40, 64), (8, 64, 32), (8, 64, 32), (8, 32, 64)), dtype, 1)
+    before = ops.launch_counts()["moe_ffn"]
+    out = ops.moe_ffn(xs, wg, wu, wd)
+    assert ops.launch_counts()["moe_ffn"] == before + 1
+    gout = torch.randn_like(out)
+    want = torch.autograd.grad(ops.moe_ffn_math(xs, wg, wu, wd),
+                               (xs, wg, wu, wd), gout)
+
+    def boom(*a, **kw):
+        raise AssertionError("the backward called kernels/ref.py")
+    monkeypatch.setattr(ref, "moe_ffn_ref", boom)
+    got = torch.autograd.grad(out, (xs, wg, wu, wd), gout)
+    for a, b in zip(got, want):
+        assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                        rtol=1e-5, atol=1e-5)
+
+
+def test_kernels_without_grad_keep_the_plain_launch(cuda):
+    q = torch.randn((2, 40, 4, 32), device=cuda)
+    k, v = torch.randn((2, 2, 40, 2, 32), device=cuda).unbind(0)
+    xs = torch.randn((4, 9, 32), device=cuda)
+    w = [torch.randn(s, device=cuda) for s in ((4, 32, 16), (4, 32, 16),
+                                              (4, 16, 32))]
+    before = ops.launch_counts()
+    assert ops.flash_attention(q, k, v).grad_fn is None
+    assert ops.moe_ffn(xs, *w).grad_fn is None
+    q.requires_grad_()
+    xs.requires_grad_()
+    with torch.no_grad():
+        assert ops.flash_attention(q, k, v).grad_fn is None
+        assert ops.moe_ffn(xs, *w).grad_fn is None
+    after = ops.launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 2
+    assert after["moe_ffn"] == before["moe_ffn"] + 2
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "olmoe-1b-7b"])
+def test_reduced_training_on_card_matches_cpu(cuda, arch):
+    """5 trainer steps of the reduced model in float32, card against CPU
+    from the same weights: losses and grad norms within rtol 1e-3, the
+    kernels launched once per layer per step."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.data.lm import DataConfig, TokenDataset
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamWConfig, cosine_schedule
+    cfg = dataclasses.replace(configs.reduced_config(arch),
+                              dtype=torch.float32)
+    ocfg = AdamWConfig(lr=3e-4)
+    cpu = train.init_state(cfg, ocfg, "cpu")
+    states = {"cpu": cpu, "cuda": {
+        "params": _to(cpu["params"], cuda),
+        "opt": cpu["opt"]._replace(m=_to(cpu["opt"].m, cuda),
+                                   v=_to(cpu["opt"].v, cuda))}}
+    data = TokenDataset(DataConfig(vocab_size=cfg.vocab_size, batch_size=4,
+                                   seq_len=32))
+    before = ops.launch_counts()
+    hist = {"cpu": [], "cuda": []}
+    for step in range(5):
+        lr = cosine_schedule(step, peak_lr=3e-4, warmup=2, total=5)
+        for dev in ("cpu", "cuda"):
+            batch = {k: v.to(dev) for k, v in data.batch(step).items()}
+            states[dev], loss, gnorm = train.train_step(states[dev], cfg,
+                                                        batch, ocfg, lr)
+            hist[dev].append([float(loss), float(gnorm)])
+    assert_allclose(hist["cuda"], hist["cpu"], rtol=1e-3)
+    after = ops.launch_counts()
+    assert after["flash_attention"] - before["flash_attention"] == \
+        5 * cfg.num_layers
+    assert after["moe_ffn"] - before["moe_ffn"] == \
+        (5 * cfg.num_layers if cfg.moe else 0)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)

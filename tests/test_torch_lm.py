@@ -362,7 +362,7 @@ def test_unported_configs_raise_naming_the_roadmap():
                 dataclasses.replace(cfg, mtp=True),
                 dataclasses.replace(cfg, vision_tokens=4),
                 dataclasses.replace(cfg, family="ssm")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        with pytest.raises(NotImplementedError, match="ROADMAP §A item 8"):
             registry.param_specs(bad)
     with pytest.raises(KeyError, match="ported"):
         configs.get_config("deepseek-v3-671b")
