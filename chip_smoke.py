@@ -28,7 +28,9 @@ Phases, one JSON line each (seconds on an H100 in brackets):
                  plane_scores and against 50 relaunches, timed by
                  graph_ms and the event loop beside the two-step addmv
                  + mask + amax/argmax, each with its bound from its
-                 valid count [~70; plane_select ~10].
+                 valid count; flash_attention also at the trainer's
+                 shape and at the four lm_configs' prefill shapes
+                 [~70; plane_select ~10].
   3. parity   -- a short Solver run of the port on the card against the same
                  run on the CPU (plain versions), on the CI-sized OCR
                  scenario.
@@ -231,9 +233,10 @@ Phases, one JSON line each (seconds on an H100 in brackets):
                  tokens / 989 TFLOP/s [~30].
  14c. lm_grad -- one full-width step's gradients, leaf by leaf, with the
                  flash kernel in the forward and with the chunked forward,
-                 each against the fp32 gradient; reduced qwen2-0.5b and
-                 OLMoE-1B-7B in fp32, card against CPU, rel. L2 <= 1e-3
-                 [~10].
+                 each against the fp32 gradient; reduced qwen2-0.5b,
+                 OLMoE-1B-7B, deepseek-v3-671b (MLA through B5's fp32
+                 path, MTP in the loss) and internvl2-76b (the vision
+                 stub) in fp32, card against CPU, rel. L2 <= 1e-3 [~6].
  14d. lm_resume -- reduced qwen2-0.5b, 10 steps saving every 5; a fresh
                  run resumed from step 5 gives the same losses [~5].
  14e. train_ssvm -- train_ssvm on SMALL usps, ocr, horseseg, card
@@ -241,12 +244,32 @@ Phases, one JSON line each (seconds on an H100 in brackets):
  14f. examples -- the five repro_torch.examples main()s on the card at
                  their reference sizes (lm_train at 30 steps), launches
                  read [~15].
+ 14g. main_mla -- deepseek-v3-671b at its published width (MLA with q/k
+                 head dim 192 and v 128, 256 experts top-8, the dense
+                 layers, the MTP block's weights), depth cut from 61 to 4
+                 (its 3 dense layers, 1 MoE layer), bf16 weights from
+                 seed 0: the Server answers 8 requests (absorbed MLA
+                 decode, moe_ffn once per round, flash_attention never),
+                 then a prefill of 2 x 1024 tokens (flash_attention's MLA
+                 build once per layer, each call held to the plain
+                 attention on its own inputs, moe_ffn once), then B5's
+                 MLA build at (2, 1024, 128, 192/128) and moe_ffn at
+                 (256, {1, 64}, 7168, 2048) against their plain versions,
+                 timed [~4].
+ 14h. lm_configs -- internvl2-76b (256 stub vision tokens), minitron-8b,
+                 mistral-nemo-12b and qwen2.5-14b at published width,
+                 depth 2: a prefill of 2 x 1024 tokens each
+                 (flash_attention twice, logits finite; the kernels phase
+                 holds B5 at each config's (2, 1024, H:K, 128) to its
+                 plain version and times it) [~2].
  15. sync_debug line (the paths whose every engine dispatch ran under
      sync-debug "error": main, main_async (both programs), main_gram,
      main_shard, main_shard_tau, main_gap, one train_lm step, and the
      dispatches checked on each, later phases' dispatches of the same
      engine included), the
-     kernels line, the card's name and power limit, and the result line
+     kernels line (flash_attention's row also carries its MLA shape and
+     the four configs' shapes, moe_ffn's the deepseek shapes), the
+     card's name and power limit, and the result line
      ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -332,9 +355,23 @@ TRAIN_PROFILED_STEPS = 3
 # the kernel path's at most 1.25x the chunked path's, + 1e-3.
 GRAD_NOISE_RATIO, GRAD_NOISE_ATOL = 1.25, 1e-3
 GRAD_RTOL = 1e-3                # card vs CPU in fp32, per leaf (rel. L2)
+# The reduced configs held card against CPU: dense, MoE, MLA + MTP, VLM.
+GRAD_ARCHS = ("qwen2-0.5b", "olmoe-1b-7b", "deepseek-v3-671b",
+              "internvl2-76b")
 RESUME = dict(steps=10, save_every=5, batch_size=8, seq_len=32)
 EXAMPLES = ("quickstart", "sequence_labeling", "segmentation_distributed",
             "ssvm_head", "lm_train")
+
+# The rest of the transformer family at published width, depth cut: the
+# MLA + MoE + MTP config at 4 layers (its published 3 dense layers and 1
+# MoE layer of the 58; a second MoE layer's stacked fp32 draw would need 30
+# GB over 46 GB of weights), served as main_lm is and prefilled on 2 x 1024
+# tokens; the other four configs at 2 layers, each prefilled alone.
+MLA_ARCH, MLA_LAYERS = "deepseek-v3-671b", 4
+PREFILL = dict(batch=2, seq=1024)
+LM_CONFIGS = ("internvl2-76b", "minitron-8b", "mistral-nemo-12b",
+              "qwen2.5-14b")
+LM_CONFIG_LAYERS = 2
 
 # The engines the registry added: card vs CPU on SMALL ocr, and three of
 # them at full OCR size (phase, algorithm).
@@ -1835,10 +1872,19 @@ def check_flash_attention(torch, gen):
     library_ms = time_ms(torch, lambda i: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True), 20)
     del q, k, v, qt, kt, vt
-    train = flash_train_shape(torch, rand, compare)
+    # The trainer's shape (qwen2-0.5b), and the four configs' prefill
+    # shapes that lm_configs runs.
+    train = flash_gqa_shape(torch, rand, compare, 8, 128, 14, 2, 64, 50, 10)
+    from repro_torch import configs
+    at_configs = {}
+    for arch in LM_CONFIGS:
+        c = configs.get_config(arch)
+        at_configs[arch] = flash_gqa_shape(
+            torch, rand, compare, PREFILL["batch"], PREFILL["seq"],
+            c.num_heads, c.num_kv_heads, c.hd, 20, 3)
     emit("kernel", name="flash_attention", shape=[B, S, H, D], dtype="bf16",
          ragged=ragged, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-         train_shape=train,
+         train_shape=train, lm_configs=at_configs,
          library="scaled_dot_product_attention(is_causal=True)",
          bound_ms=bms, bound_by=by, tolerance="f32: |err| <= 3e-4 (1+|ref|) "
          "vs plain; bf16: relative L2 <= 2^-9 and |err| <= 2^-5 (|ref|+rms) "
@@ -1848,20 +1894,20 @@ def check_flash_attention(torch, gen):
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:75",
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=library_ms, train_shape=train, **errs)
+                library_ms=library_ms, train_shape=train,
+                lm_configs=at_configs, **errs)
 
 
-def flash_train_shape(torch, rand, compare):
-    """B5 at the trainer's shape (qwen2-0.5b: q (8, 128, 14, 64), 2 kv
-    heads, bf16) against its plain version, timed beside it, beside SDPA
-    over the kv heads repeated (outside the timed call) and beside its
-    bound."""
+def flash_gqa_shape(torch, rand, compare, B, S, H, K, D, calls: int,
+                    plain_calls: int):
+    """B5 at a model path's shape (q (B, S, H, D), K kv heads, bf16)
+    against its plain version, timed beside it, beside SDPA over the kv
+    heads repeated (outside the timed call) and beside its bound."""
     from repro_torch.kernels import ops, ref
     F = torch.nn.functional
-    B, S, H, K, D = 8, 128, 14, 2, 64
     q = rand(B, S, H, D, dtype=torch.bfloat16)
     k, v = (rand(B, S, K, D, dtype=torch.bfloat16) for _ in range(2))
-    errs = compare(q, k, v, f"train shape {B}x{S}x{H}:{K}x{D} bf16")
+    errs = compare(q, k, v, f"{B}x{S}x{H}:{K}x{D} bf16")
     qt = q.transpose(1, 2)
     kt, vt = (t.repeat_interleave(H // K, dim=2).transpose(1, 2)
               for t in (k, v))
@@ -1869,11 +1915,11 @@ def flash_train_shape(torch, rand, compare):
                        2 * 2 * B * H * D * S * (S + 1) / 2, BF16_FLOPS)
     return dict(
         shape=[B, S, H, K, D], bound_ms=bms, bound_by=by,
-        ms=time_ms(torch, lambda i: ops.flash_attention(q, k, v), 50),
+        ms=time_ms(torch, lambda i: ops.flash_attention(q, k, v), calls),
         plain_ms=time_ms(torch, lambda i: ref.flash_attention_ref(q, k, v),
-                         10),
+                         plain_calls),
         library_ms=time_ms(torch, lambda i: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), 50), **errs)
+            qt, kt, vt, is_causal=True), calls), **errs)
 
 
 def gram_close(torch, got, want, what: str):
@@ -4193,9 +4239,11 @@ def phase_lm_grad(torch):
     is not; per leaf, the kernel path no farther from the fp32 gradient
     than 1.25x the chunked path's distance + 1e-3 (both bf16 paths sit
     1-2.5 % from it: the bf16 rounding of 24 layers, so the two paths'
-    distance from each other is no tighter).  Then reduced qwen2-0.5b and
-    reduced OLMoE-1B-7B in fp32 (B6's backward too), card against CPU:
-    the loss and each leaf's gradient within relative L2 1e-3 [~10]."""
+    distance from each other is no tighter).  Then reduced qwen2-0.5b,
+    OLMoE-1B-7B (B6's backward too), deepseek-v3-671b (MLA through B5's
+    fp32 path at q/k 24, v 16, MTP in the loss, B6) and internvl2-76b
+    (the vision stub) in fp32, card against CPU: the loss and each leaf's
+    gradient within relative L2 1e-3 [~6]."""
     import dataclasses
     from repro_torch import configs
     from repro_torch.kernels import ops
@@ -4246,7 +4294,7 @@ def phase_lm_grad(torch):
     torch.cuda.empty_cache()
 
     reduced = {}
-    for arch in ("qwen2-0.5b", "olmoe-1b-7b"):
+    for arch in GRAD_ARCHS:
         rcfg = dataclasses.replace(configs.reduced_config(arch),
                                    dtype=torch.float32)
         gen = torch.Generator("cpu")
@@ -4254,6 +4302,9 @@ def phase_lm_grad(torch):
         p_cpu = common.init_params(registry.param_specs(rcfg), gen, "cpu")
         p_gpu = common.tree_map(lambda t: t.cuda(), p_cpu)
         b_gpu = lm_batch(torch, rcfg, 4, 32)
+        if rcfg.family == "vlm":
+            b_gpu["vision_embeds"] = registry.make_train_batch(
+                rcfg, 4, 32, 0)["vision_embeds"].cuda()
         b_cpu = {k: v.cpu() for k, v in b_gpu.items()}
         ops.reset_launch_counts()
         lg, gg = raw_grads(torch, p_gpu, rcfg, b_gpu)
@@ -4262,8 +4313,9 @@ def phase_lm_grad(torch):
         lc, gc = raw_grads(torch, p_cpu, rcfg, b_cpu)
         check(abs(float(lg) - float(lc)) <= GRAD_RTOL * abs(float(lc)),
               f"lm_grad {arch}: loss {float(lg)} vs {float(lc)}")
-        want = {"flash_attention": rcfg.num_layers,
-                "moe_ffn": rcfg.num_layers if rcfg.moe else 0}
+        want = {"flash_attention": rcfg.num_layers + int(rcfg.mtp),
+                "moe_ffn": (rcfg.num_layers - rcfg.first_dense_layers
+                            if rcfg.moe else 0)}
         check(all(red_launches[k] == v for k, v in want.items()),
               f"lm_grad {arch}: launches {red_launches}")
         rels = grad_table(torch, [g.cpu() for g in gg], gc)
@@ -4271,7 +4323,8 @@ def phase_lm_grad(torch):
         check(worst <= GRAD_RTOL, f"lm_grad {arch}: leaf relative L2 "
               f"{worst}")
         reduced[arch] = dict(loss_cuda=float(lg), loss_cpu=float(lc),
-                             max_leaf_rel_l2=worst, launches=red_launches)
+                             leaves=len(rels), max_leaf_rel_l2=worst,
+                             launches=red_launches)
     emit("lm_grad", seconds=time.perf_counter() - t_phase,
          full_width_bf16=full, reduced_fp32=reduced,
          tolerance="full width bf16, per leaf: relative L2 from the fp32 "
@@ -4381,6 +4434,292 @@ def phase_examples(torch):
                   == out["dispatches"], f"{name}: {out}")
         emit("examples", example=name, seconds=seconds, launches=launches,
              lines=len(lines), tail=lines[-2:])
+    return paths
+
+
+def check_flash_mla(torch, gen):
+    """B5's MLA build at deepseek-v3's prefill shape, (B, S, H) = (2, 1024,
+    128), q/k head dim 192, v 128 read as a strided view of the per-head
+    [k_nope ; v] expansion (the model's layout), bf16: against its plain
+    version, and at one k block (S = 64) against its roundings emulated in
+    fp32; timed by CUDA events beside its bound, the plain version and
+    SDPA over the same q, k, v (Ev != E)."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops, ref
+    F = torch.nn.functional
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+
+    def inputs(B, S, H, D, Dv):
+        return rand(B, S, H, D), rand(B, S, H, D), \
+            rand(B, S, H, 128 + Dv)[..., 128:]
+    B, S, H, D, Dv = PREFILL["batch"], PREFILL["seq"], 128, 192, 128
+    q, k, v = inputs(3, 64, 4, D, Dv)
+    emu = close_bf16(torch, ops.flash_attention(q, k, v),
+                     flash_emulated(torch, q, k, v), "flash mla S=64")
+    q, k, v = inputs(B, S, H, D, Dv)
+    got = ops.flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    check(got.shape == (B, S, H, Dv) and got.dtype == q.dtype, "flash mla")
+    rel = rel_l2(torch, got, want)
+    check(rel <= BF16_REL_L2, f"flash mla: relative L2 {rel} vs plain")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    nbytes = 2 * B * S * H * (2 * D + 2 * Dv)   # q, k, v, o once
+    ops_n = 2 * B * H * (D + Dv) * S * (S + 1) / 2
+    bms, by = bound_ms(nbytes, ops_n, BF16_FLOPS)
+    return dict(shape=[B, S, H, D, Dv], plan=kfa.plan(D, Dv, S, q.dtype),
+                max_abs_err=float((got.float() - want.float()).abs().max()),
+                rel_l2_vs_plain=rel, max_abs_err_emulated=emu,
+                ms=time_ms(torch, lambda i: ops.flash_attention(q, k, v),
+                           20),
+                plain_ms=time_ms(torch, lambda i: ref.flash_attention_ref(
+                    q, k, v), 3),
+                library_ms=time_ms(torch, lambda i: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True), 20),
+                library="scaled_dot_product_attention(is_causal=True), "
+                "Ev != E", bound_ms=bms, bound_by=by)
+
+
+def check_moe_deepseek(torch, gen, moe_p, C: int, calls: int):
+    """B6 at deepseek-v3's (E, D, F) = (256, 7168, 2048) on the model's own
+    expert weights (22.5 GB), C capacity rows of random bf16 inputs:
+    against moe_ffn_math (relative L2) and against the kernel's roundings
+    emulated in fp32, 16 experts at a time; timed beside its bound, the
+    plain version and three torch.bmm + silu."""
+    from repro_torch.kernels import moe_ffn as kmoe
+    from repro_torch.kernels import ops, ref
+    F = torch.nn.functional
+    wg, wu, wd = (moe_p[n][0] for n in ("w_gate", "w_up", "w_down"))
+    E, D, Fd = wg.shape
+    xs = torch.randn((E, C, D), generator=gen, device="cuda").bfloat16()
+    got = ops.moe_ffn(xs, wg, wu, wd)
+    rel = rel_l2(torch, got, ops.moe_ffn_math(xs, wg, wu, wd))
+    check(rel <= BF16_REL_L2, f"moe_ffn deepseek C={C}: relative L2 {rel} "
+          "vs moe_ffn_math")
+    emulated = torch.empty_like(got)
+    for e0 in range(0, E, 16):
+        emulated[e0:e0 + 16] = moe_ffn_emulated(
+            torch, *(t[e0:e0 + 16] for t in (xs, wg, wu, wd)))
+    emu = close_bf16(torch, got, emulated, f"moe_ffn deepseek C={C}")
+    del emulated
+
+    def library(k):
+        g, u = torch.bmm(xs, wg), torch.bmm(xs, wu)
+        return torch.bmm(F.silu(g) * u, wd)
+    nbytes = 2 * (2 * E * C * D + 3 * E * D * Fd)
+    bms, by = bound_ms(nbytes, 6.0 * E * C * D * Fd, BF16_FLOPS)
+    return dict(
+        shape=[E, C, D, Fd], plan=list(kmoe.plan(C, D, Fd, xs.dtype)),
+        max_abs_err=float((got.float() - ref.moe_ffn_ref(xs, wg, wu, wd)
+                           .float()).abs().max()),
+        rel_l2_vs_math=rel, max_abs_err_emulated=emu,
+        ms=time_ms(torch, lambda k: ops.moe_ffn(xs, wg, wu, wd), calls,
+                   warmup=1),
+        plain_ms=time_ms(torch, lambda k: ref.moe_ffn_ref(xs, wg, wu, wd),
+                         calls, warmup=1),
+        library_ms=time_ms(torch, library, calls, warmup=1),
+        bound_ms=bms, bound_by=by)
+
+
+def phase_main_mla(torch):
+    """deepseek-v3-671b at its published width (d_model 7168, 128 MLA heads
+    of q/k 192 and v 128, kv rank 512, 256 experts top-8 of F 2048, the
+    shared expert, the dense layers' F 18432, vocab 129,280, the MTP
+    block), depth cut to 4 (its 3 dense layers and 1 MoE layer), bf16
+    weights from seed 0 (15.8 B parameters, ~47 GB at the init's peak):
+    the Server answers 8 requests (absorbed MLA decode against the
+    compressed cache, B6 at C = 1 once per round, B5 never), then a
+    prefill of 2 x 1024 tokens (B5's MLA build once per layer, B6 at C =
+    64 once), its logits held to the same prefill through the plain
+    attention; then B5's MLA build and B6 at (256, {1, 64}, 7168, 2048)
+    against their plain versions, timed [~4]."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import common, registry
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(configs.get_config(MLA_ARCH),
+                              num_layers=MLA_LAYERS)
+    moe_layers = cfg.num_layers - cfg.first_dense_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator("cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = common.init_params(registry.param_specs(cfg), gen, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in common.leaves(params))
+    check(n_params == cfg.param_count(), f"main_mla: {n_params} parameters")
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in common.leaves(params))
+
+    # 1. Serve.
+    server = Server(cfg, params, slots=SERVE["slots"],
+                    max_seq=SERVE["max_seq"])
+    check([tuple(c.shape[2:]) for c in server.cache["moe_layers"]]
+          == [(SERVE["max_seq"], cfg.kv_lora_rank),
+              (SERVE["max_seq"], cfg.qk_rope_dim)], "main_mla: MLA cache")
+    rng = np.random.RandomState(0)
+    reqs = [Request(i, rng.randint(0, cfg.vocab_size,
+                                   size=SERVE["prompt_len"]),
+                    SERVE["max_new"]) for i in range(SERVE["requests"])]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = server.serve(reqs)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_launches = ops.launch_counts()
+    tokens_out = sum(len(r.out) for r in done)
+    check(len(done) == SERVE["requests"], f"main_mla: served {len(done)}")
+    check(all(len(r.out) == SERVE["max_new"] and
+              all(0 <= t < cfg.vocab_size for t in r.out) for r in done),
+          "main_mla: generated tokens out of range or missing")
+    check(serve_launches["moe_ffn"] == moe_layers * server.rounds
+          and serve_launches["flash_attention"] == 0,
+          f"main_mla: serve launches {serve_launches} in {server.rounds} "
+          "rounds")
+    logits, _ = registry.decode_step(
+        params, cfg, server.cache, torch.from_numpy(server.tokens).cuda(),
+        server.pos)
+    check(logits.shape == (SERVE["slots"], 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          "main_mla: decode logits not finite")
+    rounds = server.rounds
+    del server, logits
+    torch.cuda.empty_cache()
+
+    # 2. Prefill 2 x 1024 tokens through the MLA build.
+    batch = {k: v.cuda() for k, v in registry.make_train_batch(
+        cfg, PREFILL["batch"], PREFILL["seq"], 0).items()}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = registry.prefill(params, cfg, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = ops.launch_counts()
+    check(prefill_launches["flash_attention"] == cfg.num_layers
+          and prefill_launches["moe_ffn"] == moe_layers,
+          f"main_mla: prefill launches {prefill_launches}")
+    check(logits.shape == (PREFILL["batch"], 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          "main_mla: prefill logits not finite")
+    # Again, each layer's B5 call held to the plain attention on the
+    # path's own q, k, v; then the whole prefill through the plain
+    # attention, whose logits' distance is reported (two bf16 paths: the
+    # kernel rounds p to bf16 before p.v, the plain attention does not,
+    # and 4 layers carry that apart).
+    kernel, layer_rel = ops.flash_attention, []
+
+    def held(q, k, v, sm_scale=None):
+        o = kernel(q, k, v, sm_scale)
+        layer_rel.append(rel_l2(torch, o, ops.attention_math(q, k, v,
+                                                             sm_scale)))
+        return o
+    ops.flash_attention = held
+    try:
+        again = registry.prefill(params, cfg, batch)
+        ops.flash_attention = ops.attention_math    # the plain attention
+        plain = registry.prefill(params, cfg, batch)
+    finally:
+        ops.flash_attention = kernel
+    check(len(layer_rel) == cfg.num_layers and max(layer_rel)
+          <= BF16_REL_L2, f"main_mla: B5 on the prefill's own inputs, "
+          f"relative L2 {layer_rel} vs the plain attention")
+    vs_plain = rel_l2(torch, logits, plain)
+    prefill_peak = torch.cuda.max_memory_allocated()
+    del logits, again, plain, batch
+
+    # 3. The kernels at the path's shapes.
+    kgen = torch.Generator("cuda")
+    kgen.manual_seed(1)
+    flash = check_flash_mla(torch, kgen)
+    flash["launches"] = prefill_launches["flash_attention"]
+    moe_rows = {}
+    for name, C, calls in (("decode", 1, 10), ("prefill", 64, 10)):
+        moe_rows[name] = check_moe_deepseek(
+            torch, kgen, params["moe_layers"]["moe"], C, calls)
+    moe_rows["decode"]["launches"] = serve_launches["moe_ffn"]
+    moe_rows["prefill"]["launches"] = prefill_launches["moe_ffn"]
+    peak = torch.cuda.max_memory_allocated()
+    emit("main_mla", arch=cfg.name, num_layers=cfg.num_layers,
+         reduced=f"depth {configs.get_config(MLA_ARCH).num_layers} -> "
+         f"{cfg.num_layers}", params=n_params, param_bytes=param_bytes,
+         init_s=init_s, init_peak_bytes=init_peak,
+         serve=dict(slots=SERVE["slots"], max_seq=SERVE["max_seq"],
+                    requests=len(done), rounds=rounds, tokens=tokens_out,
+                    seconds=serve_s, tokens_per_s=tokens_out / serve_s,
+                    launches=serve_launches),
+         prefill=dict(shape=[PREFILL["batch"], PREFILL["seq"]],
+                      seconds=prefill_s, launches=prefill_launches,
+                      b5_layer_rel_l2_vs_plain=layer_rel,
+                      logits_rel_l2_vs_plain_attention=vs_plain,
+                      peak_bytes=prefill_peak),
+         flash_attention_mla=flash, moe_ffn=moe_rows,
+         max_memory_allocated=peak, seconds=time.perf_counter() - t_phase)
+    del params
+    torch.cuda.empty_cache()
+    return flash, moe_rows, {"main_mla_serve": serve_launches,
+                             "main_mla_prefill": prefill_launches}
+
+
+def phase_lm_configs(torch):
+    """internvl2-76b (the vision stub: 256 patch embeddings projected over
+    the first positions), minitron-8b, mistral-nemo-12b and qwen2.5-14b at
+    their published widths, depth cut to 2, bf16 weights from seed 0: each
+    prefills 2 x 1024 tokens (B5 once per layer at the config's H:K heads
+    of 128; the kernel phase holds B5 at that shape to its plain version
+    and times it), logits finite.  Each config's weights are freed before
+    the next [~2]."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import common, registry
+    paths = {}
+    for arch in LM_CONFIGS:
+        t_arch = time.perf_counter()
+        full = configs.get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=LM_CONFIG_LAYERS)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator("cuda")
+        gen.manual_seed(0)
+        params = common.init_params(registry.param_specs(cfg), gen, "cuda")
+        n_params = sum(t.numel() for t in common.leaves(params))
+        check(n_params == cfg.param_count(), f"{arch}: {n_params}")
+        batch = {k: v.cuda() for k, v in registry.make_train_batch(
+            cfg, PREFILL["batch"], PREFILL["seq"], 0).items()}
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = registry.prefill(params, cfg, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        check(launches["flash_attention"] == cfg.num_layers
+              and launches["moe_ffn"] == 0, f"{arch}: launches {launches}")
+        check(logits.shape == (PREFILL["batch"], 1, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"{arch}: prefill logits not finite")
+        peak = torch.cuda.max_memory_allocated()
+        del params, logits, batch
+        torch.cuda.empty_cache()
+        paths[f"lm_configs_{arch}"] = launches
+        emit("lm_configs", arch=arch, num_layers=cfg.num_layers,
+             reduced=f"depth {full.num_layers} -> {cfg.num_layers}",
+             params=n_params, vision_tokens=cfg.vision_tokens,
+             prefill=dict(shape=[PREFILL["batch"], PREFILL["seq"]],
+                          seconds=prefill_s, launches=launches),
+             max_memory_allocated=peak,
+             seconds=time.perf_counter() - t_arch)
     return paths
 
 
@@ -4504,6 +4843,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_paths.update(phase_train_ssvm(torch))
     train_paths.update(phase_examples(torch))
+    torch.cuda.empty_cache()
+    # The rest of the transformer family, after every earlier path.
+    mla_flash, mla_moe, mla_paths = phase_main_mla(torch)
+    cfg_paths = phase_lm_configs(torch)
+    for k in kernels:
+        if k["name"] == "flash_attention":
+            k["mla_shape"] = mla_flash
+            for arch, row in k["lm_configs"].items():
+                row["launches"] = cfg_paths[f"lm_configs_{arch}"][
+                    "flash_attention"]
+        elif k["name"] == "moe_ffn":
+            k["deepseek"] = mla_moe
     # Each kernel's launches on the path it was ported for (B5's is now
     # the trainer's); every path's counts stand beside them.
     path_of = {"plane_scores": "main_gram", "viterbi_decode": "main",
@@ -4518,7 +4869,7 @@ def main() -> int:
                "contracts": launches_contracts, **simple_paths,
                "main_gap": launches_gap, **wide_paths,
                **serve_paths, "main_lm": launches_lm, **lm_paths,
-               **train_paths}
+               **train_paths, **mla_paths, **cfg_paths}
     for k in kernels:
         k["launches"] = by_path[path_of[k["name"]]][k["name"]]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}

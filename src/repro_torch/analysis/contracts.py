@@ -61,6 +61,7 @@ from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
+from ..core.oracles.chain import resolve_device
 from .findings import Finding
 
 #: Ops that wait for the device before they return (on CUDA): a value read
@@ -397,10 +398,11 @@ def _device_of(problem) -> torch.device:
 
 
 def trace_engine(name: str, *, on_mesh: Optional[bool] = None,
-                 problem=None, device="cpu",
+                 problem=None, device=None,
                  iterations: int = 2) -> EngineTrace:
-    """Instantiate engine ``name`` on the tiny problem and run, each under
-    a :class:`DispatchCounter`, ``iterations`` outer iterations (each read
+    """Instantiate engine ``name`` on the tiny problem (on ``device``, CUDA
+    by default; or on ``problem``'s device) and run, each under a
+    :class:`DispatchCounter`, ``iterations`` outer iterations (each read
     once after its dispatch, as the Solver does) and, for a multipass
     engine, one overflow batch."""
     from ..api.engine import engine_entry
@@ -411,7 +413,8 @@ def trace_engine(name: str, *, on_mesh: Optional[bool] = None,
     caps = entry.capabilities
     if on_mesh is None:
         on_mesh = bool(caps.supports_mesh and not caps.mesh_optional)
-    problem = _tiny_problem(device) if problem is None else problem
+    if problem is None:
+        problem = _tiny_problem(resolve_device(device))
     dev = _device_of(problem)
     cfg = _trace_config(name, caps, on_mesh, dev)
     engine = entry.factory(problem, cfg)
@@ -484,13 +487,15 @@ def trace_engine(name: str, *, on_mesh: Optional[bool] = None,
 
 
 def trace_cases(engines: Optional[Iterable[str]] = None, problem=None,
-                device="cpu") -> List[EngineTrace]:
+                device=None) -> List[EngineTrace]:
     """Run every requested engine (default: all registered), the
-    ``mesh_optional`` ones without and with a mesh."""
+    ``mesh_optional`` ones without and with a mesh, on ``device`` (CUDA
+    by default) or ``problem``'s."""
     from ..api.engine import algorithms, engine_entry
 
     names = list(engines) if engines is not None else list(algorithms())
-    problem = _tiny_problem(device) if problem is None else problem
+    if problem is None:
+        problem = _tiny_problem(resolve_device(device))
     traces: List[EngineTrace] = []
     for name in names:
         caps = engine_entry(name).capabilities
@@ -777,13 +782,14 @@ def _check_accum_dtype(et: EngineTrace, pr: ProgramRun) -> List[Finding]:
 # Rule J008: the serving engines
 
 
-def check_serve_engines(device="cpu") -> Tuple[
+def check_serve_engines(device=None) -> Tuple[
         List[Finding], Dict[str, Dict[str, object]]]:
     """Rule J008: a serving round is one clean dispatch.
 
     Every :class:`repro_torch.serve.engine.DecodeEngine` registered with a
     trace case runs one ``decode`` round of its canonical batch under the
-    counter (on ``device``: the case's model moved there; on CUDA the
+    counter (on ``device``, CUDA by default: the case's model moved
+    there; on CUDA the
     round captures its bucket's graph and replays it, under sync-debug
     "error").  Serving is single-device and the batcher reads the labels
     in the round's one sync, after ``decode``: inside it there may be no
@@ -792,7 +798,7 @@ def check_serve_engines(device="cpu") -> Tuple[
     from ..serve.engine import decode_engine_for, serve_trace_cases
     from ..serve.export import ServableModel
 
-    device = torch.device(device)
+    device = resolve_device(device)
     findings: List[Finding] = []
     facts: Dict[str, Dict[str, object]] = {}
     for label, engine, batch in serve_trace_cases():
@@ -833,11 +839,12 @@ def check_serve_engines(device="cpu") -> Tuple[
 
 
 def run_program_layer(engines: Optional[Iterable[str]] = None,
-                      device="cpu") -> Tuple[
+                      device=None) -> Tuple[
         List[Finding], Dict[str, Dict[str, object]], List[EngineTrace]]:
     """Run and check all requested engines (training engines against
-    their declared budgets, serving engines against J008).  The port's
-    ``run_jaxpr_layer``."""
+    their declared budgets, serving engines against J008) on ``device``,
+    CUDA by default.  The port's ``run_jaxpr_layer``."""
+    device = resolve_device(device)
     findings: List[Finding] = []
     facts: Dict[str, Dict[str, object]] = {}
     traces = trace_cases(engines, device=device)

@@ -1,17 +1,25 @@
-"""Model configs of the ported architectures (one module per arch) and the
-paper's scenarios (:mod:`.paper`).
+"""Model configs of the ported architectures (one module per arch), the
+input-shape cells (:mod:`.shapes`) and the paper's scenarios
+(:mod:`.paper`).
 
 A copy of ``repro/configs/__init__.py``'s ``get_config``,
 ``long_context_overrides`` and ``reduced_config``, with ``ARCHS`` limited
-to the archs whose families the port runs: OLMoE-1B-7B (MoE) and
-qwen2-0.5b (dense, the backbone of ``examples/ssvm_head.py``).
+to the archs whose families the port runs (the reference's
+``transformer`` families: dense, moe, vlm).
 """
 import dataclasses
 import importlib
 
+from .shapes import SHAPES, ShapeCell, supported_shapes  # noqa: F401
+
 ARCHS = {
+    "deepseek-v3-671b": "deepseek_v3_671b",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "qwen2-0.5b": "qwen2_0_5b",
+    "mistral-nemo-12b": "mistral_nemo_12b",
+    "qwen2.5-14b": "qwen2_5_14b",
+    "minitron-8b": "minitron_8b",
+    "internvl2-76b": "internvl2_76b",
 }
 
 
@@ -31,8 +39,8 @@ def long_context_overrides(name: str) -> dict:
 
 def reduced_config(name: str):
     """CI-sized config of the same family: every structural feature (MoE,
-    GQA, qkv bias, tied embeddings) at a small width, depth and vocab; the
-    reference's rule."""
+    MLA, MTP, GQA, qkv bias, tied embeddings, the vision stub) at a small
+    width, depth and vocab; the reference's rule."""
     cfg = get_config(name)
     kw = dict(
         num_layers=min(cfg.num_layers, 4), d_model=64, num_heads=4,
@@ -44,4 +52,9 @@ def reduced_config(name: str):
     if cfg.moe:
         kw.update(num_experts=8, experts_per_token=2, moe_d_ff=32,
                   first_dense_layers=min(cfg.first_dense_layers, 1))
+    if cfg.mla:
+        kw.update(q_lora_rank=32, kv_lora_rank=16, qk_nope_dim=16,
+                  qk_rope_dim=8, v_head_dim=16, head_dim=0)
+    if cfg.vision_tokens:
+        kw.update(vision_tokens=4)
     return dataclasses.replace(cfg, **kw)

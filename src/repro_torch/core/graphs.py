@@ -30,6 +30,7 @@ every replay (:func:`repro_torch.kernels.ops.add_launches`).
 """
 from __future__ import annotations
 
+import gc
 import weakref
 from typing import Callable, Dict, NamedTuple, Optional, Sequence
 
@@ -121,18 +122,29 @@ class _Graph:
         side = torch.cuda.Stream(device)
         side.wait_stream(main)
         before = kops.launch_counts()
-        with torch.cuda.stream(side):
-            # thread_local: another host thread may use the card meanwhile.
-            self.graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                body()
-            except BaseException:
+        # No cyclic garbage collection inside the capture: one could free
+        # an unreachable graph of an earlier engine, and CUDA refuses to
+        # destroy a graph while this thread captures (the capture is then
+        # invalidated).
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(side):
+                # thread_local: another host thread may use the card
+                # meanwhile.
+                self.graph.capture_begin(capture_error_mode="thread_local")
                 try:
-                    self.graph.capture_end()
-                except RuntimeError:
-                    pass             # the body's error is the one to see
-                raise
-            self.graph.capture_end()
+                    body()
+                except BaseException:
+                    try:
+                        self.graph.capture_end()
+                    except RuntimeError:
+                        pass         # the body's error is the one to see
+                    raise
+                self.graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
         main.wait_stream(side)
         after = kops.launch_counts()
         kops.set_launch_counts(before)

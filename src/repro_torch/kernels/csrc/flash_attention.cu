@@ -7,11 +7,12 @@
 //     s[j] = <q[i], k[j]> * sm_scale            for j <= i
 //     o[i] = sum_j softmax(s)[j] v[j]
 //
-// with the TPU kernel's numerics: scores, running max, running sum and the
-// accumulator in fp32; masked scores at INVALID_SCORE (-1e30); each block's
-// probabilities p are rounded to v's type before p.v (bf16 on the model
-// path), while the running sum takes them unrounded; o = acc / max(l,
-// 1e-30), written in q's type.
+// q and k have head dim D, v and o head dim Dv (MLA: D = 192, Dv = 128;
+// GQA: D = Dv), with the TPU kernel's numerics: scores, running max,
+// running sum and the accumulator in fp32; masked scores at INVALID_SCORE
+// (-1e30); each block's probabilities p are rounded to v's type before
+// p.v (bf16 on the model path), while the running sum takes them
+// unrounded; o = acc / max(l, 1e-30), written in q's type.
 //
 // Layout: q, k, v and o are read and written in the model's (B, S, H, hd)
 // layout through their strides (unit stride over hd), so the caller makes
@@ -45,19 +46,30 @@
 // not 16-byte aligned (D or a stride not a multiple of 8 elements, or an
 // unaligned base) loads and stores element by element, same math.
 //
+// Builds.  A head-dim pair is a build of its own (the loop bounds and the
+// fragment arrays are compile-time): bf16 D = Dv padded to 32, 64 or 128,
+// and the MLA build, D <= 192 with Dv <= 128 (q and k tiles 192 wide, the
+// accumulator and the output 128).  At 64 query rows and two k/v stages
+// the MLA build takes 2 (64 x 200 + 2 x 64 x (200 + 136)) = 111,616 bytes
+// of shared memory, under the 227 KB a block can use (checked at compile
+// time).  The Pallas kernel pads D to 128 lanes and takes one D for q, k
+// and v; here nothing is padded past the build's width.
+//
 // float32 design: fp32 inputs stay on plain FMAs, because the tensor
 // cores would take them as TF32 and change the reference's numbers.  One
 // CTA of 256 threads per (bh, q block of 64 rows, or 32 for S <= 32);
 // fp32 tiles in shared memory (rows padded to 129 floats); thread (ty, tx)
 // owns score rows ty + 16i and columns tx + 16j and output columns tx +
 // 16j; 256/BQ adjacent threads share a row for the online-softmax update.
+// D and Dv are run-time values up to 128 each.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxD = 128;        // largest head dim
+constexpr int kMaxD = 128;        // largest head dim of the fp32 path
+constexpr int kSmemLimit = 232448;   // shared memory a block may use
 constexpr int kPad = kMaxD + 1;   // shared row stride (floats)
 constexpr int kThreads = 256;
 constexpr float kInvalid = -1e30f;   // INVALID_SCORE, as the TPU kernel
@@ -95,7 +107,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int H,
                        int group, int S, int D, Strides qs, Strides ks,
-                       Strides vs, Strides os, float sm_scale) {
+                       Strides vs, Strides os, float sm_scale, int Dv) {
   constexpr int kBQ = BQ, kBK = BQ;
   constexpr int RI = kBQ / 16, RJ = kBK / 16;   // score rows, cols / thread
   constexpr int TPR = kThreads / kBQ;           // threads per softmax row
@@ -132,7 +144,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = kb * kBK;
     __syncthreads();   // the previous block's Ks/Vs/Ps reads are done
     load_tile(Ks, k, ks, b, hk, k0, S, D, kBK);
-    load_tile(Vs, v, vs, b, hk, k0, S, D, kBK);
+    load_tile(Vs, v, vs, b, hk, k0, S, Dv, kBK);
     __syncthreads();
 
     // Scores: rows ty + 16i, columns tx + 16j.
@@ -207,7 +219,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < RI; ++i) pv[i] = Ps[(ty + 16 * i) * (kBK + 1) + kk];
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        vv[j] = (tx + 16 * j) < D ? Vs[kk * kPad + tx + 16 * j] : 0.0f;
+        vv[j] = (tx + 16 * j) < Dv ? Vs[kk * kPad + tx + 16 * j] : 0.0f;
 #pragma unroll
       for (int i = 0; i < RI; ++i)
 #pragma unroll
@@ -224,7 +236,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int d = tx + 16 * j;
-      if (d < D) orow[d] = from_f<T>(acc[i][j] * inv);
+      if (d < Dv) orow[d] = from_f<T>(acc[i][j] * inv);
     }
   }
 }
@@ -235,8 +247,8 @@ constexpr size_t smem_bytes(int bq) {
 
 template <typename T, int BQ>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int H, int K, int S, int D, const long long* st, float sm_scale,
-           cudaStream_t stream) {
+           int H, int K, int S, int D, int Dv, const long long* st,
+           float sm_scale, cudaStream_t stream) {
   constexpr size_t kSmem = smem_bytes(BQ);
   static bool configured = false;
   if (!configured) {
@@ -252,7 +264,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   flash_attention_kernel<T, BQ><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), H, H / K, S, D, qs, ks, vs,
-      os, sm_scale);
+      os, sm_scale, Dv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -337,24 +349,26 @@ __device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* base,
   }
 }
 
-// DP: head dim padded to 32, 64 or 128; NW warps of 16 q rows; BK-row k/v
-// blocks.  Dynamic shared memory: q [BQ][LD], then one or two stages of
-// k [BK][LD] and v [BK][LD].
-template <int DP, int NW, int BK>
+// DQ: q/k head dim padded (32, 64, 128 or 192), DV: v's (DV <= DQ); NW
+// warps of 16 q rows; BK-row k/v blocks.  Dynamic shared memory: q
+// [BQ][LDQ], then one or two stages of k [BK][LDQ] and v [BK][LDV].
+template <int DQ, int DV, int NW, int BK>
 __global__ void __launch_bounds__(NW * 32)
 flash_attention_bf16_kernel(const bf16* __restrict__ q,
                             const bf16* __restrict__ k,
                             const bf16* __restrict__ v, bf16* __restrict__ o,
                             int H, int group, int S, int D, Strides qs,
                             Strides ks, Strides vs, Strides os,
-                            float sm_scale, int vec) {
-  constexpr int NT = NW * 32, BQ = 16 * NW, LD = DP + 8;
+                            float sm_scale, int vec, int Dv) {
+  static_assert(DV <= DQ, "the output goes through q's shared rows");
+  constexpr int NT = NW * 32, BQ = 16 * NW, LDQ = DQ + 8, LDV = DV + 8;
   constexpr int NS = BK / 8;    // score n-tiles (8 keys each)
-  constexpr int NKD = DP / 16;  // k-steps over the head dim
-  constexpr int NO = DP / 8;    // output n-tiles (8 dims each)
+  constexpr int NKD = DQ / 16;  // k-steps over the q/k head dim
+  constexpr int NO = DV / 8;    // output n-tiles (8 dims each)
+  constexpr int STAGE = BK * (LDQ + LDV);   // one stage: k, then v
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* KV = Qs + BQ * LD;      // stage x: k at KV + 2x BK LD, v after it
+  bf16* KV = Qs + BQ * LDQ;     // stage x at KV + x STAGE
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H, hk = h / group;
@@ -363,9 +377,9 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
   const int g = lane >> 2, t = lane & 3;   // fragment row, column pair
   const int n_kb = (min(q0 + BQ, S) - 1) / BK + 1;
 
-  load_tile_bf16<BQ, DP, NT>(Qs, q, qs, b, h, q0, S, D, vec);
-  load_tile_bf16<BK, DP, NT>(KV, k, ks, b, hk, 0, S, D, vec);
-  load_tile_bf16<BK, DP, NT>(KV + BK * LD, v, vs, b, hk, 0, S, D, vec);
+  load_tile_bf16<BQ, DQ, NT>(Qs, q, qs, b, h, q0, S, D, vec);
+  load_tile_bf16<BK, DQ, NT>(KV, k, ks, b, hk, 0, S, D, vec);
+  load_tile_bf16<BK, DV, NT>(KV + BK * LDQ, v, vs, b, hk, 0, S, Dv, vec);
   cp_async_commit();
 
   uint32_t qf[NKD][4];
@@ -379,10 +393,10 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
 
   for (int kb = 0; kb < n_kb; ++kb) {
     if (kb + 1 < n_kb) {                   // next block into the other stage
-      bf16* nxt = KV + ((kb + 1) & 1) * 2 * BK * LD;
-      load_tile_bf16<BK, DP, NT>(nxt, k, ks, b, hk, (kb + 1) * BK, S, D, vec);
-      load_tile_bf16<BK, DP, NT>(nxt + BK * LD, v, vs, b, hk, (kb + 1) * BK,
-                                 S, D, vec);
+      bf16* nxt = KV + ((kb + 1) & 1) * STAGE;
+      load_tile_bf16<BK, DQ, NT>(nxt, k, ks, b, hk, (kb + 1) * BK, S, D, vec);
+      load_tile_bf16<BK, DV, NT>(nxt + BK * LDQ, v, vs, b, hk, (kb + 1) * BK,
+                                 S, Dv, vec);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -392,11 +406,11 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
     if (kb == 0) {
 #pragma unroll
       for (int kd = 0; kd < NKD; ++kd)
-        ldmatrix_x4(qf[kd], Qs + (16 * warp + (lane & 15)) * LD + kd * 16 +
+        ldmatrix_x4(qf[kd], Qs + (16 * warp + (lane & 15)) * LDQ + kd * 16 +
                                 (lane >> 4) * 8);
     }
-    const bf16* Ks = KV + (kb & 1) * 2 * BK * LD;
-    const bf16* Vs = Ks + BK * LD;
+    const bf16* Ks = KV + (kb & 1) * STAGE;
+    const bf16* Vs = Ks + BK * LDQ;
 
     // S = Q K^T for this warp's 16 rows and the block's BK keys.
     float sacc[NS][4];
@@ -409,7 +423,7 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
 #pragma unroll
       for (int jp = 0; jp < NS / 2; ++jp) {
         uint32_t r[4];
-        ldmatrix_x4(r, Ks + (16 * jp + (lane >> 4) * 8 + (lane & 7)) * LD +
+        ldmatrix_x4(r, Ks + (16 * jp + (lane >> 4) * 8 + (lane & 7)) * LDQ +
                            kd * 16 + ((lane >> 3) & 1) * 8);
         mma_bf16(sacc[2 * jp], qf[kd], r[0], r[1]);
         mma_bf16(sacc[2 * jp + 1], qf[kd], r[2], r[3]);
@@ -471,7 +485,7 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
       for (int np = 0; np < NO / 2; ++np) {
         uint32_t r[4];
         ldmatrix_x4_trans(r, Vs + (kk * 16 + (lane & 7) +
-                                   ((lane >> 3) & 1) * 8) * LD +
+                                   ((lane >> 3) & 1) * 8) * LDV +
                                  np * 16 + (lane >> 4) * 8);
         mma_bf16(oacc[2 * np], pa[kk], r[0], r[1]);
         mma_bf16(oacc[2 * np + 1], pa[kk], r[2], r[3]);
@@ -482,64 +496,68 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
   // o = acc / max(l, 1e-30) in bf16, through this warp's q rows.
   const float inv0 = 1.0f / fmaxf(l_r[0], 1e-30f);
   const float inv1 = 1.0f / fmaxf(l_r[1], 1e-30f);
-  bf16* Os = Qs + 16 * warp * LD;
+  bf16* Os = Qs + 16 * warp * LDQ;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
-    *reinterpret_cast<__nv_bfloat162*>(Os + g * LD + 8 * n + 2 * t) =
+    *reinterpret_cast<__nv_bfloat162*>(Os + g * LDQ + 8 * n + 2 * t) =
         __floats2bfloat162_rn(oacc[n][0] * inv0, oacc[n][1] * inv0);
-    *reinterpret_cast<__nv_bfloat162*>(Os + (g + 8) * LD + 8 * n + 2 * t) =
+    *reinterpret_cast<__nv_bfloat162*>(Os + (g + 8) * LDQ + 8 * n + 2 * t) =
         __floats2bfloat162_rn(oacc[n][2] * inv1, oacc[n][3] * inv1);
   }
   __syncwarp();
-  constexpr int CH = DP / 8;
+  constexpr int CH = DV / 8;
   for (int idx = lane; idx < 16 * CH; idx += 32) {
     const int r = idx / CH, c = idx % CH, s = q0 + 16 * warp + r;
-    if (s >= S || c * 8 >= D) continue;
+    if (s >= S || c * 8 >= Dv) continue;
     bf16* dst = o + b * os.b + s * os.s + h * os.h + c * 8;
-    const bf16* src = Os + r * LD + c * 8;
+    const bf16* src = Os + r * LDQ + c * 8;
     if (vec) {
       *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
     } else {
-      for (int e = 0; e < 8 && c * 8 + e < D; ++e) dst[e] = src[e];
+      for (int e = 0; e < 8 && c * 8 + e < Dv; ++e) dst[e] = src[e];
     }
   }
 }
 
-template <int DP, int NW, int BK>
+template <int DQ, int DV, int NW, int BK>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int H, int K, int S, int D, const Strides* st, float sm_scale,
-                int vec, cudaStream_t stream) {
-  constexpr int BQ = 16 * NW, LD = DP + 8;
+                int H, int K, int S, int D, int Dv, const Strides* st,
+                float sm_scale, int vec, cudaStream_t stream) {
+  constexpr int BQ = 16 * NW, LDQ = DQ + 8, LDV = DV + 8;
+  constexpr size_t kMaxSmem = sizeof(bf16) * (BQ * LDQ + 2 * BK * (LDQ + LDV));
+  static_assert(kMaxSmem <= kSmemLimit, "tiles past a block's shared memory");
   const int stages = S > BK ? 2 : 1;
-  const size_t smem = sizeof(bf16) * LD * (BQ + stages * 2 * BK);
+  const size_t smem = sizeof(bf16) * (BQ * LDQ + stages * BK * (LDQ + LDV));
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_bf16_kernel<DP, NW, BK>,
+        flash_attention_bf16_kernel<DQ, DV, NW, BK>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(sizeof(bf16) * LD * (BQ + 4 * BK)));
+        static_cast<int>(kMaxSmem));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
-  flash_attention_bf16_kernel<DP, NW, BK><<<grid, NW * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), H, H / K, S, D,
-      st[0], st[1], st[2], st[3], sm_scale, vec);
+  flash_attention_bf16_kernel<DQ, DV, NW, BK>
+      <<<grid, NW * 32, smem, stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<bf16*>(o), H, H / K, S, D,
+          st[0], st[1], st[2], st[3], sm_scale, vec, Dv);
   return static_cast<int>(cudaGetLastError());
 }
 
 // 2 warps and 32-key blocks for S <= 32 (the backbone's sequences: one k/v
 // block, ~7 CTAs per SM); 4 warps and 64-key blocks above.
-template <int DP>
+template <int DQ, int DV>
 int dispatch_bf16(const void* q, const void* k, const void* v, void* o,
-                  int B, int H, int K, int S, int D, const Strides* st,
-                  float sm_scale, int vec, cudaStream_t stream) {
+                  int B, int H, int K, int S, int D, int Dv,
+                  const Strides* st, float sm_scale, int vec,
+                  cudaStream_t stream) {
   if (S <= 32)
-    return launch_bf16<DP, 2, 32>(q, k, v, o, B, H, K, S, D, st, sm_scale,
-                                  vec, stream);
-  return launch_bf16<DP, 4, 64>(q, k, v, o, B, H, K, S, D, st, sm_scale, vec,
-                                stream);
+    return launch_bf16<DQ, DV, 2, 32>(q, k, v, o, B, H, K, S, D, Dv, st,
+                                      sm_scale, vec, stream);
+  return launch_bf16<DQ, DV, 4, 64>(q, k, v, o, B, H, K, S, D, Dv, st,
+                                    sm_scale, vec, stream);
 }
 
 bool aligned16(const void* p) {
@@ -548,38 +566,49 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  strides: 12 element strides, (batch,
-// seq, head) of q, k, v and o in turn.  Launches on `stream` and returns
-// cudaGetLastError() (0 on success); an argument the kernel cannot take
-// returns cudaErrorInvalidValue without launching.
+// dtype: 0 = float32, 1 = bfloat16.  D: q's and k's head dim, Dv: v's
+// and o's.  strides: 12 element strides, (batch, seq, head) of q, k, v and
+// o in turn.  Launches on `stream` and returns cudaGetLastError() (0 on
+// success); an argument no build takes returns cudaErrorInvalidValue
+// without launching: float32 takes D, Dv <= 128; bfloat16 D = Dv <= 128,
+// or Dv < D <= 192 with Dv <= 128 (the MLA build).
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
                                       const void* v, void* o, int B, int H,
-                                      int K, int S, int D,
+                                      int K, int S, int D, int Dv,
                                       const long long* strides, float sm_scale,
                                       void* stream) {
-  if (D < 1 || D > kMaxD || K < 1 || H % K != 0 || S < 1 || B < 1)
+  if (D < 1 || Dv < 1 || K < 1 || H % K != 0 || S < 1 || B < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
+    if (D > kMaxD || Dv > kMaxD)
+      return static_cast<int>(cudaErrorInvalidValue);
     if (S <= 32)
-      return launch<float, 32>(q, k, v, o, B, H, K, S, D, strides, sm_scale,
-                               st);
-    return launch<float, 64>(q, k, v, o, B, H, K, S, D, strides, sm_scale,
-                             st);
+      return launch<float, 32>(q, k, v, o, B, H, K, S, D, Dv, strides,
+                               sm_scale, st);
+    return launch<float, 64>(q, k, v, o, B, H, K, S, D, Dv, strides,
+                             sm_scale, st);
   }
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   const Strides sv[4] = {{strides[0], strides[1], strides[2]},
                          {strides[3], strides[4], strides[5]},
                          {strides[6], strides[7], strides[8]},
                          {strides[9], strides[10], strides[11]}};
-  // 16-byte rows: D and every stride a multiple of 8 elements, bases
+  // 16-byte rows: D, Dv and every stride a multiple of 8 elements, bases
   // 16-byte aligned.
-  bool vec = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
-             aligned16(o);
+  bool vec = D % 8 == 0 && Dv % 8 == 0 && aligned16(q) && aligned16(k) &&
+             aligned16(v) && aligned16(o);
   for (int i = 0; i < 12; ++i) vec = vec && strides[i] % 8 == 0;
+  if (Dv < D && D <= 192 && Dv <= 128)
+    return dispatch_bf16<192, 128>(q, k, v, o, B, H, K, S, D, Dv, sv,
+                                   sm_scale, vec, st);
+  if (Dv != D || D > 128) return static_cast<int>(cudaErrorInvalidValue);
   if (D <= 32)
-    return dispatch_bf16<32>(q, k, v, o, B, H, K, S, D, sv, sm_scale, vec, st);
+    return dispatch_bf16<32, 32>(q, k, v, o, B, H, K, S, D, Dv, sv, sm_scale,
+                                 vec, st);
   if (D <= 64)
-    return dispatch_bf16<64>(q, k, v, o, B, H, K, S, D, sv, sm_scale, vec, st);
-  return dispatch_bf16<128>(q, k, v, o, B, H, K, S, D, sv, sm_scale, vec, st);
+    return dispatch_bf16<64, 64>(q, k, v, o, B, H, K, S, D, Dv, sv, sm_scale,
+                                 vec, st);
+  return dispatch_bf16<128, 128>(q, k, v, o, B, H, K, S, D, Dv, sv, sm_scale,
+                                 vec, st);
 }

@@ -10,8 +10,9 @@ bfloat16 runs on the tensor cores (``mma.sync`` from bf16 tiles that
 ``cp.async`` loads into shared memory); float32 stays on plain FMAs, so
 no TF32 rounding enters.  It reads q, k, v and writes the output in the
 model's ``(B, S, H, hd)`` layout through strides, with grouped kv heads
-read in place.  Memory-bound at the backbone's shape.  See the source for
-the design.
+read in place.  v may have a head dim of its own (MLA: q/k 192, v 128):
+each (q/k, v) head-dim pair is a build of its own (:func:`plan`).
+Memory-bound at the backbone's shape.  See the source for the design.
 
 This module always launches the kernel: :mod:`repro_torch.kernels.ops`
 routes CPU tensors to the plain version before they reach it.
@@ -29,9 +30,43 @@ from . import _build
 launches = 0
 
 MAX_HEAD_DIM = 128
+# The MLA build's q/k and v head dims (deepseek-v3: nope 128 + rope 64,
+# v 128).
+MLA_HEAD_DIMS = (192, 128)
+# Shared memory a CTA may use on Hopper (227 KB of the SM's 256 KB).
+SMEM_LIMIT = 232448
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SIGNATURE = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
+_SIGNATURE = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
     [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
+
+
+def plan(D: int, Dv: int, S: int, dtype: torch.dtype) -> dict:
+    """The build a call runs (``csrc/flash_attention.cu``): ``path``
+    ("mma" for bfloat16, "fma" for float32), the build's padded q/k and v
+    head dims ``dq``, ``dv``, its ``warps`` (query rows / 16; the fp32
+    path's 256 threads cover ``rows`` query rows), its k/v block ``bk``
+    and the bf16 build's dynamic shared memory ``smem`` at two k/v stages.
+    Raises ValueError for a pair no build takes: float32 D, Dv <= 128;
+    bfloat16 D = Dv <= 128, or Dv < D <= 192 with Dv <= 128 (MLA)."""
+    if dtype == torch.float32:
+        if max(D, Dv) > MAX_HEAD_DIM:
+            raise ValueError(f"flash_attention: head dim {max(D, Dv)} > "
+                             f"{MAX_HEAD_DIM} in float32")
+        rows = 32 if S <= 32 else 64
+        return dict(path="fma", dq=MAX_HEAD_DIM, dv=MAX_HEAD_DIM, warps=8,
+                    rows=rows, bk=rows, smem=None)
+    if Dv < D <= MLA_HEAD_DIMS[0] and Dv <= MLA_HEAD_DIMS[1]:
+        dq, dv = MLA_HEAD_DIMS
+    elif Dv == D <= MAX_HEAD_DIM:
+        dq = dv = 32 if D <= 32 else 64 if D <= 64 else 128
+    else:
+        raise ValueError(f"flash_attention: head dims q/k {D}, v {Dv}: no "
+                         f"build (D = Dv <= {MAX_HEAD_DIM}, or Dv < D <= "
+                         f"{MLA_HEAD_DIMS[0]} with Dv <= {MLA_HEAD_DIMS[1]})")
+    warps, bk = (2, 32) if S <= 32 else (4, 64)
+    smem = 2 * (16 * warps * (dq + 8) + 2 * bk * (dq + 8 + dv + 8))
+    return dict(path="mma", dq=dq, dv=dv, warps=warps, rows=16 * warps,
+                bk=bk, smem=smem)
 
 
 def _lib():
@@ -45,42 +80,46 @@ def _lib():
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Causal attention over ``(B, S, H, D)`` q and ``(B, S, K, D)`` k, v
-    (K divides H; head h reads kv head ``h // (H // K)``), or ``(BH, S,
-    D)`` q, k, v.  Unit stride over D, any other strides; float32 or
-    bfloat16; D <= 128.  Returns a contiguous tensor of q's shape."""
+    """Causal attention over ``(B, S, H, D)`` q, ``(B, S, K, D)`` k and
+    ``(B, S, K, Dv)`` v (K divides H; head h reads kv head ``h // (H //
+    K)``), or ``(BH, S, D)`` q, k and ``(BH, S, Dv)`` v.  Unit stride over
+    the head dims, any other strides; float32 or bfloat16; the head dims
+    of a build (:func:`plan`).  The scale defaults to ``D ** -0.5``, q's
+    head dim.  Returns a contiguous tensor of q's shape with v's head
+    dim."""
     global launches
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention kernel needs CUDA tensors, got "
                          f"{q.device}")
-    if q.dim() not in (3, 4) or k.dim() != q.dim() or v.shape != k.shape:
-        raise ValueError("flash_attention: q (B, S, H, D) with k, v "
-                         "(B, S, K, D), or q, k, v (BH, S, D)")
+    if (q.dim() not in (3, 4) or k.dim() != q.dim()
+            or v.shape[:-1] != k.shape[:-1]):
+        raise ValueError("flash_attention: q (B, S, H, D) with k (B, S, K, "
+                         "D) and v (B, S, K, Dv), or q, k (BH, S, D) and v "
+                         "(BH, S, Dv)")
     q4, k4, v4 = ((t.unsqueeze(2) for t in (q, k, v)) if q.dim() == 3
                   else (q, k, v))
     B, S, H, D = q4.shape
-    K = k4.shape[2]
+    K, Dv = k4.shape[2], v4.shape[3]
     if (k4.shape[0], k4.shape[1], k4.shape[3]) != (B, S, D) or H % K:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k/v "
                          f"{tuple(k.shape)} disagree")
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {D} > {MAX_HEAD_DIM}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash_attention: dtype {q.dtype} (float32 or "
                          "bfloat16)")
+    plan(D, Dv, S, q.dtype)
     for name, t in (("q", q4), ("k", k4), ("v", v4)):
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"flash_attention: {name} must be {q.dtype} "
                              f"on {q.device}")
-        if D > 1 and t.stride(3) != 1:
+        if t.shape[3] > 1 and t.stride(3) != 1:
             raise ValueError(f"flash_attention: {name} needs unit stride "
                              "over the head dim")
     if q.device.index != torch.cuda.current_device():
         raise ValueError(f"flash_attention: tensors on {q.device}, but the "
                          f"current device is {torch.cuda.current_device()}")
-    o4 = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    o4 = torch.empty((B, S, H, Dv), dtype=q.dtype, device=q.device)
     out = o4.squeeze(2) if q.dim() == 3 else o4
-    if B * S * H * D == 0:
+    if B * S * H * D * Dv == 0:
         return out
     if sm_scale is None:
         sm_scale = 1.0 / (D ** 0.5)
@@ -89,7 +128,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _lib().flash_attention_launch(
         _DTYPES[q.dtype], q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
-        o4.data_ptr(), B, H, K, S, D, strides,
+        o4.data_ptr(), B, H, K, S, D, Dv, strides,
         float(sm_scale),  # repro: allow[R004] host scale
         stream)
     launches += 1

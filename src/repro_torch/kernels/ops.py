@@ -162,7 +162,8 @@ def attention_math(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     causal attention of :mod:`repro_torch.models.attention` over the kv
     heads repeated to q's, in ``ModelConfig.attn_chunk``'s default query
     chunks (chunking splits rows, not sums).  Takes :func:`flash_attention`'s
-    shapes; the function whose gradient :class:`FlashAttention` takes."""
+    shapes, v's head dim its own (MLA); the function whose gradient
+    :class:`FlashAttention` takes."""
     from ..models.attention import chunked_causal_attention, repeat_kv
     if q.dim() == 3:
         return attention_math(q[:, :, None], k[:, :, None], v[:, :, None],
@@ -211,7 +212,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """Causal attention over ``(BH, S, D)`` q, k, v, or ``(B, S, H, D)`` q
     with ``(B, S, K, D)`` k, v (K divides H: grouped kv heads), in q's
-    dtype and shape.  On CUDA tensors that need a gradient, through
+    dtype and shape; v may have a head dim of its own (MLA), which the
+    output takes.  On CUDA tensors that need a gradient, through
     :class:`FlashAttention`."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, sm_scale)

@@ -96,22 +96,23 @@ def viterbi_decode_ref(unary: torch.Tensor, trans: torch.Tensor,
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Causal softmax attention over ``(BH, S, D)`` q, k, v
-    (``repro/kernels/ref.py::flash_attention_ref``): scores in the input
-    type, then float32 with masked entries at :data:`INVALID_SCORE`; the
-    output in q's type.  A ``(B, S, H, D)`` q with ``(B, S, K, D)`` k, v
-    (grouped kv heads, K divides H) runs as ``(B*H, S, D)`` with each kv
-    head repeated H/K times, and returns ``(B, S, H, D)``."""
+    """Causal softmax attention over ``(BH, S, D)`` q, k and ``(BH, S,
+    Dv)`` v (``repro/kernels/ref.py::flash_attention_ref``): scores in the
+    input type, then float32 with masked entries at :data:`INVALID_SCORE`,
+    scaled by ``D ** -0.5`` unless ``sm_scale`` is given; the output in
+    q's type.  A ``(B, S, H, D)`` q with ``(B, S, K, D)`` k and ``(B, S, K,
+    Dv)`` v (grouped kv heads, K divides H) runs as ``(B*H, S, .)`` with
+    each kv head repeated H/K times, and returns ``(B, S, H, Dv)``."""
     if q.dim() == 4:
-        B, S, H, D = q.shape
+        B, S, H, _ = q.shape
         rep = H // k.shape[2]
 
         def heads(t, r):
             return (t.repeat_interleave(r, dim=2).transpose(1, 2)
-                    .reshape(B * H, S, D))
+                    .reshape(B * H, S, t.shape[-1]))
         o = flash_attention_ref(heads(q, 1), heads(k, rep), heads(v, rep),
                                 sm_scale)
-        return o.reshape(B, H, S, D).transpose(1, 2).contiguous()
+        return o.reshape(B, H, S, -1).transpose(1, 2).contiguous()
     bh, s, d = q.shape
     if sm_scale is None:
         sm_scale = 1.0 / (d ** 0.5)

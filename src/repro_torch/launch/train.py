@@ -80,7 +80,9 @@ def train_lm(arch: str, steps: int, batch_size: int, seq_len: int,
     """Train ``arch`` (reduced, or at its published size) for ``steps``
     steps of AdamW (lr 3e-4, cosine schedule with 20 warmup steps) on the
     synthetic token stream, resuming from ``ckpt_dir`` when it holds a
-    checkpoint and saving every ``save_every`` steps.
+    checkpoint and saving every ``save_every`` steps.  A VLM's batches
+    also carry :func:`registry.make_train_batch`'s ``vision_embeds`` for
+    the step (seed = step); an MTP config's loss has its MTP term.
 
     Returns ``{"losses": [(step, loss)] at the logged steps, "final_loss",
     "step_losses", "grad_norms"}``, the last two one float per step run
@@ -107,7 +109,11 @@ def train_lm(arch: str, steps: int, batch_size: int, seq_len: int,
     t0 = time.time()
     try:
         for step in range(start_step, steps):
-            batch = {k: upload(v, dev) for k, v in pf.next().items()}
+            batch = pf.next()
+            if cfg.family == "vlm":   # the stub's patch embeddings
+                batch["vision_embeds"] = registry.make_train_batch(
+                    cfg, batch_size, seq_len, step)["vision_embeds"]
+            batch = {k: upload(v, dev) for k, v in batch.items()}
             lr = cosine_schedule(step, peak_lr=ocfg.lr, warmup=20,
                                  total=steps)
             state, loss, gnorm = train_step(state, cfg, batch, ocfg, lr)

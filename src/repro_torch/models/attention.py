@@ -1,13 +1,18 @@
-"""Grouped-query attention (GQA), PyTorch port of the GQA half of
-``repro/models/attention.py``.
+"""Attention: grouped-query (GQA) and multi-head latent (MLA,
+deepseek-v3), PyTorch port of ``repro/models/attention.py``.
 
-Prefill (``gqa_forward``) on a CUDA tensor runs the hand-written causal
-flash-attention kernel (:func:`repro_torch.kernels.ops.flash_attention`,
-which reads the grouped kv heads in place); on a CPU tensor it runs
-:func:`chunked_causal_attention`, the function the JAX model computes.
-Decode (``gqa_decode``) takes a one-token query against a preallocated KV
-cache, which it updates in place.  The MLA half (deepseek-v3) is not
-ported yet (ROADMAP §A item 8).
+Prefill (``gqa_forward``, ``mla_forward``) on a CUDA tensor runs the
+hand-written causal flash-attention kernel
+(:func:`repro_torch.kernels.ops.flash_attention`, which reads grouped kv
+heads in place and takes a value head dim of its own: MLA's q/k heads are
+``qk_nope_dim + qk_rope_dim`` wide, its v heads ``v_head_dim``); on a CPU
+tensor it runs :func:`chunked_causal_attention`, the function the JAX
+model computes.  Decode takes a one-token query against a preallocated
+cache, which it updates in place: GQA's holds k and v, MLA's the
+compressed ``(c_kv, k_rope)`` stream, which the absorbed decode scores
+against directly.  ``attn_impl="stub"`` is the reference's ablation
+probe (the value plus zero times the query, no attention) on either
+device.
 """
 from __future__ import annotations
 
@@ -18,18 +23,36 @@ import torch
 from ..kernels import ops as kops
 from ..kernels.ref import INVALID_SCORE
 from .common import ModelConfig, ParamSpec
-from .layers import apply_rope
-
-
-def _no_mla(cfg: ModelConfig) -> None:
-    if cfg.mla:
-        raise NotImplementedError("MLA attention is not ported yet "
-                                  "(ROADMAP §A item 8)")
+from .layers import apply_rope, rms_norm
 
 
 def attn_specs(cfg: ModelConfig, prefix_shape=()) -> dict:
-    _no_mla(cfg)
     ax = ("layers",) * len(prefix_shape)
+    if cfg.mla:
+        qk_hd = cfg.qk_nope_dim + cfg.qk_rope_dim
+        return {
+            "wq_a": ParamSpec(prefix_shape + (cfg.d_model, cfg.q_lora_rank),
+                              ax + ("embed", None), cfg.dtype),
+            "q_norm": ParamSpec(prefix_shape + (cfg.q_lora_rank,),
+                                ax + (None,), cfg.dtype, scale=1.0),
+            "wq_b": ParamSpec(
+                prefix_shape + (cfg.q_lora_rank, cfg.num_heads * qk_hd),
+                ax + (None, "heads"), cfg.dtype),
+            "wkv_a": ParamSpec(
+                prefix_shape + (cfg.d_model,
+                                cfg.kv_lora_rank + cfg.qk_rope_dim),
+                ax + ("embed", None), cfg.dtype),
+            "kv_norm": ParamSpec(prefix_shape + (cfg.kv_lora_rank,),
+                                 ax + (None,), cfg.dtype, scale=1.0),
+            "wkv_b": ParamSpec(
+                prefix_shape + (cfg.kv_lora_rank,
+                                cfg.num_heads * (cfg.qk_nope_dim
+                                                 + cfg.v_head_dim)),
+                ax + (None, "heads"), cfg.dtype),
+            "wo": ParamSpec(
+                prefix_shape + (cfg.num_heads * cfg.v_head_dim, cfg.d_model),
+                ax + ("heads", "embed"), cfg.dtype),
+        }
     hd = cfg.hd
     s = {
         "wq": ParamSpec(prefix_shape + (cfg.d_model, cfg.num_heads * hd),
@@ -55,7 +78,8 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, chunk: int,
                              sliding_window: int = 0,
                              score_dtype: str = "f32") -> torch.Tensor:
-    """q, k, v: (B, S, H, hd), kv already repeated to H heads.
+    """q, k: (B, S, H, hd), v: (B, S, H, vd), kv already repeated to H
+    heads (MLA: vd differs from hd; the scale is hd's).
 
     A loop over S/chunk query blocks; each block sees keys [0, block_end)
     (optionally windowed), so peak score memory is (B, H, chunk, S).
@@ -92,10 +116,12 @@ def repeat_kv(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     return x.repeat_interleave(num_heads // K, dim=2)
 
 
-def _kernel_config(cfg: ModelConfig) -> None:
-    """Raise for a config the flash-attention kernel does not compute."""
+def _kernel_config(cfg: ModelConfig, sliding_window: int) -> None:
+    """Raise for a config the flash-attention kernel does not compute
+    (``sliding_window``: the window the caller applies; MLA applies
+    none, as the reference)."""
     unsupported = [f"{name}={val!r}" for name, val, ok in (
-        ("sliding_window", cfg.sliding_window, cfg.sliding_window == 0),
+        ("sliding_window", sliding_window, sliding_window == 0),
         ("attn_score_dtype", cfg.attn_score_dtype,
          cfg.attn_score_dtype == "f32"),
         ("attn_impl", cfg.attn_impl, cfg.attn_impl == "chunked")) if not ok]
@@ -125,18 +151,17 @@ def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ModelConfig) -> torch.Tensor:
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, positions, cfg)
-    if x.device.type == "cuda":
-        _kernel_config(cfg)
+    if cfg.attn_impl == "stub":
+        # ablation probe: projections kept, no S^2 slab
+        o = repeat_kv(v, cfg.num_heads) + 0.0 * q
+    elif x.device.type == "cuda":
+        _kernel_config(cfg, cfg.sliding_window)
         o = kops.flash_attention(q, k, v)
     else:
-        k = repeat_kv(k, cfg.num_heads)
-        v = repeat_kv(v, cfg.num_heads)
-        if cfg.attn_impl == "stub":
-            o = v + 0.0 * q  # ablation probe: projections kept, no S^2 slab
-        else:
-            o = chunked_causal_attention(q, k, v, cfg.attn_chunk,
-                                         cfg.sliding_window,
-                                         score_dtype=cfg.attn_score_dtype)
+        o = chunked_causal_attention(q, repeat_kv(k, cfg.num_heads),
+                                     repeat_kv(v, cfg.num_heads),
+                                     cfg.attn_chunk, cfg.sliding_window,
+                                     score_dtype=cfg.attn_score_dtype)
     return torch.matmul(o.reshape(B, S, -1), p["wo"])
 
 
@@ -167,8 +192,92 @@ def gqa_decode(p: dict, x: torch.Tensor,
     return torch.matmul(o, p["wo"]), (ck, cv)
 
 
+def _mla_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """Project to q (nope + rope heads) and the compressed kv stream:
+    ``(q (B, S, H, nope + rope), c_kv (B, S, kv_lora_rank), k_rope (B, S,
+    rope))``, k_rope before its rotation."""
+    B, S, _ = x.shape
+    qk_hd = cfg.qk_nope_dim + cfg.qk_rope_dim
+    ql = rms_norm(torch.matmul(x, p["wq_a"]), p["q_norm"], cfg.norm_eps)
+    q = torch.matmul(ql, p["wq_b"]).reshape(B, S, cfg.num_heads, qk_hd)
+    kv = torch.matmul(x, p["wkv_a"])
+    c_kv = rms_norm(kv[..., :cfg.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    return q, c_kv, kv[..., cfg.kv_lora_rank:]
+
+
+def mla_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """MLA prefill: the kv stream expanded per head through ``wkv_b``,
+    then causal attention over q = [q_nope ; q_rope], k = [k_nope ;
+    k_rope] (one rope key shared by all heads) and v, at q's head dim's
+    scale.  On a CUDA tensor the flash kernel's MLA build computes it, v
+    read in place as a view of the expansion."""
+    B, S, _ = x.shape
+    H, nope, rope = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    q, c_kv, k_rope = _mla_qkv(p, x, cfg)
+    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)                    # (B, S, 1, rope)
+    kv = torch.matmul(c_kv, p["wkv_b"]).reshape(B, S, H, nope
+                                                + cfg.v_head_dim)
+    v = kv[..., nope:]
+    k = torch.cat([kv[..., :nope], k_rope.expand(B, S, H, rope)], dim=-1)
+    qq = torch.cat([q[..., :nope], q_rope], dim=-1)
+    if cfg.attn_impl == "stub":
+        o = v + 0.0 * qq.sum(dim=-1, keepdim=True)
+    elif x.device.type == "cuda":
+        _kernel_config(cfg, 0)
+        o = kops.flash_attention(qq, k, v)
+    else:
+        o = chunked_causal_attention(qq, k, v, cfg.attn_chunk,
+                                     score_dtype=cfg.attn_score_dtype)
+    return torch.matmul(o.reshape(B, S, -1), p["wo"])
+
+
+def mla_decode(p: dict, x: torch.Tensor, cache, pos: int,
+               cfg: ModelConfig):
+    """Absorbed MLA decode.  x: (B, 1, D); cache: ``(c_kv (B, Smax,
+    kv_lora_rank), k_rope (B, Smax, rope))``, written in place at
+    ``pos``, a host int.
+
+    q_nope is absorbed through ``wkv_b``'s key half, so the scores are
+    taken against the compressed cache directly; the value path
+    re-expands after the softmax.  A token costs kv_lora_rank + rope
+    cache entries, not 2 H hd."""
+    B = x.shape[0]
+    H, nope = cfg.num_heads, cfg.qk_nope_dim
+    cc, cr = cache
+    Smax = cc.shape[1]
+    q, c_kv, k_rope = _mla_qkv(p, x, cfg)
+    posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q_rope = apply_rope(q[..., nope:], posv, cfg.rope_theta)  # (B,1,H,r)
+    k_rope = apply_rope(k_rope[:, :, None, :], posv, cfg.rope_theta)
+    cc[:, pos] = c_kv[:, 0].to(cc.dtype)
+    cr[:, pos] = k_rope[:, 0, 0].to(cr.dtype)
+    kvb = p["wkv_b"].reshape(cfg.kv_lora_rank, H, nope + cfg.v_head_dim)
+    # Absorb: q_eff[b, h, r] = sum_k q_nope[b, h, k] kvb_k[r, h, k]
+    q_eff = torch.einsum("bqhk,rhk->bqhr", q[..., :nope], kvb[..., :nope])
+    s = (torch.einsum("bqhr,bkr->bhqk", q_eff.float(), cc.float())
+         + torch.einsum("bqhr,bkr->bhqk", q_rope.float(), cr.float()))
+    s = s * (nope + cfg.qk_rope_dim) ** -0.5
+    valid = torch.arange(Smax, device=x.device) <= pos
+    s = s.masked_fill(~valid, INVALID_SCORE)
+    pw = torch.softmax(s, dim=-1)
+    o_c = torch.einsum("bhqk,bkr->bqhr", pw, cc.float())
+    o = torch.einsum("bqhr,rhk->bqhk", o_c.to(x.dtype), kvb[..., nope:])
+    return torch.matmul(o.reshape(B, 1, -1), p["wo"]), (cc, cr)
+
+
 def init_gqa_cache(cfg: ModelConfig, batch: int, seq: int, layers: int,
                    device=None):
     shape = (layers, batch, seq, cfg.num_kv_heads, cfg.hd)
     return (torch.zeros(shape, dtype=cfg.dtype, device=device),
             torch.zeros(shape, dtype=cfg.dtype, device=device))
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, seq: int, layers: int,
+                   device=None):
+    return (torch.zeros((layers, batch, seq, cfg.kv_lora_rank),
+                        dtype=cfg.dtype, device=device),
+            torch.zeros((layers, batch, seq, cfg.qk_rope_dim),
+                        dtype=cfg.dtype, device=device))

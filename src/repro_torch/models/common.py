@@ -44,12 +44,19 @@ class ModelConfig:
     num_shared_experts: int = 0
     first_dense_layers: int = 0
     capacity_factor: float = 1.25
-    # --- not ported yet (ROADMAP §A item 8): a config that sets one raises
-    mla: bool = False               # deepseek-v3 attention
-    mtp: bool = False               # multi-token-prediction head
-    vision_tokens: int = 0          # VLM stub frontend
+    # --- MLA (deepseek-v3) ---
+    mla: bool = False
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+    mtp: bool = False               # multi-token-prediction auxiliary head
+    # --- VLM ---
+    vision_tokens: int = 0          # patch embeddings prepended (stub)
     # --- attention ---
     sliding_window: int = 0
+    subquadratic: bool = False      # can run the long_500k cell
     attn_chunk: int = 1024          # q-chunk of the plain chunked attention
     attn_score_dtype: str = "f32"
     attn_impl: str = "chunked"

@@ -1,6 +1,7 @@
 """Family registry: dispatches the model entry points by ``cfg.family``
-(PyTorch port of ``repro/models/registry.py``).  The ``dense`` and ``moe``
-families are ported; the others raise, naming ROADMAP §A item 8."""
+(PyTorch port of ``repro/models/registry.py``).  The ``dense``, ``moe``
+and ``vlm`` families (the reference's ``transformer`` module) are ported;
+the others raise, naming ROADMAP §A item 8."""
 from __future__ import annotations
 
 import numpy as np
@@ -9,7 +10,7 @@ import torch
 from . import transformer
 from .common import ModelConfig
 
-_MODULES = {"dense": transformer, "moe": transformer}
+_MODULES = {"dense": transformer, "moe": transformer, "vlm": transformer}
 
 
 def module_for(cfg: ModelConfig):
@@ -41,11 +42,17 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, device=None):
 
 def make_train_batch(cfg: ModelConfig, batch: int, seq: int, rng) -> dict:
     """A random batch, ``{"tokens", "labels"}`` (B, S) int32 CPU tensors,
-    labels equal to tokens: the reference's draws from
-    ``numpy.random.RandomState(rng)``.  (The VLM and audio inputs belong
-    to families the port does not run.)"""
+    labels equal to tokens, and for a VLM ``vision_embeds`` (B,
+    vision_tokens, D) float32, drawn after the tokens: the reference's
+    draws from ``numpy.random.RandomState(rng)``.  (The audio inputs
+    belong to a family the port does not run.)"""
     module_for(cfg)
     r = np.random.RandomState(rng)
     tokens = torch.from_numpy(
         r.randint(0, cfg.vocab_size, (batch, seq)).astype(np.int32))
-    return {"tokens": tokens, "labels": tokens}
+    out = {"tokens": tokens, "labels": tokens}
+    if cfg.family == "vlm":
+        out["vision_embeds"] = torch.from_numpy(
+            r.randn(batch, cfg.vision_tokens, cfg.d_model)
+            .astype(np.float32))
+    return out

@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM (dense and MoE), PyTorch port of
-``repro/models/transformer.py``.
+"""Decoder-only transformer LM (dense, MoE, MLA, VLM backbone), PyTorch
+port of ``repro/models/transformer.py``.
 
 Layers stay stacked (leading L axis, as the reference's parameter tree)
 and run in a Python loop over ``l``; a layer's parameters are views of
@@ -14,10 +14,12 @@ the stacked tensors.  Entry points:
   * ``decode_step(params, cfg, cache, tokens, pos)``  one-token step; the
     cache is updated in place and returned
 
-Multi-token prediction and the vision stub are not ported (ROADMAP §A
-item 8); a config that asks for either raises.  The reference runs each
-block under ``jax.checkpoint``; that changes memory, not values, and the
-port keeps a block's activations for the backward.
+MoE models may lead with dense layers (deepseek-v3: two layer groups).
+``cfg.mtp`` adds the multi-token-prediction block to the loss;
+``cfg.vision_tokens`` replaces the first positions' embeddings by the
+projected patch embeddings ``batch["vision_embeds"]`` (the VLM stub).  The
+reference runs each block under ``jax.checkpoint``; that changes memory,
+not values, and the port keeps a block's activations for the backward.
 """
 from __future__ import annotations
 
@@ -31,13 +33,6 @@ from . import moe as moe_mod
 from .common import ModelConfig, ParamSpec
 from .layers import cross_entropy, embed_specs, embed_tokens, lm_logits, \
     mlp_specs, rms_norm, swiglu
-
-
-def _not_ported(cfg: ModelConfig) -> None:
-    for name in ("mtp", "vision_tokens"):
-        if getattr(cfg, name):
-            raise NotImplementedError(f"{name} is not ported yet "
-                                      "(ROADMAP §A item 8)")
 
 
 def _block_specs(cfg: ModelConfig, kind: str, n_layers: int) -> dict:
@@ -69,12 +64,19 @@ def _layer_groups(cfg: ModelConfig):
 
 
 def param_specs(cfg: ModelConfig) -> dict:
-    _not_ported(cfg)
     s: Dict[str, Any] = dict(embed_specs(cfg))
     for name, kind, n in _layer_groups(cfg):
         s[name] = _block_specs(cfg, kind, n)
     s["final_norm"] = ParamSpec((cfg.d_model,), (None,), cfg.dtype,
                                 scale=1.0)
+    if cfg.vision_tokens:
+        # stub frontend: a single projection from precomputed patch embeds
+        s["vision_proj"] = ParamSpec((cfg.d_model, cfg.d_model),
+                                     ("embed", None), cfg.dtype)
+    if cfg.mtp:
+        s["mtp"] = {**_block_specs(cfg, "dense", 1),
+                    "proj": ParamSpec((2 * cfg.d_model, cfg.d_model),
+                                      ("embed", None), cfg.dtype)}
     return s
 
 
@@ -94,7 +96,8 @@ def _ffn(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor):
 def _block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
            positions: torch.Tensor) -> torch.Tensor:
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + attn.gqa_forward(p["attn"], h, positions, cfg)
+    forward = attn.mla_forward if cfg.mla else attn.gqa_forward
+    x = x + forward(p["attn"], h, positions, cfg)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + _ffn(cfg, kind, p, h)
 
@@ -110,8 +113,11 @@ def backbone(params: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _embed_inputs(params: dict, cfg: ModelConfig, batch: dict):
-    _not_ported(cfg)
     x = embed_tokens(params, batch["tokens"], cfg)
+    if cfg.vision_tokens:
+        ve = torch.matmul(batch["vision_embeds"].float(),
+                          params["vision_proj"].float()).to(x.dtype)
+        x = torch.cat([ve, x[:, cfg.vision_tokens:]], dim=1)
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
@@ -120,13 +126,28 @@ def _embed_inputs(params: dict, cfg: ModelConfig, batch: dict):
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """Mean-token cross entropy of ``batch`` (``tokens``, ``labels`` (B, S)
-    int, optional ``mask``): the logits at positions 0..S-2 against the
-    labels at 1..S-1, as the reference shifts them."""
+    int, optional ``mask``; ``vision_embeds`` (B, P, D) for the VLM stub):
+    the logits at positions 0..S-2 against the labels at 1..S-1, as the
+    reference shifts them.  With ``cfg.mtp``, plus 0.3 x the
+    multi-token-prediction block's loss: one dense block on ``[h_t ;
+    emb(labels_t)] @ proj`` predicts the labels two ahead (deepseek-v3's
+    single MTP module)."""
     x, positions = _embed_inputs(params, cfg, batch)
     h = backbone(params, cfg, x, positions)
     logits = lm_logits(params, h, cfg)
-    return cross_entropy(logits[:, :-1], batch["labels"][:, 1:],
+    loss = cross_entropy(logits[:, :-1], batch["labels"][:, 1:],
                          batch.get("mask", None))
+    if cfg.mtp:
+        emb_next = embed_tokens(params, batch["labels"], cfg)
+        h2_in = torch.matmul(torch.cat([h, emb_next], dim=-1),
+                             params["mtp"]["proj"])
+        block = _layer({k: v for k, v in params["mtp"].items()
+                        if k != "proj"}, 0)
+        h2 = _block(cfg, "dense", block, h2_in, positions)
+        logits2 = lm_logits(params, h2, cfg)
+        loss = loss + 0.3 * cross_entropy(logits2[:, :-2],
+                                          batch["labels"][:, 2:])
+    return loss
 
 
 @torch.no_grad()
@@ -138,16 +159,19 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, device=None) -> dict:
-    """Zeroed KV caches per layer group, on ``device`` (CUDA by default)."""
+    """Zeroed caches per layer group, on ``device`` (CUDA by default):
+    ``(k, v)`` for GQA, the compressed ``(c_kv, k_rope)`` for MLA."""
     dev = resolve_device(device)
-    return {name: attn.init_gqa_cache(cfg, batch, seq, n, dev)
+    make = attn.init_mla_cache if cfg.mla else attn.init_gqa_cache
+    return {name: make(cfg, batch, seq, n, dev)
             for name, _, n in _layer_groups(cfg)}
 
 
 def _decode_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
                   cache, pos: int):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    a, cache = attn.gqa_decode(p["attn"], h, cache, pos, cfg)
+    decode = attn.mla_decode if cfg.mla else attn.gqa_decode
+    a, cache = decode(p["attn"], h, cache, pos, cfg)
     x = x + a
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + _ffn(cfg, kind, p, h), cache
@@ -161,9 +185,9 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     pos = int(pos)
     x = embed_tokens(params, tokens, cfg)
     for name, kind, n in _layer_groups(cfg):
-        ck, cv = cache[name]
+        c0, c1 = cache[name]
         for l in range(n):
             x, _ = _decode_block(cfg, kind, _layer(params[name], l), x,
-                                 (ck[l], cv[l]), pos)
+                                 (c0[l], c1[l]), pos)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return lm_logits(params, h, cfg), cache

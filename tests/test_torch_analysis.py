@@ -26,7 +26,7 @@ from repro_torch.analysis import (RULES, count_program, lint_source, run_all,
 from repro_torch.analysis.__main__ import main
 from repro_torch.analysis.contracts import (DispatchCounter, EngineTrace,
                                             check_serve_engines, check_trace,
-                                            trace_engine)
+                                            trace_cases, trace_engine)
 from repro_torch.analysis.lint import parse_waivers, run_lint_layer
 from repro_torch.api import engines as tengines
 from repro_torch.api.engine import (EngineCapabilities, algorithms,
@@ -334,7 +334,7 @@ def injected():
 
 
 def _rules_of(name, **kw):
-    findings, _ = check_trace(trace_engine(name, **kw))
+    findings, _ = check_trace(trace_engine(name, device="cpu", **kw))
     return {f.rule for f in findings}, findings
 
 
@@ -462,14 +462,14 @@ def test_j008_flags_a_sync_in_a_decode_round():
     serve.register_decode_engine(LeakySpec, LeakyEngine,
                                  trace_case=leaky_case, trace_label="leaky")
     try:
-        findings, facts = check_serve_engines()
+        findings, facts = check_serve_engines(device="cpu")
         j8 = [f for f in findings if f.where == "serve:leaky"]
         assert [f.rule for f in j8] == ["J008"]
         assert "host sync" in j8[0].message
         assert facts["serve:leaky"]["host_syncs"] == 1
     finally:
         serve.unregister_decode_engine(LeakySpec, trace_label="leaky")
-    findings, _ = check_serve_engines()
+    findings, _ = check_serve_engines(device="cpu")
     assert findings == []
 
 
@@ -524,7 +524,7 @@ def test_j009_flags_the_cache_program_reading_the_oracle(injected,
 def test_j009_flags_a_fused_engine_masquerading_as_async():
     import dataclasses
 
-    et = trace_engine("mpbcfw")
+    et = trace_engine("mpbcfw", device="cpu")
     fake = EngineTrace(engine="fake-async", label="fake-async",
                        caps=dataclasses.replace(et.caps, async_oracle=True),
                        on_mesh=False, device="cpu", programs=et.programs)
@@ -680,3 +680,17 @@ def test_to_device_and_index_tensor_on_the_cpu():
     assert [c.shape for c in clock] == [()] * 4
     assert all(c.dtype == torch.float32 for c in clock)
     assert clock.plane_cost.item() == np.float32(1e-3)
+
+
+@pytest.mark.parametrize("call", [
+    lambda: trace_engine("mpbcfw"),
+    lambda: trace_cases(["mpbcfw"]),
+    lambda: check_serve_engines(),
+    lambda: run_program_layer(["mpbcfw"]),
+], ids=["trace_engine", "trace_cases", "check_serve_engines",
+        "run_program_layer"])
+def test_program_layer_defaults_to_cuda_and_raises_without_it(monkeypatch,
+                                                               call):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        call()

@@ -980,6 +980,104 @@ def test_flash_attention_kernel_rounds_p_as_the_tpu_kernel(cuda):
     _close_to_emulation(got, o.transpose(1, 2).bfloat16())
 
 
+# The MLA build: q/k head dim 192 (nope 128 + rope 64), v head dim 128, 64-
+# and 32-row blocks, one and several k/v blocks, ragged head dims below
+# the build's; v a strided view of the model's per-head [k_nope ; v]
+# expansion.  fp32 at the reduced config's (24, 16) and a wider pair.
+MLA_CASES = [((2, 200, 4), 192, 128, torch.bfloat16),
+             ((3, 20, 8), 192, 128, torch.bfloat16),
+             ((1, 1, 2), 192, 128, torch.bfloat16),
+             ((2, 130, 3), 160, 96, torch.bfloat16),
+             ((2, 77, 4), 24, 16, torch.bfloat16),
+             ((2, 77, 4), 24, 16, torch.float32),
+             ((3, 20, 2), 24, 16, torch.float32),
+             ((2, 130, 3), 128, 64, torch.float32)]
+
+
+def _mla_case(cuda, B, S, H, D, Dv, dtype, seed):
+    g = torch.Generator(cuda)
+    g.manual_seed(seed)
+    q = torch.randn((B, S, H, D), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, S, H, D), generator=g, device=cuda).to(dtype)
+    kv = torch.randn((B, S, H, 128 + Dv), generator=g, device=cuda)
+    return q, k, kv.to(dtype)[..., 128:]
+
+
+@pytest.mark.parametrize("bsh,D,Dv,dtype", MLA_CASES)
+def test_flash_attention_mla_build_matches_plain(cuda, bsh, D, Dv, dtype):
+    q, k, v = _mla_case(cuda, *bsh, D, Dv, dtype, sum(bsh) + D)
+    assert v.stride(3) == 1 and not v.is_contiguous()
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert got.shape == bsh + (Dv,) and got.dtype == dtype
+    want = ref.flash_attention_ref(q, k, v)
+    if dtype == torch.float32:
+        assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=3e-4,
+                        atol=3e-4)
+    else:
+        assert _rel_l2(got, want) <= 2e-2
+
+
+def test_flash_attention_mla_build_rounds_p_as_the_tpu_kernel(cuda):
+    """One k block (S <= 64) of the MLA build: the scale is q's head
+    dim's, p rounded to bf16 before p.v, the unrounded sum as the
+    normaliser."""
+    q, k, v = _mla_case(cuda, 3, 64, 4, 192, 128, torch.bfloat16, 5)
+    got = ops.flash_attention(q, k, v)
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+    s = torch.matmul(qf, kf.transpose(-1, -2)) / 192 ** 0.5
+    s = s.masked_fill(~torch.ones((64, 64), dtype=torch.bool,
+                                  device=cuda).tril(), -3e38)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.matmul(e.bfloat16().float(), vf) / e.sum(dim=-1, keepdim=True)
+    _close_to_emulation(got, o.transpose(1, 2).bfloat16())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_mla_gradient_on_card(cuda, dtype):
+    D, Dv = (192, 128) if dtype == torch.bfloat16 else (24, 16)
+    q, k, v = _grad_inputs(cuda, ((2, 70, 4, D), (2, 70, 4, D),
+                                  (2, 70, 4, Dv)), dtype, 3)
+    before = ops.launch_counts()["flash_attention"]
+    out = ops.flash_attention(q, k, v)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    gout = torch.randn_like(out)
+    want = torch.autograd.grad(ops.attention_math(q, k, v), (q, k, v), gout)
+    got = torch.autograd.grad(out, (q, k, v), gout)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("C", [1, 64])
+def test_moe_ffn_kernel_at_deepseek_width(cuda, C):
+    """B6 at deepseek-v3's (E, D, F) = (256, 7168, 2048): the decode's one
+    capacity row and a 2 x 1024-token prefill's 64, bf16, against
+    moe_ffn_math and against the kernel's roundings emulated in fp32, 16
+    experts at a time (22.5 GB of weights)."""
+    E, D, F = 256, 7168, 2048
+    g = torch.Generator(cuda)
+    g.manual_seed(C)
+    xs = torch.randn((E, C, D), generator=g, device=cuda).bfloat16()
+    w = [(0.02 * torch.randn(s, generator=g, device=cuda)).bfloat16()
+         for s in ((E, D, F), (E, D, F), (E, F, D))]
+    before = ops.launch_counts()["moe_ffn"]
+    got = ops.moe_ffn(xs, *w)
+    assert ops.launch_counts()["moe_ffn"] == before + 1
+    assert got.shape == (E, C, D) and got.dtype == torch.bfloat16
+    for e0 in range(0, E, 16):
+        part = [t[e0:e0 + 16] for t in (xs, *w)]
+        assert _rel_l2(got[e0:e0 + 16], ops.moe_ffn_math(*part)) <= 2e-2
+        x32, g32, u32, d32 = (t.float() for t in part)
+        h = (torch.nn.functional.silu(torch.bmm(x32, g32))
+             * torch.bmm(x32, u32)).bfloat16().float()
+        _close_to_emulation(got[e0:e0 + 16], torch.bmm(h, d32).bfloat16())
+    del xs, w, got
+    torch.cuda.empty_cache()
+
+
 def test_flash_attention_kernel_reads_strided_views(cuda):
     qkv = torch.randn((2, 50, 3, 6, 16), device=cuda)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
@@ -1022,10 +1120,15 @@ def test_gqa_forward_on_card_raises_for_unported_attention(cuda):
     x = torch.randn((2, 5, cfg.d_model), device=cuda)
     pos = torch.arange(5, device=cuda)[None].expand(2, 5)
     assert attention.gqa_forward(p, x, pos, cfg).shape == x.shape
-    for bad in (dict(sliding_window=3), dict(attn_score_dtype="bf16"),
-                dict(attn_impl="stub")):
+    for bad in (dict(sliding_window=3), dict(attn_score_dtype="bf16")):
         with pytest.raises(NotImplementedError, match="ROADMAP §A item 8"):
             attention.gqa_forward(p, x, pos, dataclasses.replace(cfg, **bad))
+    # The stub probe (v + 0 q, no attention) on the card, as on the CPU.
+    stub = dataclasses.replace(cfg, attn_impl="stub")
+    got = attention.gqa_forward(p, x, pos, stub)
+    want = attention.gqa_forward({k: v.cpu() for k, v in p.items()},
+                                 x.cpu(), pos.cpu(), stub)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen2-0.5b"])
@@ -1165,6 +1268,32 @@ def test_new_state_recaptures_and_the_old_graph_stays_idle(cuda):
     for _ in perm:
         mpbcfw.exact_step(problem, eager, ctl, lam)
     assert _same_bits(out, eager)
+
+
+def test_capture_survives_cyclic_garbage_holding_an_old_graph(cuda):
+    """An unreachable earlier graph (in a reference cycle, as a dropped
+    engine's) is not collected inside a later capture: CUDA refuses to
+    destroy a graph while the thread captures, which would invalidate
+    it.  The body makes such garbage and then enough allocations to pass
+    the collector's first threshold."""
+    import gc
+    from repro_torch.core import graphs
+    x = torch.ones(8, device=cuda)
+    held = [graphs._Graph(lambda: x.add_(1.0), cuda)]
+
+    def body():
+        cycle = {"graph": held.pop()}
+        cycle["self"] = cycle
+        del cycle
+        junk = [[] for _ in range(4 * gc.get_threshold()[0])]
+        del junk
+        x.mul_(2.0)
+    g = graphs._Graph(body, cuda)
+    gc.collect()
+    x.fill_(1.0)
+    g.replay()
+    torch.cuda.synchronize()
+    assert x.cpu().tolist() == [2.0] * 8
 
 
 def test_graph_replayed_fold_equals_eager_steps(cuda):
