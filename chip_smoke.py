@@ -236,7 +236,9 @@ Phases, one JSON line each (seconds on an H100 in brackets):
                  each against the fp32 gradient; reduced qwen2-0.5b,
                  OLMoE-1B-7B, deepseek-v3-671b (MLA through B5's fp32
                  path, MTP in the loss) and internvl2-76b (the vision
-                 stub) in fp32, card against CPU, rel. L2 <= 1e-3 [~6].
+                 stub) in fp32, card against CPU, rel. L2 <= 1e-3;
+                 reduced zamba2-7b (with and without its window),
+                 xlstm-125m and whisper-base likewise at <= 1e-5 [~8].
  14d. lm_resume -- reduced qwen2-0.5b, 10 steps saving every 5; a fresh
                  run resumed from step 5 gives the same losses [~5].
  14e. train_ssvm -- train_ssvm on SMALL usps, ocr, horseseg, card
@@ -262,13 +264,42 @@ Phases, one JSON line each (seconds on an H100 in brackets):
                  (flash_attention twice, logits finite; the kernels phase
                  holds B5 at each config's (2, 1024, H:K, 128) to its
                  plain version and times it) [~2].
+ 14i. kernel (flash_attention_masks) -- B5's builds of the last three
+                 families held to its plain version in bf16 and fp32 and
+                 timed beside its bound and SDPA: head dim 112 (the padded
+                 128 build) causal at zamba2's (2, 1024, 32:32, 112), the
+                 window build at (1, 8192, 32:32, 112) with W = 4096 and
+                 at (1, 2048) with W = 1000 and 1, the bidirectional build
+                 at whisper's encoder (2, 1500, 8:8, 64) [~10].
+ 14j. main_hybrid -- zamba2-7b at its published width and depth (81
+                 layers, 6.75 B parameters, bf16 from seed 0): the Server
+                 answers 8 requests (plain decode, B5 never), a prefill
+                 of 2 x 1024 tokens (B5's causal build 13 times, once per
+                 shared-block invocation), then 1 x 8192 tokens under the
+                 long-context override (the window build 13 times), the
+                 first B5 call of each prefill held to its plain version;
+                 each prefill and 4 more serving rounds traced (busy
+                 share, device time by kernel; 2 rounds), as in the two
+                 phases below (xlstm's prefill traced on 2 x 256 tokens)
+                 [~15-40].
+ 14k. lm_xlstm -- xlstm-125m at published width and depth: the Server
+                 answers 8 requests, a prefill of 2 x 1024 tokens, no
+                 kernel launched (none is on this path); float32 prefill
+                 logits on 2 x 256 tokens, card against CPU [~5-15].
+ 14l. lm_whisper -- whisper-base at published width and depth: a prefill
+                 of 2 x (1500 frames, 448 tokens) (B5 bidirectional 6
+                 times, causal 6 times, one call of each held to its
+                 plain version), then the Server answers 8 requests
+                 against the zero cross-attention cache [~3-10].
  15. sync_debug line (the paths whose every engine dispatch ran under
      sync-debug "error": main, main_async (both programs), main_gram,
      main_shard, main_shard_tau, main_gap, one train_lm step, and the
      dispatches checked on each, later phases' dispatches of the same
      engine included), the
-     kernels line (flash_attention's row also carries its MLA shape and
-     the four configs' shapes, moe_ffn's the deepseek shapes), the
+     kernels line (flash_attention's row also carries its MLA shape,
+     the four configs' shapes, the new builds' cases and its launches by
+     build on the last three families' paths; moe_ffn's the deepseek
+     shapes), the
      card's name and power limit, and the result line
      ``{"ok": true, "device": {...}}`` last.
 
@@ -372,6 +403,35 @@ PREFILL = dict(batch=2, seq=1024)
 LM_CONFIGS = ("internvl2-76b", "minitron-8b", "mistral-nemo-12b",
               "qwen2.5-14b")
 LM_CONFIG_LAYERS = 2
+
+# The last three families at their published width and depth: zamba2-7b
+# (81 layers; bf16 weights 13.5 GB, its init's fp32 draw of the largest
+# leaf 16.3 GB beside them), served and prefilled on 2 x 1024 tokens, then
+# on 1 x 8192 under its long-context override (the 4096-key window);
+# xlstm-125m served and prefilled, and held card against CPU in float32 on
+# a 2 x 256 prompt; whisper-base prefilled on 2 x (1500 frames, 448
+# decoder tokens, its published context) and served.
+HYBRID_ARCH, XLSTM_ARCH, WHISPER_ARCH = ("zamba2-7b", "xlstm-125m",
+                                         "whisper-base")
+LONG_PREFILL = dict(batch=1, seq=8192)
+XLSTM_F32_PREFILL = dict(batch=2, seq=256)
+XLSTM_F32_RTOL = 1e-4
+WHISPER_PREFILL = dict(batch=2, seq=448)
+# B5's window, bidirectional and head-dim-112 builds at this slice's shapes:
+# (name, (B, S, H, K, D), window, causal, SDPA's mask).
+FLASH_MASK_CASES = (
+    ("causal_d112", (2, 1024, 32, 32, 112), 0, True, "is_causal"),
+    ("window_4096", (1, 8192, 32, 32, 112), 4096, True, "band"),
+    ("window_1000", (1, 2048, 32, 32, 112), 1000, True, "band"),
+    ("window_1", (1, 2048, 32, 32, 112), 1, True, "band"),
+    ("bidirectional", (2, 1500, 8, 8, 64), 0, False, "none"))
+F32_FLASH_TOL = 3e-5            # the fp32 path: |err| <= 3e-5 (1 + |ref|)
+EMULATED_S = 50                 # one k block with a tail past S
+# lm_grad's reduced configs of this slice: card vs CPU per leaf (relative
+# L2), the loss likewise.
+GRAD_NEW = (("zamba2-7b", {}), ("zamba2-7b", {"sliding_window": 3}),
+            ("xlstm-125m", {}), ("whisper-base", {}))
+GRAD_NEW_RTOL = 1e-5
 
 # The engines the registry added: card vs CPU on SMALL ocr, and three of
 # them at full OCR size (phase, algorithm).
@@ -1797,15 +1857,20 @@ def check_moe_ffn(torch, gen):
                          "bound_by", "max_abs_err")})
 
 
-def flash_emulated(torch, q, k, v):
-    """Causal attention with the kernel's roundings for S <= 64 (one k
-    block): fp32 scores, p = exp(s - rowmax) rounded to v's type for p.v,
-    the unrounded sum as the normaliser.  (B, S, H, D), kv heads = H."""
+def flash_emulated(torch, q, k, v, window: int = 0, causal: bool = True):
+    """Attention with the kernel's roundings for S <= 64 (one k block):
+    fp32 scores, p = exp(s - rowmax) rounded to v's type for p.v, the
+    unrounded sum as the normaliser; causal (within ``window`` keys when
+    > 0) or bidirectional.  (B, S, H, D), kv heads = H."""
     D = q.shape[-1]
     qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
     s = torch.matmul(qf, kf.transpose(-1, -2)) * (1.0 / D ** 0.5)
     S = q.shape[1]
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    row = torch.arange(S, device=q.device)[:, None]
+    col = torch.arange(S, device=q.device)[None, :]
+    mask = row >= col if causal else torch.ones_like(row >= col)
+    if window:
+        mask &= col > row - window
     s = s.masked_fill(~mask, -3.0e38)
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     o = torch.matmul(e.to(v.dtype).float(), vf) / e.sum(dim=-1, keepdim=True)
@@ -4243,7 +4308,9 @@ def phase_lm_grad(torch):
     OLMoE-1B-7B (B6's backward too), deepseek-v3-671b (MLA through B5's
     fp32 path at q/k 24, v 16, MTP in the loss, B6) and internvl2-76b
     (the vision stub) in fp32, card against CPU: the loss and each leaf's
-    gradient within relative L2 1e-3 [~6]."""
+    gradient within relative L2 1e-3; then reduced zamba2-7b (B5's fp32
+    causal and window builds), xlstm-125m (no kernel) and whisper-base
+    (the fp32 bidirectional and causal builds) within 1e-5 [~8]."""
     import dataclasses
     from repro_torch import configs
     from repro_torch.kernels import ops
@@ -4294,43 +4361,52 @@ def phase_lm_grad(torch):
     torch.cuda.empty_cache()
 
     reduced = {}
-    for arch in GRAD_ARCHS:
+    for arch, over, tol in ([(a, {}, GRAD_RTOL) for a in GRAD_ARCHS]
+                            + [(a, o, GRAD_NEW_RTOL) for a, o in GRAD_NEW]):
         rcfg = dataclasses.replace(configs.reduced_config(arch),
-                                   dtype=torch.float32)
+                                   dtype=torch.float32, **over)
         gen = torch.Generator("cpu")
         gen.manual_seed(0)
         p_cpu = common.init_params(registry.param_specs(rcfg), gen, "cpu")
         p_gpu = common.tree_map(lambda t: t.cuda(), p_cpu)
         b_gpu = lm_batch(torch, rcfg, 4, 32)
-        if rcfg.family == "vlm":
-            b_gpu["vision_embeds"] = registry.make_train_batch(
-                rcfg, 4, 32, 0)["vision_embeds"].cuda()
+        extra = registry.make_train_batch(rcfg, 4, 32, 0)
+        for name in ("vision_embeds", "frames"):   # vlm, audio inputs
+            if name in extra:
+                b_gpu[name] = extra[name].cuda()
         b_cpu = {k: v.cpu() for k, v in b_gpu.items()}
         ops.reset_launch_counts()
         lg, gg = raw_grads(torch, p_gpu, rcfg, b_gpu)
         torch.cuda.synchronize()
         red_launches = ops.launch_counts()
+        red_builds = ops.flash_attention_builds()
         lc, gc = raw_grads(torch, p_cpu, rcfg, b_cpu)
-        check(abs(float(lg) - float(lc)) <= GRAD_RTOL * abs(float(lc)),
+        check(abs(float(lg) - float(lc)) <= tol * abs(float(lc)),
               f"lm_grad {arch}: loss {float(lg)} vs {float(lc)}")
-        want = {"flash_attention": rcfg.num_layers + int(rcfg.mtp),
+        flash = {"hybrid": rcfg.num_layers // max(rcfg.attn_every, 1),
+                 "ssm": 0,
+                 "audio": rcfg.num_layers + rcfg.encoder_layers}.get(
+                     rcfg.family, rcfg.num_layers + int(rcfg.mtp))
+        want = {"flash_attention": flash,
                 "moe_ffn": (rcfg.num_layers - rcfg.first_dense_layers
                             if rcfg.moe else 0)}
         check(all(red_launches[k] == v for k, v in want.items()),
               f"lm_grad {arch}: launches {red_launches}")
         rels = grad_table(torch, [g.cpu() for g in gg], gc)
         worst = max(r for r in rels if r is not None)
-        check(worst <= GRAD_RTOL, f"lm_grad {arch}: leaf relative L2 "
-              f"{worst}")
-        reduced[arch] = dict(loss_cuda=float(lg), loss_cpu=float(lc),
-                             leaves=len(rels), max_leaf_rel_l2=worst,
-                             launches=red_launches)
+        check(worst <= tol, f"lm_grad {arch} {over}: leaf relative L2 "
+              f"{worst} > {tol}")
+        key = arch + "".join(f" {k}={v}" for k, v in over.items())
+        reduced[key] = dict(loss_cuda=float(lg), loss_cpu=float(lc),
+                            leaves=len(rels), max_leaf_rel_l2=worst,
+                            tolerance=tol, launches=red_launches,
+                            flash_attention_builds=red_builds)
     emit("lm_grad", seconds=time.perf_counter() - t_phase,
          full_width_bf16=full, reduced_fp32=reduced,
          tolerance="full width bf16, per leaf: relative L2 from the fp32 "
          "gradient through the kernel <= 1.25 x the chunked forward's + "
          "1e-3; reduced fp32, card vs CPU: loss and per-leaf relative L2 "
-         "<= 1e-3")
+         "<= 1e-3 (zamba2-7b, xlstm-125m, whisper-base: <= 1e-5)")
     return launches
 
 
@@ -4532,113 +4608,42 @@ def phase_main_mla(torch):
     weights from seed 0 (15.8 B parameters, ~47 GB at the init's peak):
     the Server answers 8 requests (absorbed MLA decode against the
     compressed cache, B6 at C = 1 once per round, B5 never), then a
-    prefill of 2 x 1024 tokens (B5's MLA build once per layer, B6 at C =
-    64 once), its logits held to the same prefill through the plain
-    attention; then B5's MLA build and B6 at (256, {1, 64}, 7168, 2048)
-    against their plain versions, timed [~4]."""
+    prefill of 2 x 1024 tokens (B5's MLA build once per layer, each call
+    held to the plain version on its own inputs; B6 at C = 64 once), its
+    logits held to the same prefill through the plain attention; then
+    B5's MLA build and B6 at (256, {1, 64}, 7168, 2048) against their
+    plain versions, timed [~4]."""
     import dataclasses
-    import numpy as np
     from repro_torch import configs
-    from repro_torch.kernels import ops
-    from repro_torch.launch.serve import Request, Server
-    from repro_torch.models import common, registry
+    from repro_torch.models import registry
     t_phase = time.perf_counter()
     cfg = dataclasses.replace(configs.get_config(MLA_ARCH),
                               num_layers=MLA_LAYERS)
     moe_layers = cfg.num_layers - cfg.first_dense_layers
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    gen = torch.Generator("cuda")
-    gen.manual_seed(0)
-    t0 = time.perf_counter()
-    params = common.init_params(registry.param_specs(cfg), gen, "cuda")
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    init_peak = torch.cuda.max_memory_allocated()
-    n_params = sum(t.numel() for t in common.leaves(params))
-    check(n_params == cfg.param_count(), f"main_mla: {n_params} parameters")
-    param_bytes = sum(t.numel() * t.element_size()
-                      for t in common.leaves(params))
+    params, init = lm_init(torch, cfg)
 
-    # 1. Serve.
-    server = Server(cfg, params, slots=SERVE["slots"],
-                    max_seq=SERVE["max_seq"])
-    check([tuple(c.shape[2:]) for c in server.cache["moe_layers"]]
-          == [(SERVE["max_seq"], cfg.kv_lora_rank),
-              (SERVE["max_seq"], cfg.qk_rope_dim)], "main_mla: MLA cache")
-    rng = np.random.RandomState(0)
-    reqs = [Request(i, rng.randint(0, cfg.vocab_size,
-                                   size=SERVE["prompt_len"]),
-                    SERVE["max_new"]) for i in range(SERVE["requests"])]
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    done = server.serve(reqs)
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    serve_launches = ops.launch_counts()
-    tokens_out = sum(len(r.out) for r in done)
-    check(len(done) == SERVE["requests"], f"main_mla: served {len(done)}")
-    check(all(len(r.out) == SERVE["max_new"] and
-              all(0 <= t < cfg.vocab_size for t in r.out) for r in done),
-          "main_mla: generated tokens out of range or missing")
-    check(serve_launches["moe_ffn"] == moe_layers * server.rounds
+    def mla_cache(server):
+        check([tuple(c.shape[2:]) for c in server.cache["moe_layers"]]
+              == [(SERVE["max_seq"], cfg.kv_lora_rank),
+                  (SERVE["max_seq"], cfg.qk_rope_dim)], "main_mla: MLA cache")
+    serve, serve_launches, _ = lm_serve(torch, cfg, params, "main_mla",
+                                        trace=False, check_server=mla_cache)
+    check(serve_launches["moe_ffn"] == moe_layers * serve["rounds"]
           and serve_launches["flash_attention"] == 0,
-          f"main_mla: serve launches {serve_launches} in {server.rounds} "
+          f"main_mla: serve launches {serve_launches} in {serve['rounds']} "
           "rounds")
-    logits, _ = registry.decode_step(
-        params, cfg, server.cache, torch.from_numpy(server.tokens).cuda(),
-        server.pos)
-    check(logits.shape == (SERVE["slots"], 1, cfg.vocab_size)
-          and bool(torch.isfinite(logits).all()),
-          "main_mla: decode logits not finite")
-    rounds = server.rounds
-    del server, logits
-    torch.cuda.empty_cache()
-
-    # 2. Prefill 2 x 1024 tokens through the MLA build.
     batch = {k: v.cuda() for k, v in registry.make_train_batch(
         cfg, PREFILL["batch"], PREFILL["seq"], 0).items()}
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    logits = registry.prefill(params, cfg, batch)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    prefill_launches = ops.launch_counts()
+    prefill, prefill_launches, _ = lm_prefill(
+        torch, cfg, params, batch, "main_mla", trace=False, hold_all=True,
+        vs_plain_attention=True)
     check(prefill_launches["flash_attention"] == cfg.num_layers
-          and prefill_launches["moe_ffn"] == moe_layers,
+          and prefill_launches["moe_ffn"] == moe_layers
+          and len(prefill["b5_held_to_plain"]["causal"]) == cfg.num_layers,
           f"main_mla: prefill launches {prefill_launches}")
-    check(logits.shape == (PREFILL["batch"], 1, cfg.vocab_size)
-          and bool(torch.isfinite(logits).all()),
-          "main_mla: prefill logits not finite")
-    # Again, each layer's B5 call held to the plain attention on the
-    # path's own q, k, v; then the whole prefill through the plain
-    # attention, whose logits' distance is reported (two bf16 paths: the
-    # kernel rounds p to bf16 before p.v, the plain attention does not,
-    # and 4 layers carry that apart).
-    kernel, layer_rel = ops.flash_attention, []
+    del batch
 
-    def held(q, k, v, sm_scale=None):
-        o = kernel(q, k, v, sm_scale)
-        layer_rel.append(rel_l2(torch, o, ops.attention_math(q, k, v,
-                                                             sm_scale)))
-        return o
-    ops.flash_attention = held
-    try:
-        again = registry.prefill(params, cfg, batch)
-        ops.flash_attention = ops.attention_math    # the plain attention
-        plain = registry.prefill(params, cfg, batch)
-    finally:
-        ops.flash_attention = kernel
-    check(len(layer_rel) == cfg.num_layers and max(layer_rel)
-          <= BF16_REL_L2, f"main_mla: B5 on the prefill's own inputs, "
-          f"relative L2 {layer_rel} vs the plain attention")
-    vs_plain = rel_l2(torch, logits, plain)
-    prefill_peak = torch.cuda.max_memory_allocated()
-    del logits, again, plain, batch
-
-    # 3. The kernels at the path's shapes.
+    # The kernels at the path's shapes.
     kgen = torch.Generator("cuda")
     kgen.manual_seed(1)
     flash = check_flash_mla(torch, kgen)
@@ -4652,17 +4657,7 @@ def phase_main_mla(torch):
     peak = torch.cuda.max_memory_allocated()
     emit("main_mla", arch=cfg.name, num_layers=cfg.num_layers,
          reduced=f"depth {configs.get_config(MLA_ARCH).num_layers} -> "
-         f"{cfg.num_layers}", params=n_params, param_bytes=param_bytes,
-         init_s=init_s, init_peak_bytes=init_peak,
-         serve=dict(slots=SERVE["slots"], max_seq=SERVE["max_seq"],
-                    requests=len(done), rounds=rounds, tokens=tokens_out,
-                    seconds=serve_s, tokens_per_s=tokens_out / serve_s,
-                    launches=serve_launches),
-         prefill=dict(shape=[PREFILL["batch"], PREFILL["seq"]],
-                      seconds=prefill_s, launches=prefill_launches,
-                      b5_layer_rel_l2_vs_plain=layer_rel,
-                      logits_rel_l2_vs_plain_attention=vs_plain,
-                      peak_bytes=prefill_peak),
+         f"{cfg.num_layers}", **init, serve=serve, prefill=prefill,
          flash_attention_mla=flash, moe_ffn=moe_rows,
          max_memory_allocated=peak, seconds=time.perf_counter() - t_phase)
     del params
@@ -4676,51 +4671,445 @@ def phase_lm_configs(torch):
     the first positions), minitron-8b, mistral-nemo-12b and qwen2.5-14b at
     their published widths, depth cut to 2, bf16 weights from seed 0: each
     prefills 2 x 1024 tokens (B5 once per layer at the config's H:K heads
-    of 128; the kernel phase holds B5 at that shape to its plain version
-    and times it), logits finite.  Each config's weights are freed before
-    the next [~2]."""
+    of 128, its first call held to the plain version on its own inputs;
+    the kernel phase times B5 at that shape), logits finite.  Each
+    config's weights are freed before the next [~2]."""
     import dataclasses
     from repro_torch import configs
-    from repro_torch.kernels import ops
-    from repro_torch.models import common, registry
+    from repro_torch.models import registry
     paths = {}
     for arch in LM_CONFIGS:
         t_arch = time.perf_counter()
         full = configs.get_config(arch)
         cfg = dataclasses.replace(full, num_layers=LM_CONFIG_LAYERS)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        gen = torch.Generator("cuda")
-        gen.manual_seed(0)
-        params = common.init_params(registry.param_specs(cfg), gen, "cuda")
-        n_params = sum(t.numel() for t in common.leaves(params))
-        check(n_params == cfg.param_count(), f"{arch}: {n_params}")
+        params, init = lm_init(torch, cfg)
         batch = {k: v.cuda() for k, v in registry.make_train_batch(
             cfg, PREFILL["batch"], PREFILL["seq"], 0).items()}
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        logits = registry.prefill(params, cfg, batch)
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
-        launches = ops.launch_counts()
+        prefill, launches, _ = lm_prefill(torch, cfg, params, batch, arch,
+                                          trace=False)
         check(launches["flash_attention"] == cfg.num_layers
               and launches["moe_ffn"] == 0, f"{arch}: launches {launches}")
-        check(logits.shape == (PREFILL["batch"], 1, cfg.vocab_size)
-              and bool(torch.isfinite(logits).all()),
-              f"{arch}: prefill logits not finite")
-        peak = torch.cuda.max_memory_allocated()
-        del params, logits, batch
+        del params, batch
         torch.cuda.empty_cache()
         paths[f"lm_configs_{arch}"] = launches
         emit("lm_configs", arch=arch, num_layers=cfg.num_layers,
              reduced=f"depth {full.num_layers} -> {cfg.num_layers}",
-             params=n_params, vision_tokens=cfg.vision_tokens,
-             prefill=dict(shape=[PREFILL["batch"], PREFILL["seq"]],
-                          seconds=prefill_s, launches=launches),
-             max_memory_allocated=peak,
+             **init, vision_tokens=cfg.vision_tokens, prefill=prefill,
              seconds=time.perf_counter() - t_arch)
     return paths
+
+
+def flash_plain(torch, q, k, v, window: int = 0, causal: bool = True,
+                heads: int = 8, sm_scale=None):
+    """B5's plain version (``kernels/ref.py``) on (B, S, H, D) q and (B,
+    S, K, D) k, v (v's head dim its own: MLA), ``heads`` query heads at a
+    time: one fp32 score slab of (B heads, S, S), 2.1 GB at S = 8192."""
+    from repro_torch.kernels import ref
+    H, K = q.shape[2], k.shape[2]
+    g = H // K
+    heads = max(g, heads - heads % g)
+    outs = []
+    for h0 in range(0, H, heads):
+        kv = slice(h0 // g, (h0 + heads) // g)
+        outs.append(ref.flash_attention_ref(
+            q[:, :, h0:h0 + heads], k[:, :, kv], v[:, :, kv],
+            sm_scale, window, causal))
+    return torch.cat(outs, dim=2)
+
+
+def visible_pairs(S: int, window: int = 0, causal: bool = True) -> int:
+    """(query, key) pairs a mask lets through, per (batch, head)."""
+    if not causal:
+        return S * S
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def flash_bound(B, S, H, K, D, window=0, causal=True):
+    """B5's bound: q, k, v read and o written once (bf16) against the bf16
+    tensor-core operations of the pairs its mask lets through."""
+    return bound_ms(2 * B * S * D * (2 * H + 2 * K),
+                    4.0 * B * H * D * visible_pairs(S, window, causal),
+                    BF16_FLOPS)
+
+
+def check_flash_masks(torch, gen):
+    """B5's builds of this slice held to its plain version and timed:
+    head dim 112 (the padded 128 build), causal, at zamba2's prefill
+    (2, 1024, 32:32, 112); the window build at its long prefill (1, 8192,
+    32:32, 112) with W = 4096, and at W = 1000 and W = 1 on (1, 2048),
+    windows that leave a row's first visited block outside its window;
+    the bidirectional build at whisper's encoder (2, 1500, 8:8, 64), S
+    not a multiple of 64.  Each in bf16 (relative L2 <= 2e-2 against the
+    plain version; and at one k block, S = 50, whose tile runs past S,
+    within close_bf16's bounds of its roundings emulated in fp32) and in fp32 (|err| <= 3e-5 (1 +
+    |ref|)); timed by CUDA events beside its bound and SDPA (is_causal,
+    the boolean band as attn_mask, no mask) [~10]."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops
+    F = torch.nn.functional
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    rows = {}
+    for name, (B, S, H, K, D), window, causal, sdpa in FLASH_MASK_CASES:
+        mask = kfa.mask_of(window, causal)
+        q = rand(B, S, H, D)
+        k, v = (rand(B, S, K, D) for _ in range(2))
+        ops.reset_launch_counts()
+        got = ops.flash_attention(q, k, v, window=window, causal=causal)
+        builds = ops.flash_attention_builds()
+        want = flash_plain(torch, q, k, v, window, causal)
+        torch.cuda.synchronize()
+        check(got.shape == q.shape and got.dtype == q.dtype, name)
+        rel = rel_l2(torch, got, want)
+        check(rel <= BF16_REL_L2, f"flash {name}: relative L2 {rel} vs plain")
+        q32, k32, v32 = (t.float() for t in (q, k, v))
+        got32 = ops.flash_attention(q32, k32, v32, window=window,
+                                    causal=causal)
+        want32 = flash_plain(torch, q32, k32, v32, window, causal)
+        err32 = (got32 - want32).abs()
+        check(bool((err32 <= F32_FLASH_TOL * (1 + want32.abs())).all()),
+              f"flash {name} f32: max err {float(err32.max())}")
+        f32_err = float(err32.max())
+        del got32, want32, err32, q32, k32, v32
+        # One k block whose tile runs past S: its zero-filled keys must
+        # stay out of the softmax, which the 2e-2 bound above would not see
+        # at S = 1500 (36 such keys rescale each row by ~1 %).
+        qe, ke, ve = (t[:3, :EMULATED_S, :4].contiguous() for t in (q, k, v))
+        emu = close_bf16(torch, ops.flash_attention(
+            qe, ke, ve, window=min(window, 5), causal=causal),
+            flash_emulated(torch, qe, ke, ve, min(window, 5), causal),
+            f"flash {name} S={EMULATED_S}")
+        bms, by = flash_bound(B, S, H, K, D, window, causal)
+        row = dict(shape=[B, S, H, K, D], window=window, mask=mask,
+                   build=kfa.plan(D, D, S, q.dtype, mask)["build"],
+                   launch_builds=builds, bound_ms=bms, bound_by=by,
+                   max_abs_err=float((got.float() - want.float()).abs()
+                                     .max()),
+                   rel_l2_vs_plain=rel, max_abs_err_emulated=emu,
+                   f32_max_abs_err=f32_err)
+        del got, want
+        row["ms"] = time_ms(torch, lambda i: ops.flash_attention(
+            q, k, v, window=window, causal=causal), 10)
+        row["plain_ms"] = time_ms(torch, lambda i: flash_plain(
+            torch, q, k, v, window, causal), 1, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        kw = {"is_causal": True} if sdpa == "is_causal" else {}
+        if sdpa == "band":
+            i = torch.arange(S, device="cuda")
+            kw["attn_mask"] = ((i[:, None] >= i[None, :])
+                               & (i[None, :] > i[:, None] - window))
+        row["library_ms"] = time_ms(
+            torch, lambda i: F.scaled_dot_product_attention(
+                qt, kt, vt, **kw), 10)
+        row["library"] = f"scaled_dot_product_attention({sdpa})"
+        del qt, kt, vt, kw
+        rows[name] = row
+        del q, k, v
+        torch.cuda.empty_cache()
+    emit("kernel", name="flash_attention_masks", cases=rows,
+         tolerance="bf16: relative L2 <= 2e-2 vs plain, and at S = 50 "
+         "relative L2 <= 2^-9 and |err| <= 2^-5 (|ref|+rms) vs the "
+         "emulated roundings; f32: |err| <= 3e-5 (1+|ref|) vs plain")
+    return rows
+
+
+def lm_init(torch, cfg, seed: int = 0):
+    """bf16 weights of ``cfg`` from a CUDA generator, their count checked
+    against ``cfg.param_count()``; (params, init seconds, init peak bytes,
+    parameter count, parameter bytes)."""
+    from repro_torch.models import common, registry
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator("cuda")
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    params = common.init_params(registry.param_specs(cfg), gen, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(t.numel() for t in common.leaves(params))
+    check(n == cfg.param_count(), f"{cfg.name}: {n} parameters, config "
+          f"{cfg.param_count()}")
+    return params, dict(
+        params=n, param_bytes=sum(t.numel() * t.element_size()
+                                  for t in common.leaves(params)),
+        init_s=init_s, init_peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def lm_serve(torch, cfg, params, what: str, trace: bool = True,
+             check_server=None):
+    """The Server (4 slots) answers SERVE's 8 requests of 4 + 16 tokens,
+    launch counts set to 0 just before and read just after: every request
+    answered in full with in-range tokens, and one more decode step's
+    logits finite; then, with ``trace``, 2 more rounds under
+    torch.profiler (where a round's time goes).  ``check_server`` is
+    called on the new Server before it serves.  Returns (serve dict,
+    launches, B5 launches by build)."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.models import registry
+    server = Server(cfg, params, slots=SERVE["slots"],
+                    max_seq=SERVE["max_seq"])
+    if check_server is not None:
+        check_server(server)
+    rng = np.random.RandomState(0)
+    reqs = [Request(i, rng.randint(0, cfg.vocab_size,
+                                   size=SERVE["prompt_len"]),
+                    SERVE["max_new"]) for i in range(SERVE["requests"])]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = server.serve(reqs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, builds = ops.launch_counts(), ops.flash_attention_builds()
+    check(len(done) == SERVE["requests"] and all(
+        len(r.out) == SERVE["max_new"]
+        and all(0 <= t < cfg.vocab_size for t in r.out) for r in done),
+        f"{what}: served {len(done)} requests, tokens missing or out of "
+        "range")
+    logits, _ = registry.decode_step(
+        params, cfg, server.cache, torch.from_numpy(server.tokens).cuda(),
+        server.pos)
+    check(logits.shape == (SERVE["slots"], 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"{what}: decode logits not finite")
+    tokens = sum(len(r.out) for r in done)
+    out = dict(slots=SERVE["slots"], max_seq=SERVE["max_seq"],
+               requests=len(done), rounds=server.rounds, tokens=tokens,
+               seconds=seconds, tokens_per_s=tokens / seconds,
+               ms_per_round=1e3 * seconds / server.rounds,
+               launches=launches, flash_attention_builds=builds)
+    if trace:
+        out["trace_2_rounds"] = traced(torch, lambda: [
+            server.decode_round() for _ in range(2)])
+    del server, logits
+    torch.cuda.empty_cache()
+    return out, launches, builds
+
+
+def lm_prefill(torch, cfg, params, batch, what: str, trace: bool = True,
+               hold_all: bool = False, vs_plain_attention: bool = False):
+    """One ``registry.prefill`` of ``batch``, launch counts set to 0 just
+    before and read just after, timed to a synchronize; then again with
+    the first B5 call of each mask (every call with ``hold_all``) held to
+    the plain version on that call's own q, k, v (chunked over heads);
+    with ``vs_plain_attention`` once more through the plain attention, its
+    logits' distance reported (two bf16 paths: the kernel rounds p to
+    bf16 before p.v, the plain attention does not); and with ``trace``
+    once more under torch.profiler (busy share, device time by kernel,
+    B5's).  Logits finite.  Returns (prefill dict, launches, B5 launches
+    by build)."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops
+    from repro_torch.models import registry
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = registry.prefill(params, cfg, batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, builds = ops.launch_counts(), ops.flash_attention_builds()
+    peak = torch.cuda.max_memory_allocated()
+    B = batch["tokens"].shape[0]
+    check(logits.shape == (B, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"{what}: prefill logits not finite")
+    kernel, held, out = ops.flash_attention, {}, {}
+
+    def hold(q, k, v, sm_scale=None, window=0, causal=True):
+        o = kernel(q, k, v, sm_scale, window, causal)
+        rows = held.setdefault(kfa.mask_of(window, causal), [])
+        if hold_all or not rows:
+            rows.append(dict(shape=list(q.shape), kv_heads=k.shape[2],
+                             window=window, rel_l2_vs_plain=rel_l2(
+                                 torch, o, flash_plain(
+                                     torch, q, k, v, window, causal,
+                                     sm_scale=sm_scale))))
+        return o
+    ops.flash_attention = hold
+    try:
+        registry.prefill(params, cfg, batch)
+        if vs_plain_attention:
+            ops.flash_attention = ops.attention_math
+            out["logits_rel_l2_vs_plain_attention"] = rel_l2(
+                torch, logits, registry.prefill(params, cfg, batch))
+    finally:
+        ops.flash_attention = kernel
+    del logits
+    for key, rows in held.items():
+        worst = max(r["rel_l2_vs_plain"] for r in rows)
+        check(worst <= BF16_REL_L2, f"{what}: B5 ({key}) on the path's own "
+              f"inputs, relative L2 {worst} vs plain")
+    if trace:
+        out["trace"] = traced(
+            torch, lambda: registry.prefill(params, cfg, batch),
+            kernels=("flash_attention",))
+    torch.cuda.empty_cache()
+    return dict(shape=list(batch["tokens"].shape), seconds=seconds,
+                launches=launches, flash_attention_builds=builds,
+                b5_held_to_plain=held, peak_bytes=peak, **out), \
+        launches, builds
+
+
+def phase_main_hybrid(torch):
+    """zamba2-7b at its published width and depth (81 layers: 13 groups
+    of 6 Mamba2 layers, each followed by the one shared attention + MLP
+    block at 32:32 heads of 112, then a tail of 3; d_model 3584, state
+    64, vocab 32,000), bf16 weights from seed 0: the Server answers 8
+    requests (Mamba2's state recurrence and the shared block's decode,
+    plain torch as the reference: B5 never), a prefill of 2 x 1024 tokens
+    (B5's causal build once per shared-block invocation, 13), then one of
+    1 x 8192 under the long-context override (its window build, 13), the
+    first B5 call of each prefill held to the plain version on its own
+    inputs [~15-40]."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import registry
+    t_phase = time.perf_counter()
+    cfg = configs.get_config(HYBRID_ARCH)
+    params, init = lm_init(torch, cfg)
+    groups = cfg.num_layers // cfg.attn_every
+    serve, serve_launches, serve_builds = lm_serve(torch, cfg, params,
+                                                   "main_hybrid")
+    check(sum(serve_launches.values()) == 0,
+          f"main_hybrid: serve launches {serve_launches}")
+    batch = {k: v.cuda() for k, v in registry.make_train_batch(
+        cfg, PREFILL["batch"], PREFILL["seq"], 0).items()}
+    prefill, pre_launches, pre_builds = lm_prefill(torch, cfg, params, batch,
+                                                   "main_hybrid")
+    check(pre_builds == {"bf16-128x128-causal": groups}
+          and pre_launches["flash_attention"] == groups,
+          f"main_hybrid: prefill launches {pre_launches}, {pre_builds}")
+    long_cfg = dataclasses.replace(
+        cfg, **configs.long_context_overrides(HYBRID_ARCH))
+    batch = {k: v.cuda() for k, v in registry.make_train_batch(
+        cfg, LONG_PREFILL["batch"], LONG_PREFILL["seq"], 0).items()}
+    long, long_launches, long_builds = lm_prefill(
+        torch, long_cfg, params, batch, "main_hybrid long")
+    check(long_builds == {"bf16-128x128-window": groups}
+          and long_launches["flash_attention"] == groups,
+          f"main_hybrid: long prefill launches {long_launches}, "
+          f"{long_builds}")
+    del params, batch
+    torch.cuda.empty_cache()
+    emit("main_hybrid", arch=cfg.name, num_layers=cfg.num_layers,
+         reduced="none (published depth)", groups=groups,
+         head_dim=cfg.hd, **init, serve=serve, prefill=prefill,
+         long_prefill=dict(long, sliding_window=long_cfg.sliding_window),
+         seconds=time.perf_counter() - t_phase)
+    return {"main_hybrid_serve": dict(serve_launches, builds=serve_builds),
+            "main_hybrid_prefill": dict(pre_launches, builds=pre_builds),
+            "main_hybrid_long": dict(long_launches, builds=long_builds)}
+
+
+def phase_lm_xlstm(torch):
+    """xlstm-125m at its published width and depth (12 blocks: 3 groups
+    of 3 mLSTM + 1 sLSTM, d_model 768, 4 heads, vocab 50,304), bf16
+    weights from seed 0: the Server answers 8 requests and a prefill of 2
+    x 1024 tokens runs; every launch count is 0, since no kernel is on
+    this path (the reference has none: mLSTM is einsums and a chunk
+    scan, sLSTM a loop over time, one step's ops enqueued per token).
+    Then float32 weights from a CPU generator: the card's prefill logits
+    on a 2 x 256 prompt against the same prefill on the CPU, rtol 1e-4
+    [~5-15]."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import common, registry
+    t_phase = time.perf_counter()
+    cfg = configs.get_config(XLSTM_ARCH)
+    params, init = lm_init(torch, cfg)
+    serve, serve_launches, _ = lm_serve(torch, cfg, params, "lm_xlstm")
+    batch = {k: v.cuda() for k, v in registry.make_train_batch(
+        cfg, PREFILL["batch"], PREFILL["seq"], 0).items()}
+    prefill, pre_launches, _ = lm_prefill(torch, cfg, params, batch,
+                                          "lm_xlstm", trace=False)
+    check(sum(serve_launches.values()) == sum(pre_launches.values()) == 0,
+          f"lm_xlstm: launches {serve_launches}, {pre_launches}")
+    # The sLSTM's loop enqueues ~56,000 ops on 2 x 1024 tokens, too many
+    # to trace in the smoke's time: the trace takes a quarter of it.
+    short = {k: v[:, :XLSTM_F32_PREFILL["seq"]] for k, v in batch.items()}
+    prefill["trace_2x256"] = traced(
+        torch, lambda: registry.prefill(params, cfg, short))
+    del params, batch, short
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    gen = torch.Generator("cpu")
+    gen.manual_seed(0)
+    p_cpu = common.init_params(registry.param_specs(cfg32), gen, "cpu")
+    p_gpu = common.tree_map(lambda t: t.cuda(), p_cpu)
+    b_cpu = registry.make_train_batch(cfg32, XLSTM_F32_PREFILL["batch"],
+                                      XLSTM_F32_PREFILL["seq"], 1)
+    got = registry.prefill(p_gpu, cfg32, {k: v.cuda()
+                                          for k, v in b_cpu.items()}).cpu()
+    t0 = time.perf_counter()
+    want = registry.prefill(p_cpu, cfg32, b_cpu)
+    cpu_s = time.perf_counter() - t0
+    err = (got - want).abs()
+    check(bool((err <= XLSTM_F32_RTOL * (1 + want.abs())).all()),
+          f"lm_xlstm: f32 prefill logits, card vs CPU, max err "
+          f"{float(err.max())}")
+    del p_cpu, p_gpu
+    torch.cuda.empty_cache()
+    emit("lm_xlstm", arch=cfg.name, num_layers=cfg.num_layers,
+         reduced="none (published depth)", **init, serve=serve,
+         prefill=prefill, kernels="none on this path (launches 0)",
+         f32_prefill=dict(shape=[XLSTM_F32_PREFILL["batch"],
+                                 XLSTM_F32_PREFILL["seq"]],
+                          max_abs_err=float(err.max()),
+                          tolerance="|err| <= 1e-4 (1 + |cpu|)",
+                          cpu_seconds=cpu_s),
+         seconds=time.perf_counter() - t_phase)
+    return {"lm_xlstm": dict(
+        {k: serve_launches[k] + pre_launches[k] for k in pre_launches},
+        builds={})}
+
+
+def phase_lm_whisper(torch):
+    """whisper-base at its published width and depth (6 encoder + 6
+    decoder layers, d_model 512, 8:8 heads of 64, vocab 51,865, 1500
+    stub audio frames), bf16 weights from seed 0: a prefill of 2 x (1500
+    frames, 448 tokens) (B5's bidirectional build once per encoder layer
+    at (2, 1500, 8:8, 64), its causal build once per decoder layer at (2,
+    448, 8:8, 64); the first call of each held to the plain version on its
+    own inputs), then the Server answers 8 requests against the zero
+    cross-attention cache, as the reference serves (B5 never) [~3-10]."""
+    from repro_torch import configs
+    from repro_torch.models import registry
+    t_phase = time.perf_counter()
+    cfg = configs.get_config(WHISPER_ARCH)
+    params, init = lm_init(torch, cfg)
+    batch = {k: v.cuda() for k, v in registry.make_train_batch(
+        cfg, WHISPER_PREFILL["batch"], WHISPER_PREFILL["seq"], 0).items()}
+    check(tuple(batch["frames"].shape) == (WHISPER_PREFILL["batch"],
+                                           cfg.encoder_seq, cfg.d_model),
+          "lm_whisper: frames")
+    prefill, pre_launches, pre_builds = lm_prefill(torch, cfg, params, batch,
+                                                   "lm_whisper")
+    check(pre_builds == {"bf16-64x64-bidirectional": cfg.encoder_layers,
+                         "bf16-64x64-causal": cfg.num_layers},
+          f"lm_whisper: prefill builds {pre_builds}")
+    check(set(prefill["b5_held_to_plain"]) == {"bidirectional", "causal"},
+          "lm_whisper: an encoder and a decoder call held")
+    serve, serve_launches, serve_builds = lm_serve(torch, cfg, params,
+                                                   "lm_whisper")
+    check(sum(serve_launches.values()) == 0,
+          f"lm_whisper: serve launches {serve_launches}")
+    del params, batch
+    torch.cuda.empty_cache()
+    emit("lm_whisper", arch=cfg.name, num_layers=cfg.num_layers,
+         encoder_layers=cfg.encoder_layers, encoder_seq=cfg.encoder_seq,
+         reduced="none (published depth)", **init, prefill=prefill,
+         serve=dict(serve, cross_cache="zero, as the reference's "
+                    "init_cache leaves it"),
+         seconds=time.perf_counter() - t_phase)
+    return {"lm_whisper": dict(
+        {k: pre_launches[k] + serve_launches[k] for k in pre_launches},
+        builds=pre_builds)}
 
 
 def main() -> int:
@@ -4847,9 +5236,30 @@ def main() -> int:
     # The rest of the transformer family, after every earlier path.
     mla_flash, mla_moe, mla_paths = phase_main_mla(torch)
     cfg_paths = phase_lm_configs(torch)
+    torch.cuda.empty_cache()
+    # The last three families: B5's new builds at their shapes, then the
+    # models at published width and depth.
+    mask_rows = check_flash_masks(torch, gen)
+    family_paths = phase_main_hybrid(torch)
+    torch.cuda.empty_cache()
+    family_paths.update(phase_lm_xlstm(torch))
+    family_paths.update(phase_lm_whisper(torch))
+    torch.cuda.empty_cache()
+    # Each new case's launches: its build's count on the path it serves.
+    for name, path in (("causal_d112", "main_hybrid_prefill"),
+                       ("window_4096", "main_hybrid_long"),
+                       ("window_1000", "main_hybrid_long"),
+                       ("window_1", "main_hybrid_long"),
+                       ("bidirectional", "lm_whisper")):
+        mask_rows[name]["launches_path"] = path
+        mask_rows[name]["launches"] = family_paths[path]["builds"].get(
+            mask_rows[name]["build"], 0)
     for k in kernels:
         if k["name"] == "flash_attention":
             k["mla_shape"] = mla_flash
+            k["masks"] = mask_rows
+            k["builds_by_path"] = {p: c["builds"]
+                                   for p, c in family_paths.items()}
             for arch, row in k["lm_configs"].items():
                 row["launches"] = cfg_paths[f"lm_configs_{arch}"][
                     "flash_attention"]
@@ -4869,7 +5279,7 @@ def main() -> int:
                "contracts": launches_contracts, **simple_paths,
                "main_gap": launches_gap, **wide_paths,
                **serve_paths, "main_lm": launches_lm, **lm_paths,
-               **train_paths, **mla_paths, **cfg_paths}
+               **train_paths, **mla_paths, **cfg_paths, **family_paths}
     for k in kernels:
         k["launches"] = by_path[path_of[k["name"]]][k["name"]]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}

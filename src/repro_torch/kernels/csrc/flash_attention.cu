@@ -1,11 +1,25 @@
-// Causal flash attention (the LM backbone's prefill attention), written by
-// hand for Hopper (sm_90a).
+// Flash attention (the LM backbone's prefill attention), written by hand
+// for Hopper (sm_90a).
 //
 // Replaces repro/kernels/flash_attention.py::flash_attention, the Pallas
 // TPU kernel.  For every (batch, head) and query row i < S:
 //
-//     s[j] = <q[i], k[j]> * sm_scale            for j <= i
+//     s[j] = <q[i], k[j]> * sm_scale            for j in the row's mask
 //     o[i] = sum_j softmax(s)[j] v[j]
+//
+// Three masks, each a build of its own (the MASK template parameter):
+// causal, j <= i (the TPU kernel's); window, i - W < j <= i with W a
+// trailing kernel parameter (zamba2's shared attention under its
+// long-context override; chunked_causal_attention's sliding_window); and
+// bidirectional, every j < S (whisper's encoder).  The window build starts
+// a CTA's k/v loop at the first block any of its rows can see, so its work
+// is ~S W, not S^2 / 2.  A row whose first visited block lies wholly
+// outside its window scores only INVALID_SCORE there: its running max
+// stays at INVALID_SCORE and that block adds exp(0) = 1 per key to the
+// sum and the accumulator, which the first real score's
+// alpha = exp(INVALID_SCORE - m) = 0 wipes out (the diagonal block always
+// brings one).  The bidirectional build masks the zero-filled tile past S
+// explicitly, where the causal mask's j <= i did it before.
 //
 // q and k have head dim D, v and o head dim Dv (MLA: D = 192, Dv = 128;
 // GQA: D = Dv), with the TPU kernel's numerics: scores, running max,
@@ -55,6 +69,11 @@
 // time).  The Pallas kernel pads D to 128 lanes and takes one D for q, k
 // and v; here nothing is padded past the build's width.
 //
+// The window and bidirectional builds run 64-row tiles whatever S (bf16:
+// 4 warps and 64-key blocks; the 32-row tiles are the backbone's short
+// causal sequences'), and the MLA build is causal only: the reference
+// windows no MLA layer.
+//
 // float32 design: fp32 inputs stay on plain FMAs, because the tensor
 // cores would take them as TF32 and change the reference's numbers.  One
 // CTA of 256 threads per (bh, q block of 64 rows, or 32 for S <= 32);
@@ -73,6 +92,25 @@ constexpr int kSmemLimit = 232448;   // shared memory a block may use
 constexpr int kPad = kMaxD + 1;   // shared row stride (floats)
 constexpr int kThreads = 256;
 constexpr float kInvalid = -1e30f;   // INVALID_SCORE, as the TPU kernel
+// The masks (a build each): j <= i; i - W < j <= i; j < S.
+constexpr int kCausal = 0, kWindow = 1, kBidir = 2;
+
+// Whether query row `row` sees key `col` under MASK (W: the window).
+template <int MASK>
+__device__ __forceinline__ bool visible(int row, int col, int S, int W) {
+  if (MASK == kBidir) return col < S;
+  if (MASK == kWindow) return row >= col && col > row - W;
+  return row >= col;
+}
+
+// The k/v blocks [first, end) a CTA of query rows [q0, q0 + BQ) visits.
+template <int MASK>
+__device__ __forceinline__ int2 kv_blocks(int q0, int BQ, int BK, int S,
+                                          int W) {
+  if (MASK == kBidir) return make_int2(0, (S - 1) / BK + 1);
+  const int end = (min(q0 + BQ, S) - 1) / BK + 1;
+  return make_int2(MASK == kWindow ? max(0, q0 - W + 1) / BK : 0, end);
+}
 
 struct Strides {   // in elements; unit stride over the head dim
   long long b, s, h;
@@ -102,12 +140,13 @@ __device__ __forceinline__ void load_tile(float* dst, const T* base,
 }
 
 // BQ q rows per CTA and BK = BQ k/v rows per inner block (32 or 64).
-template <typename T, int BQ>
+template <typename T, int BQ, int MASK>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int H,
                        int group, int S, int D, Strides qs, Strides ks,
-                       Strides vs, Strides os, float sm_scale, int Dv) {
+                       Strides vs, Strides os, float sm_scale, int Dv,
+                       int W) {
   constexpr int kBQ = BQ, kBK = BQ;
   constexpr int RI = kBQ / 16, RJ = kBK / 16;   // score rows, cols / thread
   constexpr int TPR = kThreads / kBQ;           // threads per softmax row
@@ -137,10 +176,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 
-  // k blocks up to the diagonal of this q block (and within S).
-  const int q_last = min(q0 + kBQ, S) - 1;
-  const int n_kb = q_last / kBK + 1;
-  for (int kb = 0; kb < n_kb; ++kb) {
+  // k blocks up to the diagonal of this q block (and within S), from the
+  // first one the window lets a row see; every block within S when
+  // bidirectional.
+  const int2 kbs = kv_blocks<MASK>(q0, kBQ, kBK, S, W);
+  for (int kb = kbs.x; kb < kbs.y; ++kb) {
     const int k0 = kb * kBK;
     __syncthreads();   // the previous block's Ks/Vs/Ps reads are done
     load_tile(Ks, k, ks, b, hk, k0, S, D, kBK);
@@ -170,7 +210,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < RJ; ++j) {
         const int row = q0 + ty + 16 * i, col = k0 + tx + 16 * j;
         Ps[(ty + 16 * i) * (kBK + 1) + tx + 16 * j] =
-            row >= col ? s[i][j] * sm_scale : kInvalid;
+            visible<MASK>(row, col, S, W) ? s[i][j] * sm_scale : kInvalid;
       }
     __syncthreads();
 
@@ -245,15 +285,15 @@ constexpr size_t smem_bytes(int bq) {
   return sizeof(float) * (3 * bq * kPad + bq * (bq + 1) + 3 * bq);
 }
 
-template <typename T, int BQ>
+template <typename T, int BQ, int MASK>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int K, int S, int D, int Dv, const long long* st,
-           float sm_scale, cudaStream_t stream) {
+           float sm_scale, int W, cudaStream_t stream) {
   constexpr size_t kSmem = smem_bytes(BQ);
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, BQ>,
+        flash_attention_kernel<T, BQ, MASK>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmem));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
@@ -261,10 +301,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
-  flash_attention_kernel<T, BQ><<<grid, kThreads, kSmem, stream>>>(
+  flash_attention_kernel<T, BQ, MASK><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), H, H / K, S, D, qs, ks, vs,
-      os, sm_scale, Dv);
+      os, sm_scale, Dv, W);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -350,16 +390,17 @@ __device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* base,
 }
 
 // DQ: q/k head dim padded (32, 64, 128 or 192), DV: v's (DV <= DQ); NW
-// warps of 16 q rows; BK-row k/v blocks.  Dynamic shared memory: q
-// [BQ][LDQ], then one or two stages of k [BK][LDQ] and v [BK][LDV].
-template <int DQ, int DV, int NW, int BK>
+// warps of 16 q rows; BK-row k/v blocks; MASK one of the three masks, W
+// the window's width.  Dynamic shared memory: q [BQ][LDQ], then one or
+// two stages of k [BK][LDQ] and v [BK][LDV].
+template <int DQ, int DV, int NW, int BK, int MASK>
 __global__ void __launch_bounds__(NW * 32)
 flash_attention_bf16_kernel(const bf16* __restrict__ q,
                             const bf16* __restrict__ k,
                             const bf16* __restrict__ v, bf16* __restrict__ o,
                             int H, int group, int S, int D, Strides qs,
                             Strides ks, Strides vs, Strides os,
-                            float sm_scale, int vec, int Dv) {
+                            float sm_scale, int vec, int Dv, int W) {
   static_assert(DV <= DQ, "the output goes through q's shared rows");
   constexpr int NT = NW * 32, BQ = 16 * NW, LDQ = DQ + 8, LDV = DV + 8;
   constexpr int NS = BK / 8;    // score n-tiles (8 keys each)
@@ -375,11 +416,13 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
   const int q0 = blockIdx.y * BQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;   // fragment row, column pair
-  const int n_kb = (min(q0 + BQ, S) - 1) / BK + 1;
+  const int2 kbs = kv_blocks<MASK>(q0, BQ, BK, S, W);
+  const int kb0 = kbs.x, n_kb = kbs.y;
 
   load_tile_bf16<BQ, DQ, NT>(Qs, q, qs, b, h, q0, S, D, vec);
-  load_tile_bf16<BK, DQ, NT>(KV, k, ks, b, hk, 0, S, D, vec);
-  load_tile_bf16<BK, DV, NT>(KV + BK * LDQ, v, vs, b, hk, 0, S, Dv, vec);
+  load_tile_bf16<BK, DQ, NT>(KV, k, ks, b, hk, kb0 * BK, S, D, vec);
+  load_tile_bf16<BK, DV, NT>(KV + BK * LDQ, v, vs, b, hk, kb0 * BK, S, Dv,
+                             vec);
   cp_async_commit();
 
   uint32_t qf[NKD][4];
@@ -391,9 +434,10 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
   float m_r[2] = {kInvalid, kInvalid}, l_r[2] = {0.0f, 0.0f};
   const int row0 = q0 + 16 * warp + g;     // this thread's rows: +0, +8
 
-  for (int kb = 0; kb < n_kb; ++kb) {
+  for (int kb = kb0; kb < n_kb; ++kb) {
+    const int stage = (kb - kb0) & 1;
     if (kb + 1 < n_kb) {                   // next block into the other stage
-      bf16* nxt = KV + ((kb + 1) & 1) * STAGE;
+      bf16* nxt = KV + (stage ^ 1) * STAGE;
       load_tile_bf16<BK, DQ, NT>(nxt, k, ks, b, hk, (kb + 1) * BK, S, D, vec);
       load_tile_bf16<BK, DV, NT>(nxt + BK * LDQ, v, vs, b, hk, (kb + 1) * BK,
                                  S, Dv, vec);
@@ -403,13 +447,13 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (kb == 0) {
+    if (kb == kb0) {
 #pragma unroll
       for (int kd = 0; kd < NKD; ++kd)
         ldmatrix_x4(qf[kd], Qs + (16 * warp + (lane & 15)) * LDQ + kd * 16 +
                                 (lane >> 4) * 8);
     }
-    const bf16* Ks = KV + (kb & 1) * STAGE;
+    const bf16* Ks = KV + stage * STAGE;
     const bf16* Vs = Ks + BK * LDQ;
 
     // S = Q K^T for this warp's 16 rows and the block's BK keys.
@@ -438,7 +482,8 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         const int row = row0 + (e >> 1) * 8;
         const int col = k0 + 8 * j + 2 * t + (e & 1);
-        const float sc = row >= col ? sacc[j][e] * sm_scale : kInvalid;
+        const float sc =
+            visible<MASK>(row, col, S, W) ? sacc[j][e] * sm_scale : kInvalid;
         sacc[j][e] = sc;
         mx[e >> 1] = fmaxf(mx[e >> 1], sc);
       }
@@ -519,10 +564,10 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
   }
 }
 
-template <int DQ, int DV, int NW, int BK>
+template <int DQ, int DV, int NW, int BK, int MASK>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                 int H, int K, int S, int D, int Dv, const Strides* st,
-                float sm_scale, int vec, cudaStream_t stream) {
+                float sm_scale, int vec, int W, cudaStream_t stream) {
   constexpr int BQ = 16 * NW, LDQ = DQ + 8, LDV = DV + 8;
   constexpr size_t kMaxSmem = sizeof(bf16) * (BQ * LDQ + 2 * BK * (LDQ + LDV));
   static_assert(kMaxSmem <= kSmemLimit, "tiles past a block's shared memory");
@@ -531,33 +576,52 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_bf16_kernel<DQ, DV, NW, BK>,
+        flash_attention_bf16_kernel<DQ, DV, NW, BK, MASK>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kMaxSmem));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
-  flash_attention_bf16_kernel<DQ, DV, NW, BK>
+  flash_attention_bf16_kernel<DQ, DV, NW, BK, MASK>
       <<<grid, NW * 32, smem, stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), static_cast<bf16*>(o), H, H / K, S, D,
-          st[0], st[1], st[2], st[3], sm_scale, vec, Dv);
+          st[0], st[1], st[2], st[3], sm_scale, vec, Dv, W);
   return static_cast<int>(cudaGetLastError());
 }
 
-// 2 warps and 32-key blocks for S <= 32 (the backbone's sequences: one k/v
-// block, ~7 CTAs per SM); 4 warps and 64-key blocks above.
-template <int DQ, int DV>
+// Causal: 2 warps and 32-key blocks for S <= 32 (the backbone's sequences:
+// one k/v block, ~7 CTAs per SM); 4 warps and 64-key blocks above.  The
+// window and bidirectional builds: 4 warps and 64-key blocks at every S.
+template <int DQ, int DV, int MASK>
 int dispatch_bf16(const void* q, const void* k, const void* v, void* o,
                   int B, int H, int K, int S, int D, int Dv,
-                  const Strides* st, float sm_scale, int vec,
+                  const Strides* st, float sm_scale, int vec, int W,
                   cudaStream_t stream) {
-  if (S <= 32)
-    return launch_bf16<DQ, DV, 2, 32>(q, k, v, o, B, H, K, S, D, Dv, st,
-                                      sm_scale, vec, stream);
-  return launch_bf16<DQ, DV, 4, 64>(q, k, v, o, B, H, K, S, D, Dv, st,
-                                    sm_scale, vec, stream);
+  if constexpr (MASK == kCausal) {
+    if (S <= 32)
+      return launch_bf16<DQ, DV, 2, 32, kCausal>(q, k, v, o, B, H, K, S, D,
+                                                 Dv, st, sm_scale, vec, W,
+                                                 stream);
+  }
+  return launch_bf16<DQ, DV, 4, 64, MASK>(q, k, v, o, B, H, K, S, D, Dv, st,
+                                          sm_scale, vec, W, stream);
+}
+
+// The D = Dv builds (padded to 32, 64 or 128) under one mask.
+template <int MASK>
+int dispatch_square(const void* q, const void* k, const void* v, void* o,
+                    int B, int H, int K, int S, int D, const Strides* st,
+                    float sm_scale, int vec, int W, cudaStream_t stream) {
+  if (D <= 32)
+    return dispatch_bf16<32, 32, MASK>(q, k, v, o, B, H, K, S, D, D, st,
+                                       sm_scale, vec, W, stream);
+  if (D <= 64)
+    return dispatch_bf16<64, 64, MASK>(q, k, v, o, B, H, K, S, D, D, st,
+                                       sm_scale, vec, W, stream);
+  return dispatch_bf16<128, 128, MASK>(q, k, v, o, B, H, K, S, D, D, st,
+                                       sm_scale, vec, W, stream);
 }
 
 bool aligned16(const void* p) {
@@ -568,26 +632,35 @@ bool aligned16(const void* p) {
 
 // dtype: 0 = float32, 1 = bfloat16.  D: q's and k's head dim, Dv: v's
 // and o's.  strides: 12 element strides, (batch, seq, head) of q, k, v and
-// o in turn.  Launches on `stream` and returns cudaGetLastError() (0 on
-// success); an argument no build takes returns cudaErrorInvalidValue
-// without launching: float32 takes D, Dv <= 128; bfloat16 D = Dv <= 128,
-// or Dv < D <= 192 with Dv <= 128 (the MLA build).
+// o in turn.  mask: 0 causal, 1 causal within a window of W keys (W >= 1),
+// 2 bidirectional.  Launches on `stream` and returns cudaGetLastError() (0
+// on success); an argument no build takes returns cudaErrorInvalidValue
+// without launching: float32 takes D, Dv <= 128 under each mask; bfloat16
+// D = Dv <= 128 under each mask, or Dv < D <= 192 with Dv <= 128 causal
+// (the MLA build).
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
                                       const void* v, void* o, int B, int H,
                                       int K, int S, int D, int Dv,
                                       const long long* strides, float sm_scale,
-                                      void* stream) {
-  if (D < 1 || Dv < 1 || K < 1 || H % K != 0 || S < 1 || B < 1)
+                                      void* stream, int mask, int W) {
+  if (D < 1 || Dv < 1 || K < 1 || H % K != 0 || S < 1 || B < 1 ||
+      mask < kCausal || mask > kBidir || (mask == kWindow && W < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     if (D > kMaxD || Dv > kMaxD)
       return static_cast<int>(cudaErrorInvalidValue);
+    if (mask == kWindow)
+      return launch<float, 64, kWindow>(q, k, v, o, B, H, K, S, D, Dv,
+                                        strides, sm_scale, W, st);
+    if (mask == kBidir)
+      return launch<float, 64, kBidir>(q, k, v, o, B, H, K, S, D, Dv,
+                                       strides, sm_scale, W, st);
     if (S <= 32)
-      return launch<float, 32>(q, k, v, o, B, H, K, S, D, Dv, strides,
-                               sm_scale, st);
-    return launch<float, 64>(q, k, v, o, B, H, K, S, D, Dv, strides,
-                             sm_scale, st);
+      return launch<float, 32, kCausal>(q, k, v, o, B, H, K, S, D, Dv,
+                                        strides, sm_scale, W, st);
+    return launch<float, 64, kCausal>(q, k, v, o, B, H, K, S, D, Dv, strides,
+                                      sm_scale, W, st);
   }
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   const Strides sv[4] = {{strides[0], strides[1], strides[2]},
@@ -599,16 +672,18 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
   bool vec = D % 8 == 0 && Dv % 8 == 0 && aligned16(q) && aligned16(k) &&
              aligned16(v) && aligned16(o);
   for (int i = 0; i < 12; ++i) vec = vec && strides[i] % 8 == 0;
-  if (Dv < D && D <= 192 && Dv <= 128)
-    return dispatch_bf16<192, 128>(q, k, v, o, B, H, K, S, D, Dv, sv,
-                                   sm_scale, vec, st);
+  if (Dv < D && D <= 192 && Dv <= 128) {
+    if (mask != kCausal) return static_cast<int>(cudaErrorInvalidValue);
+    return dispatch_bf16<192, 128, kCausal>(q, k, v, o, B, H, K, S, D, Dv, sv,
+                                            sm_scale, vec, W, st);
+  }
   if (Dv != D || D > 128) return static_cast<int>(cudaErrorInvalidValue);
-  if (D <= 32)
-    return dispatch_bf16<32, 32>(q, k, v, o, B, H, K, S, D, Dv, sv, sm_scale,
-                                 vec, st);
-  if (D <= 64)
-    return dispatch_bf16<64, 64>(q, k, v, o, B, H, K, S, D, Dv, sv, sm_scale,
-                                 vec, st);
-  return dispatch_bf16<128, 128>(q, k, v, o, B, H, K, S, D, Dv, sv, sm_scale,
-                                 vec, st);
+  if (mask == kWindow)
+    return dispatch_square<kWindow>(q, k, v, o, B, H, K, S, D, sv, sm_scale,
+                                    vec, W, st);
+  if (mask == kBidir)
+    return dispatch_square<kBidir>(q, k, v, o, B, H, K, S, D, sv, sm_scale,
+                                   vec, W, st);
+  return dispatch_square<kCausal>(q, k, v, o, B, H, K, S, D, sv, sm_scale, vec,
+                                  W, st);
 }

@@ -1,5 +1,5 @@
-"""CUDA kernel wrapper: causal flash attention (the backbone's prefill
-attention).
+"""CUDA kernel wrapper: flash attention (the backbone's prefill attention),
+causal, causal within a sliding window, or bidirectional.
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention``.  The
 kernel (``csrc/flash_attention.cu``) runs the TPU kernel's streaming
@@ -11,8 +11,12 @@ bfloat16 runs on the tensor cores (``mma.sync`` from bf16 tiles that
 no TF32 rounding enters.  It reads q, k, v and writes the output in the
 model's ``(B, S, H, hd)`` layout through strides, with grouped kv heads
 read in place.  v may have a head dim of its own (MLA: q/k 192, v 128):
-each (q/k, v) head-dim pair is a build of its own (:func:`plan`).
-Memory-bound at the backbone's shape.  See the source for the design.
+each (q/k, v) head-dim pair is a build of its own, and so is each mask
+(:func:`plan`): causal; a window of ``W`` keys (zamba2's shared attention
+under its long-context override; ``W`` a trailing kernel parameter), whose
+CTAs start their k/v loop at the first block their rows can see; and
+bidirectional (whisper's encoder).  Memory-bound at the backbone's shape.
+See the source for the design.
 
 This module always launches the kernel: :mod:`repro_torch.kernels.ops`
 routes CPU tensors to the plain version before they reach it.
@@ -25,9 +29,12 @@ from typing import Optional
 import torch
 
 from . import _build
+from .ref import mask_of
 
-# Kernel launches since the last reset (repro_torch.kernels.ops).
+# Kernel launches since the last reset (repro_torch.kernels.ops), and the
+# same launches by build (:func:`plan`'s ``build``).
 launches = 0
+launches_by_build: dict = {}
 
 MAX_HEAD_DIM = 128
 # The MLA build's q/k and v head dims (deepseek-v3: nope 128 + rope 64,
@@ -35,27 +42,43 @@ MAX_HEAD_DIM = 128
 MLA_HEAD_DIMS = (192, 128)
 # Shared memory a CTA may use on Hopper (227 KB of the SM's 256 KB).
 SMEM_LIMIT = 232448
+# The masks, by their code in the C entry point.
+MASKS = {"causal": 0, "window": 1, "bidirectional": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURE = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
-    [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
+    [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p,
+     ctypes.c_int, ctypes.c_int]
 
 
-def plan(D: int, Dv: int, S: int, dtype: torch.dtype) -> dict:
+def plan(D: int, Dv: int, S: int, dtype: torch.dtype,
+         mask: str = "causal") -> dict:
     """The build a call runs (``csrc/flash_attention.cu``): ``path``
     ("mma" for bfloat16, "fma" for float32), the build's padded q/k and v
     head dims ``dq``, ``dv``, its ``warps`` (query rows / 16; the fp32
-    path's 256 threads cover ``rows`` query rows), its k/v block ``bk``
-    and the bf16 build's dynamic shared memory ``smem`` at two k/v stages.
-    Raises ValueError for a pair no build takes: float32 D, Dv <= 128;
-    bfloat16 D = Dv <= 128, or Dv < D <= 192 with Dv <= 128 (MLA)."""
+    path's 256 threads cover ``rows`` query rows), its k/v block ``bk``,
+    the bf16 build's dynamic shared memory ``smem`` at two k/v stages, the
+    ``mask`` and the ``build``'s name (the key of
+    :data:`launches_by_build`).  The short-sequence tiles (32 rows for S
+    <= 32) are the causal builds' only; a window or a bidirectional mask
+    runs 64 rows at every S.  Raises ValueError for what no build takes:
+    float32 D, Dv <= 128; bfloat16 D = Dv <= 128, or Dv < D <= 192 with
+    Dv <= 128 (MLA, causal only)."""
+    if mask not in MASKS:
+        raise ValueError(f"flash_attention: mask {mask!r} (one of "
+                         f"{sorted(MASKS)})")
+    short = S <= 32 and mask == "causal"
     if dtype == torch.float32:
         if max(D, Dv) > MAX_HEAD_DIM:
             raise ValueError(f"flash_attention: head dim {max(D, Dv)} > "
                              f"{MAX_HEAD_DIM} in float32")
-        rows = 32 if S <= 32 else 64
+        rows = 32 if short else 64
         return dict(path="fma", dq=MAX_HEAD_DIM, dv=MAX_HEAD_DIM, warps=8,
-                    rows=rows, bk=rows, smem=None)
+                    rows=rows, bk=rows, smem=None, mask=mask,
+                    build=f"f32-{mask}")
     if Dv < D <= MLA_HEAD_DIMS[0] and Dv <= MLA_HEAD_DIMS[1]:
+        if mask != "causal":
+            raise ValueError(f"flash_attention: the MLA build (head dims "
+                             f"q/k {D}, v {Dv}) is causal only, not {mask}")
         dq, dv = MLA_HEAD_DIMS
     elif Dv == D <= MAX_HEAD_DIM:
         dq = dv = 32 if D <= 32 else 64 if D <= 64 else 128
@@ -63,10 +86,10 @@ def plan(D: int, Dv: int, S: int, dtype: torch.dtype) -> dict:
         raise ValueError(f"flash_attention: head dims q/k {D}, v {Dv}: no "
                          f"build (D = Dv <= {MAX_HEAD_DIM}, or Dv < D <= "
                          f"{MLA_HEAD_DIMS[0]} with Dv <= {MLA_HEAD_DIMS[1]})")
-    warps, bk = (2, 32) if S <= 32 else (4, 64)
+    warps, bk = (2, 32) if short else (4, 64)
     smem = 2 * (16 * warps * (dq + 8) + 2 * bk * (dq + 8 + dv + 8))
     return dict(path="mma", dq=dq, dv=dv, warps=warps, rows=16 * warps,
-                bk=bk, smem=smem)
+                bk=bk, smem=smem, mask=mask, build=f"bf16-{dq}x{dv}-{mask}")
 
 
 def _lib():
@@ -79,14 +102,16 @@ def _lib():
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Causal attention over ``(B, S, H, D)`` q, ``(B, S, K, D)`` k and
-    ``(B, S, K, Dv)`` v (K divides H; head h reads kv head ``h // (H //
-    K)``), or ``(BH, S, D)`` q, k and ``(BH, S, Dv)`` v.  Unit stride over
-    the head dims, any other strides; float32 or bfloat16; the head dims
-    of a build (:func:`plan`).  The scale defaults to ``D ** -0.5``, q's
-    head dim.  Returns a contiguous tensor of q's shape with v's head
-    dim."""
+                    sm_scale: Optional[float] = None, window: int = 0,
+                    causal: bool = True) -> torch.Tensor:
+    """Attention over ``(B, S, H, D)`` q, ``(B, S, K, D)`` k and ``(B, S,
+    K, Dv)`` v (K divides H; head h reads kv head ``h // (H // K)``), or
+    ``(BH, S, D)`` q, k and ``(BH, S, Dv)`` v: causal, causal within the
+    last ``window`` keys (``window`` > 0), or bidirectional (``causal``
+    false).  Unit stride over the head dims, any other strides; float32
+    or bfloat16; the head dims of a build (:func:`plan`).  The scale
+    defaults to ``D ** -0.5``, q's head dim.  Returns a contiguous tensor
+    of q's shape with v's head dim."""
     global launches
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention kernel needs CUDA tensors, got "
@@ -106,7 +131,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash_attention: dtype {q.dtype} (float32 or "
                          "bfloat16)")
-    plan(D, Dv, S, q.dtype)
+    mask = mask_of(window, causal)
+    build = plan(D, Dv, S, q.dtype, mask)["build"]
     for name, t in (("q", q4), ("k", k4), ("v", v4)):
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"flash_attention: {name} must be {q.dtype} "
@@ -130,7 +156,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _DTYPES[q.dtype], q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
         o4.data_ptr(), B, H, K, S, D, Dv, strides,
         float(sm_scale),  # repro: allow[R004] host scale
-        stream)
+        stream, MASKS[mask], int(window))
     launches += 1
+    launches_by_build[build] = launches_by_build.get(build, 0) + 1
     _build.check(rc, "flash_attention")
     return out

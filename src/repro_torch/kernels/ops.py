@@ -156,44 +156,53 @@ class MoeFFN(torch.autograd.Function):
 
 
 def attention_math(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Causal attention as the reference's model computes it in training
-    (``repro/models/attention.py:158``, whatever the device): the chunked
-    causal attention of :mod:`repro_torch.models.attention` over the kv
-    heads repeated to q's, in ``ModelConfig.attn_chunk``'s default query
-    chunks (chunking splits rows, not sums).  Takes :func:`flash_attention`'s
-    shapes, v's head dim its own (MLA); the function whose gradient
-    :class:`FlashAttention` takes."""
-    from ..models.attention import chunked_causal_attention, repeat_kv
+                   sm_scale: Optional[float] = None, window: int = 0,
+                   causal: bool = True) -> torch.Tensor:
+    """Attention as the reference's model computes it in training
+    (``repro/models/attention.py:158``, whatever the device): causal, the
+    chunked causal attention of :mod:`repro_torch.models.attention` (with
+    its ``sliding_window`` = ``window``) over the kv heads repeated to
+    q's, in ``ModelConfig.attn_chunk``'s default query chunks (chunking
+    splits rows, not sums); bidirectional (``causal`` false), the
+    encoder's float32 einsum softmax
+    (``repro/models/encdec.py::_bidir_attention``).  Takes
+    :func:`flash_attention`'s shapes, v's head dim its own (MLA); the
+    function whose gradient :class:`FlashAttention` takes."""
+    from ..models.attention import (bidirectional_attention,
+                                    chunked_causal_attention, repeat_kv)
     if q.dim() == 3:
         return attention_math(q[:, :, None], k[:, :, None], v[:, :, None],
-                              sm_scale)[:, :, 0]
+                              sm_scale, window, causal)[:, :, 0]
+    mask = ref.mask_of(window, causal)
     D = q.shape[3]
     if sm_scale is not None and sm_scale != D ** -0.5:
         q = q * (sm_scale * D ** 0.5)
     H = q.shape[2]
-    return chunked_causal_attention(q, repeat_kv(k, H), repeat_kv(v, H),
-                                    ATTN_CHUNK)
+    k, v = repeat_kv(k, H), repeat_kv(v, H)
+    if mask == "bidirectional":
+        return bidirectional_attention(q, k, v)
+    return chunked_causal_attention(q, k, v, ATTN_CHUNK, window)
 
 
 class FlashAttention(torch.autograd.Function):
-    """Causal attention with a gradient: the forward launches the flash
-    kernel (the plain version for CPU tensors), the backward is the VJP of
-    :func:`attention_math` at the saved inputs."""
+    """Attention with a gradient: the forward launches the flash kernel
+    (the plain version for CPU tensors), the backward is the VJP of
+    :func:`attention_math` at the saved inputs, under the same mask."""
 
     @staticmethod
-    def forward(ctx, q, k, v, sm_scale):
+    def forward(ctx, q, k, v, sm_scale, window=0, causal=True):
         ctx.save_for_backward(q, k, v)
-        ctx.sm_scale = sm_scale
+        ctx.sm_scale, ctx.window, ctx.causal = sm_scale, window, causal
         if q.device.type == "cpu":
-            return ref.flash_attention_ref(q, k, v, sm_scale)
-        return _fa.flash_attention(q, k, v, sm_scale)
+            return ref.flash_attention_ref(q, k, v, sm_scale, window, causal)
+        return _fa.flash_attention(q, k, v, sm_scale, window, causal)
 
     @staticmethod
     def backward(ctx, grad_out):
-        return _vjp(lambda q, k, v: attention_math(q, k, v, ctx.sm_scale),
-                    ctx.saved_tensors, ctx.needs_input_grad[:3],
-                    grad_out) + (None,)
+        return _vjp(lambda q, k, v: attention_math(
+            q, k, v, ctx.sm_scale, ctx.window, ctx.causal),
+            ctx.saved_tensors, ctx.needs_input_grad[:3],
+            grad_out) + (None, None, None)
 
 
 def moe_ffn(xs: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
@@ -209,17 +218,20 @@ def moe_ffn(xs: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Causal attention over ``(BH, S, D)`` q, k, v, or ``(B, S, H, D)`` q
-    with ``(B, S, K, D)`` k, v (K divides H: grouped kv heads), in q's
-    dtype and shape; v may have a head dim of its own (MLA), which the
-    output takes.  On CUDA tensors that need a gradient, through
+                    sm_scale: Optional[float] = None, window: int = 0,
+                    causal: bool = True) -> torch.Tensor:
+    """Attention over ``(BH, S, D)`` q, k, v, or ``(B, S, H, D)`` q with
+    ``(B, S, K, D)`` k, v (K divides H: grouped kv heads), in q's dtype
+    and shape; v may have a head dim of its own (MLA), which the output
+    takes.  Causal by default; ``window`` > 0 keeps each row's last
+    ``window`` keys (a sliding window), ``causal`` false sees every key
+    (bidirectional).  On CUDA tensors that need a gradient, through
     :class:`FlashAttention`."""
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, sm_scale)
+        return ref.flash_attention_ref(q, k, v, sm_scale, window, causal)
     if _needs_grad(q, k, v):
-        return FlashAttention.apply(q, k, v, sm_scale)
-    return _fa.flash_attention(q, k, v, sm_scale)
+        return FlashAttention.apply(q, k, v, sm_scale, window, causal)
+    return _fa.flash_attention(q, k, v, sm_scale, window, causal)
 
 
 def approx_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,
@@ -266,9 +278,17 @@ def launch_counts() -> Dict[str, int]:
     return {name: mod.launches for name, mod in _KERNELS.items()}
 
 
+def flash_attention_builds() -> Dict[str, int]:
+    """:func:`flash_attention`'s launches since the last
+    :func:`reset_launch_counts`, by build (``flash_attention.plan``'s
+    ``build``: dtype, padded head dims and mask)."""
+    return dict(_fa.launches_by_build)
+
+
 def reset_launch_counts() -> None:
     for mod in _KERNELS.values():
         mod.launches = 0
+    _fa.launches_by_build.clear()
 
 
 def set_launch_counts(counts: Dict[str, int]) -> None:

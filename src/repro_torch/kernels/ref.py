@@ -94,15 +94,35 @@ def viterbi_decode_ref(unary: torch.Tensor, trans: torch.Tensor,
     return labels
 
 
+def mask_of(window: int = 0, causal: bool = True) -> str:
+    """The mask an attention call asks for, checked once for the kernel,
+    its plain version and the function whose gradient the kernel takes:
+    ``"bidirectional"`` without ``causal`` (which takes no window),
+    ``"window"`` for a causal window of ``window`` >= 1 keys, else
+    ``"causal"``."""
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window} < 0")
+    if not causal:
+        if window:
+            raise ValueError("flash_attention: a window is causal")
+        return "bidirectional"
+    return "window" if window else "causal"
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Causal softmax attention over ``(BH, S, D)`` q, k and ``(BH, S,
-    Dv)`` v (``repro/kernels/ref.py::flash_attention_ref``): scores in the
-    input type, then float32 with masked entries at :data:`INVALID_SCORE`,
-    scaled by ``D ** -0.5`` unless ``sm_scale`` is given; the output in
-    q's type.  A ``(B, S, H, D)`` q with ``(B, S, K, D)`` k and ``(B, S, K,
-    Dv)`` v (grouped kv heads, K divides H) runs as ``(B*H, S, .)`` with
-    each kv head repeated H/K times, and returns ``(B, S, H, Dv)``."""
+                        sm_scale: Optional[float] = None, window: int = 0,
+                        causal: bool = True) -> torch.Tensor:
+    """Softmax attention over ``(BH, S, D)`` q, k and ``(BH, S, Dv)`` v
+    (``repro/kernels/ref.py::flash_attention_ref``): scores in the input
+    type, then float32 with masked entries at :data:`INVALID_SCORE`, scaled
+    by ``D ** -0.5`` unless ``sm_scale`` is given; the output in q's type.
+    The mask is causal, causal within the last ``window`` keys (``window``
+    > 0: key j seen by row i for i - window < j <= i, as
+    ``chunked_causal_attention``'s ``sliding_window``), or none
+    (``causal`` false: bidirectional).  A ``(B, S, H, D)`` q with ``(B, S,
+    K, D)`` k and ``(B, S, K, Dv)`` v (grouped kv heads, K divides H) runs
+    as ``(B*H, S, .)`` with each kv head repeated H/K times, and returns
+    ``(B, S, H, Dv)``."""
     if q.dim() == 4:
         B, S, H, _ = q.shape
         rep = H // k.shape[2]
@@ -111,14 +131,21 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return (t.repeat_interleave(r, dim=2).transpose(1, 2)
                     .reshape(B * H, S, t.shape[-1]))
         o = flash_attention_ref(heads(q, 1), heads(k, rep), heads(v, rep),
-                                sm_scale)
+                                sm_scale, window, causal)
         return o.reshape(B, H, S, -1).transpose(1, 2).contiguous()
+    mask_of(window, causal)
     bh, s, d = q.shape
     if sm_scale is None:
         sm_scale = 1.0 / (d ** 0.5)
     scores = torch.bmm(q, k.transpose(1, 2)).float() * sm_scale
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
-    scores = torch.where(mask, scores, torch.full_like(scores, INVALID_SCORE))
+    if causal:
+        row = torch.arange(s, device=q.device)[:, None]
+        col = torch.arange(s, device=q.device)[None, :]
+        mask = row >= col
+        if window > 0:
+            mask &= col > row - window
+        scores = torch.where(mask, scores,
+                             torch.full_like(scores, INVALID_SCORE))
     p = torch.softmax(scores, dim=-1)
     return torch.bmm(p, v.float()).to(q.dtype)
 

@@ -2,12 +2,15 @@
 deepseek-v3), PyTorch port of ``repro/models/attention.py``.
 
 Prefill (``gqa_forward``, ``mla_forward``) on a CUDA tensor runs the
-hand-written causal flash-attention kernel
+hand-written flash-attention kernel
 (:func:`repro_torch.kernels.ops.flash_attention`, which reads grouped kv
 heads in place and takes a value head dim of its own: MLA's q/k heads are
-``qk_nope_dim + qk_rope_dim`` wide, its v heads ``v_head_dim``); on a CPU
-tensor it runs :func:`chunked_causal_attention`, the function the JAX
-model computes.  Decode takes a one-token query against a preallocated
+``qk_nope_dim + qk_rope_dim`` wide, its v heads ``v_head_dim``), its
+window build under ``cfg.sliding_window``; on a CPU tensor it runs
+:func:`chunked_causal_attention`, the function the JAX model computes.
+:func:`bidirectional_attention` is the encoder's unmasked attention
+(``repro/models/encdec.py::_bidir_attention``'s), which the kernel's
+bidirectional build computes on the card.  Decode takes a one-token query against a preallocated
 cache, which it updates in place: GQA's holds k and v, MLA's the
 compressed ``(c_kv, k_rope)`` stream, which the absorbed decode scores
 against directly.  ``attn_impl="stub"`` is the reference's ablation
@@ -108,6 +111,17 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
     return torch.cat(outs, dim=1)
 
 
+def bidirectional_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor) -> torch.Tensor:
+    """Unmasked softmax attention in float32 (the reference's encoder and
+    cross-attention): q (B, S, H, hd) over k, v (B, T, H, hd), kv already
+    repeated to H heads, T free; the output in q's dtype."""
+    hd = q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd ** -0.5
+    pw = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", pw, v.float()).to(q.dtype)
+
+
 def repeat_kv(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     """(B, S, K, hd) -> (B, S, H, hd) by repeating each kv head H/K times."""
     K = x.shape[2]
@@ -116,12 +130,9 @@ def repeat_kv(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     return x.repeat_interleave(num_heads // K, dim=2)
 
 
-def _kernel_config(cfg: ModelConfig, sliding_window: int) -> None:
-    """Raise for a config the flash-attention kernel does not compute
-    (``sliding_window``: the window the caller applies; MLA applies
-    none, as the reference)."""
+def _kernel_config(cfg: ModelConfig) -> None:
+    """Raise for a config the flash-attention kernel does not compute."""
     unsupported = [f"{name}={val!r}" for name, val, ok in (
-        ("sliding_window", sliding_window, sliding_window == 0),
         ("attn_score_dtype", cfg.attn_score_dtype,
          cfg.attn_score_dtype == "f32"),
         ("attn_impl", cfg.attn_impl, cfg.attn_impl == "chunked")) if not ok]
@@ -155,8 +166,8 @@ def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
         # ablation probe: projections kept, no S^2 slab
         o = repeat_kv(v, cfg.num_heads) + 0.0 * q
     elif x.device.type == "cuda":
-        _kernel_config(cfg, cfg.sliding_window)
-        o = kops.flash_attention(q, k, v)
+        _kernel_config(cfg)
+        o = kops.flash_attention(q, k, v, window=cfg.sliding_window)
     else:
         o = chunked_causal_attention(q, repeat_kv(k, cfg.num_heads),
                                      repeat_kv(v, cfg.num_heads),
@@ -226,7 +237,7 @@ def mla_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
     if cfg.attn_impl == "stub":
         o = v + 0.0 * qq.sum(dim=-1, keepdim=True)
     elif x.device.type == "cuda":
-        _kernel_config(cfg, 0)
+        _kernel_config(cfg)
         o = kops.flash_attention(qq, k, v)
     else:
         o = chunked_causal_attention(qq, k, v, cfg.attn_chunk,

@@ -52,6 +52,19 @@ class ModelConfig:
     qk_rope_dim: int = 0
     v_head_dim: int = 0
     mtp: bool = False               # multi-token-prediction auxiliary head
+    # --- SSM / hybrid ---
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    attn_every: int = 0             # zamba2: shared attn block period
+    # --- xLSTM ---
+    xlstm: bool = False
+    slstm_every: int = 4            # every k-th block is sLSTM
+    # --- enc-dec (whisper) ---
+    encdec: bool = False
+    encoder_layers: int = 0
+    encoder_seq: int = 0            # audio frame count from the stub frontend
     # --- VLM ---
     vision_tokens: int = 0          # patch embeddings prepended (stub)
     # --- attention ---

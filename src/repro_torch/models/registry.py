@@ -1,22 +1,26 @@
 """Family registry: dispatches the model entry points by ``cfg.family``
-(PyTorch port of ``repro/models/registry.py``).  The ``dense``, ``moe``
-and ``vlm`` families (the reference's ``transformer`` module) are ported;
-the others raise, naming ROADMAP §A item 8."""
+(PyTorch port of ``repro/models/registry.py``): ``dense``, ``moe`` and
+``vlm`` to the transformer, ``hybrid`` to zamba2's Mamba2 + shared
+attention, ``ssm`` to the xLSTM stack, ``audio`` to the encoder-decoder."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from . import transformer
+from . import encdec, hybrid, transformer, xlstm_lm
 from .common import ModelConfig
 
-_MODULES = {"dense": transformer, "moe": transformer, "vlm": transformer}
+_MODULES = {
+    "dense": transformer,
+    "moe": transformer,
+    "vlm": transformer,
+    "hybrid": hybrid,
+    "ssm": xlstm_lm,
+    "audio": encdec,
+}
 
 
 def module_for(cfg: ModelConfig):
-    if cfg.family not in _MODULES:
-        raise NotImplementedError(f"model family {cfg.family!r} is not "
-                                  "ported yet (ROADMAP §A item 8)")
     return _MODULES[cfg.family]
 
 
@@ -43,10 +47,9 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, device=None):
 def make_train_batch(cfg: ModelConfig, batch: int, seq: int, rng) -> dict:
     """A random batch, ``{"tokens", "labels"}`` (B, S) int32 CPU tensors,
     labels equal to tokens, and for a VLM ``vision_embeds`` (B,
-    vision_tokens, D) float32, drawn after the tokens: the reference's
-    draws from ``numpy.random.RandomState(rng)``.  (The audio inputs
-    belong to a family the port does not run.)"""
-    module_for(cfg)
+    vision_tokens, D) float32, for the audio family ``frames`` (B,
+    encoder_seq, D) float32, drawn after the tokens: the reference's
+    draws from ``numpy.random.RandomState(rng)``."""
     r = np.random.RandomState(rng)
     tokens = torch.from_numpy(
         r.randint(0, cfg.vocab_size, (batch, seq)).astype(np.int32))
@@ -55,4 +58,7 @@ def make_train_batch(cfg: ModelConfig, batch: int, seq: int, rng) -> dict:
         out["vision_embeds"] = torch.from_numpy(
             r.randn(batch, cfg.vision_tokens, cfg.d_model)
             .astype(np.float32))
+    if cfg.family == "audio":
+        out["frames"] = torch.from_numpy(
+            r.randn(batch, cfg.encoder_seq, cfg.d_model).astype(np.float32))
     return out

@@ -453,7 +453,11 @@ def test_port_never_imports_jax_or_the_reference_package():
             "configs/internvl2_76b.py", "configs/minitron_8b.py",
             "configs/mistral_nemo_12b.py", "configs/qwen2_5_14b.py",
             "configs/shapes.py", "configs/__init__.py",
-            "models/common.py", "models/registry.py", "convert.py"} <= names
+            "models/common.py", "models/registry.py", "convert.py",
+            "models/ssm.py", "models/hybrid.py", "models/xlstm.py",
+            "models/xlstm_lm.py", "models/encdec.py",
+            "configs/zamba2_7b.py", "configs/xlstm_125m.py",
+            "configs/whisper_base.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

@@ -1120,9 +1120,18 @@ def test_gqa_forward_on_card_raises_for_unported_attention(cuda):
     x = torch.randn((2, 5, cfg.d_model), device=cuda)
     pos = torch.arange(5, device=cuda)[None].expand(2, 5)
     assert attention.gqa_forward(p, x, pos, cfg).shape == x.shape
-    for bad in (dict(sliding_window=3), dict(attn_score_dtype="bf16")):
-        with pytest.raises(NotImplementedError, match="ROADMAP §A item 8"):
-            attention.gqa_forward(p, x, pos, dataclasses.replace(cfg, **bad))
+    with pytest.raises(NotImplementedError, match="ROADMAP §A item 8"):
+        attention.gqa_forward(p, x, pos, dataclasses.replace(
+            cfg, attn_score_dtype="bf16"))
+    # A sliding window runs the kernel's window build, equal to the plain
+    # path on the CPU.
+    window = dataclasses.replace(cfg, sliding_window=3)
+    ops.reset_launch_counts()
+    got = attention.gqa_forward(p, x, pos, window)
+    assert ops.flash_attention_builds() == {"f32-window": 1}
+    want = attention.gqa_forward({k: v.cpu() for k, v in p.items()},
+                                 x.cpu(), pos.cpu(), window)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
     # The stub probe (v + 0 q, no attention) on the card, as on the CPU.
     stub = dataclasses.replace(cfg, attn_impl="stub")
     got = attention.gqa_forward(p, x, pos, stub)
@@ -2057,3 +2066,133 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+# -- B5's window and bidirectional builds, and head dim 112 -------------------
+# Each mask a build of its own (64-row tiles at every S), held to the plain
+# version: float32 at rtol = atol = 3e-5, bfloat16 at a relative L2 of
+# 2e-2.  Windows below, at and past a 64-key block (a row's first visited
+# block then lies wholly outside its window), W = 1, and a bidirectional
+# S that is not a multiple of 64 (the zero-filled tail tile masked).
+MASK_CASES = [((1, 300, 4, 112), 4, 1, True), ((1, 300, 4, 112), 4, 3, True),
+              ((1, 300, 4, 112), 4, 100, True), ((2, 200, 8, 64), 2, 64, True),
+              ((2, 200, 8, 64), 2, 199, True), ((2, 20, 2, 64), 2, 3, True),
+              ((3, 130, 32), 0, 7, True), ((2, 150, 8, 64), 8, 0, False),
+              ((2, 77, 8, 64), 2, 0, False), ((1, 1, 2, 16), 1, 0, False),
+              ((2, 20, 4, 32), 4, 0, False), ((3, 130, 112), 0, 0, False),
+              ((2, 200, 4, 112), 4, 0, True), ((2, 20, 4, 112), 2, 0, True)]
+
+
+def _mask_name(window, causal):
+    return "bidirectional" if not causal else "window" if window else \
+        "causal"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,kv_heads,window,causal", MASK_CASES)
+def test_flash_attention_masked_builds_match_plain(cuda, shape, kv_heads,
+                                                   window, causal, dtype):
+    from repro_torch.kernels import flash_attention as kfa
+    q, k, v = _attn_case(shape, kv_heads, sum(shape) + window, dtype, "cpu")
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                              window=window, causal=causal)
+    build = kfa.plan(shape[-1], shape[-1], shape[1], dtype,
+                     _mask_name(window, causal))["build"]
+    assert ops.flash_attention_builds() == {build: 1}
+    assert got.shape == q.shape and got.dtype == dtype
+    want = ref.flash_attention_ref(q, k, v, window=window, causal=causal)
+    if dtype == torch.float32:
+        assert_allclose(got.cpu().numpy(), want.numpy(), rtol=3e-5,
+                        atol=3e-5)
+    else:
+        assert _rel_l2(got, want) <= 2e-2
+
+
+def test_flash_attention_window_build_at_w_1_is_v(cuda):
+    """W = 1: each row sees only its own key, so o = v exactly (p = 1)."""
+    q, k, v = _attn_case((2, 200, 4, 112), 4, 11, torch.float32, cuda)
+    got = ops.flash_attention(q, k, v, window=1)
+    assert torch.equal(got, v)
+
+
+def test_flash_attention_refuses_masks_it_has_no_build_for(cuda):
+    x = torch.zeros((1, 8, 2, 192), device=cuda, dtype=torch.bfloat16)
+    v = torch.zeros((1, 8, 2, 128), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="causal only"):
+        ops.flash_attention(x, x, v, window=4)
+    with pytest.raises(ValueError, match="a window is causal"):
+        ops.flash_attention(v, v, v, window=4, causal=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,causal", [(5, True), (0, False)])
+def test_flash_attention_masked_gradient_on_card(cuda, window, causal,
+                                                 dtype):
+    q, k, v = _grad_inputs(cuda, ((2, 90, 8, 112), (2, 90, 2, 112),
+                                  (2, 90, 2, 112)), dtype, 7)
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, window=window, causal=causal)
+    assert ops.launch_counts()["flash_attention"] == 1
+    gout = torch.randn_like(out)
+    want_out = ops.attention_math(q, k, v, window=window, causal=causal)
+    want = torch.autograd.grad(want_out, (q, k, v), gout)
+    got = torch.autograd.grad(out, (q, k, v), gout)
+    for a, b in zip(got, want):
+        assert_allclose(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                        rtol=1e-5, atol=1e-5)
+    o, w = out.detach().float(), want_out.detach().float()
+    if dtype == torch.float32:
+        assert bool(((o - w).abs() <= 3e-5 * (1 + w.abs())).all())
+    else:
+        assert float((o - w).norm() / w.norm()) <= 2e-2
+
+
+@pytest.mark.parametrize("arch,over", [("zamba2-7b", {}),
+                                       ("zamba2-7b", {"sliding_window": 3}),
+                                       ("xlstm-125m", {}),
+                                       ("whisper-base", {})])
+def test_reduced_new_families_on_card_match_cpu(cuda, arch, over):
+    """Reduced zamba2-7b (with and without its window), xlstm-125m and
+    whisper-base in float32, card against CPU from the same weights: the
+    prefill logits and six decode steps' logits within 1e-4, B5 once per
+    shared-attention invocation or decoder layer (bidirectional once per
+    encoder layer), none on the xLSTM."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import common, registry
+    cfg = dataclasses.replace(configs.reduced_config(arch),
+                              dtype=torch.float32, **over)
+    gen = torch.Generator("cpu")
+    gen.manual_seed(0)
+    cpu = common.init_params(registry.param_specs(cfg), gen, "cpu")
+    gpu = common.tree_map(lambda t: t.to(cuda), cpu)
+    batch = registry.make_train_batch(cfg, 3, 40, 0)
+    logits, steps = {}, {}
+    for params, dev in ((gpu, cuda), (cpu, "cpu")):
+        b = {k: t.to(dev) for k, t in batch.items()}
+        ops.reset_launch_counts()
+        logits[str(dev)] = registry.prefill(params, cfg, b).cpu()
+        if dev == cuda:
+            builds = ops.flash_attention_builds()
+        cache = registry.init_cache(cfg, 3, 16, dev)
+        out = []
+        for pos in range(6):
+            lg, cache = registry.decode_step(params, cfg, cache,
+                                             b["tokens"][:, pos:pos + 1],
+                                             pos)
+            out.append(lg.cpu())
+        steps[str(dev)] = torch.stack(out)
+    assert_allclose(logits["cuda"].numpy(), logits["cpu"].numpy(),
+                    rtol=1e-4, atol=1e-4)
+    assert_allclose(steps["cuda"].numpy(), steps["cpu"].numpy(), rtol=1e-4,
+                    atol=1e-4)
+    if cfg.family == "hybrid":
+        mask = "window" if cfg.sliding_window else "causal"
+        want = {f"f32-{mask}": cfg.num_layers // cfg.attn_every}
+    elif cfg.family == "audio":
+        want = {"f32-causal": cfg.num_layers,
+                "f32-bidirectional": cfg.encoder_layers}
+    else:
+        want = {}
+    assert builds == want

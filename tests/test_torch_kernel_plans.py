@@ -1,16 +1,19 @@
 """The launch plans of the port's B4 ``gram``, B1 ``plane_scores``,
-B2 ``plane_select``, ``approx_pass`` and B3 ``viterbi`` kernels, computed
-on the host from the shape alone.
+B2 ``plane_select``, ``approx_pass``, B3 ``viterbi`` and B5
+``flash_attention`` kernels, computed on the host from the shape alone.
 
 The kernels run only on a card (``tests/test_torch_gpu.py``); what they
 are launched with is plain Python and is checked here: B4's split of each
 output tile's K range over a cluster, B1's rows per CTA, B2's rows per
 CTA, ring and shared memory, the rows ``approx_pass`` stages per buffer
-and how far ahead, and whether B3 stages a row in shared memory.
+and how far ahead, whether B3 stages a row in shared memory, and which
+of B5's builds (head dims, mask, tile) a call runs.
 """
 import pytest
+import torch
 
 from repro_torch.kernels import approx_pass as t_ap
+from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import gram as t_gram
 from repro_torch.kernels import plane_scores as t_ps
 from repro_torch.kernels import plane_select as t_psel
@@ -374,3 +377,52 @@ def test_viterbi_plan_stages_what_fits(L, C):
     assert how.smem_bytes == (staged if how.staged else 4 * table)
     if L <= 32:
         assert how.staged
+
+
+# -- B5 flash_attention: one build per head-dim pair and mask ----------------
+
+@pytest.mark.parametrize("mask", ["causal", "window", "bidirectional"])
+@pytest.mark.parametrize("D", [16, 32, 64, 100, 112, 128])
+@pytest.mark.parametrize("S", [1, 20, 32, 33, 1024, 1500, 8192])
+def test_flash_attention_plan_keys_the_build_by_mask(mask, D, S):
+    p = t_fa.plan(D, D, S, torch.bfloat16, mask)
+    assert p["mask"] == mask and p["path"] == "mma"
+    assert p["dq"] == p["dv"] == (32 if D <= 32 else 64 if D <= 64 else 128)
+    assert p["build"] == f"bf16-{p['dq']}x{p['dv']}-{mask}"
+    short = S <= 32 and mask == "causal"
+    assert (p["warps"], p["bk"], p["rows"]) == ((2, 32, 32) if short
+                                                else (4, 64, 64))
+    assert p["smem"] <= SMEM
+    f = t_fa.plan(D, D, S, torch.float32, mask)
+    assert (f["path"], f["build"], f["rows"]) == (
+        "fma", f"f32-{mask}", 32 if short else 64)
+
+
+def test_flash_attention_head_dim_112_takes_the_padded_128_build():
+    p = t_fa.plan(112, 112, 1024, torch.bfloat16, "window")
+    assert (p["dq"], p["dv"], p["build"]) == (128, 128, "bf16-128x128-window")
+    assert p["smem"] == 2 * (64 * 136 + 2 * 64 * (136 + 136))
+
+
+def test_flash_attention_mla_build_is_causal_only():
+    assert t_fa.plan(192, 128, 1024, torch.bfloat16)["build"] == \
+        "bf16-192x128-causal"
+    for mask in ("window", "bidirectional"):
+        with pytest.raises(ValueError, match="causal only"):
+            t_fa.plan(192, 128, 1024, torch.bfloat16, mask)
+    with pytest.raises(ValueError, match="mask"):
+        t_fa.plan(64, 64, 10, torch.bfloat16, "sliding")
+
+
+@pytest.mark.parametrize("window,causal,mask", [
+    (0, True, "causal"), (1, True, "window"), (4096, True, "window"),
+    (0, False, "bidirectional")])
+def test_flash_attention_mask_of_a_call(window, causal, mask):
+    assert t_fa.mask_of(window, causal) == mask
+
+
+def test_flash_attention_mask_of_refuses_a_window_without_causality():
+    with pytest.raises(ValueError, match="a window is causal"):
+        t_fa.mask_of(3, False)
+    with pytest.raises(ValueError, match="< 0"):
+        t_fa.mask_of(-1)

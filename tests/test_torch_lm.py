@@ -357,12 +357,21 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 def test_unported_configs_raise_naming_the_roadmap():
-    cfg = configs.reduced_config("olmoe-1b-7b")
-    for family in ("hybrid", "ssm", "audio"):
-        with pytest.raises(NotImplementedError, match="ROADMAP §A item 8"):
-            registry.param_specs(dataclasses.replace(cfg, family=family))
-    with pytest.raises(KeyError, match="ported"):
-        configs.get_config("zamba2-7b")
+    """No family or arch is left unported: every reference arch resolves
+    in the port, full and reduced, with the reference's parameter count
+    and family, and an unknown arch raises as in the reference."""
+    assert set(configs.ARCHS) == set(jconfigs.ARCHS)
+    families = set()
+    for arch in jconfigs.ARCHS:
+        for get in ("get_config", "reduced_config"):
+            cfg, jcfg = getattr(configs, get)(arch), getattr(jconfigs,
+                                                             get)(arch)
+            assert cfg.family == jcfg.family
+            assert cfg.param_count() == jcfg.param_count(), (arch, get)
+        families.add(cfg.family)
+    assert families == {"dense", "moe", "vlm", "hybrid", "ssm", "audio"}
+    with pytest.raises(KeyError, match="unknown arch"):
+        configs.get_config("gpt-5")
 
 
 def test_serve_main_runs_on_the_cpu(capsys):

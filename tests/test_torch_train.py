@@ -196,8 +196,13 @@ def test_build_problem_matches_reference(name):
 def test_long_context_overrides_match_reference(arch):
     assert configs.long_context_overrides(arch) == \
         jconfigs.long_context_overrides(arch)
+    # zamba2-7b (ported) carries the reference's window; an unknown arch
+    # raises as in the reference.
+    assert configs.long_context_overrides("zamba2-7b") == \
+        jconfigs.long_context_overrides("zamba2-7b") == \
+        {"sliding_window": 4096}
     with pytest.raises(KeyError):
-        configs.long_context_overrides("zamba2-7b")
+        configs.long_context_overrides("gpt-5")
 
 
 # -- the loss and its gradients -----------------------------------------------
