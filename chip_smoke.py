@@ -230,7 +230,10 @@ Phases, one JSON line each (seconds on an H100 in brackets):
                  a fresh state's steady steps (one under sync-debug
                  "error"): ms per step, tokens/s, peak memory, busy share
                  and device time by kernel, beside the FLOP bound 6 N
-                 tokens / 989 TFLOP/s [~30].
+                 tokens / 989 TFLOP/s; ms per step and peak memory under
+                 remat_policy "none" and the default "nothing" (whose
+                 backward runs each layer's forward again: B5 twice per
+                 layer and step) [~35].
  14c. lm_grad -- one full-width step's gradients, leaf by leaf, with the
                  flash kernel in the forward and with the chunked forward,
                  each against the fp32 gradient; reduced qwen2-0.5b,
@@ -238,7 +241,12 @@ Phases, one JSON line each (seconds on an H100 in brackets):
                  path, MTP in the loss) and internvl2-76b (the vision
                  stub) in fp32, card against CPU, rel. L2 <= 1e-3;
                  reduced zamba2-7b (with and without its window),
-                 xlstm-125m and whisper-base likewise at <= 1e-5 [~8].
+                 xlstm-125m and whisper-base likewise at <= 1e-5;
+                 reduced qwen2-0.5b, deepseek-v3-671b and zamba2-7b (its
+                 window) at attn_score_dtype "bf16" (the bf16-score
+                 builds) card against CPU at <= 2e-2; reduced qwen2-0.5b
+                 under each remat policy card against CPU at <= 1e-5
+                 and against the card's "none" at <= 1e-6 [~12].
  14d. lm_resume -- reduced qwen2-0.5b, 10 steps saving every 5; a fresh
                  run resumed from step 5 gives the same losses [~5].
  14e. train_ssvm -- train_ssvm on SMALL usps, ocr, horseseg, card
@@ -257,13 +265,16 @@ Phases, one JSON line each (seconds on an H100 in brackets):
                  attention on its own inputs, moe_ffn once), then B5's
                  MLA build at (2, 1024, 128, 192/128) and moe_ffn at
                  (256, {1, 64}, 7168, 2048) against their plain versions,
-                 timed [~4].
+                 timed; the prefill again at attn_score_dtype "bf16"
+                 (lm_score_bf16: the MLA build's bf16-score build once per
+                 layer, its first call held to plain) [~5].
  14h. lm_configs -- internvl2-76b (256 stub vision tokens), minitron-8b,
                  mistral-nemo-12b and qwen2.5-14b at published width,
                  depth 2: a prefill of 2 x 1024 tokens each
                  (flash_attention twice, logits finite; the kernels phase
                  holds B5 at each config's (2, 1024, H:K, 128) to its
-                 plain version and times it) [~2].
+                 plain version and times it), each again at
+                 attn_score_dtype "bf16" (lm_score_bf16) [~3].
  14i. kernel (flash_attention_masks) -- B5's builds of the last three
                  families held to its plain version in bf16 and fp32 and
                  timed beside its bound and SDPA: head dim 112 (the padded
@@ -291,14 +302,27 @@ Phases, one JSON line each (seconds on an H100 in brackets):
                  times, causal 6 times, one call of each held to its
                  plain version), then the Server answers 8 requests
                  against the zero cross-attention cache [~3-10].
+ 14m. kernel (flash_attention_score_bf16) -- B5's bf16-score builds
+                 (each score rounded to bf16 after the product and after
+                 the bf16 scale) at qwen2.5-14b's (2, 1024, 40:8, 128),
+                 deepseek-v3's MLA (2, 1024, 128, 192/128) and zamba2's
+                 window W = 4096 at (1, 8192, 32:32, 112): held to plain,
+                 to their emulated roundings at S = 50, timed beside the
+                 fp32-score build, the bound and SDPA [~8].
+ 14n. host_mesh -- make_host_mesh() on the card: 1 x 1 ('data', 'model')
+                 [~1].
+ 14o. dryrun -- python -m repro_torch.launch.dryrun on qwen2-0.5b
+                 train_4k over a fake 256-rank (16, 16) mesh, on the host:
+                 ok, collectives counted, per-device FLOPs [~35].
  15. sync_debug line (the paths whose every engine dispatch ran under
      sync-debug "error": main, main_async (both programs), main_gram,
      main_shard, main_shard_tau, main_gap, one train_lm step, and the
      dispatches checked on each, later phases' dispatches of the same
      engine included), the
      kernels line (flash_attention's row also carries its MLA shape,
-     the four configs' shapes, the new builds' cases and its launches by
-     build on the last three families' paths; moe_ffn's the deepseek
+     the four configs' shapes, the new builds' cases, the bf16-score
+     builds' cases and its launches by build on the last three families'
+     paths; moe_ffn's the deepseek
      shapes), the
      card's name and power limit, and the result line
      ``{"ok": true, "device": {...}}`` last.
@@ -310,6 +334,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -432,6 +457,22 @@ EMULATED_S = 50                 # one k block with a tail past S
 GRAD_NEW = (("zamba2-7b", {}), ("zamba2-7b", {"sliding_window": 3}),
             ("xlstm-125m", {}), ("whisper-base", {}))
 GRAD_NEW_RTOL = 1e-5
+# B5's bf16-score builds (attn_score_dtype="bf16") at PERF.md row 5's shapes:
+# (name, (B, S, H, K, D, Dv), window); the MLA case reads v as a view of
+# the per-head [k_nope ; v] expansion, as the model does.
+FLASH_SCORE_CASES = (
+    ("causal_qwen2.5-14b", (2, 1024, 40, 8, 128, 128), 0),
+    ("mla_deepseek-v3", (2, 1024, 128, 128, 192, 128), 0),
+    ("window_4096_zamba2", (1, 8192, 32, 32, 112, 112), 4096))
+# lm_grad at bf16 scores (card: the bf16-score build, the backward through
+# the bf16 score slab; CPU: the bf16 score slab): loss and per-leaf
+# relative L2; and each remat policy card vs CPU in fp32.
+GRAD_S16 = (("qwen2-0.5b", {}), ("deepseek-v3-671b", {}),
+            ("zamba2-7b", {"sliding_window": 3}))
+GRAD_S16_RTOL = 2e-2
+REMAT_POLICIES = ("nothing", "dots", "selective", "none")
+# The dry-run's CLI on one full cell, on the host (no card).
+DRYRUN_CELL = ("qwen2-0.5b", "train_4k", "single")
 
 # The engines the registry added: card vs CPU on SMALL ocr, and three of
 # them at full OCR size (phase, algorithm).
@@ -1857,14 +1898,22 @@ def check_moe_ffn(torch, gen):
                          "bound_by", "max_abs_err")})
 
 
-def flash_emulated(torch, q, k, v, window: int = 0, causal: bool = True):
+def flash_emulated(torch, q, k, v, window: int = 0, causal: bool = True,
+                   score_dtype: str = "f32"):
     """Attention with the kernel's roundings for S <= 64 (one k block):
-    fp32 scores, p = exp(s - rowmax) rounded to v's type for p.v, the
-    unrounded sum as the normaliser; causal (within ``window`` keys when
-    > 0) or bidirectional.  (B, S, H, D), kv heads = H."""
+    fp32 scores (``score_dtype="bf16"``: the product rounded to bf16,
+    times the bf16-rounded scale, rounded again), p = exp(s - rowmax)
+    rounded to v's type for p.v, the unrounded sum as the normaliser;
+    causal (within ``window`` keys when > 0) or bidirectional.  (B, S, H,
+    D), kv heads = H."""
     D = q.shape[-1]
     qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
-    s = torch.matmul(qf, kf.transpose(-1, -2)) * (1.0 / D ** 0.5)
+    if score_dtype == "bf16":
+        scale = float(torch.tensor(D ** -0.5).bfloat16())
+        s = torch.matmul(qf, kf.transpose(-1, -2)).bfloat16().float()
+        s = (s * scale).bfloat16().float()
+    else:
+        s = torch.matmul(qf, kf.transpose(-1, -2)) * (1.0 / D ** 0.5)
     S = q.shape[1]
     row = torch.arange(S, device=q.device)[:, None]
     col = torch.arange(S, device=q.device)[None, :]
@@ -4185,7 +4234,9 @@ def phase_train_lm(torch):
     Then a fresh state's steady steps: ms per step by the host clock to a
     sync, tokens/s, and under torch.profiler the device busy share and the
     device time by kernel, beside the step's FLOP bound 6 N tokens over
-    the bf16 peak [~20]."""
+    the bf16 peak; and each of remat_policy "none" and the default
+    "nothing" on a fresh state: ms per step and peak memory [~25]."""
+    import dataclasses
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.launch import train
@@ -4208,7 +4259,10 @@ def phase_train_lm(torch):
           f"train_lm: losses {losses}")
     check(losses[-1] < losses[0], f"train_lm: loss {losses[0]} -> "
           f"{losses[-1]}")
-    check(launches["flash_attention"] == cfg.num_layers * steps
+    # remat_policy "nothing": the backward runs each layer's forward again,
+    # B5 included: 2 launches per layer and step.
+    check(launches["flash_attention"]
+          == remat_launches(cfg, cfg.num_layers) * steps
           and launches["moe_ffn"] == 0, f"train_lm: launches {launches}")
     grad_norms = out["grad_norms"]
     del out
@@ -4216,9 +4270,37 @@ def phase_train_lm(torch):
 
     # Steady state: a fresh state, one warm step, then timed and traced.
     ocfg = AdamWConfig(lr=3e-4)
-    state = {"s": train.init_state(cfg, ocfg, torch.device("cuda"))}
     batch = lm_batch(torch, cfg, B, S)
     lr = cosine_schedule(25, peak_lr=ocfg.lr, warmup=20, total=steps)
+
+    def steady(c):
+        """ms per step (5 steps to a sync, after a warm one) and the peak
+        of a fresh state's steps under ``c``'s remat policy."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        st = {"s": train.init_state(c, ocfg, torch.device("cuda"))}
+        base = torch.cuda.memory_allocated()
+
+        def one():
+            st["s"], loss, _ = train.train_step(st["s"], c, batch, ocfg, lr)
+            return loss
+        one()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            one()
+        torch.cuda.synchronize()
+        out = dict(remat_policy=c.remat_policy,
+                   ms_per_step=(time.perf_counter() - t0) * 1e3 / 5,
+                   peak_bytes=torch.cuda.max_memory_allocated(),
+                   peak_over_state_bytes=torch.cuda.max_memory_allocated()
+                   - base)
+        del st
+        return out
+    remat = {"none": steady(dataclasses.replace(cfg, remat_policy="none"))}
+    remat[cfg.remat_policy] = steady(cfg)
+    torch.cuda.empty_cache()
+    state = {"s": train.init_state(cfg, ocfg, torch.device("cuda"))}
 
     def step():
         state["s"], loss, _ = train.train_step(state["s"], cfg, batch, ocfg,
@@ -4255,6 +4337,7 @@ def phase_train_lm(torch):
          first_loss=losses[0], last_loss=losses[-1], losses=losses,
          grad_norms=grad_norms, launches=launches,
          max_memory_allocated=peak, ms_per_step=ms,
+         remat_policy=cfg.remat_policy, remat_vs_none=remat,
          tokens_per_s=tokens / (ms * 1e-3), bound_ms=bms,
          bound_by="operations (6 N tokens / bf16 peak)",
          profiled_steps=TRAIN_PROFILED_STEPS, profile=prof,
@@ -4310,7 +4393,12 @@ def phase_lm_grad(torch):
     (the vision stub) in fp32, card against CPU: the loss and each leaf's
     gradient within relative L2 1e-3; then reduced zamba2-7b (B5's fp32
     causal and window builds), xlstm-125m (no kernel) and whisper-base
-    (the fp32 bidirectional and causal builds) within 1e-5 [~8]."""
+    (the fp32 bidirectional and causal builds) within 1e-5; reduced
+    qwen2-0.5b, deepseek-v3-671b and zamba2-7b (its window) at
+    attn_score_dtype "bf16" (the bf16-score builds) within 2e-2; reduced
+    qwen2-0.5b under each remat policy within 1e-5, and within 1e-6 of
+    the card's "none".  B5's and B6's launches count each remat'd
+    layer twice (its forward runs again in the backward) [~12]."""
     import dataclasses
     from repro_torch import configs
     from repro_torch.kernels import ops
@@ -4327,7 +4415,7 @@ def phase_lm_grad(torch):
     loss_k, g_k = raw_grads(torch, params, cfg, batch)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
-    check(launches["flash_attention"] == cfg.num_layers,
+    check(launches["flash_attention"] == remat_launches(cfg, cfg.num_layers),
           f"lm_grad: launches {launches}")
     kernel = ops.flash_attention
     ops.flash_attention = ops.attention_math    # the chunked forward
@@ -4360,11 +4448,11 @@ def phase_lm_grad(torch):
     del g_k, g_c, g_32
     torch.cuda.empty_cache()
 
-    reduced = {}
-    for arch, over, tol in ([(a, {}, GRAD_RTOL) for a in GRAD_ARCHS]
-                            + [(a, o, GRAD_NEW_RTOL) for a, o in GRAD_NEW]):
-        rcfg = dataclasses.replace(configs.reduced_config(arch),
-                                   dtype=torch.float32, **over)
+    def card_vs_cpu(arch, rcfg, tol):
+        """One loss_fn and its gradients of ``rcfg`` (fp32 weights from a
+        CPU seed) on the card and on the CPU: loss and every leaf within
+        relative ``tol``, B5's launches those of the config (doubled in
+        the backward under remat)."""
         gen = torch.Generator("cpu")
         gen.manual_seed(0)
         p_cpu = common.init_params(registry.param_specs(rcfg), gen, "cpu")
@@ -4387,26 +4475,67 @@ def phase_lm_grad(torch):
                  "ssm": 0,
                  "audio": rcfg.num_layers + rcfg.encoder_layers}.get(
                      rcfg.family, rcfg.num_layers + int(rcfg.mtp))
-        want = {"flash_attention": flash,
-                "moe_ffn": (rcfg.num_layers - rcfg.first_dense_layers
-                            if rcfg.moe else 0)}
+        outside = {"audio": rcfg.encoder_layers}.get(rcfg.family,
+                                                     int(rcfg.mtp))
+        want = {"flash_attention": remat_launches(rcfg, flash, outside),
+                "moe_ffn": remat_launches(rcfg, (
+                    rcfg.num_layers - rcfg.first_dense_layers
+                    if rcfg.moe else 0))}
         check(all(red_launches[k] == v for k, v in want.items()),
               f"lm_grad {arch}: launches {red_launches}")
+        if rcfg.attn_score_dtype == "bf16":
+            check(all(b.endswith("-s16") for b in red_builds),
+                  f"lm_grad {arch}: builds {red_builds}")
         rels = grad_table(torch, [g.cpu() for g in gg], gc)
         worst = max(r for r in rels if r is not None)
-        check(worst <= tol, f"lm_grad {arch} {over}: leaf relative L2 "
-              f"{worst} > {tol}")
+        check(worst <= tol, f"lm_grad {arch}: leaf relative L2 {worst} > "
+              f"{tol}")
+        return dict(loss_cuda=float(lg), loss_cpu=float(lc),
+                    leaves=len(rels), max_leaf_rel_l2=worst, tolerance=tol,
+                    remat_policy=rcfg.remat_policy,
+                    score_dtype=rcfg.attn_score_dtype,
+                    launches=red_launches,
+                    flash_attention_builds=red_builds), gg
+
+    reduced = {}
+    for arch, over, tol in ([(a, {}, GRAD_RTOL) for a in GRAD_ARCHS]
+                            + [(a, o, GRAD_NEW_RTOL) for a, o in GRAD_NEW]):
+        rcfg = dataclasses.replace(configs.reduced_config(arch),
+                                   dtype=torch.float32, **over)
         key = arch + "".join(f" {k}={v}" for k, v in over.items())
-        reduced[key] = dict(loss_cuda=float(lg), loss_cpu=float(lc),
-                            leaves=len(rels), max_leaf_rel_l2=worst,
-                            tolerance=tol, launches=red_launches,
-                            flash_attention_builds=red_builds)
+        reduced[key], _ = card_vs_cpu(arch, rcfg, tol)
+    # bf16 scores: the card's bf16-score builds and the backward through
+    # the bf16 score slab, against the CPU's bf16 score slab.
+    score_bf16 = {}
+    for arch, over in GRAD_S16:
+        rcfg = dataclasses.replace(configs.reduced_config(arch),
+                                   dtype=torch.float32,
+                                   attn_score_dtype="bf16", **over)
+        key = arch + "".join(f" {k}={v}" for k, v in over.items())
+        score_bf16[key], _ = card_vs_cpu(arch, rcfg, GRAD_S16_RTOL)
+    # Each remat policy: card against CPU, and against the card's "none".
+    remat, plain = {}, None
+    for pol in ("none",) + tuple(p for p in REMAT_POLICIES if p != "none"):
+        rcfg = dataclasses.replace(configs.reduced_config(TRAIN["arch"]),
+                                   dtype=torch.float32, remat_policy=pol)
+        remat[pol], grads = card_vs_cpu(TRAIN["arch"], rcfg, GRAD_NEW_RTOL)
+        if plain is None:
+            plain = grads
+        remat[pol]["max_leaf_rel_l2_vs_card_none"] = max(
+            rel_l2(torch, g, w) for g, w in zip(grads, plain)
+            if bool(w.any()))
+    worst = max(r["max_leaf_rel_l2_vs_card_none"] for r in remat.values())
+    check(worst <= 1e-6, f"lm_grad: a remat policy's gradients {worst} "
+          "from the card's without remat")
     emit("lm_grad", seconds=time.perf_counter() - t_phase,
          full_width_bf16=full, reduced_fp32=reduced,
+         reduced_score_bf16=score_bf16, reduced_remat=remat,
          tolerance="full width bf16, per leaf: relative L2 from the fp32 "
          "gradient through the kernel <= 1.25 x the chunked forward's + "
          "1e-3; reduced fp32, card vs CPU: loss and per-leaf relative L2 "
-         "<= 1e-3 (zamba2-7b, xlstm-125m, whisper-base: <= 1e-5)")
+         "<= 1e-3 (zamba2-7b, xlstm-125m, whisper-base and the remat "
+         "policies: <= 1e-5; each remat policy vs the card's 'none' <= "
+         "1e-6); bf16 scores card vs CPU <= 2e-2")
     return launches
 
 
@@ -4479,6 +4608,7 @@ def phase_examples(torch):
     (``lm_train`` at 30 steps), each with launch counts reset just before
     and read just after; each must return, and its figures hold [~60]."""
     import importlib
+    from repro_torch import configs
     from repro_torch.kernels import ops
     paths = {}
     for name in EXAMPLES:
@@ -4500,7 +4630,8 @@ def phase_examples(torch):
                   and launches["viterbi_decode"] > 0, f"{name}: {out}")
         elif name == "lm_train":
             check(out["final_loss"] < out["losses"][0][1]
-                  and launches["flash_attention"] == 4 * 30,
+                  and launches["flash_attention"] == remat_launches(
+                      configs.reduced_config(TRAIN["arch"]), 4) * 30,
                   f"lm_train: {out['losses']}, {launches}")
         elif name == "ssvm_head":
             check(launches["flash_attention"] == 4 and math.isfinite(
@@ -4610,9 +4741,10 @@ def phase_main_mla(torch):
     compressed cache, B6 at C = 1 once per round, B5 never), then a
     prefill of 2 x 1024 tokens (B5's MLA build once per layer, each call
     held to the plain version on its own inputs; B6 at C = 64 once), its
-    logits held to the same prefill through the plain attention; then
-    B5's MLA build and B6 at (256, {1, 64}, 7168, 2048) against their
-    plain versions, timed [~4]."""
+    logits held to the same prefill through the plain attention; the same
+    prefill at attn_score_dtype "bf16" (``lm_score_bf16``: the MLA build's
+    bf16-score build once per layer); then B5's MLA build and B6 at (256,
+    {1, 64}, 7168, 2048) against their plain versions, timed [~5]."""
     import dataclasses
     from repro_torch import configs
     from repro_torch.models import registry
@@ -4641,6 +4773,8 @@ def phase_main_mla(torch):
           and prefill_launches["moe_ffn"] == moe_layers
           and len(prefill["b5_held_to_plain"]["causal"]) == cfg.num_layers,
           f"main_mla: prefill launches {prefill_launches}")
+    s16_launches, s16_builds = score_bf16_prefill(torch, cfg, params, batch,
+                                                  "main_mla")
     del batch
 
     # The kernels at the path's shapes.
@@ -4663,7 +4797,9 @@ def phase_main_mla(torch):
     del params
     torch.cuda.empty_cache()
     return flash, moe_rows, {"main_mla_serve": serve_launches,
-                             "main_mla_prefill": prefill_launches}
+                             "main_mla_prefill": prefill_launches,
+                             f"lm_score_bf16_{MLA_ARCH}": s16_launches}, \
+        {MLA_ARCH: s16_builds}
 
 
 def phase_lm_configs(torch):
@@ -4672,12 +4808,13 @@ def phase_lm_configs(torch):
     their published widths, depth cut to 2, bf16 weights from seed 0: each
     prefills 2 x 1024 tokens (B5 once per layer at the config's H:K heads
     of 128, its first call held to the plain version on its own inputs;
-    the kernel phase times B5 at that shape), logits finite.  Each
-    config's weights are freed before the next [~2]."""
+    the kernel phase times B5 at that shape), logits finite; then again at
+    attn_score_dtype "bf16" (``lm_score_bf16``).  Each config's weights
+    are freed before the next [~3]."""
     import dataclasses
     from repro_torch import configs
     from repro_torch.models import registry
-    paths = {}
+    paths, builds = {}, {}
     for arch in LM_CONFIGS:
         t_arch = time.perf_counter()
         full = configs.get_config(arch)
@@ -4689,6 +4826,8 @@ def phase_lm_configs(torch):
                                           trace=False)
         check(launches["flash_attention"] == cfg.num_layers
               and launches["moe_ffn"] == 0, f"{arch}: launches {launches}")
+        paths[f"lm_score_bf16_{arch}"], builds[arch] = score_bf16_prefill(
+            torch, cfg, params, batch, arch)
         del params, batch
         torch.cuda.empty_cache()
         paths[f"lm_configs_{arch}"] = launches
@@ -4696,11 +4835,11 @@ def phase_lm_configs(torch):
              reduced=f"depth {full.num_layers} -> {cfg.num_layers}",
              **init, vision_tokens=cfg.vision_tokens, prefill=prefill,
              seconds=time.perf_counter() - t_arch)
-    return paths
+    return paths, builds
 
 
 def flash_plain(torch, q, k, v, window: int = 0, causal: bool = True,
-                heads: int = 8, sm_scale=None):
+                heads: int = 8, sm_scale=None, score_dtype: str = "f32"):
     """B5's plain version (``kernels/ref.py``) on (B, S, H, D) q and (B,
     S, K, D) k, v (v's head dim its own: MLA), ``heads`` query heads at a
     time: one fp32 score slab of (B heads, S, S), 2.1 GB at S = 8192."""
@@ -4713,7 +4852,7 @@ def flash_plain(torch, q, k, v, window: int = 0, causal: bool = True,
         kv = slice(h0 // g, (h0 + heads) // g)
         outs.append(ref.flash_attention_ref(
             q[:, :, h0:h0 + heads], k[:, :, kv], v[:, :, kv],
-            sm_scale, window, causal))
+            sm_scale, window, causal, score_dtype))
     return torch.cat(outs, dim=2)
 
 
@@ -4732,6 +4871,114 @@ def flash_bound(B, S, H, K, D, window=0, causal=True):
     return bound_ms(2 * B * S * D * (2 * H + 2 * K),
                     4.0 * B * H * D * visible_pairs(S, window, causal),
                     BF16_FLOPS)
+
+
+def remat_launches(cfg, forward: int, outside: int = 0) -> int:
+    """A kernel's (B5's, B6's) launches in one training step: the
+    forward's ``forward``, and again in the backward for those inside
+    layers that run under remat (every ``remat_policy`` but "none"
+    recomputes the layer's forward, the kernels included); ``outside`` of
+    them run outside the remat'd layers (deepseek-v3's MTP block,
+    whisper's encoder)."""
+    return forward + (forward - outside
+                      if cfg.remat_policy != "none" else 0)
+
+
+def check_flash_scores(torch, gen):
+    """B5's bf16-score builds (``score_dtype="bf16"``: each score rounded
+    to bf16 after the product and after the bf16 scale) at PERF.md row
+    5's shapes: qwen2.5-14b's causal (2, 1024, 40:8, 128), deepseek-v3's
+    MLA (2, 1024, 128, q/k 192, v 128 as a strided view) and zamba2's
+    window W = 4096 at (1, 8192, 32:32, 112).  Each held to its plain
+    version (relative L2 <= 2e-2), and at one k block whose tile runs past
+    S (S = 50) within close_bf16's bounds of its roundings emulated in
+    fp32; float32 inputs (cast to bf16 for the build) equal the bf16 run
+    cast; timed by CUDA events beside the fp32-score build on the same
+    inputs, the plain version, the bound and SDPA (no PyTorch call rounds
+    the scores to bf16: the nearest call, labelled so) [~8]."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops
+    F = torch.nn.functional
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+
+    rows = {}
+    for name, (B, S, H, K, D, Dv), window in FLASH_SCORE_CASES:
+        q, k = rand(B, S, H, D), rand(B, S, K, D)
+        v = rand(B, S, K, 128 + Dv)[..., 128:] if Dv != D else \
+            rand(B, S, K, Dv)
+        mask = kfa.mask_of(window, True)
+        ops.reset_launch_counts()
+        got = ops.flash_attention(q, k, v, window=window, score_dtype="bf16")
+        builds = ops.flash_attention_builds()
+        want = flash_plain(torch, q, k, v, window, score_dtype="bf16")
+        torch.cuda.synchronize()
+        check(got.shape == (B, S, H, Dv) and got.dtype == q.dtype, name)
+        rel = rel_l2(torch, got, want)
+        check(rel <= BF16_REL_L2, f"flash s16 {name}: relative L2 {rel} vs "
+              "plain")
+        build = kfa.plan(D, Dv, S, q.dtype, mask, "bf16")["build"]
+        check(builds == {build: 1}, f"flash s16 {name}: builds {builds}")
+        # One k block whose tile runs past S, kv heads = q heads.
+        qe, ke = (t[:, :EMULATED_S, :4].contiguous() for t in (q, k))
+        ve = v[:, :EMULATED_S, :4].contiguous()
+        we = min(window, 5)
+        emu = close_bf16(torch, ops.flash_attention(
+            qe, ke, ve, window=we, score_dtype="bf16"),
+            flash_emulated(torch, qe, ke, ve, we, score_dtype="bf16"),
+            f"flash s16 {name} S={EMULATED_S}")
+        f32in = ops.flash_attention(qe.float(), ke.float(), ve.float(),
+                                    window=we, score_dtype="bf16")
+        check(f32in.dtype == torch.float32 and torch.equal(
+            f32in, ops.flash_attention(qe, ke, ve, window=we,
+                                       score_dtype="bf16").float()),
+              f"flash s16 {name}: float32 inputs")
+        bms, by = bound_ms(2 * B * S * (H * D + K * D + K * Dv + H * Dv),
+                           2.0 * B * H * (D + Dv)
+                           * visible_pairs(S, window), BF16_FLOPS)
+        row = dict(shape=[B, S, H, K, D, Dv], window=window, mask=mask,
+                   build=build, bound_ms=bms, bound_by=by,
+                   max_abs_err=float((got.float() - want.float()).abs()
+                                     .max()),
+                   rel_l2_vs_plain=rel, max_abs_err_emulated=emu,
+                   rel_l2_vs_f32_scores=rel_l2(torch, got,
+                                               ops.flash_attention(
+                                                   q, k, v, window=window)))
+        del got, want
+        calls = 5 if S > 4096 else 20
+        row["ms"] = time_ms(torch, lambda i: ops.flash_attention(
+            q, k, v, window=window, score_dtype="bf16"), calls)
+        row["f32_scores_ms"] = time_ms(torch, lambda i: ops.flash_attention(
+            q, k, v, window=window), calls)
+        row["ms_2"] = time_ms(torch, lambda i: ops.flash_attention(
+            q, k, v, window=window, score_dtype="bf16"), calls)
+        row["plain_ms"] = time_ms(torch, lambda i: flash_plain(
+            torch, q, k, v, window, score_dtype="bf16"), 1, warmup=1)
+        qt = q.transpose(1, 2)
+        kt, vt = (t.repeat_interleave(H // K, dim=2).transpose(1, 2)
+                  for t in (k, v))
+        kw = {"is_causal": True}
+        if window:
+            i = torch.arange(S, device="cuda")
+            kw = {"attn_mask": (i[:, None] >= i[None, :])
+                  & (i[None, :] > i[:, None] - window)}
+        row["library_ms"] = time_ms(
+            torch, lambda i: F.scaled_dot_product_attention(
+                qt, kt, vt, **kw), calls)
+        row["library"] = ("scaled_dot_product_attention("
+                          + ("band" if window else "is_causal")
+                          + "), fp32 scores: the nearest PyTorch call, no "
+                          "PyTorch call rounds the scores to bf16")
+        rows[name] = row
+        del q, k, v, qt, kt, vt, kw
+        torch.cuda.empty_cache()
+    emit("kernel", name="flash_attention_score_bf16", cases=rows,
+         tolerance="relative L2 <= 2e-2 vs plain (bf16 scores); at S = 50 "
+         "relative L2 <= 2^-9 and |err| <= 2^-5 (|ref|+rms) vs the "
+         "emulated roundings; float32 inputs equal the bf16 run cast")
+    return rows
 
 
 def check_flash_masks(torch, gen):
@@ -4922,15 +5169,20 @@ def lm_prefill(torch, cfg, params, batch, what: str, trace: bool = True,
           f"{what}: prefill logits not finite")
     kernel, held, out = ops.flash_attention, {}, {}
 
-    def hold(q, k, v, sm_scale=None, window=0, causal=True):
-        o = kernel(q, k, v, sm_scale, window, causal)
-        rows = held.setdefault(kfa.mask_of(window, causal), [])
+    def hold(q, k, v, sm_scale=None, window=0, causal=True,
+             score_dtype="f32"):
+        o = kernel(q, k, v, sm_scale, window, causal, score_dtype)
+        key = kfa.mask_of(window, causal) + (
+            "-s16" if score_dtype == "bf16" else "")
+        rows = held.setdefault(key, [])
         if hold_all or not rows:
             rows.append(dict(shape=list(q.shape), kv_heads=k.shape[2],
-                             window=window, rel_l2_vs_plain=rel_l2(
+                             window=window, score_dtype=score_dtype,
+                             rel_l2_vs_plain=rel_l2(
                                  torch, o, flash_plain(
                                      torch, q, k, v, window, causal,
-                                     sm_scale=sm_scale))))
+                                     sm_scale=sm_scale,
+                                     score_dtype=score_dtype))))
         return o
     ops.flash_attention = hold
     try:
@@ -4955,6 +5207,81 @@ def lm_prefill(torch, cfg, params, batch, what: str, trace: bool = True,
                 launches=launches, flash_attention_builds=builds,
                 b5_held_to_plain=held, peak_bytes=peak, **out), \
         launches, builds
+
+
+def score_bf16_prefill(torch, cfg, params, batch, what: str):
+    """``lm_score_bf16``: ``batch``'s prefill again at attn_score_dtype
+    "bf16" (launch counts set to 0 just before, read just after): every B5
+    call the config's bf16-score build, once per layer, its first call
+    held to the plain version; logits finite, their relative L2 from the
+    fp32-score prefill reported.  Returns (launches, builds)."""
+    import dataclasses
+    from repro_torch.models import registry
+    s16 = dataclasses.replace(cfg, attn_score_dtype="bf16")
+    prefill, launches, builds = lm_prefill(torch, s16, params, batch,
+                                           f"{what} bf16 scores",
+                                           trace=False)
+    check(launches["flash_attention"] == cfg.num_layers
+          and sum(builds.values()) == cfg.num_layers
+          and all(b.endswith("-s16") for b in builds),
+          f"{what} bf16 scores: launches {launches}, builds {builds}")
+    l16 = registry.prefill(params, s16, batch)
+    l32 = registry.prefill(params, cfg, batch)
+    prefill["logits_rel_l2_vs_f32_scores"] = rel_l2(torch, l16, l32)
+    del l16, l32
+    emit("lm_score_bf16", arch=cfg.name, num_layers=cfg.num_layers,
+         prefill=prefill)
+    return launches, builds
+
+
+def phase_host_mesh(torch):
+    """The LM substrate's host mesh on the card: ``make_host_mesh()``, a 1 x
+    1 ('data', 'model') DeviceMesh on CUDA over the default group (world
+    size 1), validated, and one DTensor all-reduce over it [~1]."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from repro_torch.launch.mesh import make_host_mesh, validate_mesh
+    t0 = time.perf_counter()
+    mesh = make_host_mesh()
+    validate_mesh(mesh, ("data", "model"))
+    check(tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda"
+          and mesh.mesh_dim_names == ("data", "model"),
+          f"host_mesh: {mesh}")
+    x = distribute_tensor(torch.arange(6.0, device="cuda").reshape(2, 3),
+                          mesh, [Replicate(), Replicate()])
+    total = float((x * 2).sum().full_tensor())
+    check(total == 30.0, f"host_mesh: {total}")
+    emit("host_mesh", shape=list(mesh.shape), device_type=mesh.device_type,
+         names=list(mesh.mesh_dim_names),
+         seconds=time.perf_counter() - t0)
+
+
+def phase_dryrun():
+    """The dry-run's CLI on one full cell (``DRYRUN_CELL``: qwen2-0.5b
+    train_4k on the (16, 16) mesh of a fake 256-rank group), in a process
+    of its own, on the host (it runs nothing on the card); its record's
+    ok, chips, collectives and per-device FLOPs, and its seconds [~35]."""
+    import tempfile
+    arch, shape, mesh = DRYRUN_CELL
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("XLA_FLAGS", None)
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--out", out],
+            capture_output=True, text=True, env=env, timeout=600)
+        seconds = time.perf_counter() - t0
+        check(run.returncode == 0, f"dryrun: {run.stderr[-2000:]}")
+        rec = json.loads((Path(out) / f"{arch}_{shape}_{mesh}_baseline.json")
+                         .read_text())
+    check(rec["ok"] and rec["chips"] == 256
+          and rec["collective_bytes_static"] > 0 and rec["flops"] > 0,
+          f"dryrun: {rec}")
+    emit("dryrun", seconds=seconds, **{k: rec[k] for k in (
+        "arch", "shape", "mesh", "chips", "params_total", "trace_s",
+        "flops", "flops_source", "model_flops", "bytes_accessed",
+        "collective_bytes_static", "collective_by_kind",
+        "collective_counts", "memory")})
 
 
 def phase_main_hybrid(torch):
@@ -5234,8 +5561,9 @@ def main() -> int:
     train_paths.update(phase_examples(torch))
     torch.cuda.empty_cache()
     # The rest of the transformer family, after every earlier path.
-    mla_flash, mla_moe, mla_paths = phase_main_mla(torch)
-    cfg_paths = phase_lm_configs(torch)
+    mla_flash, mla_moe, mla_paths, s16_builds = phase_main_mla(torch)
+    cfg_paths, cfg_builds = phase_lm_configs(torch)
+    s16_builds.update(cfg_builds)
     torch.cuda.empty_cache()
     # The last three families: B5's new builds at their shapes, then the
     # models at published width and depth.
@@ -5245,6 +5573,19 @@ def main() -> int:
     family_paths.update(phase_lm_xlstm(torch))
     family_paths.update(phase_lm_whisper(torch))
     torch.cuda.empty_cache()
+    # This slice: B5's bf16-score builds, the host mesh, the dry-run.
+    score_rows = check_flash_scores(torch, gen)
+    for name, arch in (("causal_qwen2.5-14b", "qwen2.5-14b"),
+                       ("mla_deepseek-v3", MLA_ARCH),
+                       ("window_4096_zamba2", None)):
+        row = score_rows[name]
+        row["launches_path"] = (f"lm_score_bf16_{arch}" if arch
+                                else "none: no model path here runs the "
+                                "window at bf16 scores")
+        row["launches"] = (s16_builds[arch].get(row["build"], 0) if arch
+                           else 0)
+    phase_host_mesh(torch)
+    phase_dryrun()
     # Each new case's launches: its build's count on the path it serves.
     for name, path in (("causal_d112", "main_hybrid_prefill"),
                        ("window_4096", "main_hybrid_long"),
@@ -5258,6 +5599,7 @@ def main() -> int:
         if k["name"] == "flash_attention":
             k["mla_shape"] = mla_flash
             k["masks"] = mask_rows
+            k["score_bf16"] = score_rows
             k["builds_by_path"] = {p: c["builds"]
                                    for p, c in family_paths.items()}
             for arch, row in k["lm_configs"].items():

@@ -69,6 +69,16 @@
 // time).  The Pallas kernel pads D to 128 lanes and takes one D for q, k
 // and v; here nothing is padded past the build's width.
 //
+// bf16 scores (the model's attn_score_dtype = "bf16",
+// repro/models/attention.py:81-124: q.k taken in bf16, scaled by a bf16
+// scale) are a build of their own of each bf16 causal and window build
+// and of the MLA build (the SB template parameter): the score is rounded
+// to bf16 after the mma's fp32 accumulation and again after the product
+// with the bf16-rounded scale, before the mask and the running max;
+// everything after is the fp32-score build's.  The reference keeps its
+// bidirectional (encoder) attention in fp32, so no bidirectional build
+// takes bf16 scores.
+//
 // The window and bidirectional builds run 64-row tiles whatever S (bf16:
 // 4 warps and 64-key blocks; the 32-row tiles are the backbone's short
 // causal sequences'), and the MLA build is causal only: the reference
@@ -357,6 +367,11 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// x rounded to bf16 (nearest even), back in fp32.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // Two floats rounded to bf16 (nearest even), lo in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -391,9 +406,10 @@ __device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* base,
 
 // DQ: q/k head dim padded (32, 64, 128 or 192), DV: v's (DV <= DQ); NW
 // warps of 16 q rows; BK-row k/v blocks; MASK one of the three masks, W
-// the window's width.  Dynamic shared memory: q [BQ][LDQ], then one or
-// two stages of k [BK][LDQ] and v [BK][LDV].
-template <int DQ, int DV, int NW, int BK, int MASK>
+// the window's width; SB: bf16 scores (each score rounded to bf16 after
+// the mma and again after the bf16 scale).  Dynamic shared memory: q
+// [BQ][LDQ], then one or two stages of k [BK][LDQ] and v [BK][LDV].
+template <int DQ, int DV, int NW, int BK, int MASK, bool SB>
 __global__ void __launch_bounds__(NW * 32)
 flash_attention_bf16_kernel(const bf16* __restrict__ q,
                             const bf16* __restrict__ k,
@@ -402,6 +418,8 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
                             Strides ks, Strides vs, Strides os,
                             float sm_scale, int vec, int Dv, int W) {
   static_assert(DV <= DQ, "the output goes through q's shared rows");
+  static_assert(!SB || MASK != kBidir, "bf16 scores are causal only");
+  if (SB) sm_scale = round_bf16(sm_scale);
   constexpr int NT = NW * 32, BQ = 16 * NW, LDQ = DQ + 8, LDV = DV + 8;
   constexpr int NS = BK / 8;    // score n-tiles (8 keys each)
   constexpr int NKD = DQ / 16;  // k-steps over the q/k head dim
@@ -482,8 +500,9 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         const int row = row0 + (e >> 1) * 8;
         const int col = k0 + 8 * j + 2 * t + (e & 1);
-        const float sc =
-            visible<MASK>(row, col, S, W) ? sacc[j][e] * sm_scale : kInvalid;
+        const float raw = SB ? round_bf16(round_bf16(sacc[j][e]) * sm_scale)
+                             : sacc[j][e] * sm_scale;
+        const float sc = visible<MASK>(row, col, S, W) ? raw : kInvalid;
         sacc[j][e] = sc;
         mx[e >> 1] = fmaxf(mx[e >> 1], sc);
       }
@@ -564,7 +583,7 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
   }
 }
 
-template <int DQ, int DV, int NW, int BK, int MASK>
+template <int DQ, int DV, int NW, int BK, int MASK, bool SB>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                 int H, int K, int S, int D, int Dv, const Strides* st,
                 float sm_scale, int vec, int W, cudaStream_t stream) {
@@ -576,14 +595,14 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_bf16_kernel<DQ, DV, NW, BK, MASK>,
+        flash_attention_bf16_kernel<DQ, DV, NW, BK, MASK, SB>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kMaxSmem));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
-  flash_attention_bf16_kernel<DQ, DV, NW, BK, MASK>
+  flash_attention_bf16_kernel<DQ, DV, NW, BK, MASK, SB>
       <<<grid, NW * 32, smem, stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), static_cast<bf16*>(o), H, H / K, S, D,
@@ -594,38 +613,63 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
 // Causal: 2 warps and 32-key blocks for S <= 32 (the backbone's sequences:
 // one k/v block, ~7 CTAs per SM); 4 warps and 64-key blocks above.  The
 // window and bidirectional builds: 4 warps and 64-key blocks at every S.
-template <int DQ, int DV, int MASK>
+template <int DQ, int DV, int MASK, bool SB>
 int dispatch_bf16(const void* q, const void* k, const void* v, void* o,
                   int B, int H, int K, int S, int D, int Dv,
                   const Strides* st, float sm_scale, int vec, int W,
                   cudaStream_t stream) {
   if constexpr (MASK == kCausal) {
     if (S <= 32)
-      return launch_bf16<DQ, DV, 2, 32, kCausal>(q, k, v, o, B, H, K, S, D,
-                                                 Dv, st, sm_scale, vec, W,
-                                                 stream);
+      return launch_bf16<DQ, DV, 2, 32, kCausal, SB>(q, k, v, o, B, H, K, S,
+                                                     D, Dv, st, sm_scale, vec,
+                                                     W, stream);
   }
-  return launch_bf16<DQ, DV, 4, 64, MASK>(q, k, v, o, B, H, K, S, D, Dv, st,
-                                          sm_scale, vec, W, stream);
+  return launch_bf16<DQ, DV, 4, 64, MASK, SB>(q, k, v, o, B, H, K, S, D, Dv,
+                                              st, sm_scale, vec, W, stream);
 }
 
 // The D = Dv builds (padded to 32, 64 or 128) under one mask.
-template <int MASK>
+template <int MASK, bool SB>
 int dispatch_square(const void* q, const void* k, const void* v, void* o,
                     int B, int H, int K, int S, int D, const Strides* st,
                     float sm_scale, int vec, int W, cudaStream_t stream) {
   if (D <= 32)
-    return dispatch_bf16<32, 32, MASK>(q, k, v, o, B, H, K, S, D, D, st,
-                                       sm_scale, vec, W, stream);
+    return dispatch_bf16<32, 32, MASK, SB>(q, k, v, o, B, H, K, S, D, D, st,
+                                           sm_scale, vec, W, stream);
   if (D <= 64)
-    return dispatch_bf16<64, 64, MASK>(q, k, v, o, B, H, K, S, D, D, st,
-                                       sm_scale, vec, W, stream);
-  return dispatch_bf16<128, 128, MASK>(q, k, v, o, B, H, K, S, D, D, st,
-                                       sm_scale, vec, W, stream);
+    return dispatch_bf16<64, 64, MASK, SB>(q, k, v, o, B, H, K, S, D, D, st,
+                                           sm_scale, vec, W, stream);
+  return dispatch_bf16<128, 128, MASK, SB>(q, k, v, o, B, H, K, S, D, D, st,
+                                           sm_scale, vec, W, stream);
 }
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// The bf16 builds of one score type: the MLA build (causal) or the D = Dv
+// builds under `mask`.
+template <bool SB>
+int dispatch_scores(const void* q, const void* k, const void* v, void* o,
+                    int B, int H, int K, int S, int D, int Dv,
+                    const Strides* sv, float sm_scale, int vec, int mask,
+                    int W, cudaStream_t st) {
+  if (Dv < D && D <= 192 && Dv <= 128) {
+    if (mask != kCausal) return static_cast<int>(cudaErrorInvalidValue);
+    return dispatch_bf16<192, 128, kCausal, SB>(q, k, v, o, B, H, K, S, D, Dv,
+                                                sv, sm_scale, vec, W, st);
+  }
+  if (Dv != D || D > 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (mask == kWindow)
+    return dispatch_square<kWindow, SB>(q, k, v, o, B, H, K, S, D, sv,
+                                        sm_scale, vec, W, st);
+  if constexpr (!SB) {
+    if (mask == kBidir)
+      return dispatch_square<kBidir, false>(q, k, v, o, B, H, K, S, D, sv,
+                                            sm_scale, vec, W, st);
+  }
+  return dispatch_square<kCausal, SB>(q, k, v, o, B, H, K, S, D, sv, sm_scale,
+                                      vec, W, st);
 }
 
 }  // namespace
@@ -633,18 +677,22 @@ bool aligned16(const void* p) {
 // dtype: 0 = float32, 1 = bfloat16.  D: q's and k's head dim, Dv: v's
 // and o's.  strides: 12 element strides, (batch, seq, head) of q, k, v and
 // o in turn.  mask: 0 causal, 1 causal within a window of W keys (W >= 1),
-// 2 bidirectional.  Launches on `stream` and returns cudaGetLastError() (0
-// on success); an argument no build takes returns cudaErrorInvalidValue
-// without launching: float32 takes D, Dv <= 128 under each mask; bfloat16
-// D = Dv <= 128 under each mask, or Dv < D <= 192 with Dv <= 128 causal
-// (the MLA build).
+// 2 bidirectional.  score_bf16: 1 runs the bf16-score builds (bfloat16,
+// causal or window: each score rounded to bf16 after the mma and after
+// the bf16-rounded scale), 0 the fp32-score ones.  Launches on `stream`
+// and returns cudaGetLastError() (0 on success); an argument no build
+// takes returns cudaErrorInvalidValue without launching: float32 takes D,
+// Dv <= 128 under each mask; bfloat16 D = Dv <= 128 under each mask, or
+// Dv < D <= 192 with Dv <= 128 causal (the MLA build).
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
                                       const void* v, void* o, int B, int H,
                                       int K, int S, int D, int Dv,
                                       const long long* strides, float sm_scale,
-                                      void* stream, int mask, int W) {
+                                      void* stream, int mask, int W,
+                                      int score_bf16) {
   if (D < 1 || Dv < 1 || K < 1 || H % K != 0 || S < 1 || B < 1 ||
-      mask < kCausal || mask > kBidir || (mask == kWindow && W < 1))
+      mask < kCausal || mask > kBidir || (mask == kWindow && W < 1) ||
+      (score_bf16 && (dtype != 1 || mask == kBidir)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
@@ -672,18 +720,9 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
   bool vec = D % 8 == 0 && Dv % 8 == 0 && aligned16(q) && aligned16(k) &&
              aligned16(v) && aligned16(o);
   for (int i = 0; i < 12; ++i) vec = vec && strides[i] % 8 == 0;
-  if (Dv < D && D <= 192 && Dv <= 128) {
-    if (mask != kCausal) return static_cast<int>(cudaErrorInvalidValue);
-    return dispatch_bf16<192, 128, kCausal>(q, k, v, o, B, H, K, S, D, Dv, sv,
-                                            sm_scale, vec, W, st);
-  }
-  if (Dv != D || D > 128) return static_cast<int>(cudaErrorInvalidValue);
-  if (mask == kWindow)
-    return dispatch_square<kWindow>(q, k, v, o, B, H, K, S, D, sv, sm_scale,
-                                    vec, W, st);
-  if (mask == kBidir)
-    return dispatch_square<kBidir>(q, k, v, o, B, H, K, S, D, sv, sm_scale,
-                                   vec, W, st);
-  return dispatch_square<kCausal>(q, k, v, o, B, H, K, S, D, sv, sm_scale, vec,
-                                  W, st);
+  if (score_bf16)
+    return dispatch_scores<true>(q, k, v, o, B, H, K, S, D, Dv, sv, sm_scale,
+                                 vec, mask, W, st);
+  return dispatch_scores<false>(q, k, v, o, B, H, K, S, D, Dv, sv, sm_scale,
+                                vec, mask, W, st);
 }

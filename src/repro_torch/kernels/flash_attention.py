@@ -15,7 +15,12 @@ each (q/k, v) head-dim pair is a build of its own, and so is each mask
 (:func:`plan`): causal; a window of ``W`` keys (zamba2's shared attention
 under its long-context override; ``W`` a trailing kernel parameter), whose
 CTAs start their k/v loop at the first block their rows can see; and
-bidirectional (whisper's encoder).  Memory-bound at the backbone's shape.
+bidirectional (whisper's encoder).  ``score_dtype="bf16"`` (the model's
+``attn_score_dtype``) runs a build of its own of the causal, window and
+MLA builds that rounds each score to bf16 after the product and again
+after the bf16 scale, as the reference's bf16 score slab; float32 inputs
+are cast to bf16 for it, as the reference casts them, and the output cast
+back.  Memory-bound at the backbone's shape.
 See the source for the design.
 
 This module always launches the kernel: :mod:`repro_torch.kernels.ops`
@@ -47,11 +52,12 @@ MASKS = {"causal": 0, "window": 1, "bidirectional": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURE = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
     [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p,
-     ctypes.c_int, ctypes.c_int]
+     ctypes.c_int, ctypes.c_int, ctypes.c_int]
+SCORE_DTYPES = ("f32", "bf16")
 
 
 def plan(D: int, Dv: int, S: int, dtype: torch.dtype,
-         mask: str = "causal") -> dict:
+         mask: str = "causal", score_dtype: str = "f32") -> dict:
     """The build a call runs (``csrc/flash_attention.cu``): ``path``
     ("mma" for bfloat16, "fma" for float32), the build's padded q/k and v
     head dims ``dq``, ``dv``, its ``warps`` (query rows / 16; the fp32
@@ -62,10 +68,23 @@ def plan(D: int, Dv: int, S: int, dtype: torch.dtype,
     <= 32) are the causal builds' only; a window or a bidirectional mask
     runs 64 rows at every S.  Raises ValueError for what no build takes:
     float32 D, Dv <= 128; bfloat16 D = Dv <= 128, or Dv < D <= 192 with
-    Dv <= 128 (MLA, causal only)."""
+    Dv <= 128 (MLA, causal only).  ``score_dtype="bf16"`` plans the
+    bf16-score build of the bf16 build (whatever ``dtype``: float32 inputs
+    run it cast to bf16), its name ending in ``-s16``; it takes the causal
+    and window masks, not the bidirectional one."""
     if mask not in MASKS:
         raise ValueError(f"flash_attention: mask {mask!r} (one of "
                          f"{sorted(MASKS)})")
+    if score_dtype not in SCORE_DTYPES:
+        raise ValueError(f"flash_attention: score dtype {score_dtype!r} "
+                         f"(one of {SCORE_DTYPES})")
+    if score_dtype == "bf16":
+        if mask == "bidirectional":
+            raise ValueError("flash_attention: bf16 scores are causal or "
+                             "windowed (the reference's encoder attention "
+                             "stays float32)")
+        p = plan(D, Dv, S, torch.bfloat16, mask)
+        return dict(p, score_dtype="bf16", build=p["build"] + "-s16")
     short = S <= 32 and mask == "causal"
     if dtype == torch.float32:
         if max(D, Dv) > MAX_HEAD_DIM:
@@ -89,7 +108,8 @@ def plan(D: int, Dv: int, S: int, dtype: torch.dtype,
     warps, bk = (2, 32) if short else (4, 64)
     smem = 2 * (16 * warps * (dq + 8) + 2 * bk * (dq + 8 + dv + 8))
     return dict(path="mma", dq=dq, dv=dv, warps=warps, rows=16 * warps,
-                bk=bk, smem=smem, mask=mask, build=f"bf16-{dq}x{dv}-{mask}")
+                bk=bk, smem=smem, mask=mask, score_dtype="f32",
+                build=f"bf16-{dq}x{dv}-{mask}")
 
 
 def _lib():
@@ -103,16 +123,23 @@ def _lib():
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     sm_scale: Optional[float] = None, window: int = 0,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True,
+                    score_dtype: str = "f32") -> torch.Tensor:
     """Attention over ``(B, S, H, D)`` q, ``(B, S, K, D)`` k and ``(B, S,
     K, Dv)`` v (K divides H; head h reads kv head ``h // (H // K)``), or
     ``(BH, S, D)`` q, k and ``(BH, S, Dv)`` v: causal, causal within the
     last ``window`` keys (``window`` > 0), or bidirectional (``causal``
     false).  Unit stride over the head dims, any other strides; float32
     or bfloat16; the head dims of a build (:func:`plan`).  The scale
-    defaults to ``D ** -0.5``, q's head dim.  Returns a contiguous tensor
-    of q's shape with v's head dim."""
+    defaults to ``D ** -0.5``, q's head dim.  ``score_dtype="bf16"``
+    runs the bf16-score build (float32 q, k, v cast to bf16 first, the
+    output cast back).  Returns a contiguous tensor of q's shape with v's
+    head dim."""
     global launches
+    if score_dtype == "bf16" and q.dtype != torch.bfloat16:
+        return flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                               sm_scale, window, causal,
+                               score_dtype).to(q.dtype)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention kernel needs CUDA tensors, got "
                          f"{q.device}")
@@ -132,7 +159,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: dtype {q.dtype} (float32 or "
                          "bfloat16)")
     mask = mask_of(window, causal)
-    build = plan(D, Dv, S, q.dtype, mask)["build"]
+    build = plan(D, Dv, S, q.dtype, mask, score_dtype)["build"]
     for name, t in (("q", q4), ("k", k4), ("v", v4)):
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"flash_attention: {name} must be {q.dtype} "
@@ -156,7 +183,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _DTYPES[q.dtype], q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
         o4.data_ptr(), B, H, K, S, D, Dv, strides,
         float(sm_scale),  # repro: allow[R004] host scale
-        stream, MASKS[mask], int(window))
+        stream, MASKS[mask], int(window), int(score_dtype == "bf16"))
     launches += 1
     launches_by_build[build] = launches_by_build.get(build, 0) + 1
     _build.check(rc, "flash_attention")

@@ -157,7 +157,8 @@ class MoeFFN(torch.autograd.Function):
 
 def attention_math(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    sm_scale: Optional[float] = None, window: int = 0,
-                   causal: bool = True) -> torch.Tensor:
+                   causal: bool = True,
+                   score_dtype: str = "f32") -> torch.Tensor:
     """Attention as the reference's model computes it in training
     (``repro/models/attention.py:158``, whatever the device): causal, the
     chunked causal attention of :mod:`repro_torch.models.attention` (with
@@ -172,7 +173,8 @@ def attention_math(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                     chunked_causal_attention, repeat_kv)
     if q.dim() == 3:
         return attention_math(q[:, :, None], k[:, :, None], v[:, :, None],
-                              sm_scale, window, causal)[:, :, 0]
+                              sm_scale, window, causal,
+                              score_dtype)[:, :, 0]
     mask = ref.mask_of(window, causal)
     D = q.shape[3]
     if sm_scale is not None and sm_scale != D ** -0.5:
@@ -180,8 +182,11 @@ def attention_math(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     H = q.shape[2]
     k, v = repeat_kv(k, H), repeat_kv(v, H)
     if mask == "bidirectional":
+        if score_dtype != "f32":
+            raise ValueError("attention: bf16 scores are causal or windowed")
         return bidirectional_attention(q, k, v)
-    return chunked_causal_attention(q, k, v, ATTN_CHUNK, window)
+    return chunked_causal_attention(q, k, v, ATTN_CHUNK, window,
+                                    score_dtype=score_dtype)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -190,26 +195,65 @@ class FlashAttention(torch.autograd.Function):
     :func:`attention_math` at the saved inputs, under the same mask."""
 
     @staticmethod
-    def forward(ctx, q, k, v, sm_scale, window=0, causal=True):
+    def forward(ctx, q, k, v, sm_scale, window=0, causal=True,
+                score_dtype="f32"):
         ctx.save_for_backward(q, k, v)
         ctx.sm_scale, ctx.window, ctx.causal = sm_scale, window, causal
+        ctx.score_dtype = score_dtype
         if q.device.type == "cpu":
-            return ref.flash_attention_ref(q, k, v, sm_scale, window, causal)
-        return _fa.flash_attention(q, k, v, sm_scale, window, causal)
+            return ref.flash_attention_ref(q, k, v, sm_scale, window, causal,
+                                           score_dtype)
+        return _fa.flash_attention(q, k, v, sm_scale, window, causal,
+                                   score_dtype)
 
     @staticmethod
     def backward(ctx, grad_out):
         return _vjp(lambda q, k, v: attention_math(
-            q, k, v, ctx.sm_scale, ctx.window, ctx.causal),
+            q, k, v, ctx.sm_scale, ctx.window, ctx.causal, ctx.score_dtype),
             ctx.saved_tensors, ctx.needs_input_grad[:3],
-            grad_out) + (None, None, None)
+            grad_out) + (None, None, None, None)
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _on_shards(name: str, plain, keep_dim: int, ref_t: torch.Tensor,
+               *args: torch.Tensor) -> torch.Tensor:
+    """A kernel's call on DTensors: on the CPU, its plain version on each
+    rank's local shards through ``local_map``, every argument placed as
+    ``ref_t`` is along tensor dim ``keep_dim`` (experts, batch) and
+    replicated along the others; the output placed so too.  On CUDA it
+    raises: sharded execution on several cards waits for a host with more
+    than one H100."""
+    if ref_t.device.type != "cpu":
+        raise NotImplementedError(
+            f"{name} on CUDA DTensors: sharded execution on several cards "
+            "is not ported (ROADMAP §A item 8 follow-ups: it waits for a "
+            "host with more than one H100)")
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = ref_t.device_mesh
+    plc = [Shard(keep_dim) if p.is_shard() and p.dim == keep_dim
+           else Replicate() for p in ref_t.placements]
+    args = [a.redistribute(mesh, plc) if _is_dtensor(a) else a for a in args]
+    return local_map(plain, out_placements=plc,
+                     in_placements=tuple(plc if _is_dtensor(a) else None
+                                         for a in args),
+                     device_mesh=mesh)(*args)
 
 
 def moe_ffn(xs: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
             wd: torch.Tensor) -> torch.Tensor:
     """Grouped SwiGLU expert FFN: ``xs (E, C, D)``, ``wg``/``wu (E, D,
     F)``, ``wd (E, F, D)`` -> ``(E, C, D)`` in ``xs``'s dtype.  On CUDA
-    tensors that need a gradient, through :class:`MoeFFN`."""
+    tensors that need a gradient, through :class:`MoeFFN`.  On DTensors
+    (CPU), expert-parallel: the plain version on each rank's experts, as
+    ``wg``'s experts are sharded."""
+    if _is_dtensor(wg) or _is_dtensor(xs):
+        return _on_shards("moe_ffn", ref.moe_ffn_ref, 0,
+                          wg if _is_dtensor(wg) else xs, xs, wg, wu, wd)
     if xs.device.type == "cpu":
         return ref.moe_ffn_ref(xs, wg, wu, wd)
     if _needs_grad(xs, wg, wu, wd):
@@ -219,19 +263,30 @@ def moe_ffn(xs: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     sm_scale: Optional[float] = None, window: int = 0,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True,
+                    score_dtype: str = "f32") -> torch.Tensor:
     """Attention over ``(BH, S, D)`` q, k, v, or ``(B, S, H, D)`` q with
     ``(B, S, K, D)`` k, v (K divides H: grouped kv heads), in q's dtype
     and shape; v may have a head dim of its own (MLA), which the output
     takes.  Causal by default; ``window`` > 0 keeps each row's last
     ``window`` keys (a sliding window), ``causal`` false sees every key
-    (bidirectional).  On CUDA tensors that need a gradient, through
-    :class:`FlashAttention`."""
+    (bidirectional).  ``score_dtype="bf16"`` takes the scores in bf16
+    (causal or windowed; the kernel's bf16-score build, float32 inputs
+    cast to bf16 for it).  On CUDA tensors that need a gradient, through
+    :class:`FlashAttention`.  On DTensors (CPU), the plain version on each
+    rank's batch shard."""
+    if _is_dtensor(q):
+        return _on_shards("flash_attention", lambda a, b, c: (
+            ref.flash_attention_ref(a, b, c, sm_scale, window, causal,
+                                    score_dtype)), 0, q, q, k, v)
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, sm_scale, window, causal)
+        return ref.flash_attention_ref(q, k, v, sm_scale, window, causal,
+                                       score_dtype)
     if _needs_grad(q, k, v):
-        return FlashAttention.apply(q, k, v, sm_scale, window, causal)
-    return _fa.flash_attention(q, k, v, sm_scale, window, causal)
+        return FlashAttention.apply(q, k, v, sm_scale, window, causal,
+                                    score_dtype)
+    return _fa.flash_attention(q, k, v, sm_scale, window, causal,
+                               score_dtype)
 
 
 def approx_pass(phi: torch.Tensor, phi_i: torch.Tensor, bar: torch.Tensor,

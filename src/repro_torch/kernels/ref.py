@@ -111,7 +111,8 @@ def mask_of(window: int = 0, causal: bool = True) -> str:
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         sm_scale: Optional[float] = None, window: int = 0,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True,
+                        score_dtype: str = "f32") -> torch.Tensor:
     """Softmax attention over ``(BH, S, D)`` q, k and ``(BH, S, Dv)`` v
     (``repro/kernels/ref.py::flash_attention_ref``): scores in the input
     type, then float32 with masked entries at :data:`INVALID_SCORE`, scaled
@@ -131,13 +132,24 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return (t.repeat_interleave(r, dim=2).transpose(1, 2)
                     .reshape(B * H, S, t.shape[-1]))
         o = flash_attention_ref(heads(q, 1), heads(k, rep), heads(v, rep),
-                                sm_scale, window, causal)
+                                sm_scale, window, causal, score_dtype)
         return o.reshape(B, H, S, -1).transpose(1, 2).contiguous()
-    mask_of(window, causal)
+    mask = mask_of(window, causal)
     bh, s, d = q.shape
     if sm_scale is None:
         sm_scale = 1.0 / (d ** 0.5)
-    scores = torch.bmm(q, k.transpose(1, 2)).float() * sm_scale
+    if score_dtype == "bf16":
+        if mask == "bidirectional":
+            raise ValueError("flash_attention: bf16 scores are causal or "
+                             "windowed")
+        qb, kb = q.bfloat16(), k.bfloat16()
+        scale = torch.full((), sm_scale, dtype=torch.bfloat16,
+                           device=q.device)
+        scores = (torch.bmm(qb, kb.transpose(1, 2)) * scale).float()
+    elif score_dtype == "f32":
+        scores = torch.bmm(q, k.transpose(1, 2)).float() * sm_scale
+    else:
+        raise ValueError(f"flash_attention: score dtype {score_dtype!r}")
     if causal:
         row = torch.arange(s, device=q.device)[:, None]
         col = torch.arange(s, device=q.device)[None, :]
@@ -147,6 +159,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = torch.where(mask, scores,
                              torch.full_like(scores, INVALID_SCORE))
     p = torch.softmax(scores, dim=-1)
+    if score_dtype == "bf16":
+        v = v.bfloat16()
     return torch.bmm(p, v.float()).to(q.dtype)
 
 

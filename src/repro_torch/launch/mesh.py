@@ -26,9 +26,18 @@ Every collective the mesh issues is counted in ``issued`` and
 with one all-reduce when it is built, so NCCL's lazy set-up does not land
 inside the first outer iteration.
 
-The reference's TPU-pod helpers (``force_host_platform_device_count``,
-``make_production_mesh``, ``make_host_mesh``) have no counterpart: they
-belong to the LM substrate's meshes.
+The LM substrate's meshes are ``torch.distributed.device_mesh.DeviceMesh``es
+over the default group:
+
+  * **production meshes** (:func:`make_production_mesh`): (data=16,
+    model=16) = 256 ranks, or (pod=2, data=16, model=16) = 512.  DP runs
+    over ('pod', 'data'), TP/EP over 'model', FSDP maps 'embed' onto
+    'data' (``repro_torch.models.common.DEFAULT_RULES``).  The dry-run
+    (:mod:`repro_torch.launch.dryrun`) builds them over a *fake* process
+    group of that world size in one process
+    (:func:`force_host_platform_device_count`), where nothing runs;
+  * the **host mesh** (:func:`make_host_mesh`): 1 x 1 ('data', 'model') on
+    this rank's device.
 """
 from __future__ import annotations
 
@@ -138,9 +147,25 @@ class DataMesh:
                 f"device={self.device}, axis={self.axis!r})")
 
 
-def validate_mesh(mesh: DataMesh, required_axes: Sequence[str]) -> None:
+def validate_mesh(mesh, required_axes: Sequence[str]) -> None:
     """Check a mesh's axis names and its device against its backend: the
-    required named axes exist, and a CUDA mesh's group runs NCCL."""
+    required named axes exist, and a CUDA mesh's group runs NCCL.  A
+    ``DeviceMesh`` is checked for its axis names, each rank once and its
+    device type (CUDA or CPU)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    if isinstance(mesh, DeviceMesh):
+        names = mesh.mesh_dim_names or ()
+        missing = [a for a in required_axes if a not in names]
+        if missing:
+            raise ValueError(
+                f"mesh axes {names} are missing required {missing}")
+        ranks = mesh.mesh.flatten().tolist()
+        if len(set(ranks)) != len(ranks):
+            raise ValueError("mesh contains duplicate ranks")
+        if mesh.device_type not in ("cuda", "cpu"):
+            raise ValueError(f"mesh on unsupported device "
+                             f"{mesh.device_type}")
+        return
     missing = [a for a in required_axes if a not in mesh.axis_names]
     if missing:
         raise ValueError(
@@ -208,4 +233,67 @@ def ensure_data_mesh(mesh: Optional[DataMesh] = None, *,
         raise ValueError(f"RunConfig.mesh must be a repro_torch DataMesh "
                          f"(launch.mesh.make_data_mesh), got {mesh!r}")
     validate_mesh(mesh, (axis,))
+    return mesh
+
+
+# ---------------------------------------------------------------------------
+# The LM substrate's meshes
+
+
+def force_host_platform_device_count(n: int) -> bool:
+    """Make this process rank 0 of a *fake* process group of world size
+    ``n`` (``torch.testing._internal.distributed.fake_pg``: its
+    collectives return at once and move nothing), so that the production
+    meshes can be built for the dry-run on one host.  The torch
+    counterpart of the reference's helper of that name.
+
+    Returns True if the group was made, False if a default group of
+    exactly ``n`` ranks exists already; raises RuntimeError when one of
+    another size does (start a fresh process), as the reference raises
+    once jax is initialized."""
+    if n < 1:
+        raise ValueError(f"device count must be >= 1, got {n}")
+    if dist.is_initialized():
+        have = dist.get_world_size()
+        if have == n:
+            return False
+        raise RuntimeError(
+            f"a process group of {have} rank(s) exists already; a fake "
+            f"group of {n} must be made before any other (start a fresh "
+            "process, call this helper first)")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=int(n))
+    return True
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """(16, 16) ('data', 'model'), or (2, 16, 16) ('pod', 'data',
+    'model') with ``multi_pod``, over the default group (256 or 512 ranks:
+    the dry-run's fake one, whose tensors are CPU tensors, so a CPU
+    mesh)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=axes)
+    validate_mesh(mesh, axes)
+    return mesh
+
+
+def make_host_mesh(device: Union[str, torch.device, None] = None):
+    """The degenerate 1 x 1 ('data', 'model') mesh on this process's
+    device: CUDA unless ``device="cpu"``.  Over the default group, or a
+    world-size-1 ``FileStore`` group made here (as :func:`make_data_mesh`),
+    which stays for the process."""
+    from torch.distributed.device_mesh import DeviceMesh
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("make_host_mesh: no CUDA device; pass "
+                           "device='cpu' for a CPU mesh")
+    _ensure_group()
+    if dist.get_world_size() != 1:
+        raise RuntimeError(f"make_host_mesh: the default group has "
+                           f"{dist.get_world_size()} ranks, not 1")
+    mesh = DeviceMesh(dev.type, [[0]], mesh_dim_names=("data", "model"))
+    validate_mesh(mesh, ("data", "model"))
     return mesh

@@ -17,9 +17,12 @@ Examples
 
 The forward runs the flash-attention kernel (and, in MoE models, the
 expert-FFN kernel) on the card; their backward recomputes the reference's
-differentiable math (:mod:`repro_torch.kernels.ops`).  The reference also
-builds a host mesh and deletes it at once; the pod meshes are not ported
-(ROADMAP §A item 8).
+differentiable math (:mod:`repro_torch.kernels.ops`).  Each layer runs
+under the config's ``remat_policy`` (``"nothing"`` by default: the
+backward recomputes the layer's forward, kernels included).  As the
+reference, ``train_lm`` builds the 1 x 1 host mesh and drops it at once:
+one device here; the dry-run (:mod:`repro_torch.launch.dryrun`) runs the
+pod meshes.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from ..core.oracles.chain import resolve_device
 from ..core.types import upload
 from ..data.lm import DataConfig, Prefetcher, TokenDataset
 from ..ft.restart import RestartManager
+from .mesh import make_host_mesh
 from ..models import common, registry
 from ..optim import AdamWConfig, adamw_init, adamw_update, cosine_schedule
 from ..optim.adamw import tree_zip
@@ -46,9 +50,10 @@ def value_and_grad(params: dict, cfg, batch: dict):
     device tensor) and its gradient as a tree of ``params``'s structure
     (zeros for a leaf the loss does not reach, as ``jax.grad`` gives)."""
     live = tree_zip(lambda p: p.detach().requires_grad_(), params)
-    loss = registry.loss_fn(live, cfg, batch)
-    flat = common.leaves(live)
-    got = torch.autograd.grad(loss, flat, allow_unused=True)
+    with registry.sharded(live):    # DTensor parameters: the backward too
+        loss = registry.loss_fn(live, cfg, batch)
+        flat = common.leaves(live)
+        got = torch.autograd.grad(loss, flat, allow_unused=True)
     by_id = {id(p): torch.zeros_like(p) if g is None else g
              for p, g in zip(flat, got)}
     return loss.detach(), tree_zip(lambda p: by_id[id(p)], live)
@@ -94,6 +99,8 @@ def train_lm(arch: str, steps: int, batch_size: int, seq_len: int,
     if target_params:
         cfg = scale_to_params(cfg, target_params)
     ocfg = AdamWConfig(lr=3e-4)
+    mesh = make_host_mesh(device=dev)
+    del mesh  # one device here; the dry-run runs the pod meshes
 
     rm = RestartManager(ckpt_dir, save_every) if ckpt_dir else None
     if rm is not None:

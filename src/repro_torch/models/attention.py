@@ -6,7 +6,8 @@ hand-written flash-attention kernel
 (:func:`repro_torch.kernels.ops.flash_attention`, which reads grouped kv
 heads in place and takes a value head dim of its own: MLA's q/k heads are
 ``qk_nope_dim + qk_rope_dim`` wide, its v heads ``v_head_dim``), its
-window build under ``cfg.sliding_window``; on a CPU tensor it runs
+window build under ``cfg.sliding_window``, its bf16-score builds under
+``cfg.attn_score_dtype = "bf16"``; on a CPU tensor it runs
 :func:`chunked_causal_attention`, the function the JAX model computes.
 :func:`bidirectional_attention` is the encoder's unmasked attention
 (``repro/models/encdec.py::_bidir_attention``'s), which the kernel's
@@ -25,7 +26,8 @@ import torch
 
 from ..kernels import ops as kops
 from ..kernels.ref import INVALID_SCORE
-from .common import ModelConfig, ParamSpec
+from .common import (ModelConfig, ParamSpec, cache_write, is_dtensor,
+                     merge_heads, per_shard, replicate_dims, split_heads)
 from .layers import apply_rope, rms_norm
 
 
@@ -88,6 +90,9 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
     (optionally windowed), so peak score memory is (B, H, chunk, S).
     ``score_dtype='bf16'`` keeps the score slab in bf16 through the
     softmax, as the reference's perf knob."""
+    if is_dtensor(q):       # each (batch, head) alone: on the local shards
+        return per_shard(lambda *t: chunked_causal_attention(
+            *t, chunk, sliding_window, score_dtype), q, q, k, v)
     B, S, H, hd = q.shape
     sdt = torch.bfloat16 if score_dtype == "bf16" else torch.float32
     # Filled on the device: a tensor built from a host value would be a
@@ -116,6 +121,8 @@ def bidirectional_attention(q: torch.Tensor, k: torch.Tensor,
     """Unmasked softmax attention in float32 (the reference's encoder and
     cross-attention): q (B, S, H, hd) over k, v (B, T, H, hd), kv already
     repeated to H heads, T free; the output in q's dtype."""
+    if is_dtensor(q):       # each (batch, head) alone: on the local shards
+        return per_shard(bidirectional_attention, q, q, k, v)
     hd = q.shape[-1]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd ** -0.5
     pw = torch.softmax(s, dim=-1)
@@ -131,15 +138,14 @@ def repeat_kv(x: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 
 def _kernel_config(cfg: ModelConfig) -> None:
-    """Raise for a config the flash-attention kernel does not compute."""
-    unsupported = [f"{name}={val!r}" for name, val, ok in (
-        ("attn_score_dtype", cfg.attn_score_dtype,
-         cfg.attn_score_dtype == "f32"),
-        ("attn_impl", cfg.attn_impl, cfg.attn_impl == "chunked")) if not ok]
-    if unsupported:
+    """Raise for a config the flash-attention kernel does not compute:
+    an ``attn_impl`` other than the chunked attention (the stub is taken
+    before), a score dtype other than ``"f32"`` or ``"bf16"``."""
+    if cfg.attn_impl != "chunked" or cfg.attn_score_dtype not in (
+            "f32", "bf16"):
         raise NotImplementedError(
-            f"the CUDA flash-attention path does not compute "
-            f"{', '.join(unsupported)} (ROADMAP §A item 8)")
+            f"the CUDA flash-attention path does not compute attn_impl="
+            f"{cfg.attn_impl!r}, attn_score_dtype={cfg.attn_score_dtype!r}")
 
 
 def _qkv(p: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -151,11 +157,11 @@ def _qkv(p: dict, x: torch.Tensor, positions: torch.Tensor,
     v = torch.matmul(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = apply_rope(q.reshape(B, S, cfg.num_heads, hd), positions,
+    q = apply_rope(split_heads(q, cfg.num_heads, hd), positions,
                    cfg.rope_theta)
-    k = apply_rope(k.reshape(B, S, cfg.num_kv_heads, hd), positions,
+    k = apply_rope(split_heads(k, cfg.num_kv_heads, hd), positions,
                    cfg.rope_theta)
-    return q, k, v.reshape(B, S, cfg.num_kv_heads, hd)
+    return q, k, split_heads(v, cfg.num_kv_heads, hd)
 
 
 def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -167,13 +173,14 @@ def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
         o = repeat_kv(v, cfg.num_heads) + 0.0 * q
     elif x.device.type == "cuda":
         _kernel_config(cfg)
-        o = kops.flash_attention(q, k, v, window=cfg.sliding_window)
+        o = kops.flash_attention(q, k, v, window=cfg.sliding_window,
+                                 score_dtype=cfg.attn_score_dtype)
     else:
         o = chunked_causal_attention(q, repeat_kv(k, cfg.num_heads),
                                      repeat_kv(v, cfg.num_heads),
                                      cfg.attn_chunk, cfg.sliding_window,
                                      score_dtype=cfg.attn_score_dtype)
-    return torch.matmul(o.reshape(B, S, -1), p["wo"])
+    return torch.matmul(merge_heads(o), p["wo"])
 
 
 def gqa_decode(p: dict, x: torch.Tensor,
@@ -187,10 +194,13 @@ def gqa_decode(p: dict, x: torch.Tensor,
     Smax = ck.shape[1]
     posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _qkv(p, x, posv, cfg)
-    ck[:, pos] = k[:, 0].to(ck.dtype)
-    cv[:, pos] = v[:, 0].to(cv.dtype)
+    cache_write(ck, k[:, 0].to(ck.dtype), 1, pos)
+    cache_write(cv, v[:, 0].to(cv.dtype), 1, pos)
     kk = repeat_kv(ck, cfg.num_heads)
     vv = repeat_kv(cv, cfg.num_heads)
+    # DTensors: the query's heads whole (the cache's sequence holds the
+    # model axis), so the softmax's partials reduce over the sequence.
+    q = replicate_dims(q, 2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float()) * hd ** -0.5
     idx = torch.arange(Smax, device=x.device)
     valid = idx <= pos
@@ -210,7 +220,7 @@ def _mla_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
     B, S, _ = x.shape
     qk_hd = cfg.qk_nope_dim + cfg.qk_rope_dim
     ql = rms_norm(torch.matmul(x, p["wq_a"]), p["q_norm"], cfg.norm_eps)
-    q = torch.matmul(ql, p["wq_b"]).reshape(B, S, cfg.num_heads, qk_hd)
+    q = split_heads(torch.matmul(ql, p["wq_b"]), cfg.num_heads, qk_hd)
     kv = torch.matmul(x, p["wkv_a"])
     c_kv = rms_norm(kv[..., :cfg.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
     return q, c_kv, kv[..., cfg.kv_lora_rank:]
@@ -229,8 +239,8 @@ def mla_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
     q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
     k_rope = apply_rope(k_rope[:, :, None, :], positions,
                         cfg.rope_theta)                    # (B, S, 1, rope)
-    kv = torch.matmul(c_kv, p["wkv_b"]).reshape(B, S, H, nope
-                                                + cfg.v_head_dim)
+    kv = split_heads(torch.matmul(c_kv, p["wkv_b"]), H,
+                     nope + cfg.v_head_dim)
     v = kv[..., nope:]
     k = torch.cat([kv[..., :nope], k_rope.expand(B, S, H, rope)], dim=-1)
     qq = torch.cat([q[..., :nope], q_rope], dim=-1)
@@ -238,11 +248,11 @@ def mla_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
         o = v + 0.0 * qq.sum(dim=-1, keepdim=True)
     elif x.device.type == "cuda":
         _kernel_config(cfg)
-        o = kops.flash_attention(qq, k, v)
+        o = kops.flash_attention(qq, k, v, score_dtype=cfg.attn_score_dtype)
     else:
         o = chunked_causal_attention(qq, k, v, cfg.attn_chunk,
                                      score_dtype=cfg.attn_score_dtype)
-    return torch.matmul(o.reshape(B, S, -1), p["wo"])
+    return torch.matmul(merge_heads(o), p["wo"])
 
 
 def mla_decode(p: dict, x: torch.Tensor, cache, pos: int,
@@ -263,8 +273,8 @@ def mla_decode(p: dict, x: torch.Tensor, cache, pos: int,
     posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q_rope = apply_rope(q[..., nope:], posv, cfg.rope_theta)  # (B,1,H,r)
     k_rope = apply_rope(k_rope[:, :, None, :], posv, cfg.rope_theta)
-    cc[:, pos] = c_kv[:, 0].to(cc.dtype)
-    cr[:, pos] = k_rope[:, 0, 0].to(cr.dtype)
+    cache_write(cc, c_kv[:, 0].to(cc.dtype), 1, pos)
+    cache_write(cr, k_rope[:, 0, 0].to(cr.dtype), 1, pos)
     kvb = p["wkv_b"].reshape(cfg.kv_lora_rank, H, nope + cfg.v_head_dim)
     # Absorb: q_eff[b, h, r] = sum_k q_nope[b, h, k] kvb_k[r, h, k]
     q_eff = torch.einsum("bqhk,rhk->bqhr", q[..., :nope], kvb[..., :nope])

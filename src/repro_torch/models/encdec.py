@@ -22,7 +22,8 @@ import torch
 from ..core.oracles.chain import resolve_device
 from ..kernels import ops as kops
 from . import attention as attn
-from .common import ModelConfig, ParamSpec
+from .common import (ModelConfig, ParamSpec, cache_at, layer_input,
+                     merge_heads, remat_wrap, split_heads, unstack)
 from .layers import (cross_entropy, embed_specs, embed_tokens, lm_logits,
                      mlp_specs, rms_norm, swiglu)
 from .transformer import _layer
@@ -71,6 +72,11 @@ def param_specs(cfg: ModelConfig) -> dict:
     return s
 
 
+def _heads(t: torch.Tensor, hd: int) -> torch.Tensor:
+    """(B, S, n hd) -> (B, S, n, hd)."""
+    return split_heads(t, t.shape[-1] // hd, hd)
+
+
 def _bidir_attention(p: dict, x: torch.Tensor,
                      cfg: ModelConfig) -> torch.Tensor:
     """Full bidirectional attention (the encoder's): the flash kernel's
@@ -78,55 +84,61 @@ def _bidir_attention(p: dict, x: torch.Tensor,
     plain float32 softmax on a CPU tensor."""
     B, S, _ = x.shape
     hd = cfg.hd
-    q = torch.matmul(x, p["wq"]).reshape(B, S, -1, hd)
-    k = torch.matmul(x, p["wk"]).reshape(B, S, -1, hd)
-    v = torch.matmul(x, p["wv"]).reshape(B, S, -1, hd)
+    q, k, v = (_heads(torch.matmul(x, p[w]), hd) for w in ("wq", "wk", "wv"))
     if x.device.type == "cuda":
         o = kops.flash_attention(q, k, v, causal=False)
     else:
         o = attn.bidirectional_attention(q, attn.repeat_kv(k, cfg.num_heads),
                                          attn.repeat_kv(v, cfg.num_heads))
-    return torch.matmul(o.reshape(B, S, -1), p["wo"])
+    return torch.matmul(merge_heads(o), p["wo"])
 
 
 def _cross_attention(p: dict, x: torch.Tensor, enc_out: torch.Tensor,
                      cfg: ModelConfig) -> torch.Tensor:
     B, S, _ = x.shape
-    T, hd = enc_out.shape[1], cfg.hd
-    q = torch.matmul(x, p["wq"]).reshape(B, S, -1, hd)
-    k = torch.matmul(enc_out, p["wk"]).reshape(B, T, -1, hd)
-    v = torch.matmul(enc_out, p["wv"]).reshape(B, T, -1, hd)
+    hd = cfg.hd
+    q = _heads(torch.matmul(x, p["wq"]), hd)
+    k = _heads(torch.matmul(enc_out, p["wk"]), hd)
+    v = _heads(torch.matmul(enc_out, p["wv"]), hd)
     o = attn.bidirectional_attention(q, k, v)
-    return torch.matmul(o.reshape(B, S, -1), p["wo"])
+    return torch.matmul(merge_heads(o), p["wo"])
 
 
 def encode(params: dict, cfg: ModelConfig,
            frames: torch.Tensor) -> torch.Tensor:
     x = frames.to(cfg.dtype)
     eps = cfg.norm_eps
+    layers = unstack(params["enc_layers"])
     for l in range(cfg.encoder_layers):
-        lp = _layer(params["enc_layers"], l)
+        lp = _layer(layers, l)
+        x = layer_input(x)
         x = x + _bidir_attention(lp["attn"], rms_norm(x, lp["ln1"], eps),
                                  cfg)
         m = lp["mlp"]
         x = x + swiglu(rms_norm(x, lp["ln2"], eps), m["gate"], m["up"],
                        m["down"])
-    return rms_norm(x, params["enc_norm"], eps)
+    return rms_norm(layer_input(x), params["enc_norm"], eps)
 
 
 def _decoder(params: dict, cfg: ModelConfig, x: torch.Tensor,
              positions: torch.Tensor, enc_out: torch.Tensor):
     eps = cfg.norm_eps
-    for l in range(cfg.num_layers):
-        lp = _layer(params["dec_layers"], l)
+
+    def body(lp, x):
+        x = layer_input(x)
         x = x + attn.gqa_forward(lp["self_attn"],
                                  rms_norm(x, lp["ln1"], eps), positions, cfg)
         x = x + _cross_attention(lp["cross_attn"],
                                  rms_norm(x, lp["lnx"], eps), enc_out, cfg)
         m = lp["mlp"]
-        x = x + swiglu(rms_norm(x, lp["ln2"], eps), m["gate"], m["up"],
-                       m["down"])
-    return rms_norm(x, params["final_norm"], eps)
+        return x + swiglu(rms_norm(x, lp["ln2"], eps), m["gate"], m["up"],
+                          m["down"])
+
+    body = remat_wrap(cfg, body)      # the decoder's layers, as the reference
+    layers = unstack(params["dec_layers"])
+    for l in range(cfg.num_layers):
+        x = body(_layer(layers, l), x)
+    return rms_norm(layer_input(x), params["final_norm"], eps)
 
 
 def _hidden(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
@@ -177,12 +189,12 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     for l in range(cfg.num_layers):
         lp = _layer(params["dec_layers"], l)
         a, _ = attn.gqa_decode(lp["self_attn"], rms_norm(x, lp["ln1"], eps),
-                               (ck[l], cv[l]), pos, cfg)
+                               (cache_at(ck, l), cache_at(cv, l)), pos, cfg)
         x = x + a
         h = rms_norm(x, lp["lnx"], eps)
-        q = torch.matmul(h, lp["cross_attn"]["wq"]).reshape(B, 1, -1, cfg.hd)
-        o = attn.bidirectional_attention(q, cache["cross_k"][l],
-                                         cache["cross_v"][l])
+        q = _heads(torch.matmul(h, lp["cross_attn"]["wq"]), cfg.hd)
+        o = attn.bidirectional_attention(q, cache_at(cache["cross_k"], l),
+                                         cache_at(cache["cross_v"], l))
         x = x + torch.matmul(o.reshape(B, 1, -1), lp["cross_attn"]["wo"])
         m = lp["mlp"]
         x = x + swiglu(rms_norm(x, lp["ln2"], eps), m["gate"], m["up"],

@@ -20,7 +20,8 @@ import torch
 from ..core.oracles.chain import resolve_device
 from . import attention as attn
 from . import ssm
-from .common import ModelConfig, ParamSpec
+from .common import (ModelConfig, ParamSpec, cache_at, cache_write,
+                     gather_fsdp, layer_input, remat_wrap, unstack)
 from .layers import (cross_entropy, embed_specs, embed_tokens, lm_logits,
                      mlp_specs, rms_norm, swiglu)
 from .transformer import _layer
@@ -67,17 +68,26 @@ def _forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
                              device=x.device)[None].expand(B, S)
     n_groups, k, tail = _groups(cfg)
 
+    groups = unstack(params["mamba_groups"], 2)
+    tail_layers = unstack(params["mamba_tail"]) if tail else ()
+    norms = unstack(params["norm_in"])
+
     def mamba(x, lp, nrm):
+        x = layer_input(x)
         return x + ssm.ssd_forward(lp, rms_norm(x, nrm, cfg.norm_eps), cfg)
-    for g in range(n_groups):
+
+    def group(x, g):
         for l in range(k):
-            x = mamba(x, _layer(params["mamba_groups"], (g, l)),
-                      params["norm_in"][g * k + l])
-        x = _shared_attn(cfg, params["shared_attn"], x, positions)
+            x = mamba(x, _layer(groups, g * k + l), norms[g * k + l])
+        return _shared_attn(cfg, gather_fsdp(params["shared_attn"]),
+                            layer_input(x), positions)
+
+    group = remat_wrap(cfg, group)    # the groups, not the tail
+    for g in range(n_groups):
+        x = group(x, g)
     for t in range(tail):
-        x = mamba(x, _layer(params["mamba_tail"], t),
-                  params["norm_in"][n_groups * k + t])
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x = mamba(x, _layer(tail_layers, t), norms[n_groups * k + t])
+    return rms_norm(layer_input(x), params["final_norm"], cfg.norm_eps)
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
@@ -115,11 +125,12 @@ def _ssd_step(cfg: ModelConfig, lp: dict, nrm: torch.Tensor,
               x: torch.Tensor, cache: dict, idx) -> torch.Tensor:
     """One Mamba2 layer's decode, its cache entry ``idx`` written in
     place."""
-    layer_cache = {name: t[idx] for name, t in cache.items()}
+    idx = idx if isinstance(idx, tuple) else (idx,)
+    layer_cache = {name: cache_at(t, *idx) for name, t in cache.items()}
     out, new = ssm.ssd_decode(lp, rms_norm(x, nrm, cfg.norm_eps),
                               layer_cache, cfg)
     for name, t in layer_cache.items():
-        t.copy_(new[name])
+        cache_write(t, new[name])
     return x + out
 
 
@@ -131,15 +142,16 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     pos = int(pos)
     x = embed_tokens(params, tokens, cfg)
     n_groups, k, tail = _groups(cfg)
-    p = params["shared_attn"]
+    p = gather_fsdp(params["shared_attn"])
     for g in range(n_groups):
         for l in range(k):
             x = _ssd_step(cfg, _layer(params["mamba_groups"], (g, l)),
                           params["norm_in"][g * k + l], x,
                           cache["ssm_groups"], (g, l))
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        a, _ = attn.gqa_decode(p["attn"], h, (cache["attn_k"][g],
-                                              cache["attn_v"][g]), pos, cfg)
+        a, _ = attn.gqa_decode(p["attn"], h, (cache_at(cache["attn_k"], g),
+                                              cache_at(cache["attn_v"], g)),
+                               pos, cfg)
         x = x + a
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         x = x + swiglu(h, p["mlp"]["gate"], p["mlp"]["up"], p["mlp"]["down"])

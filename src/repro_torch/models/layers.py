@@ -7,7 +7,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, ParamSpec
+from .common import (ModelConfig, ParamSpec, as_replicated, batch_local,
+                     gather_fsdp, is_dtensor, replicate_dims)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -70,12 +71,16 @@ def embed_specs(cfg: ModelConfig) -> dict:
 
 def embed_tokens(params: dict, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    return params["embedding"][tokens.long()]
+    w = gather_fsdp(params["embedding"])
+    if is_dtensor(w):   # the rows of each rank's tokens, from the whole table
+        return batch_local(lambda t, e: e[t.long()],
+                           as_replicated(tokens, w), w)
+    return w[tokens.long()]
 
 
 def lm_logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    head = (params["embedding"].T if cfg.tie_embeddings
-            else params["lm_head"])
+    head = gather_fsdp(params["embedding"].T if cfg.tie_embeddings
+                       else params["lm_head"])
     return torch.matmul(x, head)
 
 
@@ -83,8 +88,9 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean token cross entropy; logits (..., V), labels (...).  The
     log-sum-exp in float32; with ``mask``, the mean over the masked-in
-    tokens (at least one)."""
-    logits = logits.float()
+    tokens (at least one).  A DTensor's vocab shards are gathered for the
+    gold logit's lookup."""
+    logits = replicate_dims(logits, -1).float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = lse - gold

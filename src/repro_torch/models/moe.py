@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import ops as kops
-from .common import ModelConfig, ParamSpec
+from .common import ModelConfig, ParamSpec, local_call, placed_like
 from .layers import mlp_specs, swiglu
 
 
@@ -69,18 +69,30 @@ def route(p: dict, xf: torch.Tensor, cfg: ModelConfig):
     return top_k(gates.T, capacity(cfg, T))
 
 
+def _combine(idx: torch.Tensor, src: torch.Tensor, T: int) -> torch.Tensor:
+    """The experts' weighted rows summed back into their tokens' rows."""
+    out = torch.zeros((T, src.shape[-1]), dtype=src.dtype,
+                      device=src.device)
+    return out.index_add_(0, idx, src)
+
+
 def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x: (B, S, D) -> (B, S, D)."""
+    """x: (B, S, D) -> (B, S, D).  On DTensors the routing and the combine
+    run on every rank's replicated copy of the tokens (``local_call``), the
+    expert FFN expert-parallel over the experts' shards."""
     B, S, D = x.shape
     xf = x.reshape(B * S, D)
-    ev, ei = route(p, xf, cfg)                             # (E, C)
+    ev, ei = local_call(lambda r, t: route({"router": r}, t, cfg),
+                        p["router"], xf, n_out=2)          # (E, C)
     keep = ev > 0.0                                        # dropped slots
-    xs = xf.index_select(0, ei.reshape(-1)).view(*ei.shape, D)  # (E, C, D)
+    xs = local_call(lambda t, i: t.index_select(0, i.reshape(-1)).view(
+        *i.shape, D), xf, ei)                              # (E, C, D)
     y = kops.moe_ffn(xs, p["w_gate"], p["w_up"], p["w_down"])
     w = (ev * keep).to(y.dtype)[..., None]                 # (E, C, 1)
-    out = torch.zeros((B * S, D), dtype=y.dtype, device=x.device)
-    out.index_add_(0, ei.reshape(-1), (y * w).reshape(-1, D))
+    out = local_call(lambda i, t: _combine(i, t, B * S), ei.reshape(-1),
+                     (y * w).reshape(-1, D))
     if cfg.num_shared_experts:
         sh = p["shared"]
         out = out + swiglu(xf, sh["gate"], sh["up"], sh["down"])
-    return out.reshape(B, S, D).to(x.dtype)
+    # DTensors: back to the tokens' placements before the batch unflattens.
+    return placed_like(out, xf).reshape(B, S, D).to(x.dtype)

@@ -19,7 +19,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, ParamSpec
+from .common import ModelConfig, ParamSpec, batch_local, merge_heads
 
 HEADDIM = 64
 
@@ -107,10 +107,10 @@ def ssd_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     Q = min(cfg.ssm_chunk, S)
     pad = -S % Q
     z, xBC, dt = _split_proj(p, x, cfg)
-    xBC = _causal_conv(xBC, p["conv_w"], p["conv_b"])
+    xBC = batch_local(_causal_conv, xBC, p["conv_w"], p["conv_b"])
     if pad:   # after the conv; dt padded with zeros before the softplus
-        xBC = F.pad(xBC, (0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
+        xBC, dt = (batch_local(lambda t: F.pad(t, (0, 0, 0, pad)), t)
+                   for t in (xBC, dt))
     Sp = xBC.shape[1]
     nc = Sp // Q
     xs = xBC[..., :d_inner].reshape(Bsz, nc, Q, H, pdim).float()
@@ -119,7 +119,7 @@ def ssd_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = F.softplus(dt.float() + p["dt_bias"]).reshape(Bsz, nc, Q, H)
     A = -torch.exp(p["A_log"])                                # (H,)
     a = dt * A                                                # (B,nc,Q,H)
-    cum = torch.cumsum(a, dim=2)                              # (B,nc,Q,H)
+    cum = batch_local(lambda t: torch.cumsum(t, dim=2), a)    # (B,nc,Q,H)
 
     # intra-chunk: L[q,s] = exp(cum_q - cum_s) for s <= q, else 0
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]       # (B,nc,Q,Q,H)
@@ -148,7 +148,7 @@ def ssd_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     y = (y_intra + y_inter).reshape(Bsz, Sp, H, pdim)[:, :S]
     y = y + p["D"][None, None, :, None] * \
         xBC[..., :d_inner].reshape(Bsz, Sp, H, pdim)[:, :S]
-    y = y.reshape(Bsz, S, d_inner).to(x.dtype)
+    y = merge_heads(y).to(x.dtype)
     y = y * F.silu(z)
     y = _gated_norm(y, p["norm"], cfg)
     return torch.matmul(y, p["out_proj"])

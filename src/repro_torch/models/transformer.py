@@ -17,12 +17,13 @@ the stacked tensors.  Entry points:
 MoE models may lead with dense layers (deepseek-v3: two layer groups).
 ``cfg.mtp`` adds the multi-token-prediction block to the loss;
 ``cfg.vision_tokens`` replaces the first positions' embeddings by the
-projected patch embeddings ``batch["vision_embeds"]`` (the VLM stub).  The
-reference runs each block under ``jax.checkpoint``; that changes memory,
-not values, and the port keeps a block's activations for the backward.
+projected patch embeddings ``batch["vision_embeds"]`` (the VLM stub).  In
+training each block runs under ``cfg.remat_policy`` (``torch.utils
+.checkpoint``, as the reference's ``jax.checkpoint``): memory, not values.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
@@ -30,7 +31,8 @@ import torch
 from ..core.oracles.chain import resolve_device
 from . import attention as attn
 from . import moe as moe_mod
-from .common import ModelConfig, ParamSpec
+from .common import (ModelConfig, ParamSpec, cache_at, gather_fsdp,
+                     layer_input, remat_half, remat_wrap, unstack)
 from .layers import cross_entropy, embed_specs, embed_tokens, lm_logits, \
     mlp_specs, rms_norm, swiglu
 
@@ -81,10 +83,12 @@ def param_specs(cfg: ModelConfig) -> dict:
 
 
 def _layer(tree, l: int):
-    """Layer ``l``'s parameters: views of the stacked tensors."""
+    """Layer ``l``'s parameters: views of the stacked tensors; DTensor
+    ones with their FSDP shards all-gathered (:func:`common.gather_fsdp`),
+    at the layer's start, as FSDP does."""
     if isinstance(tree, dict):
         return {k: _layer(v, l) for k, v in tree.items()}
-    return tree[l]
+    return gather_fsdp(tree[l])
 
 
 def _ffn(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor):
@@ -93,30 +97,48 @@ def _ffn(cfg: ModelConfig, kind: str, p: dict, h: torch.Tensor):
     return swiglu(h, p["mlp"]["gate"], p["mlp"]["up"], p["mlp"]["down"])
 
 
-def _block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
-           positions: torch.Tensor) -> torch.Tensor:
+def _attn_half(cfg: ModelConfig, p: dict, x: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     forward = attn.mla_forward if cfg.mla else attn.gqa_forward
-    x = x + forward(p["attn"], h, positions, cfg)
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _ffn(cfg, kind, p, h)
+    return forward(p["attn"], h, positions, cfg)
+
+
+def _ffn_half(cfg: ModelConfig, kind: str, p: dict,
+              x: torch.Tensor) -> torch.Tensor:
+    return _ffn(cfg, kind, p, rms_norm(x, p["ln2"], cfg.norm_eps))
+
+
+def _block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
+           positions: torch.Tensor, remat: bool = False) -> torch.Tensor:
+    """One block; with ``remat``, under ``remat_policy="selective"`` each
+    half checkpointed on its own (its output, the reference's
+    ``attn_out`` / ``ffn_out``, is what the backward keeps)."""
+    half = (lambda fn: remat_half(cfg, fn)) if remat else (lambda fn: fn)
+    x = x + half(_attn_half)(cfg, p, x, positions)
+    return x + half(_ffn_half)(cfg, kind, p, x)
 
 
 def backbone(params: dict, cfg: ModelConfig, x: torch.Tensor,
              positions: torch.Tensor) -> torch.Tensor:
     """Final hidden states; differentiable (callers that extract features
-    run it under ``torch.no_grad()``)."""
+    run it under ``torch.no_grad()``).  In training each block runs under
+    ``cfg.remat_policy`` (:func:`common.remat_wrap`)."""
     for name, kind, n in _layer_groups(cfg):
+        body = remat_wrap(cfg, functools.partial(_block, cfg, kind,
+                                                 remat=True), halves=True)
+        layers = unstack(params[name])
         for l in range(n):
-            x = _block(cfg, kind, _layer(params[name], l), x, positions)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+            x = body(_layer(layers, l), layer_input(x), positions)
+    return rms_norm(layer_input(x), params["final_norm"], cfg.norm_eps)
 
 
 def _embed_inputs(params: dict, cfg: ModelConfig, batch: dict):
     x = embed_tokens(params, batch["tokens"], cfg)
     if cfg.vision_tokens:
         ve = torch.matmul(batch["vision_embeds"].float(),
-                          params["vision_proj"].float()).to(x.dtype)
+                          gather_fsdp(params["vision_proj"]).float()
+                          ).to(x.dtype)
         x = torch.cat([ve, x[:, cfg.vision_tokens:]], dim=1)
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
@@ -140,7 +162,7 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     if cfg.mtp:
         emb_next = embed_tokens(params, batch["labels"], cfg)
         h2_in = torch.matmul(torch.cat([h, emb_next], dim=-1),
-                             params["mtp"]["proj"])
+                             gather_fsdp(params["mtp"]["proj"]))
         block = _layer({k: v for k, v in params["mtp"].items()
                         if k != "proj"}, 0)
         h2 = _block(cfg, "dense", block, h2_in, positions)
@@ -188,6 +210,6 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
         c0, c1 = cache[name]
         for l in range(n):
             x, _ = _decode_block(cfg, kind, _layer(params[name], l), x,
-                                 (c0[l], c1[l]), pos)
+                                 (cache_at(c0, l), cache_at(c1, l)), pos)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return lm_logits(params, h, cfg), cache

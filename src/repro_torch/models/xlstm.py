@@ -18,7 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, ParamSpec
+from .common import (ModelConfig, ParamSpec, batch_local, merge_heads,
+                     split_heads)
 from .layers import rms_norm
 from .ssm import _masked_exp
 
@@ -55,13 +56,12 @@ def mlstm_specs(cfg: ModelConfig, prefix_shape=()) -> dict:
 def _mlstm_proj(p: dict, x: torch.Tensor, cfg: ModelConfig):
     """(q, k / sqrt(hd), v) as (B, S, H, hd), the gates (i, f) (B, S, H)
     in float32, and the output gate's input z."""
-    B, S, _ = x.shape
     d_inner, H, hd = mlstm_dims(cfg)
     up = torch.matmul(x, p["up"])
     u, z = up[..., :d_inner], up[..., d_inner:]
-    q = torch.matmul(u, p["wq"]).reshape(B, S, H, hd)
-    k = torch.matmul(u, p["wk"]).reshape(B, S, H, hd) / hd ** 0.5
-    v = torch.matmul(u, p["wv"]).reshape(B, S, H, hd)
+    q = split_heads(torch.matmul(u, p["wq"]), H, hd)
+    k = split_heads(torch.matmul(u, p["wk"]), H, hd) / hd ** 0.5
+    v = split_heads(torch.matmul(u, p["wv"]), H, hd)
     gif = torch.matmul(u, p["wif"]).float()
     i_g = torch.sigmoid(gif[..., :H])
     f_g = torch.sigmoid(gif[..., H:] + 2.0)
@@ -87,7 +87,7 @@ def mlstm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
     Sp = nc * Q
 
     logf = torch.log(torch.clamp_min(fc, 1e-6))
-    cum = torch.cumsum(logf, dim=2)                        # (B,nc,Q,H)
+    cum = batch_local(lambda t: torch.cumsum(t, dim=2), logf)  # (B,nc,Q,H)
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]
     L = _masked_exp(seg, Q)              # masked before the exp, as SSD's
     qk = torch.einsum("bcqhd,bcshd->bcqsh", qc, kc)
@@ -107,7 +107,7 @@ def mlstm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
     states = torch.stack(states, dim=1)                    # (B,nc,H,hd,hd)
     y_inter = torch.einsum("bcqhd,bcqh,bchde->bcqhe", qc, torch.exp(cum),
                            states)
-    y = (y_intra + y_inter).reshape(B, Sp, d_inner)[:, :S]
+    y = merge_heads((y_intra + y_inter).reshape(B, Sp, H, hd))[:, :S]
     y = y.to(x.dtype) * F.silu(z)
     y = rms_norm(y, p["norm"], cfg.norm_eps)
     return torch.matmul(y, p["down"])
@@ -177,7 +177,7 @@ def slstm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     B, S, D = x.shape
     H = cfg.num_heads
     hd = D // H
-    gx = torch.matmul(x, p["wx"]).reshape(B, S, H, 4 * hd)
+    gx = split_heads(torch.matmul(x, p["wx"]), H, 4 * hd)
     h = torch.zeros((B, H, hd), dtype=x.dtype, device=x.device)
     c = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
     n = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
@@ -186,7 +186,7 @@ def slstm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         g = gx[:, t] + torch.einsum("bhd,hdk->bhk", h, p["rh"])
         h, c, n = _slstm_cell(g, c, n, x.dtype)
         hs.append(h)
-    y = torch.stack(hs, dim=1).reshape(B, S, D)
+    y = merge_heads(torch.stack(hs, dim=1))
     y = rms_norm(y, p["norm"], cfg.norm_eps)
     return torch.matmul(y, p["down"])
 
@@ -211,7 +211,7 @@ def slstm_decode(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig):
     B = x.shape[0]
     H = cfg.num_heads
     hd = cfg.d_model // H
-    g_t = torch.matmul(x, p["wx"])[:, 0].reshape(B, H, 4 * hd)
+    g_t = split_heads(torch.matmul(x, p["wx"])[:, 0], H, 4 * hd)
     g = g_t + torch.einsum("bhd,hdk->bhk", cache["h"], p["rh"])
     h, c, n = _slstm_cell(g, cache["c"], cache["n"], x.dtype)
     y = rms_norm(h.reshape(B, 1, -1), p["norm"], cfg.norm_eps)

@@ -15,7 +15,8 @@ import torch
 
 from ..core.oracles.chain import resolve_device
 from . import xlstm
-from .common import ModelConfig, ParamSpec
+from .common import (ModelConfig, ParamSpec, cache_at, cache_write,
+                     layer_input, remat_wrap, unstack)
 from .layers import cross_entropy, embed_specs, embed_tokens, lm_logits, \
     rms_norm
 from .transformer import _layer
@@ -49,19 +50,31 @@ def param_specs(cfg: ModelConfig) -> dict:
 def _forward(params: dict, cfg: ModelConfig, x: torch.Tensor):
     n_groups, k, tail = _groups(cfg)
     eps = cfg.norm_eps
-    for g in range(n_groups):
+
+    m_layers, m_norms = (unstack(params[n], 2) for n in ("mlstm", "m_norm"))
+    s_layers, s_norms = (unstack(params[n]) for n in ("slstm", "s_norm"))
+    if tail:
+        t_layers, t_norms = (unstack(params[n])
+                             for n in ("mlstm_tail", "tail_norm"))
+
+    def mlstm(x, lp, nrm):
+        x = layer_input(x)
+        return x + xlstm.mlstm_forward(lp, rms_norm(x, nrm, eps), cfg)
+
+    def group(x, g):
         for l in range(k - 1):
-            x = x + xlstm.mlstm_forward(
-                _layer(params["mlstm"], (g, l)),
-                rms_norm(x, params["m_norm"][g, l], eps), cfg)
-        x = x + xlstm.slstm_forward(
-            _layer(params["slstm"], g),
-            rms_norm(x, params["s_norm"][g], eps), cfg)
+            i = g * (k - 1) + l
+            x = mlstm(x, _layer(m_layers, i), m_norms[i])
+        x = layer_input(x)
+        return x + xlstm.slstm_forward(
+            _layer(s_layers, g), rms_norm(x, s_norms[g], eps), cfg)
+
+    group = remat_wrap(cfg, group)    # the groups, not the tail
+    for g in range(n_groups):
+        x = group(x, g)
     for t in range(tail):
-        x = x + xlstm.mlstm_forward(
-            _layer(params["mlstm_tail"], t),
-            rms_norm(x, params["tail_norm"][t], eps), cfg)
-    return rms_norm(x, params["final_norm"], eps)
+        x = mlstm(x, _layer(t_layers, t), t_norms[t])
+    return rms_norm(layer_input(x), params["final_norm"], eps)
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor:
@@ -106,22 +119,24 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
 
     def mlstm_step(x, lp, nrm, state):
         out, new = xlstm.mlstm_decode(lp, rms_norm(x, nrm, eps), state, cfg)
-        state.copy_(new)
+        cache_write(state, new)
         return x + out
 
     for g in range(n_groups):
         for l in range(k - 1):
             x = mlstm_step(x, _layer(params["mlstm"], (g, l)),
-                           params["m_norm"][g, l], cache["mlstm"][g, l])
-        sc = {name: t[g] for name, t in cache["slstm"].items()}
+                           params["m_norm"][g, l],
+                           cache_at(cache["mlstm"], g, l))
+        sc = {name: cache_at(t, g) for name, t in cache["slstm"].items()}
         out, new = xlstm.slstm_decode(
             _layer(params["slstm"], g),
             rms_norm(x, params["s_norm"][g], eps), sc, cfg)
         for name, t in sc.items():
-            t.copy_(new[name])
+            cache_write(t, new[name])
         x = x + out
     for t in range(tail):
         x = mlstm_step(x, _layer(params["mlstm_tail"], t),
-                       params["tail_norm"][t], cache["mlstm_tail"][t])
+                       params["tail_norm"][t],
+                       cache_at(cache["mlstm_tail"], t))
     h = rms_norm(x, params["final_norm"], eps)
     return lm_logits(params, h[:, -1:], cfg), cache

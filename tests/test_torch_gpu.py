@@ -1120,9 +1120,25 @@ def test_gqa_forward_on_card_raises_for_unported_attention(cuda):
     x = torch.randn((2, 5, cfg.d_model), device=cuda)
     pos = torch.arange(5, device=cuda)[None].expand(2, 5)
     assert attention.gqa_forward(p, x, pos, cfg).shape == x.shape
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 8"):
+    with pytest.raises(NotImplementedError, match="attn_impl='flash'"):
         attention.gqa_forward(p, x, pos, dataclasses.replace(
-            cfg, attn_score_dtype="bf16"))
+            cfg, attn_impl="flash"))
+    # bf16 scores run the kernel's bf16-score builds (the fp32 model's q,
+    # k, v cast to bf16), causal and windowed, against the CPU's bf16
+    # score slab: relative L2 <= 2e-2 (bf16 softmax on the CPU, fp32
+    # online softmax with p rounded to bf16 on the card).
+    for window in (0, 3):
+        s16 = dataclasses.replace(cfg, attn_score_dtype="bf16",
+                                  sliding_window=window)
+        ops.reset_launch_counts()
+        got = attention.gqa_forward(p, x, pos, s16)
+        mask = "window" if window else "causal"
+        assert ops.flash_attention_builds() == {
+            f"bf16-32x32-{mask}-s16": 1}
+        want = attention.gqa_forward({k: v.cpu() for k, v in p.items()},
+                                     x.cpu(), pos.cpu(), s16)
+        rel = float((got.cpu() - want).norm() / want.norm())
+        assert rel <= 2e-2, (window, rel)
     # A sliding window runs the kernel's window build, equal to the plain
     # path on the CPU.
     window = dataclasses.replace(cfg, sliding_window=3)
@@ -2029,7 +2045,9 @@ def test_kernels_without_grad_keep_the_plain_launch(cuda):
 def test_reduced_training_on_card_matches_cpu(cuda, arch):
     """5 trainer steps of the reduced model in float32, card against CPU
     from the same weights: losses and grad norms within rtol 1e-3, the
-    kernels launched once per layer per step."""
+    kernels launched once per layer per step in the forward and once more
+    in the backward, which runs each layer's forward again under the
+    default remat_policy "nothing"."""
     import dataclasses
     from repro_torch import configs
     from repro_torch.data.lm import DataConfig, TokenDataset
@@ -2056,10 +2074,12 @@ def test_reduced_training_on_card_matches_cpu(cuda, arch):
             hist[dev].append([float(loss), float(gnorm)])
     assert_allclose(hist["cuda"], hist["cpu"], rtol=1e-3)
     after = ops.launch_counts()
+    per_layer = 2 if cfg.remat_policy != "none" else 1
+    assert cfg.remat_policy == "nothing"
     assert after["flash_attention"] - before["flash_attention"] == \
-        5 * cfg.num_layers
+        5 * cfg.num_layers * per_layer
     assert after["moe_ffn"] - before["moe_ffn"] == \
-        (5 * cfg.num_layers if cfg.moe else 0)
+        (5 * cfg.num_layers * per_layer if cfg.moe else 0)
 
 
 def _to(tree, dev):
@@ -2196,3 +2216,23 @@ def test_reduced_new_families_on_card_match_cpu(cuda, arch, over):
     else:
         want = {}
     assert builds == want
+
+
+def test_kernel_wrappers_refuse_cuda_dtensors(cuda):
+    """B5's and B6's wrappers given CUDA DTensors raise (sharded execution
+    on several cards is not ported); on the host mesh's 1 x 1 CUDA mesh a
+    DTensor op runs."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh()
+    assert tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda"
+    rep = [Replicate(), Replicate()]
+    x = distribute_tensor(torch.zeros((1, 4, 2, 16), device=cuda), mesh, rep)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.flash_attention(x, x, x)
+    xs = distribute_tensor(torch.zeros((2, 3, 4), device=cuda), mesh, rep)
+    w = distribute_tensor(torch.zeros((2, 4, 5), device=cuda), mesh, rep)
+    wd = distribute_tensor(torch.zeros((2, 5, 4), device=cuda), mesh, rep)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.moe_ffn(xs, w, w, wd)
+    assert float((x + 1).sum().full_tensor()) == 128.0

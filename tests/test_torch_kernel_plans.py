@@ -426,3 +426,39 @@ def test_flash_attention_mask_of_refuses_a_window_without_causality():
         t_fa.mask_of(3, False)
     with pytest.raises(ValueError, match="< 0"):
         t_fa.mask_of(-1)
+
+
+# -- B5's bf16-score builds: a build of its own per bf16 build -------------
+
+@pytest.mark.parametrize("mask", ["causal", "window"])
+@pytest.mark.parametrize("D", [16, 64, 112, 128])
+@pytest.mark.parametrize("S", [20, 1024])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_bf16_scores_key_a_build_of_their_own(mask, D, S,
+                                                              dtype):
+    # float32 inputs run the bf16 build, cast: the plan is bf16's.
+    p = t_fa.plan(D, D, S, dtype, mask, "bf16")
+    base = t_fa.plan(D, D, S, torch.bfloat16, mask)
+    assert p["build"] == base["build"] + "-s16"
+    assert p["score_dtype"] == "bf16" and base["score_dtype"] == "f32"
+    assert {k: v for k, v in p.items() if k not in ("build", "score_dtype")
+            } == {k: v for k, v in base.items()
+                  if k not in ("build", "score_dtype")}
+
+
+def test_flash_attention_bf16_scores_keys():
+    assert t_fa.plan(128, 128, 1024, torch.bfloat16, "causal", "bf16")[
+        "build"] == "bf16-128x128-causal-s16"
+    assert t_fa.plan(112, 112, 8192, torch.float32, "window", "bf16")[
+        "build"] == "bf16-128x128-window-s16"
+    assert t_fa.plan(192, 128, 1024, torch.bfloat16, "causal", "bf16")[
+        "build"] == "bf16-192x128-causal-s16"
+
+
+def test_flash_attention_bf16_scores_refuse_what_no_build_takes():
+    with pytest.raises(ValueError, match="causal or windowed"):
+        t_fa.plan(64, 64, 100, torch.bfloat16, "bidirectional", "bf16")
+    with pytest.raises(ValueError, match="causal only"):
+        t_fa.plan(192, 128, 1024, torch.bfloat16, "window", "bf16")
+    with pytest.raises(ValueError, match="score dtype"):
+        t_fa.plan(64, 64, 100, torch.bfloat16, "causal", "f16")
