@@ -311,9 +311,14 @@ Phases, one JSON line each (seconds on an H100 in brackets):
                  fp32-score build, the bound and SDPA [~8].
  14n. host_mesh -- make_host_mesh() on the card: 1 x 1 ('data', 'model')
                  [~1].
- 14o. dryrun -- python -m repro_torch.launch.dryrun on qwen2-0.5b
-                 train_4k over a fake 256-rank (16, 16) mesh, on the host:
-                 ok, collectives counted, per-device FLOPs [~35].
+ 14o. dryrun -- python -m repro_torch.launch.dryrun on qwen2-0.5b and
+                 olmoe-1b-7b train_4k over a fake 256-rank (16, 16)
+                 mesh, one process each, side by side, on the host: ok,
+                 collectives counted, per-device FLOPs between the
+                 model's and the reference's, within 5 % of a CPU
+                 host's torch 2.13 count, by op class and collectives by
+                 kind
+                 [~25-45].
  15. sync_debug line (the paths whose every engine dispatch ran under
      sync-debug "error": main, main_async (both programs), main_gram,
      main_shard, main_shard_tau, main_gap, one train_lm step, and the
@@ -471,8 +476,19 @@ GRAD_S16 = (("qwen2-0.5b", {}), ("deepseek-v3-671b", {}),
             ("zamba2-7b", {"sliding_window": 3}))
 GRAD_S16_RTOL = 2e-2
 REMAT_POLICIES = ("nothing", "dots", "selective", "none")
-# The dry-run's CLI on one full cell, on the host (no card).
-DRYRUN_CELL = ("qwen2-0.5b", "train_4k", "single")
+# The dry-run's CLI on full cells, on the host (no card), one process
+# each, side by side: (arch, shape, mesh).
+DRYRUN_CELLS = (("qwen2-0.5b", "train_4k", "single"),
+                ("olmoe-1b-7b", "train_4k", "single"))
+# Per-device FLOPs of the same cells in the JAX reference's compiled
+# program: the reference roofline's counts on a CPU host (``python -m
+# repro.launch.roofline --arch A --shape train_4k``, jax 0.9.0 on the
+# CPU, the layers unrolled); the port's count is held at or under them.
+DRYRUN_REFERENCE_FLOPS = {"qwen2-0.5b": 5.218e13, "olmoe-1b-7b": 9.105e13}
+# The port's own count of each cell on a CPU host (torch 2.13); the GPU
+# host's torch traces the same program within DRYRUN_AGREE of it.
+DRYRUN_CPU_HOST_FLOPS = {"qwen2-0.5b": 1.9986e13, "olmoe-1b-7b": 5.4209e13}
+DRYRUN_AGREE = 0.05
 
 # The engines the registry added: card vs CPU on SMALL ocr, and three of
 # them at full OCR size (phase, algorithm).
@@ -5256,32 +5272,59 @@ def phase_host_mesh(torch):
 
 
 def phase_dryrun():
-    """The dry-run's CLI on one full cell (``DRYRUN_CELL``: qwen2-0.5b
-    train_4k on the (16, 16) mesh of a fake 256-rank group), in a process
-    of its own, on the host (it runs nothing on the card); its record's
-    ok, chips, collectives and per-device FLOPs, and its seconds [~35]."""
+    """The dry-run's CLI on each of ``DRYRUN_CELLS`` (qwen2-0.5b and
+    olmoe-1b-7b train_4k on the (16, 16) mesh of a fake 256-rank group),
+    one process each, side by side, on the host (nothing runs on the
+    card); per record: ok, chips, collectives, per-device FLOPs at or
+    under the reference's (``DRYRUN_REFERENCE_FLOPS``) and at least the
+    model's, within ``DRYRUN_AGREE`` of a CPU host's torch 2.13 count
+    (``DRYRUN_CPU_HOST_FLOPS``); FLOPs by op class and collectives by
+    kind, and the seconds [~25-45 each, in parallel]."""
     import tempfile
-    arch, shape, mesh = DRYRUN_CELL
+    import torch
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     env.pop("XLA_FLAGS", None)
     with tempfile.TemporaryDirectory() as out:
         t0 = time.perf_counter()
-        run = subprocess.run(
+        procs = [subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
              arch, "--shape", shape, "--mesh", mesh, "--out", out],
-            capture_output=True, text=True, env=env, timeout=600)
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env) for arch, shape, mesh in DRYRUN_CELLS]
+        try:
+            runs = [p.communicate(timeout=600) + (p.returncode,)
+                    for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
         seconds = time.perf_counter() - t0
-        check(run.returncode == 0, f"dryrun: {run.stderr[-2000:]}")
-        rec = json.loads((Path(out) / f"{arch}_{shape}_{mesh}_baseline.json")
-                         .read_text())
-    check(rec["ok"] and rec["chips"] == 256
-          and rec["collective_bytes_static"] > 0 and rec["flops"] > 0,
-          f"dryrun: {rec}")
-    emit("dryrun", seconds=seconds, **{k: rec[k] for k in (
-        "arch", "shape", "mesh", "chips", "params_total", "trace_s",
-        "flops", "flops_source", "model_flops", "bytes_accessed",
-        "collective_bytes_static", "collective_by_kind",
-        "collective_counts", "memory")})
+        recs = []
+        for (arch, shape, mesh), (_, err, rc) in zip(DRYRUN_CELLS, runs):
+            check(rc == 0, f"dryrun {arch}: {err[-2000:]}")
+            recs.append(json.loads((Path(out) / f"{arch}_{shape}_{mesh}"
+                                    "_baseline.json").read_text()))
+    for rec in recs:
+        arch = rec["arch"]
+        ref, cpu = DRYRUN_REFERENCE_FLOPS[arch], DRYRUN_CPU_HOST_FLOPS[arch]
+        model = rec["model_flops"] / rec["chips"]
+        check(rec["ok"] and rec["chips"] == 256
+              and rec["collective_bytes_static"] > 0, f"dryrun: {rec}")
+        check(model <= rec["flops"] <= ref,
+              f"dryrun {arch}: {rec['flops']:.4e} FLOPs per device, the "
+              f"model's {model:.4e}, the reference's {ref:.4e}")
+        check(abs(rec["flops"] / cpu - 1) <= DRYRUN_AGREE,
+              f"dryrun {arch}: {rec['flops']:.4e} FLOPs per device, the "
+              f"CPU host's torch 2.13 {cpu:.4e}")
+        emit("dryrun", seconds=seconds, torch_version=torch.__version__,
+             reference_flops=ref, cpu_host_flops=cpu,
+             flops_over_reference=rec["flops"] / ref,
+             flops_over_cpu_host=rec["flops"] / cpu,
+             model_flops_per_device=model,
+             **{k: rec[k] for k in (
+                 "arch", "shape", "mesh", "chips", "params_total", "trace_s",
+                 "flops", "flops_source", "flops_by_op", "model_flops",
+                 "bytes_accessed", "collective_bytes_static",
+                 "collective_by_kind", "collective_counts", "memory")})
 
 
 def phase_main_hybrid(torch):

@@ -244,16 +244,63 @@ def _on_shards(name: str, plain, keep_dim: int, ref_t: torch.Tensor,
                      device_mesh=mesh)(*args)
 
 
+def _experts_on_shards(xs: torch.Tensor, wg: torch.Tensor,
+                       wu: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:
+    """:func:`moe_ffn` on DTensors: on the CPU, its plain version on each
+    rank's local shards, mesh axis by mesh axis: where
+    ``wg`` shards the experts (dim 0), every argument's experts sharded
+    alike; else where ``xs`` shards its capacity rows (dim 1), ``xs``'s
+    rows against whole weights, whose gradients are partial sums over
+    that axis; else all replicated.  The output is placed as ``xs``.  On
+    CUDA it raises, as :func:`_on_shards`."""
+    ref_t = wg if _is_dtensor(wg) else xs
+    if ref_t.device.type != "cpu":
+        raise NotImplementedError(
+            "moe_ffn on CUDA DTensors: sharded execution on several cards "
+            "is not ported (ROADMAP §A item 8 follow-ups: it waits for a "
+            "host with more than one H100)")
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = ref_t.device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    wp = wg.placements if _is_dtensor(wg) else rep
+    xp = xs.placements if _is_dtensor(xs) else rep
+    x_plc, w_plc, g_plc = [], [], []
+    for pw, px in zip(wp, xp):
+        if pw.is_shard() and pw.dim == 0:
+            x_plc.append(Shard(0))
+            w_plc.append(Shard(0))
+            g_plc.append(Shard(0))
+        elif px.is_shard() and px.dim == 1:
+            x_plc.append(Shard(1))
+            w_plc.append(Replicate())
+            g_plc.append(Partial())
+        else:
+            x_plc.append(Replicate())
+            w_plc.append(Replicate())
+            g_plc.append(Replicate())
+    # Each argument's local shard (its gradient placed as ``g_plc``) and
+    # the output built at ``xs``'s global shape: capacity rows that the
+    # batch axes do not divide leave the shards uneven, which
+    # ``local_map`` would take for even ones.
+    local = [a.redistribute(mesh, plc).to_local(grad_placements=g)
+             if _is_dtensor(a) else a for a, plc, g in zip(
+                 (xs, wg, wu, wd), (x_plc,) + (w_plc,) * 3,
+                 (x_plc,) + (g_plc,) * 3)]
+    return DTensor.from_local(ref.moe_ffn_ref(*local), mesh, x_plc,
+                              run_check=False, shape=xs.shape,
+                              stride=torch.empty(xs.shape,
+                                                 device="meta").stride())
+
+
 def moe_ffn(xs: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
             wd: torch.Tensor) -> torch.Tensor:
     """Grouped SwiGLU expert FFN: ``xs (E, C, D)``, ``wg``/``wu (E, D,
     F)``, ``wd (E, F, D)`` -> ``(E, C, D)`` in ``xs``'s dtype.  On CUDA
     tensors that need a gradient, through :class:`MoeFFN`.  On DTensors
-    (CPU), expert-parallel: the plain version on each rank's experts, as
-    ``wg``'s experts are sharded."""
+    (CPU), the plain version on each rank's experts and capacity rows
+    (:func:`_experts_on_shards`)."""
     if _is_dtensor(wg) or _is_dtensor(xs):
-        return _on_shards("moe_ffn", ref.moe_ffn_ref, 0,
-                          wg if _is_dtensor(wg) else xs, xs, wg, wu, wd)
+        return _experts_on_shards(xs, wg, wu, wd)
     if xs.device.type == "cpu":
         return ref.moe_ffn_ref(xs, wg, wu, wd)
     if _needs_grad(xs, wg, wu, wd):

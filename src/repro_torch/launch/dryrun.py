@@ -18,7 +18,8 @@ What a record counts, per device (rank 0's view; the mesh is uniform):
   * ``flops``: the local ops' FLOPs (``torch.utils.flop_counter``'s
     formulas on each op that runs on a rank's shards, not the global ones
     that DTensor's sharding propagation traces); ``flops_source`` is
-    ``"flop_counter"``;
+    ``"flop_counter"``, ``flops_by_op`` the same by aten op (``mm``,
+    ``bmm``, ...);
   * ``bytes_accessed``: the sum of each local op's operand and result
     bytes (views, which move nothing, left out);
   * ``collective_bytes_static``, ``collective_by_kind``,
@@ -325,6 +326,7 @@ class LocalCounter:
         from ..analysis.contracts import COLLECTIVE_NAMESPACES
         counter = self
         self.flops = 0
+        self.op_flops: Dict[str, int] = {}
         self.bytes = 0
         self.coll_bytes: Dict[str, int] = {}
         self.coll_counts: Dict[str, int] = {}
@@ -354,8 +356,10 @@ class LocalCounter:
                     return out
                 packet = func._overloadpacket
                 if packet in flop_registry:
-                    counter.flops += flop_registry[packet](
-                        *args, **kwargs, out_val=out)
+                    n = flop_registry[packet](*args, **kwargs, out_val=out)
+                    counter.flops += n
+                    counter.op_flops[packet.__name__] = \
+                        counter.op_flops.get(packet.__name__, 0) + n
                 if ns == "prim" or not func._schema.returns or any(
                         r.alias_info is not None
                         for r in func._schema.returns):
@@ -465,6 +469,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     rec["model_flops"] = model_flops(cfg, counts, tokens, cell.kind)
     rec["flops"] = float(counter.flops)
     rec["flops_source"] = "flop_counter"
+    rec["flops_by_op"] = dict(counter.op_flops)
     rec["bytes_accessed"] = float(counter.bytes)
     rec["collective_bytes_static"] = counter.collective_bytes
     rec["collective_by_kind"] = dict(counter.coll_bytes)

@@ -27,7 +27,8 @@ import torch
 from ..kernels import ops as kops
 from ..kernels.ref import INVALID_SCORE
 from .common import (ModelConfig, ParamSpec, cache_write, is_dtensor,
-                     merge_heads, per_shard, replicate_dims, split_heads)
+                     merge_heads, per_shard, replicate_dims, row_input,
+                     split_heads)
 from .layers import apply_rope, rms_norm
 
 
@@ -180,7 +181,7 @@ def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
                                      repeat_kv(v, cfg.num_heads),
                                      cfg.attn_chunk, cfg.sliding_window,
                                      score_dtype=cfg.attn_score_dtype)
-    return torch.matmul(merge_heads(o), p["wo"])
+    return torch.matmul(row_input(merge_heads(o), p["wo"]), p["wo"])
 
 
 def gqa_decode(p: dict, x: torch.Tensor,
@@ -252,7 +253,7 @@ def mla_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
     else:
         o = chunked_causal_attention(qq, k, v, cfg.attn_chunk,
                                      score_dtype=cfg.attn_score_dtype)
-    return torch.matmul(merge_heads(o), p["wo"])
+    return torch.matmul(row_input(merge_heads(o), p["wo"]), p["wo"])
 
 
 def mla_decode(p: dict, x: torch.Tensor, cache, pos: int,

@@ -39,6 +39,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..core.oracles.chain import resolve_device
 
@@ -431,7 +432,10 @@ def merge_heads(o: torch.Tensor) -> torch.Tensor:
     return _GradPlacedAsInput.apply(out) if is_dtensor(o) else out
 
 
-def _local_fn(fn: Callable) -> Callable:
+def local_fn(fn: Callable) -> Callable:
+    """``fn`` for ``local_map``: its tensor arguments that need a gradient
+    pass an identity whose backward makes that gradient contiguous
+    (:class:`_ContiguousGrad`)."""
     def run(*args):
         return fn(*(_ContiguousGrad.apply(a)
                     if isinstance(a, torch.Tensor) and a.requires_grad
@@ -452,6 +456,38 @@ def layer_input(x: torch.Tensor) -> torch.Tensor:
         x.device_mesh, plc)
 
 
+def residual_add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x + y`` for the residual stream ``x`` and a half's output ``y``
+    (attention's ``wo``, the FFN's ``down``, the experts' combine, an
+    out projection: on DTensors a row-parallel product, a partial sum
+    over the model axis): ``y`` reduced and placed as the stream first
+    (:func:`layer_input`), so the stream never holds a partial sum and
+    the next half's column-parallel products (gate, up, q/k/v, the lm
+    head) run on their local weight shards.  Its gradient is reduced
+    alike: the stream's gradient is a partial sum (the next halves'
+    column-parallel products), which would otherwise reach the
+    row-parallel product's backward unreduced and gather its weight and
+    input whole.  Plain tensors: ``x + y``."""
+    if not is_dtensor(y):
+        return x + y
+    return x + _GradPlacedAsInput.apply(layer_input(y))
+
+
+def row_input(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x`` placed for the row-parallel product ``x @ w``: on each mesh
+    axis that shards ``w``'s rows (its contracted dim), ``x``'s last dim
+    sharded alike, a partial sum reduce-scattered into those shards and a
+    replicated one sliced, so the product runs on the local shards and
+    leaves a partial sum.  Other axes and plain tensors as they are."""
+    if not (is_dtensor(x) and is_dtensor(w)):
+        return x
+    from torch.distributed.tensor import Shard
+    plc = tuple(Shard(x.ndim - 1) if pw.is_shard() and pw.dim == w.ndim - 2
+                else px for px, pw in zip(x.placements, w.placements))
+    return x if plc == tuple(x.placements) else x.redistribute(
+        x.device_mesh, plc)
+
+
 def unstack(tree, dims: int = 1):
     """A stacked parameter tree's layers, each leaf unbound once along its
     first ``dims`` dims (flattened) into a tuple: ``unstack(t)[i]`` is
@@ -465,19 +501,64 @@ def unstack(tree, dims: int = 1):
 
 def per_shard(fn: Callable, ref: torch.Tensor, *args: torch.Tensor):
     """``fn(*args)`` for a function that works on each (batch, head) on
-    its own (attention over unsharded sequence and head dims): on
-    DTensors, each tensor placed like ``ref`` (:func:`placed_like`) and
-    ``fn`` run on every rank's local shards through ``local_map``, the
-    output placed as ``ref``.  Plain tensors: ``fn(*args)``."""
+    its own (attention over unsharded sequence and head dims, tensors
+    ``(B, S, H, d)``, kv heads repeated to H): on DTensors, ``fn`` run on
+    every rank's local shards through ``local_map``.  Heads sharded over
+    the model axis: each tensor placed like ``ref`` (:func:`placed_like`),
+    the output placed as ``ref``.  Heads the model axis does not divide
+    (whole on every rank): :func:`_pair_shard`.  Plain tensors:
+    ``fn(*args)``."""
     if not is_dtensor(ref):
         return fn(*args)
     from torch.distributed.tensor.experimental import local_map
     ref = _replicate_where(ref, lambda n, p: p.is_partial())
+    names = ref.device_mesh.mesh_dim_names or ()
+    if "model" in names:
+        m = names.index("model")
+        if ref.device_mesh.size(m) > 1 and ref.placements[m].is_replicate():
+            return _pair_shard(fn, ref, m, *args)
     plc = list(ref.placements)
     args = [placed_like(a, ref) for a in args]
-    return local_map(_local_fn(fn), out_placements=plc,
+    return local_map(local_fn(fn), out_placements=plc,
                      in_placements=tuple(plc for _ in args),
                      device_mesh=ref.device_mesh)(*args)
+
+
+def _pair_shard(fn: Callable, ref: torch.Tensor, m: int, *args):
+    """:func:`per_shard` over the (local batch x heads) pairs: the ``P =
+    B_local H`` pairs (row-major, batch then head) split over mesh dim
+    ``m`` (the model axis) in chunks of ``ceil(P / M)``, so each rank
+    runs ``fn`` on its chunk alone (one head each, its kv head repeated
+    beside it) and the last ranks on fewer, or none, when ``M`` does
+    not divide ``P``.  The output is the chunk written into zeros: a
+    partial sum over the model axis, which the row-parallel ``wo``
+    reduce-scatters (:func:`row_input`); the inputs' gradients are
+    partial sums over it too.  The reference splits the head dim
+    instead and all-reduces its score slabs."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    mesh = ref.device_mesh
+    plc = list(ref.placements)
+    part = list(plc)
+    part[m] = Partial()
+    args = [placed_like(a, ref) for a in args]
+    M, r = mesh.size(m), mesh.get_local_rank(m)
+
+    def run(*ts):
+        B, S, H = ts[0].shape[:3]
+        P = B * H
+        n = -(-P // M)
+        lo, hi = min(r * n, P), min(r * n + n, P)
+        pair = torch.arange(lo, hi, device=ts[0].device)
+        b, h = pair // H, pair % H
+        o = fn(*(t[b, :, h][:, :, None] for t in ts))    # (n, S, 1, d)
+        o = F.pad(o[:, :, 0], (0, 0, 0, 0, lo, P - hi))   # (P, S, d)
+        return o.reshape(B, H, S, o.shape[-1]).transpose(1, 2)
+
+    return local_map(local_fn(run), out_placements=part,
+                     in_placements=tuple(plc for _ in args),
+                     in_grad_placements=tuple(part for _ in args),
+                     device_mesh=mesh)(*args)
 
 
 def batch_local(fn: Callable, x: torch.Tensor, *rest: torch.Tensor):
@@ -500,7 +581,7 @@ def batch_local(fn: Callable, x: torch.Tensor, *rest: torch.Tensor):
     summed = [Partial() if p.is_shard() else Replicate() for p in plc]
     rest = [full_replicate(r) if is_dtensor(r) else as_replicated(r, x)
             for r in rest]
-    return local_map(_local_fn(fn), out_placements=plc,
+    return local_map(local_fn(fn), out_placements=plc,
                      in_placements=(plc,) + (rep,) * len(rest),
                      in_grad_placements=(plc,) + (summed,) * len(rest),
                      device_mesh=mesh)(x, *rest)
@@ -598,7 +679,7 @@ def local_call(fn: Callable, *args, n_out: int = 1):
     mesh = dts[0].device_mesh
     rep = [Replicate()] * mesh.ndim     # a list: one output's placements
     args = [full_replicate(a) for a in args]
-    return local_map(_local_fn(fn),
+    return local_map(local_fn(fn),
                      out_placements=rep if n_out == 1 else (rep,) * n_out,
                      in_placements=tuple(rep if is_dtensor(a) else None
                                          for a in args),

@@ -23,7 +23,8 @@ from ..core.oracles.chain import resolve_device
 from ..kernels import ops as kops
 from . import attention as attn
 from .common import (ModelConfig, ParamSpec, cache_at, layer_input,
-                     merge_heads, remat_wrap, split_heads, unstack)
+                     merge_heads, remat_wrap, residual_add, row_input,
+                     split_heads, unstack)
 from .layers import (cross_entropy, embed_specs, embed_tokens, lm_logits,
                      mlp_specs, rms_norm, swiglu)
 from .transformer import _layer
@@ -90,7 +91,7 @@ def _bidir_attention(p: dict, x: torch.Tensor,
     else:
         o = attn.bidirectional_attention(q, attn.repeat_kv(k, cfg.num_heads),
                                          attn.repeat_kv(v, cfg.num_heads))
-    return torch.matmul(merge_heads(o), p["wo"])
+    return torch.matmul(row_input(merge_heads(o), p["wo"]), p["wo"])
 
 
 def _cross_attention(p: dict, x: torch.Tensor, enc_out: torch.Tensor,
@@ -101,7 +102,7 @@ def _cross_attention(p: dict, x: torch.Tensor, enc_out: torch.Tensor,
     k = _heads(torch.matmul(enc_out, p["wk"]), hd)
     v = _heads(torch.matmul(enc_out, p["wv"]), hd)
     o = attn.bidirectional_attention(q, k, v)
-    return torch.matmul(merge_heads(o), p["wo"])
+    return torch.matmul(row_input(merge_heads(o), p["wo"]), p["wo"])
 
 
 def encode(params: dict, cfg: ModelConfig,
@@ -112,11 +113,11 @@ def encode(params: dict, cfg: ModelConfig,
     for l in range(cfg.encoder_layers):
         lp = _layer(layers, l)
         x = layer_input(x)
-        x = x + _bidir_attention(lp["attn"], rms_norm(x, lp["ln1"], eps),
-                                 cfg)
+        x = residual_add(x, _bidir_attention(
+            lp["attn"], rms_norm(x, lp["ln1"], eps), cfg))
         m = lp["mlp"]
-        x = x + swiglu(rms_norm(x, lp["ln2"], eps), m["gate"], m["up"],
-                       m["down"])
+        x = residual_add(x, swiglu(rms_norm(x, lp["ln2"], eps), m["gate"],
+                                   m["up"], m["down"]))
     return rms_norm(layer_input(x), params["enc_norm"], eps)
 
 
@@ -126,13 +127,13 @@ def _decoder(params: dict, cfg: ModelConfig, x: torch.Tensor,
 
     def body(lp, x):
         x = layer_input(x)
-        x = x + attn.gqa_forward(lp["self_attn"],
-                                 rms_norm(x, lp["ln1"], eps), positions, cfg)
-        x = x + _cross_attention(lp["cross_attn"],
-                                 rms_norm(x, lp["lnx"], eps), enc_out, cfg)
+        x = residual_add(x, attn.gqa_forward(
+            lp["self_attn"], rms_norm(x, lp["ln1"], eps), positions, cfg))
+        x = residual_add(x, _cross_attention(
+            lp["cross_attn"], rms_norm(x, lp["lnx"], eps), enc_out, cfg))
         m = lp["mlp"]
-        return x + swiglu(rms_norm(x, lp["ln2"], eps), m["gate"], m["up"],
-                          m["down"])
+        return residual_add(x, swiglu(rms_norm(x, lp["ln2"], eps),
+                                      m["gate"], m["up"], m["down"]))
 
     body = remat_wrap(cfg, body)      # the decoder's layers, as the reference
     layers = unstack(params["dec_layers"])
@@ -190,14 +191,15 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
         lp = _layer(params["dec_layers"], l)
         a, _ = attn.gqa_decode(lp["self_attn"], rms_norm(x, lp["ln1"], eps),
                                (cache_at(ck, l), cache_at(cv, l)), pos, cfg)
-        x = x + a
+        x = residual_add(x, a)
         h = rms_norm(x, lp["lnx"], eps)
         q = _heads(torch.matmul(h, lp["cross_attn"]["wq"]), cfg.hd)
         o = attn.bidirectional_attention(q, cache_at(cache["cross_k"], l),
                                          cache_at(cache["cross_v"], l))
-        x = x + torch.matmul(o.reshape(B, 1, -1), lp["cross_attn"]["wo"])
+        x = residual_add(x, torch.matmul(o.reshape(B, 1, -1),
+                                         lp["cross_attn"]["wo"]))
         m = lp["mlp"]
-        x = x + swiglu(rms_norm(x, lp["ln2"], eps), m["gate"], m["up"],
-                       m["down"])
+        x = residual_add(x, swiglu(rms_norm(x, lp["ln2"], eps), m["gate"],
+                                   m["up"], m["down"]))
     h = rms_norm(x, params["final_norm"], eps)
     return lm_logits(params, h, cfg), cache

@@ -21,7 +21,8 @@ from ..core.oracles.chain import resolve_device
 from . import attention as attn
 from . import ssm
 from .common import (ModelConfig, ParamSpec, cache_at, cache_write,
-                     gather_fsdp, layer_input, remat_wrap, unstack)
+                     gather_fsdp, layer_input, remat_wrap, residual_add,
+                     unstack)
 from .layers import (cross_entropy, embed_specs, embed_tokens, lm_logits,
                      mlp_specs, rms_norm, swiglu)
 from .transformer import _layer
@@ -56,9 +57,10 @@ def param_specs(cfg: ModelConfig) -> dict:
 def _shared_attn(cfg: ModelConfig, p: dict, x: torch.Tensor,
                  positions: torch.Tensor) -> torch.Tensor:
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + attn.gqa_forward(p["attn"], h, positions, cfg)
+    x = residual_add(x, attn.gqa_forward(p["attn"], h, positions, cfg))
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + swiglu(h, p["mlp"]["gate"], p["mlp"]["up"], p["mlp"]["down"])
+    return residual_add(x, swiglu(h, p["mlp"]["gate"], p["mlp"]["up"],
+                                  p["mlp"]["down"]))
 
 
 def _forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
@@ -74,7 +76,8 @@ def _forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
 
     def mamba(x, lp, nrm):
         x = layer_input(x)
-        return x + ssm.ssd_forward(lp, rms_norm(x, nrm, cfg.norm_eps), cfg)
+        return residual_add(x, ssm.ssd_forward(
+            lp, rms_norm(x, nrm, cfg.norm_eps), cfg))
 
     def group(x, g):
         for l in range(k):
@@ -131,7 +134,7 @@ def _ssd_step(cfg: ModelConfig, lp: dict, nrm: torch.Tensor,
                               layer_cache, cfg)
     for name, t in layer_cache.items():
         cache_write(t, new[name])
-    return x + out
+    return residual_add(x, out)
 
 
 @torch.no_grad()
@@ -152,9 +155,10 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
         a, _ = attn.gqa_decode(p["attn"], h, (cache_at(cache["attn_k"], g),
                                               cache_at(cache["attn_v"], g)),
                                pos, cfg)
-        x = x + a
+        x = residual_add(x, a)
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + swiglu(h, p["mlp"]["gate"], p["mlp"]["up"], p["mlp"]["down"])
+        x = residual_add(x, swiglu(h, p["mlp"]["gate"], p["mlp"]["up"],
+                                   p["mlp"]["down"]))
     for t in range(tail):
         x = _ssd_step(cfg, _layer(params["mamba_tail"], t),
                       params["norm_in"][n_groups * k + t], x,

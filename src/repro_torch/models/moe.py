@@ -19,7 +19,8 @@ from __future__ import annotations
 import torch
 
 from ..kernels import ops as kops
-from .common import ModelConfig, ParamSpec, local_call, placed_like
+from .common import (ModelConfig, ParamSpec, is_dtensor, layer_input,
+                     local_call, local_fn, local_region, placed_like)
 from .layers import mlp_specs, swiglu
 
 
@@ -59,11 +60,15 @@ def route(p: dict, xf: torch.Tensor, cfg: ModelConfig):
     """Expert-choice routing of ``xf (T, D)``: ``(ev, ei)``, each expert's
     top-C gate values and token ids, ``(E, C)``; ``ev == 0`` marks a
     dropped slot."""
-    T, E = xf.shape[0], cfg.num_experts
-    logits = torch.matmul(xf.float(), p["router"])
+    return route_logits(torch.matmul(xf.float(), p["router"]), cfg)
+
+
+def route_logits(logits: torch.Tensor, cfg: ModelConfig):
+    """:func:`route` from the router's logits ``(T, E)``, float32."""
+    T, E = logits.shape
     # token-choice top-k gate, normalized over the chosen experts
     topv, topi = top_k(logits, cfg.experts_per_token)     # (T, k)
-    gates = torch.zeros((T, E), dtype=torch.float32, device=xf.device)
+    gates = torch.zeros((T, E), dtype=torch.float32, device=logits.device)
     gates.scatter_(1, topi, torch.softmax(topv, dim=-1))  # (T, E)
     # expert-choice: each expert takes its top-C tokens by gate score
     return top_k(gates.T, capacity(cfg, T))
@@ -77,22 +82,98 @@ def _combine(idx: torch.Tensor, src: torch.Tensor, T: int) -> torch.Tensor:
 
 
 def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x: (B, S, D) -> (B, S, D).  On DTensors the routing and the combine
-    run on every rank's replicated copy of the tokens (``local_call``), the
-    expert FFN expert-parallel over the experts' shards."""
+    """x: (B, S, D) -> (B, S, D).  On DTensors, :func:`_sharded_experts`:
+    a partial sum over the model axis, which the caller reduces as it
+    joins the residual stream."""
     B, S, D = x.shape
     xf = x.reshape(B * S, D)
-    ev, ei = local_call(lambda r, t: route({"router": r}, t, cfg),
-                        p["router"], xf, n_out=2)          # (E, C)
-    keep = ev > 0.0                                        # dropped slots
-    xs = local_call(lambda t, i: t.index_select(0, i.reshape(-1)).view(
-        *i.shape, D), xf, ei)                              # (E, C, D)
-    y = kops.moe_ffn(xs, p["w_gate"], p["w_up"], p["w_down"])
-    w = (ev * keep).to(y.dtype)[..., None]                 # (E, C, 1)
-    out = local_call(lambda i, t: _combine(i, t, B * S), ei.reshape(-1),
-                     (y * w).reshape(-1, D))
+    if is_dtensor(xf):
+        out = _sharded_experts(p, xf, cfg)
+    else:
+        ev, ei = route(p, xf, cfg)                         # (E, C)
+        keep = ev > 0.0                                    # dropped slots
+        xs = xf.index_select(0, ei.reshape(-1)).view(*ei.shape, D)
+        y = kops.moe_ffn(xs, p["w_gate"], p["w_up"], p["w_down"])
+        w = (ev * keep).to(y.dtype)[..., None]             # (E, C, 1)
+        out = _combine(ei.reshape(-1), (y * w).reshape(-1, D), B * S)
     if cfg.num_shared_experts:
         sh = p["shared"]
         out = out + swiglu(xf, sh["gate"], sh["up"], sh["down"])
-    # DTensors: back to the tokens' placements before the batch unflattens.
-    return placed_like(out, xf).reshape(B, S, D).to(x.dtype)
+    return out.reshape(B, S, D).to(x.dtype)
+
+
+def _sharded_experts(p: dict, xf: torch.Tensor,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """The routed experts on DTensor tokens ``xf (T, D)`` (their rows over
+    the batch axes): each rank runs its local experts on its batch
+    share of their capacity rows, and the tokens never gather whole.
+
+      * routing: the router's logits on the local rows, all-gathered
+        (``(T, E)`` float32, the only whole-T tensor) and routed on every
+        rank as the unsharded run routes, so the global capacity order,
+        choices and drops are the unsharded ones;
+      * dispatch: each rank writes the rows of its own tokens into its
+        experts' ``(E_local, C, D)`` slots, zero elsewhere, and the
+        partial sums are reduce-scattered over the batch axes along C;
+      * the expert FFN (:func:`kernels.ops.moe_ffn`) on ``(E_local,
+        C / batch ways, D)``;
+      * combine: the weighted rows all-gathered along C over the batch
+        axes, each rank summing its own tokens' rows: a partial sum over
+        the model axis (each rank's experts).
+
+    Dispatch and combine are one another's transposes, so their
+    backwards are the same two collectives the other way round."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    xf = layer_input(xf)
+    mesh = xf.device_mesh
+    T, D = xf.shape
+    wg = p["w_gate"]
+    tok = [q.is_shard() for q in xf.placements]         # batch axes
+    exp = ([q.is_shard() and q.dim == 0 for q in wg.placements]
+           if is_dtensor(wg) else [False] * mesh.ndim)     # expert axes
+    (T_l, _), (t0, _) = local_region((T, D), mesh, xf.placements)
+    E = cfg.num_experts
+    eplc = [Shard(0) if e else Replicate() for e in exp]
+    (E_l, _), (e0, _) = local_region((E, D), mesh, eplc)
+
+    logits = torch.matmul(xf.float(), p["router"])       # (T, E)
+    ev, ei = local_call(lambda lg: route_logits(lg, cfg), logits, n_out=2)
+    C = ev.shape[1]
+
+    def own(ids):
+        """This rank's experts' slots: local token rows, and which are
+        this rank's tokens."""
+        e = ids[e0:e0 + E_l]
+        mine = (e >= t0) & (e < t0 + T_l)
+        return (e - t0).clamp(0, max(T_l - 1, 0)), mine
+
+    def dispatch(xl, ids):
+        rows, mine = own(ids)
+        xs = xl.index_select(0, rows.reshape(-1)).view(E_l, C, D)
+        return xs.masked_fill(~mine[..., None], 0)
+
+    def combine(yl, ids):
+        rows, mine = own(ids)
+        src = yl.masked_fill(~mine[..., None], 0).reshape(-1, D)
+        return _combine(rows.reshape(-1), src, T_l)
+
+    rep = [Replicate()] * mesh.ndim
+    xplc = list(xf.placements)
+    # (E, C, D) slots summed over the batch axes (each rank's tokens)
+    slots = [Partial() if t else q for t, q in zip(tok, eplc)]
+    xgrad = [Partial() if e else q for e, q in zip(exp, xplc)]
+    xs = local_map(local_fn(dispatch), out_placements=slots,
+                   in_placements=(xplc, rep),
+                   in_grad_placements=(xgrad, rep),
+                   device_mesh=mesh)(xf, ei)              # (E, C, D)
+    rows = [Shard(1) if t else q for t, q in zip(tok, eplc)]
+    y = kops.moe_ffn(xs.redistribute(mesh, rows), wg, p["w_up"],
+                     p["w_down"])                         # rows sharded
+    keep = ev > 0.0
+    w = placed_like((ev * keep).to(y.dtype)[..., None], y)
+    out = [Partial() if e else q for e, q in zip(exp, xplc)]
+    return local_map(local_fn(combine), out_placements=out,
+                     in_placements=(eplc, rep),
+                     in_grad_placements=(slots, rep),
+                     device_mesh=mesh)((y * w).redistribute(mesh, eplc), ei)

@@ -32,7 +32,8 @@ from ..core.oracles.chain import resolve_device
 from . import attention as attn
 from . import moe as moe_mod
 from .common import (ModelConfig, ParamSpec, cache_at, gather_fsdp,
-                     layer_input, remat_half, remat_wrap, unstack)
+                     layer_input, remat_half, remat_wrap, residual_add,
+                     unstack)
 from .layers import cross_entropy, embed_specs, embed_tokens, lm_logits, \
     mlp_specs, rms_norm, swiglu
 
@@ -113,10 +114,11 @@ def _block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
            positions: torch.Tensor, remat: bool = False) -> torch.Tensor:
     """One block; with ``remat``, under ``remat_policy="selective"`` each
     half checkpointed on its own (its output, the reference's
-    ``attn_out`` / ``ffn_out``, is what the backward keeps)."""
+    ``attn_out`` / ``ffn_out``, is what the backward keeps).  Each half's
+    output joins the stream reduced (:func:`common.residual_add`)."""
     half = (lambda fn: remat_half(cfg, fn)) if remat else (lambda fn: fn)
-    x = x + half(_attn_half)(cfg, p, x, positions)
-    return x + half(_ffn_half)(cfg, kind, p, x)
+    x = residual_add(x, half(_attn_half)(cfg, p, x, positions))
+    return residual_add(x, half(_ffn_half)(cfg, kind, p, x))
 
 
 def backbone(params: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -194,9 +196,9 @@ def _decode_block(cfg: ModelConfig, kind: str, p: dict, x: torch.Tensor,
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     decode = attn.mla_decode if cfg.mla else attn.gqa_decode
     a, cache = decode(p["attn"], h, cache, pos, cfg)
-    x = x + a
+    x = residual_add(x, a)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _ffn(cfg, kind, p, h), cache
+    return residual_add(x, _ffn(cfg, kind, p, h)), cache
 
 
 @torch.no_grad()

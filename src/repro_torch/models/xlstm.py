@@ -18,8 +18,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .common import (ModelConfig, ParamSpec, batch_local, merge_heads,
-                     split_heads)
+from .common import (ModelConfig, ParamSpec, batch_local, is_dtensor,
+                     merge_heads, per_shard, row_input, split_heads)
 from .layers import rms_norm
 from .ssm import _masked_exp
 
@@ -70,10 +70,28 @@ def _mlstm_proj(p: dict, x: torch.Tensor, cfg: ModelConfig):
 
 def mlstm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
                   chunk: int = 128) -> torch.Tensor:
-    B, S, _ = x.shape
-    d_inner, H, hd = mlstm_dims(cfg)
+    """On DTensors the chunked recurrence runs per (batch, head) on each
+    rank's shard (:func:`common.per_shard`: over the model axis by heads
+    or by (batch, head) pairs), its merged output placed for ``down``'s
+    row-parallel product before the gate and the norm."""
     q, k, v, i_g, f_g, z = _mlstm_proj(p, x, cfg)
+    if is_dtensor(q):
+        y = per_shard(lambda *t: _mlstm_heads(
+            *t[:3], t[3][..., 0], t[4][..., 0], chunk), q, q, k, v,
+            i_g[..., None], f_g[..., None])
+        y = row_input(merge_heads(y), p["down"])
+    else:
+        y = merge_heads(_mlstm_heads(q, k, v, i_g, f_g, chunk))
+    y = y.to(x.dtype) * F.silu(z)
+    y = rms_norm(y, p["norm"], cfg.norm_eps)
+    return torch.matmul(y, p["down"])
 
+
+def _mlstm_heads(q, k, v, i_g, f_g, chunk: int) -> torch.Tensor:
+    """The mLSTM's chunked recurrence, each (batch, head) on its own:
+    q, k, v ``(B, S, H, hd)``, the gates ``(B, S, H)`` -> ``(B, S, H,
+    hd)`` float32."""
+    B, S, H, hd = q.shape
     Q = min(chunk, S)
     pad = -S % Q
 
@@ -99,7 +117,7 @@ def mlstm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
     cdec = torch.exp(cum[:, :, -1, :])
 
     state = torch.zeros((B, H, hd, hd), dtype=torch.float32,
-                        device=x.device)
+                        device=q.device)
     states = []
     for c in range(nc):
         states.append(state)
@@ -107,10 +125,7 @@ def mlstm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
     states = torch.stack(states, dim=1)                    # (B,nc,H,hd,hd)
     y_inter = torch.einsum("bcqhd,bcqh,bchde->bcqhe", qc, torch.exp(cum),
                            states)
-    y = merge_heads((y_intra + y_inter).reshape(B, Sp, H, hd))[:, :S]
-    y = y.to(x.dtype) * F.silu(z)
-    y = rms_norm(y, p["norm"], cfg.norm_eps)
-    return torch.matmul(y, p["down"])
+    return (y_intra + y_inter).reshape(B, Sp, H, hd)[:, :S]
 
 
 def init_mlstm_cache(cfg: ModelConfig, batch: int, layers: int,

@@ -16,7 +16,7 @@ import torch
 from ..core.oracles.chain import resolve_device
 from . import xlstm
 from .common import (ModelConfig, ParamSpec, cache_at, cache_write,
-                     layer_input, remat_wrap, unstack)
+                     layer_input, remat_wrap, residual_add, unstack)
 from .layers import cross_entropy, embed_specs, embed_tokens, lm_logits, \
     rms_norm
 from .transformer import _layer
@@ -59,15 +59,16 @@ def _forward(params: dict, cfg: ModelConfig, x: torch.Tensor):
 
     def mlstm(x, lp, nrm):
         x = layer_input(x)
-        return x + xlstm.mlstm_forward(lp, rms_norm(x, nrm, eps), cfg)
+        return residual_add(x, xlstm.mlstm_forward(
+            lp, rms_norm(x, nrm, eps), cfg))
 
     def group(x, g):
         for l in range(k - 1):
             i = g * (k - 1) + l
             x = mlstm(x, _layer(m_layers, i), m_norms[i])
         x = layer_input(x)
-        return x + xlstm.slstm_forward(
-            _layer(s_layers, g), rms_norm(x, s_norms[g], eps), cfg)
+        return residual_add(x, xlstm.slstm_forward(
+            _layer(s_layers, g), rms_norm(x, s_norms[g], eps), cfg))
 
     group = remat_wrap(cfg, group)    # the groups, not the tail
     for g in range(n_groups):
@@ -120,7 +121,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     def mlstm_step(x, lp, nrm, state):
         out, new = xlstm.mlstm_decode(lp, rms_norm(x, nrm, eps), state, cfg)
         cache_write(state, new)
-        return x + out
+        return residual_add(x, out)
 
     for g in range(n_groups):
         for l in range(k - 1):
@@ -133,7 +134,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
             rms_norm(x, params["s_norm"][g], eps), sc, cfg)
         for name, t in sc.items():
             cache_write(t, new[name])
-        x = x + out
+        x = residual_add(x, out)
     for t in range(tail):
         x = mlstm_step(x, _layer(params["mlstm_tail"], t),
                        params["tail_norm"][t],

@@ -55,8 +55,24 @@ LIMIT = 120
 # qwen2-0.5b and olmoe-1b-7b here; the others in
 # tests/test_torch_lm_sharded_{mla,recurrent,encdec}.py (one spawn per
 # file, each within a worker's minute).
-ARCHS = ("qwen2-0.5b", "olmoe-1b-7b")
+ARCHS = ("qwen2-0.5b", "olmoe-1b-7b", "qwen2-0.5b-3h")
 B, S, DECODE, CACHE = 8, 8, 4, 16
+# A reduced config the 2-way model axis does not divide the heads of (3
+# q heads, 1 kv head, each projection's shard ending mid-head, as
+# qwen2-0.5b's 14:2 on a 16-way axis): attention over (batch, head)
+# pairs (``models.common._pair_shard``).
+# xlstm-125m-1h: one mLSTM / sLSTM head, whole on both 'model' ranks, so
+# the mLSTM's recurrence splits by pairs.
+VARIANTS = {"qwen2-0.5b-3h": ("qwen2-0.5b", dict(num_heads=3, num_kv_heads=1,
+                                                  head_dim=16)),
+            "xlstm-125m-1h": ("xlstm-125m", dict(num_heads=1))}
+
+
+def reduced(arch, pkg):
+    """``pkg``'s (the port's or the JAX package's ``configs``) reduced
+    config of ``arch`` or of a variant's base arch with its overrides."""
+    base, over = VARIANTS.get(arch, (arch, {}))
+    return dataclasses.replace(pkg.reduced_config(base), **over)
 
 _RANK_SCRIPT = textwrap.dedent("""
     import dataclasses, sys
@@ -68,9 +84,24 @@ _RANK_SCRIPT = textwrap.dedent("""
     from repro_torch import configs
     from repro_torch.launch import dryrun, train
     from repro_torch.launch.mesh import init_ranks
-    from repro_torch.models import common, moe, registry
+    from repro_torch.models import (common, encdec, hybrid, moe, registry,
+                                    ssm, transformer, xlstm)
 
     routing = []            # each top-k's indices, in call order
+    ffn_inputs = []         # the FFN's, experts' or mixer's input placements
+
+    def placed(fn, i):
+        def run(*a, **k):
+            if common.is_dtensor(a[i]):
+                ffn_inputs.append(tuple(repr(p) for p in a[i].placements))
+            return fn(*a, **k)
+        return run
+    for mod in (transformer, hybrid, encdec, moe):
+        mod.swiglu = placed(mod.swiglu, 0)
+    moe.moe_forward = placed(moe.moe_forward, 1)
+    ssm.ssd_forward = placed(ssm.ssd_forward, 1)
+    xlstm.mlstm_forward = placed(xlstm.mlstm_forward, 1)
+    xlstm.slstm_forward = placed(xlstm.slstm_forward, 1)
     _top_k = moe.top_k
 
     def recorded(x, k):
@@ -84,7 +115,8 @@ _RANK_SCRIPT = textwrap.dedent("""
     mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
     out = {}
     for arch in sys.argv[5].split(","):
-        cfg = dataclasses.replace(configs.reduced_config(arch),
+        base, over = {VARIANTS}.get(arch, (arch, {}))
+        cfg = dataclasses.replace(configs.reduced_config(base), **over,
                                   dtype=torch.float32)
         got = torch.load(f"{tmp}/{arch}.pt")
         specs = registry.param_specs(cfg)
@@ -92,6 +124,7 @@ _RANK_SCRIPT = textwrap.dedent("""
         batch = {k: common.shard_batch(v, mesh)
                  for k, v in got["batch"].items()}
         routing.clear()
+        ffn_inputs.clear()
         comm = CommDebugMode()
         with comm:
             logits = registry.prefill(params, cfg, batch).full_tensor()
@@ -109,7 +142,7 @@ _RANK_SCRIPT = textwrap.dedent("""
             grads = common.tree_map(lambda g: g.full_tensor(), grads)
         out[arch] = dict(logits=logits, decode=torch.stack(steps), loss=loss,
                          grads=grads, comms=comm.get_total_counts(),
-                         routing=list(routing))
+                         routing=list(routing), ffn_inputs=list(ffn_inputs))
     # B5's wrapper on CPU DTensors: its plain version on each rank's
     # batch shard (heads gathered), against the plain version on the whole.
     from torch.distributed.tensor import Shard
@@ -122,6 +155,26 @@ _RANK_SCRIPT = textwrap.dedent("""
         got=ops.flash_attention(dq, dk, dv, window=3,
                                 score_dtype="bf16").full_tensor(),
         want=ref.flash_attention_ref(*qkv, window=3, score_dtype="bf16"))
+    # The pair split on its own: 6 sequences over 'data' (3 per rank) of
+    # 3 heads, 9 pairs per rank over the 2-way 'model' axis in chunks of
+    # 5 and 4: the output and the gradients of q, k, v against the plain
+    # attention on the whole.
+    from torch.distributed.tensor import Replicate
+    from repro_torch.models import attention
+    qkv = [torch.randn(6, 6, 3, 8, generator=gen) for _ in range(3)]
+    wt = torch.randn(6, 6, 3, 8, generator=gen)
+    plain = [t.clone().requires_grad_() for t in qkv]
+    want = attention.chunked_causal_attention(*plain, 4)
+    (want * wt).sum().backward()
+    dist = [distribute_tensor(t, mesh, [Shard(0), Replicate()])
+            .requires_grad_() for t in qkv]
+    got = attention.chunked_causal_attention(*dist, 4)
+    placements = [repr(p) for p in got.placements]
+    got = got.full_tensor()
+    (got * wt).sum().backward()
+    out["pairs"] = dict(got=got, want=want.detach(), placements=placements,
+                        grads=[t.grad.full_tensor() for t in dist],
+                        want_grads=[t.grad for t in plain])
     torch.save(out, f"{tmp}/rank{rank}.pt")
     """)
 
@@ -138,10 +191,8 @@ _PLACE = textwrap.dedent("""
 
 
 def _models(arch):
-    jcfg = dataclasses.replace(jconfigs.reduced_config(arch),
-                               dtype=jnp.float32)
-    tcfg = dataclasses.replace(configs.reduced_config(arch),
-                               dtype=torch.float32)
+    jcfg = dataclasses.replace(reduced(arch, jconfigs), dtype=jnp.float32)
+    tcfg = dataclasses.replace(reduced(arch, configs), dtype=torch.float32)
     jp = jcommon.init_params(jregistry.param_specs(jcfg),
                              jax.random.PRNGKey(0))
     tp = convert.lm_params_from_numpy(jax.device_get(jp), tcfg, "cpu")
@@ -197,7 +248,8 @@ def spawn(archs):
         torch.save({"params": tp, "batch": batch}, tmp / f"{arch}.pt")
         models[arch] = (jcfg, jp, tcfg, tp, batch)
     script = _RANK_SCRIPT.replace("{B}", str(B)).replace(
-        "{CACHE}", str(CACHE)).replace("{DECODE}", str(DECODE))
+        "{CACHE}", str(CACHE)).replace("{DECODE}", str(DECODE)).replace(
+        "{VARIANTS}", repr(VARIANTS))
     script = script.replace("out = {}\n", _PLACE + "out = {}\n", 1)
     (tmp / "rank.py").write_text(script)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
@@ -274,6 +326,18 @@ def check_equals_unsharded(runs, arch):
     assert got["comms"] > 0
 
 
+def check_ffn_inputs_reduced(runs, arch):
+    """Every half's output joined the residual stream reduced: the FFN's
+    (swiglu's), the experts' and the Mamba2 / xLSTM mixers' inputs
+    arrive with no ``Partial`` placement, on every rank, in the prefill,
+    the decode steps and the training step."""
+    _, ranks = runs
+    for r in ranks:
+        seen = r[arch]["ffn_inputs"]
+        assert seen, arch
+        assert not [p for p in seen if any("Partial" in q for q in p)], seen
+
+
 def check_unsharded_forward_equals_jax(runs, arch):
     models, _ = runs
     jcfg, jp, tcfg, tp, batch = models[arch]
@@ -296,6 +360,24 @@ def test_flash_attention_wrapper_on_dtensors_runs_per_shard(runs):
     on the whole batch."""
     got = runs[1][0]["flash_dtensor"]
     torch.testing.assert_close(got["got"], got["want"], rtol=0, atol=0)
+
+
+def test_heads_the_model_axis_does_not_divide_split_by_pairs(runs):
+    """The (batch, head) pair split over the model axis, on uneven
+    chunks: its output a partial sum over 'model' that sums to the plain
+    attention, and the gradients of q, k, v equal the plain ones."""
+    for r in runs[1]:
+        got = r["pairs"]
+        assert got["placements"] == ["Shard(dim=0)", "Partial(sum)"]
+        torch.testing.assert_close(got["got"], got["want"], rtol=1e-6,
+                                   atol=1e-6)
+        for g, w in zip(got["grads"], got["want_grads"]):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_ffn_input_holds_no_partial_sum(runs, arch):
+    check_ffn_inputs_reduced(runs, arch)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -10,7 +10,7 @@ import pytest
 
 import test_torch_lm_sharded as base
 
-ARCHS = ("xlstm-125m", "whisper-base")
+ARCHS = ("xlstm-125m", "whisper-base", "xlstm-125m-1h")
 
 
 @pytest.fixture(scope="module")
@@ -26,6 +26,11 @@ def test_ranks_hold_the_same_values(runs, arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_sharded_run_equals_the_unsharded_port_run(runs, arch):
     base.check_equals_unsharded(runs, arch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_ffn_input_holds_no_partial_sum(runs, arch):
+    base.check_ffn_inputs_reduced(runs, arch)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -29,5 +29,10 @@ def test_sharded_run_equals_the_unsharded_port_run(runs, arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
+def test_ffn_input_holds_no_partial_sum(runs, arch):
+    base.check_ffn_inputs_reduced(runs, arch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 def test_unsharded_forward_equals_jax(runs, arch):
     base.check_unsharded_forward_equals_jax(runs, arch)
