@@ -582,14 +582,34 @@ def graph_ms(torch, fn, calls: int, warmup: int = 3) -> float:
 
 
 def phase_build():
+    """Build the seven kernel sources (one ``nvcc`` each, all at once),
+    then run the checker's kernels layer on this card
+    (``repro_torch.analysis.kernels``): H003 over the plans' sweep, and
+    H004 over every build of every source table, its attributes read from
+    the card and held to its plans and to the ``-Xptxas -v`` log.  One
+    ``build_check`` line per kernel: builds checked, registers min-max,
+    the largest shared memory a launch takes, spills and waivers; any
+    finding fails the run.  ~45-55 s of builds, then ~3 s of checks (the
+    sweep ~2 s on the host, the attribute queries well under 1 s)."""
+    from repro_torch.analysis.kernels import run_kernel_layer
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     seconds = _build.build()
-    ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
-                    if "registers" in ln or "spill" in ln]
-             for name in _build.SOURCES}
-    emit("build", seconds=time.perf_counter() - t0, per_source=seconds,
-         ptxas=ptxas)
+    emit("build", seconds=time.perf_counter() - t0, per_source=seconds)
+    t0 = time.perf_counter()
+    findings, facts = run_kernel_layer("cuda")
+    summary = facts["kernels"]
+    emit("build_check", seconds=time.perf_counter() - t0,
+         h003_launches=summary["h003_launches"],
+         h003_refused=summary["h003_refused"], h004=summary["h004"],
+         findings=[str(f) for f in findings])
+    for name in _build.SOURCES:
+        f = facts[f"kernels:{name}"]
+        emit("build_check", kernel=name, builds=f["builds"],
+             registers=f["registers"], max_smem=f["max_smem"],
+             spills=f["spills"], waived=f["waived"])
+    check(not findings, f"build_check: {len(findings)} finding(s): "
+          f"{[str(f) for f in findings[:8]]}")
 
 
 def check_plane_scores(torch, gen):
@@ -2690,10 +2710,12 @@ def phase_contracts(torch):
     decode round, each dispatch under a dispatch counter and sync-debug
     "error"; the AST lint of ``src/repro_torch``.  The report must be ok.
     Emits each engine's and serve case's facts: host syncs, collectives,
-    the async programs, kernel launches.  Returns the path's launches:
-    the counts set to 0 just before the checker and read just after.
-    ~1 s on an H100 (0.8-1.3 s; the CLI in a process of its
-    own, with its start-up and kernel loads, ~23 s)."""
+    the async programs, kernel launches.  The kernels layer again (H003,
+    H004; it launches nothing), as the CLI runs it.  Returns the path's
+    launches: the counts set to 0 just before the checker and read just
+    after.  ~1 s on an H100 (0.8-1.3 s) before the kernels layer, ~3 s
+    more with it; the CLI in a process of its own, with its start-up and
+    kernel loads, ~23 s."""
     import contextlib
     import io
     from repro_torch.analysis.__main__ import main as analysis_main
@@ -2709,10 +2731,12 @@ def phase_contracts(torch):
     check(rc == 0 and report["ok"], "contracts: findings "
           f"{report['findings'][:8]}")
     facts = report["facts"]
-    engines = sorted(k for k in facts if not k.startswith("serve:"))
-    check(len(engines) == 16 and len(facts) - len(engines) == 3,
-          f"contracts: ran {engines} and {len(facts) - len(engines)} "
-          "serve cases")
+    engines = sorted(k for k in facts
+                     if not k.startswith(("serve:", "kernels")))
+    serve = sorted(k for k in facts if k.startswith("serve:"))
+    check(len(engines) == 16 and len(serve) == 3
+          and report["layers"] == ["program", "lint", "kernels"],
+          f"contracts: ran {engines}, {serve} and {report['layers']}")
     keep = ("outer_syncs", "outer_collectives", "outer_setup", "outer_pass",
             "outer_programs", "continue_syncs", "continue_collectives",
             "launches", "device")

@@ -1,5 +1,5 @@
 """The program-contract checker of the port (PyTorch port of
-``repro/analysis``), in two layers:
+``repro/analysis``), in three layers:
 
   1. :mod:`~repro_torch.analysis.contracts` -- run every registered
      engine's dispatches once on a tiny problem under a dispatch counter
@@ -15,10 +15,14 @@
      for the contracts a run cannot see: stray sentinel literals, removed
      names, collectives that bypass the counters, implicit host syncs and
      blocking uploads in hot paths, float64 in device code (rules
-     R001-R005, with inline ``# repro: allow[R00x] reason`` waivers).
-
-The reference's third layer checks XLA's HLO and the Pallas tiles (rules
-H001-H004); a torch program has neither, so it has no counterpart.
+     R001-R005, with inline ``# repro: allow[R00x] reason`` waivers);
+  3. :mod:`~repro_torch.analysis.kernels` -- the counterpart of the
+     reference's HLO layer for the port's hand-written CUDA kernels: every
+     launch plan over a sweep of shapes fits the card and names a build
+     its source has (H003, on the CPU), and every build compiles, loads
+     and holds to its plans on the card, spills waived one by one (H004).
+     The reference's H001/H002 (XLA's collectives against the jaxpr's)
+     have their stand-in in the program layer's J001/J002.
 
 CLI: ``python -m repro_torch.analysis --strict`` (``--device cpu`` off
 the card); see ``--help``.
@@ -33,9 +37,10 @@ from .contracts import (DispatchCounter, EngineTrace, ProgramFacts,
                         run_program_layer, sync_debug, trace_cases,
                         trace_engine)
 from .findings import RULES, Finding, Report, rule_table
+from .kernels import run_kernel_layer
 from .lint import lint_source, run_lint_layer
 
-LAYERS = ("program", "lint")
+LAYERS = ("program", "lint", "kernels")
 
 
 def run_all(layers: Iterable[str] = LAYERS,
@@ -45,7 +50,8 @@ def run_all(layers: Iterable[str] = LAYERS,
 
     ``engines`` filters the engines the program layer runs (on
     ``device``; CUDA by default), ``root`` points the lint layer at
-    another source root."""
+    another source root.  The kernels layer runs H004 on a CUDA
+    ``device`` only; off it its facts say that H004 did not run."""
     layers = list(layers)
     unknown = [l for l in layers if l not in LAYERS]
     if unknown:
@@ -59,6 +65,10 @@ def run_all(layers: Iterable[str] = LAYERS,
         report.facts.update(facts)
     if "lint" in layers:
         report.extend(run_lint_layer(root))
+    if "kernels" in layers:
+        findings, facts = run_kernel_layer(device)
+        report.extend(findings)
+        report.facts.update(facts)
     return report
 
 
@@ -66,6 +76,7 @@ __all__ = [
     "LAYERS", "RULES", "DispatchCounter", "EngineTrace", "Finding",
     "ProgramFacts", "Report", "check_serve_engines", "check_trace",
     "count_program", "install_registration_guard", "lint_source",
-    "raise_site", "rule_table", "run_all", "run_lint_layer",
+    "raise_site", "rule_table", "run_all", "run_kernel_layer",
+    "run_lint_layer",
     "run_program_layer", "sync_debug", "trace_cases", "trace_engine",
 ]

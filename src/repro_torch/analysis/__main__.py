@@ -3,14 +3,16 @@
     python -m repro_torch.analysis --strict                # on the card
     python -m repro_torch.analysis --strict --device cpu   # off the card
     python -m repro_torch.analysis --layer lint            # source lint
+    python -m repro_torch.analysis --layer kernels         # H003 + H004
     python -m repro_torch.analysis --engines mpbcfw-shard --layer program
     python -m repro_torch.analysis --json                  # machine-readable
     python -m repro_torch.analysis --rules                 # the rule table
 
 Exit code: 0 when clean; with ``--strict``, 1 when any finding survives.
 Without ``--strict`` findings are reported but the exit stays 0.  The
-program layer runs on CUDA unless ``--device cpu`` is given; without a
-card it raises, it does not fall back.
+program layer and the kernels layer's H004 run on CUDA unless ``--device
+cpu`` is given (the kernels layer then runs H003 alone and says so);
+without a card they raise, they do not fall back.
 """
 from __future__ import annotations
 
@@ -20,14 +22,15 @@ from typing import List, Optional
 
 from . import LAYERS, Report, rule_table, run_all
 
-#: The reference's layers that have no torch counterpart, and what stands
-#: in for them.
+#: The reference's layers that have no torch counterpart of their name,
+#: and what stands in for them.
 _NO_COUNTERPART = {
     "jaxpr": "the program layer ('--layer program') runs each engine's "
              "dispatches and counts what they dispatched",
-    "hlo": "a torch program has no HLO and the port's kernels are "
-           "hand-written CUDA; the program layer's run on the card "
-           "(sync-debug \"error\") checks what ran",
+    "hlo": "a torch program has no HLO: the program layer's J001/J002 "
+           "count the collectives each program dispatches (H001/H002's "
+           "stand-in), and the kernels layer ('--layer kernels') holds "
+           "the CUDA kernels' plans and builds to the card (H003/H004)",
 }
 
 
@@ -35,7 +38,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis",
         description="Program-contract checker of the PyTorch port "
-                    "(program runs + AST lint).")
+                    "(program runs + AST lint + the kernels' plans and "
+                    "builds).")
     p.add_argument("--strict", action="store_true",
                    help="exit 1 on any finding")
     p.add_argument("--layer", action="append", dest="layers",
@@ -49,8 +53,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="source root for the lint layer, holding "
                         "repro_torch/ (default: the repo src/ directory)")
     p.add_argument("--device", default="cuda",
-                   help="device the program layer runs on (default: "
-                        "cuda; no fallback)")
+                   help="device the program layer and H004 run on "
+                        "(default: cuda; no fallback; cpu runs the "
+                        "kernels layer's H003 alone)")
     p.add_argument("--json", action="store_true",
                    help="emit the report as JSON")
     p.add_argument("--verbose", action="store_true",
@@ -75,12 +80,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         if layer not in LAYERS:
             parser.error(f"unknown layer {layer!r}; pick from "
                          f"{', '.join(LAYERS)}")
-    if "program" in layers and args.device.startswith("cuda"):
+    on_card = [l for l in ("program", "kernels") if l in layers]
+    if on_card and args.device.startswith("cuda"):
         import torch
         if not torch.cuda.is_available():
-            raise RuntimeError("repro_torch.analysis: no CUDA device for "
-                               "the program layer; pass --device cpu to "
-                               "run it on the CPU")
+            raise RuntimeError(f"repro_torch.analysis: no CUDA device for "
+                               f"the {' and '.join(on_card)} layer; pass "
+                               "--device cpu to run it on the CPU")
     engines = (None if args.engines is None
                else [e.strip() for e in args.engines.split(",") if e.strip()])
     import torch.distributed as dist

@@ -2,16 +2,17 @@
 port of ``repro/analysis/findings.py``).
 
 A :class:`Finding` is one violated contract: a rule id (``J0xx`` program,
-``R0xx`` source lint), *where* it was found (an engine name or a
-``file:line``) and a message.  Layers return plain lists of findings;
-:class:`Report` aggregates them for the CLI (a text table or JSON, and the
-exit code).  The rule ids and the report's JSON shape are the
-reference's.
+``R0xx`` source lint, ``H00x`` kernels), *where* it was found (an engine
+name, a ``file:line`` or a plan's call) and a message.  Layers return
+plain lists of findings; :class:`Report` aggregates them for the CLI (a
+text table or JSON, and the exit code).  The rule ids and the report's
+JSON shape are the reference's.
 
-The reference's ``H001``-``H004`` check XLA's optimized HLO and the
-Pallas kernels' (8, 128) tiles.  A torch program has no HLO and the
-port's kernels are hand-written CUDA, so those rules have no counterpart
-and are not in :data:`RULES`.
+The reference's ``H001``/``H002`` check XLA's optimized HLO against the
+jaxpr's collectives; a torch program has no HLO, and J001/J002 stand in
+for them (not in :data:`RULES`).  Its ``H003``/``H004`` (the Pallas
+tiles, every program compiles) are the kernels layer's, for the port's
+hand-written CUDA kernels.
 """
 from __future__ import annotations
 
@@ -53,6 +54,17 @@ RULES: Dict[str, str] = {
             "cache program), and no read-after-write hazard between "
             "them (the cache program must not read what the concurrent "
             "oracle program wrote, or the pipeline serializes)",
+    # Layer 3: the kernels' launch plans and builds
+    "H003": "a kernel plan's launch does not fit the card or its build: "
+            "shared memory past the opt-in limit, a 16-byte copy, TMA box "
+            "or stride misaligned, a wgmma/mma.sync tile not whole, a "
+            "grid, block or cluster past the card's limits, or a build "
+            "the source's table lacks (or one no plan reaches)",
+    "H004": "a kernel build does not compile, load or fit on the card: "
+            "a plan's shared memory past the build's granted maximum, "
+            "local memory (a spill) not waived, threads past its maximum, "
+            "no CTA resident, or its -Xptxas -v log disagreeing with the "
+            "card's attributes",
     # Layer 2: AST source lint
     "R001": "raw +/-1e30 sentinel literal outside kernels/ops.py "
             "(use kernels.ops.INVALID_SCORE)",
@@ -123,5 +135,5 @@ class Report:
 
 
 def rule_table() -> str:
-    """The J/R rule listing."""
+    """The J/H/R rule listing."""
     return "\n".join(f"{rid}  {desc}" for rid, desc in sorted(RULES.items()))

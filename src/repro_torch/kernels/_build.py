@@ -8,6 +8,11 @@ C entry points (no PyTorch headers), so a build takes seconds.  Each entry
 point launches on the stream it is given and returns ``cudaGetLastError()``;
 :func:`check` turns a non-zero code into an exception.
 
+Each source keeps a table of its builds (``csrc/builds.cuh``): its
+``<name>_init`` grants each its dynamic shared memory, and
+``<name>_attributes`` reads one build's attributes on the card
+(:func:`attributes`, the checker's rule H004).
+
 Nothing here runs at import time: the CPU tests import every module on a
 host with no ``nvcc``.  A build that fails raises; there is no fallback.
 """
@@ -26,8 +31,16 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("plane_scores", "plane_select", "viterbi", "moe_ffn",
            "flash_attention", "gram", "approx_pass")
+# Shared memory a CTA may opt into on Hopper (227 KB of the SM's 256 KB):
+# the one constant the plans, the sources (``REPRO_SMEM_LIMIT``) and the
+# checker read.
+SMEM_LIMIT = 232448
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              f"-DREPRO_SMEM_LIMIT={SMEM_LIMIT}")
+# The fields ``<name>_attributes`` writes (csrc/builds.cuh).
+ATTRIBUTES = ("registers", "static_smem", "local_bytes", "max_threads",
+              "max_dyn_smem", "resident", "binary_version", "builds")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -49,6 +62,8 @@ def nvcc() -> str:
 
 def _key(name: str) -> str:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
@@ -108,6 +123,25 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _LIBS[name] = lib
         return lib
+
+
+def attributes(name: str, index: int, threads: int = 0, dyn_smem: int = 0,
+               cluster: int = 1) -> Dict[str, int]:
+    """Build ``index`` of ``csrc/<name>.cu``'s table, read on the card
+    after the source's init (:data:`ATTRIBUTES`, and ``rc``: the call's
+    cudaError_t).  With ``threads`` > 0, ``resident`` is the CTAs of that
+    many threads and ``dyn_smem`` dynamic shared bytes one SM holds at
+    once, or with ``cluster`` > 1 the clusters the card places at once;
+    else -1.  The library must be loaded and initialised (its module's
+    ``_lib()``)."""
+    fn = getattr(load(name), f"{name}_attributes")
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+        fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * len(ATTRIBUTES))(*([-1] * len(ATTRIBUTES)))
+    rc = fn(index, threads, dyn_smem, cluster, out)
+    return dict(zip(ATTRIBUTES, out), rc=rc)
 
 
 def check(rc: int, kernel: str) -> None:

@@ -121,6 +121,8 @@
 
 #include <cstdint>
 
+#include "builds.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -128,7 +130,7 @@ constexpr int kWarp = 32;
 constexpr int kWarps = kThreads / kWarp;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kNeg = -1e30f;   // kernels/ref.py INVALID_SCORE
-constexpr int kSmemLimit = 232448;   // what a CTA may opt into on H100
+constexpr int kSmemLimit = repro::kSmemLimit;   // what a CTA may opt into
 constexpr int kIdRing = 8;     // block ids, read three blocks ahead
 constexpr int kMetaRing = 4;   // valid-slot lists, built two blocks ahead
 constexpr int kMaskChunks = 4; // validity held in registers: cap <= 128
@@ -1249,22 +1251,6 @@ approx_pass_wide_kernel(const Args args, int* scratch, float* gap,
   }
 }
 
-template <int NJ, bool kSec35, bool kGap, bool kStride>
-cudaError_t allow() {
-  return cudaFuncSetAttribute(
-      approx_pass_kernel<NJ, kSec35, kGap, kStride>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
-}
-
-template <bool kSec35, bool kGap, bool kStride>
-cudaError_t allow_all() {
-  cudaError_t err = allow<8, kSec35, kGap, kStride>();
-  if (err == cudaSuccess) err = allow<16, kSec35, kGap, kStride>();
-  if (err == cudaSuccess) err = allow<24, kSec35, kGap, kStride>();
-  if (err == cudaSuccess) err = allow<40, kSec35, kGap, kStride>();
-  return err;
-}
-
 template <bool kSec35, bool kGap, bool kStride>
 void launch_nj(const Args& args, float* gap, long long k_stride,
                long long d1, size_t bytes, cudaStream_t s) {
@@ -1302,6 +1288,43 @@ void launch_wide(const Args& args, int* scratch, float* gap,
         args, scratch, gap, k_stride);
 }
 
+// The builds: the staged kernel by elements of the average per thread
+// (NJ), mode (plain, plain with the gap output, Sec-3.5) and averaging
+// stride, each granted the card's limit; the wide kernel (static shared
+// memory only) by mode and stride.
+const repro::Build kBuilds[] = {
+    REPRO_BUILD(kSmemLimit, approx_pass_kernel<8, false, false, false>),
+    REPRO_BUILD(kSmemLimit, approx_pass_kernel<16, false, false, false>),
+    REPRO_BUILD(kSmemLimit, approx_pass_kernel<24, false, false, false>),
+    REPRO_BUILD(kSmemLimit, approx_pass_kernel<40, false, false, false>),
+    REPRO_BUILD(kSmemLimit, approx_pass_kernel<8, false, false, true>),
+    REPRO_BUILD(kSmemLimit, approx_pass_kernel<16, false, false, true>),
+    REPRO_BUILD(kSmemLimit, approx_pass_kernel<24, false, false, true>),
+    REPRO_BUILD(kSmemLimit, approx_pass_kernel<40, false, false, true>),
+    REPRO_BUILD(kSmemLimit, approx_pass_kernel<8, false, true, false>),
+    REPRO_BUILD(kSmemLimit, approx_pass_kernel<16, false, true, false>),
+    REPRO_BUILD(kSmemLimit, approx_pass_kernel<24, false, true, false>),
+    REPRO_BUILD(kSmemLimit, approx_pass_kernel<40, false, true, false>),
+    REPRO_BUILD(kSmemLimit, approx_pass_kernel<8, false, true, true>),
+    REPRO_BUILD(kSmemLimit, approx_pass_kernel<16, false, true, true>),
+    REPRO_BUILD(kSmemLimit, approx_pass_kernel<24, false, true, true>),
+    REPRO_BUILD(kSmemLimit, approx_pass_kernel<40, false, true, true>),
+    REPRO_BUILD(kSmemLimit, approx_pass_kernel<8, true, false, false>),
+    REPRO_BUILD(kSmemLimit, approx_pass_kernel<16, true, false, false>),
+    REPRO_BUILD(kSmemLimit, approx_pass_kernel<24, true, false, false>),
+    REPRO_BUILD(kSmemLimit, approx_pass_kernel<40, true, false, false>),
+    REPRO_BUILD(kSmemLimit, approx_pass_kernel<8, true, false, true>),
+    REPRO_BUILD(kSmemLimit, approx_pass_kernel<16, true, false, true>),
+    REPRO_BUILD(kSmemLimit, approx_pass_kernel<24, true, false, true>),
+    REPRO_BUILD(kSmemLimit, approx_pass_kernel<40, true, false, true>),
+    REPRO_BUILD(0, approx_pass_wide_kernel<false, false, false>),
+    REPRO_BUILD(0, approx_pass_wide_kernel<false, false, true>),
+    REPRO_BUILD(0, approx_pass_wide_kernel<false, true, false>),
+    REPRO_BUILD(0, approx_pass_wide_kernel<false, true, true>),
+    REPRO_BUILD(0, approx_pass_wide_kernel<true, false, false>),
+    REPRO_BUILD(0, approx_pass_wide_kernel<true, false, true>),
+};
+
 }  // namespace
 
 // Shared memory one launch of the plan (rows staged per buffer, nbuf
@@ -1314,15 +1337,17 @@ extern "C" long long approx_pass_smem_bytes(int d, int cap, int steps,
 }
 
 // Once, when the library loads (never inside a graph capture): dynamic
-// shared memory above 48 KB for every build.  Returns a cudaError_t.
+// shared memory above 48 KB for every staged build.  Returns a
+// cudaError_t.
 extern "C" int approx_pass_init(void) {
-  cudaError_t err = allow_all<false, false, false>();
-  if (err == cudaSuccess) err = allow_all<false, true, false>();
-  if (err == cudaSuccess) err = allow_all<true, false, false>();
-  if (err == cudaSuccess) err = allow_all<false, false, true>();
-  if (err == cudaSuccess) err = allow_all<false, true, true>();
-  if (err == cudaSuccess) err = allow_all<true, false, true>();
-  return static_cast<int>(err);
+  return static_cast<int>(repro::grant(kBuilds));
+}
+
+// One build's attributes (builds.cuh repro::attributes).
+extern "C" int approx_pass_attributes(int build, int threads,
+                                      long long dyn_smem, int cluster,
+                                      long long* out) {
+  return repro::attributes(kBuilds, build, threads, dyn_smem, cluster, out);
 }
 
 // Words of the wide plan's device scratch at `cap` slots

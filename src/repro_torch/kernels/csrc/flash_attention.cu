@@ -95,10 +95,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "builds.cuh"
+
 namespace {
 
 constexpr int kMaxD = 128;        // largest head dim of the fp32 path
-constexpr int kSmemLimit = 232448;   // shared memory a block may use
+constexpr int kSmemLimit = repro::kSmemLimit;  // what a block may opt into
 constexpr int kPad = kMaxD + 1;   // shared row stride (floats)
 constexpr int kThreads = 256;
 constexpr float kInvalid = -1e30f;   // INVALID_SCORE, as the TPU kernel
@@ -300,14 +302,6 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int K, int S, int D, int Dv, const long long* st,
            float sm_scale, int W, cudaStream_t stream) {
   constexpr size_t kSmem = smem_bytes(BQ);
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, BQ, MASK>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
@@ -583,24 +577,21 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
   }
 }
 
+// The bf16 build's dynamic shared memory at two k/v stages (its init's
+// grant; a launch over one k/v block takes one stage).
+constexpr size_t bf16_smem(int dq, int dv, int nw, int bk) {
+  return sizeof(bf16) * (16 * nw * (dq + 8) + 2 * bk * (dq + 8 + dv + 8));
+}
+
 template <int DQ, int DV, int NW, int BK, int MASK, bool SB>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                 int H, int K, int S, int D, int Dv, const Strides* st,
                 float sm_scale, int vec, int W, cudaStream_t stream) {
   constexpr int BQ = 16 * NW, LDQ = DQ + 8, LDV = DV + 8;
-  constexpr size_t kMaxSmem = sizeof(bf16) * (BQ * LDQ + 2 * BK * (LDQ + LDV));
-  static_assert(kMaxSmem <= kSmemLimit, "tiles past a block's shared memory");
+  static_assert(bf16_smem(DQ, DV, NW, BK) <= kSmemLimit,
+                "tiles past a block's shared memory");
   const int stages = S > BK ? 2 : 1;
   const size_t smem = sizeof(bf16) * (BQ * LDQ + stages * BK * (LDQ + LDV));
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_bf16_kernel<DQ, DV, NW, BK, MASK, SB>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kMaxSmem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
   flash_attention_bf16_kernel<DQ, DV, NW, BK, MASK, SB>
       <<<grid, NW * 32, smem, stream>>>(
@@ -672,7 +663,84 @@ int dispatch_scores(const void* q, const void* k, const void* v, void* o,
                                       vec, W, st);
 }
 
+// The builds (masks: 0 causal, 1 window, 2 bidirectional), each granted
+// its own largest dynamic shared memory.
+const repro::Build kBuilds[] = {
+    // float32 on FMAs: 32-row causal tiles for S <= 32, else 64 rows.
+    REPRO_BUILD(smem_bytes(32), flash_attention_kernel<float, 32, 0>),
+    REPRO_BUILD(smem_bytes(64), flash_attention_kernel<float, 64, 0>),
+    REPRO_BUILD(smem_bytes(64), flash_attention_kernel<float, 64, 1>),
+    REPRO_BUILD(smem_bytes(64), flash_attention_kernel<float, 64, 2>),
+    // bfloat16 on mma.sync, fp32 scores: (q/k, v) head dims, warps,
+    // keys per block, mask.
+    REPRO_BUILD(bf16_smem(32, 32, 2, 32),
+                flash_attention_bf16_kernel<32, 32, 2, 32, 0, false>),
+    REPRO_BUILD(bf16_smem(32, 32, 4, 64),
+                flash_attention_bf16_kernel<32, 32, 4, 64, 0, false>),
+    REPRO_BUILD(bf16_smem(32, 32, 4, 64),
+                flash_attention_bf16_kernel<32, 32, 4, 64, 1, false>),
+    REPRO_BUILD(bf16_smem(32, 32, 4, 64),
+                flash_attention_bf16_kernel<32, 32, 4, 64, 2, false>),
+    REPRO_BUILD(bf16_smem(64, 64, 2, 32),
+                flash_attention_bf16_kernel<64, 64, 2, 32, 0, false>),
+    REPRO_BUILD(bf16_smem(64, 64, 4, 64),
+                flash_attention_bf16_kernel<64, 64, 4, 64, 0, false>),
+    REPRO_BUILD(bf16_smem(64, 64, 4, 64),
+                flash_attention_bf16_kernel<64, 64, 4, 64, 1, false>),
+    REPRO_BUILD(bf16_smem(64, 64, 4, 64),
+                flash_attention_bf16_kernel<64, 64, 4, 64, 2, false>),
+    REPRO_BUILD(bf16_smem(128, 128, 2, 32),
+                flash_attention_bf16_kernel<128, 128, 2, 32, 0, false>),
+    REPRO_BUILD(bf16_smem(128, 128, 4, 64),
+                flash_attention_bf16_kernel<128, 128, 4, 64, 0, false>),
+    REPRO_BUILD(bf16_smem(128, 128, 4, 64),
+                flash_attention_bf16_kernel<128, 128, 4, 64, 1, false>),
+    REPRO_BUILD(bf16_smem(128, 128, 4, 64),
+                flash_attention_bf16_kernel<128, 128, 4, 64, 2, false>),
+    REPRO_BUILD(bf16_smem(192, 128, 2, 32),
+                flash_attention_bf16_kernel<192, 128, 2, 32, 0, false>),
+    REPRO_BUILD(bf16_smem(192, 128, 4, 64),
+                flash_attention_bf16_kernel<192, 128, 4, 64, 0, false>),
+    // bfloat16 on mma.sync, bf16 scores (-s16): (q/k, v) head dims, warps,
+    // keys per block, mask.
+    REPRO_BUILD(bf16_smem(32, 32, 2, 32),
+                flash_attention_bf16_kernel<32, 32, 2, 32, 0, true>),
+    REPRO_BUILD(bf16_smem(32, 32, 4, 64),
+                flash_attention_bf16_kernel<32, 32, 4, 64, 0, true>),
+    REPRO_BUILD(bf16_smem(32, 32, 4, 64),
+                flash_attention_bf16_kernel<32, 32, 4, 64, 1, true>),
+    REPRO_BUILD(bf16_smem(64, 64, 2, 32),
+                flash_attention_bf16_kernel<64, 64, 2, 32, 0, true>),
+    REPRO_BUILD(bf16_smem(64, 64, 4, 64),
+                flash_attention_bf16_kernel<64, 64, 4, 64, 0, true>),
+    REPRO_BUILD(bf16_smem(64, 64, 4, 64),
+                flash_attention_bf16_kernel<64, 64, 4, 64, 1, true>),
+    REPRO_BUILD(bf16_smem(128, 128, 2, 32),
+                flash_attention_bf16_kernel<128, 128, 2, 32, 0, true>),
+    REPRO_BUILD(bf16_smem(128, 128, 4, 64),
+                flash_attention_bf16_kernel<128, 128, 4, 64, 0, true>),
+    REPRO_BUILD(bf16_smem(128, 128, 4, 64),
+                flash_attention_bf16_kernel<128, 128, 4, 64, 1, true>),
+    REPRO_BUILD(bf16_smem(192, 128, 2, 32),
+                flash_attention_bf16_kernel<192, 128, 2, 32, 0, true>),
+    REPRO_BUILD(bf16_smem(192, 128, 4, 64),
+                flash_attention_bf16_kernel<192, 128, 4, 64, 0, true>),
+};
+
 }  // namespace
+
+// Once, when the library loads (never inside a graph capture): each build
+// may take its dynamic shared memory.  Returns a cudaError_t.
+extern "C" int flash_attention_init(void) {
+  return static_cast<int>(repro::grant(kBuilds));
+}
+
+// One build's attributes (builds.cuh repro::attributes).
+extern "C" int flash_attention_attributes(int build, int threads,
+                                          long long dyn_smem, int cluster,
+                                          long long* out) {
+  return repro::attributes(kBuilds, build, threads, dyn_smem, cluster, out);
+}
 
 // dtype: 0 = float32, 1 = bfloat16.  D: q's and k's head dim, Dv: v's
 // and o's.  strides: 12 element strides, (batch, seq, head) of q, k, v and

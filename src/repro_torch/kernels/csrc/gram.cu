@@ -58,6 +58,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "builds.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -268,17 +270,6 @@ gram_kernel(const float* __restrict__ P, long long ld, float* __restrict__ G,
 }
 
 template <int kTile>
-cudaError_t allow(void) {
-  cudaError_t err = cudaFuncSetAttribute(
-      gram_kernel<kTile>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(Shape<kTile>::kSmem));
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(gram_kernel<kTile>,
-                              cudaFuncAttributeNonPortableClusterSizeAllowed,
-                              1);
-}
-
-template <int kTile>
 cudaError_t launch(const float* P, long long ld, float* G, int n, int d,
                    int split, cudaStream_t stream) {
   const long long tiles = (n + kTile - 1) / kTile;
@@ -299,14 +290,30 @@ cudaError_t launch(const float* P, long long ld, float* G, int n, int d,
                             split);
 }
 
+// The builds: 32- and 128-tiles, each granted its ring's shared memory;
+// both may run in clusters of 16, above the portable 8.
+const repro::Build kBuilds[] = {
+    REPRO_BUILD(Shape<32>::kSmem, gram_kernel<32>),
+    REPRO_BUILD(Shape<128>::kSmem, gram_kernel<128>),
+};
+
 }  // namespace
 
 // Once, when the library loads (never inside a graph capture): dynamic
 // shared memory above 48 KB and clusters of 16.  Returns a cudaError_t.
 extern "C" int gram_init(void) {
-  cudaError_t err = allow<32>();
-  if (err == cudaSuccess) err = allow<128>();
+  cudaError_t err = repro::grant(kBuilds);
+  for (const repro::Build& b : kBuilds)
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          b.fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   return static_cast<int>(err);
+}
+
+// One build's attributes (builds.cuh repro::attributes).
+extern "C" int gram_attributes(int build, int threads, long long dyn_smem,
+                               int cluster, long long* out) {
+  return repro::attributes(kBuilds, build, threads, dyn_smem, cluster, out);
 }
 
 // Launches on `stream` with the plan's tile (32 or 128) and split (a

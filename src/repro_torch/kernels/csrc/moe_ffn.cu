@@ -54,6 +54,8 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "builds.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -496,17 +498,6 @@ bool make_map(CUtensorMap* map, const void* ptr, int E, int rows, int cols,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool GATED>
-cudaError_t configure_gemm() {
-  static bool done = false;
-  if (done) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      moe_gemm_kernel<GATED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kGemmSmem);
-  done = err == cudaSuccess;
-  return err;
-}
-
 int launch_wgmma(const void* xs, const void* wg, const void* wu,
                  const void* wd, void* y, void* h, int E, int C, int D, int F,
                  cudaStream_t stream) {
@@ -516,15 +507,11 @@ int launch_wgmma(const void* xs, const void* wg, const void* wu,
       !make_map(&m_wu, wu, E, D, F, kBK) ||
       !make_map(&m_h, h, E, C, F, kBM) || !make_map(&m_wd, wd, E, F, D, kBK))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = configure_gemm<true>();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = configure_gemm<false>();
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int mt = (C + kBM - 1) / kBM;
   const dim3 g1((F + 2 * kChunk - 1) / (2 * kChunk), mt, E);
   moe_gemm_kernel<true><<<g1, kGemmThreads, kGemmSmem, stream>>>(
       m_x, m_wg, m_wu, static_cast<bf16*>(h), C, F, D);
-  err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 g2((D + 4 * kChunk - 1) / (4 * kChunk), mt, E);
   moe_gemm_kernel<false><<<g2, kGemmThreads, kGemmSmem, stream>>>(
@@ -546,14 +533,6 @@ template <typename T, int BC, int RPT>
 int launch(const void* xs, const void* wg, const void* wu, const void* wd,
            void* y, int E, int C, int D, int F, cudaStream_t stream) {
   const size_t smem = smem_bytes<T, BC>(F);
-  static size_t configured = 0;
-  if (smem > configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        moe_ffn_kernel<T, BC, RPT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = smem;
-  }
   const dim3 grid((C + BC - 1) / BC, E);
   moe_ffn_kernel<T, BC, RPT><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(xs), static_cast<const T*>(wg),
@@ -572,7 +551,32 @@ int dispatch(int bc, const void* xs, const void* wg, const void* wu,
 }
 
 
+// The builds: the tensor-core pair (gate-and-up, down) at its ring's
+// shared memory; the fp32-FMA kernel by type and row tile, each granted
+// the card's limit (its h grows with F; kernels/moe_ffn.py::plan refuses
+// an F past it).
+const repro::Build kBuilds[] = {
+    REPRO_BUILD(kGemmSmem, moe_gemm_kernel<true>),
+    REPRO_BUILD(kGemmSmem, moe_gemm_kernel<false>),
+    REPRO_BUILD(repro::kSmemLimit, moe_ffn_kernel<float, 32, 2>),
+    REPRO_BUILD(repro::kSmemLimit, moe_ffn_kernel<float, 8, 1>),
+    REPRO_BUILD(repro::kSmemLimit, moe_ffn_kernel<__nv_bfloat16, 32, 2>),
+    REPRO_BUILD(repro::kSmemLimit, moe_ffn_kernel<__nv_bfloat16, 8, 1>),
+};
+
 }  // namespace
+
+// Once, when the library loads (never inside a graph capture): each build
+// may take its dynamic shared memory.  Returns a cudaError_t.
+extern "C" int moe_ffn_init(void) {
+  return static_cast<int>(repro::grant(kBuilds));
+}
+
+// One build's attributes (builds.cuh repro::attributes).
+extern "C" int moe_ffn_attributes(int build, int threads, long long dyn_smem,
+                                  int cluster, long long* out) {
+  return repro::attributes(kBuilds, build, threads, dyn_smem, cluster, out);
+}
 
 // dtype: 0 = float32, 1 = bfloat16.  path 1: the tensor-core pair
 // (bfloat16, D and F multiples of 8, 16-byte aligned; h is an (E, C, F)

@@ -40,6 +40,8 @@
 // wait_group orders it and no barrier is needed.
 #include <cuda_runtime.h>
 
+#include "builds.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;
@@ -134,22 +136,26 @@ size_t smem_bytes(int rows) {
   return sizeof(float) * static_cast<size_t>(rows) * kStages * 2 * kChunk;
 }
 
-template <int kStages>
-cudaError_t allow(int rows) {
-  return cudaFuncSetAttribute(plane_scores_kernel<kStages>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem_bytes<kStages>(rows)));
-}
+// The builds: the largest plans' dynamic shared memory, 2 rows of 4
+// stages and 8 rows of 2.
+const repro::Build kBuilds[] = {
+    REPRO_BUILD(smem_bytes<4>(2), plane_scores_kernel<4>),
+    REPRO_BUILD(smem_bytes<2>(8), plane_scores_kernel<2>),
+};
 
 }  // namespace
 
 // Once, when the library loads (never inside a graph capture): dynamic
-// shared memory above 48 KB for the largest plans, 2 rows of 4 stages and
-// 8 rows of 2.  Returns a cudaError_t.
+// shared memory above 48 KB for the largest plans.  Returns a cudaError_t.
 extern "C" int plane_scores_init(void) {
-  cudaError_t err = allow<4>(2);
-  if (err == cudaSuccess) err = allow<2>(8);
-  return static_cast<int>(err);
+  return static_cast<int>(repro::grant(kBuilds));
+}
+
+// One build's attributes (builds.cuh repro::attributes).
+extern "C" int plane_scores_attributes(int build, int threads,
+                                       long long dyn_smem, int cluster,
+                                       long long* out) {
+  return repro::attributes(kBuilds, build, threads, dyn_smem, cluster, out);
 }
 
 // Launches on `stream` with the plan's rows per CTA (1, 2, 4 or 8) and

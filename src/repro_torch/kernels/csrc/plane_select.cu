@@ -72,11 +72,13 @@
 
 #include <cstdint>
 
+#include "builds.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kSmemLimit = 232448;   // what a CTA may opt into on H100
+constexpr int kSmemLimit = repro::kSmemLimit;   // what a CTA may opt into
 // Warps per CTA and ring slots per warp: the plan measured fastest at the
 // path's density (PERF.md, B2).
 constexpr int kWarps = 2;
@@ -390,6 +392,12 @@ bool plan_ok(int R, int chunk) {
   return R >= 1 && R <= kMaxRows && chunk >= kWarp && chunk % kWarp == 0;
 }
 
+// The builds: w staged in shared memory or read through L1.
+const repro::Build kBuilds[] = {
+    REPRO_BUILD(kSmemLimit, plane_select_kernel<true>),
+    REPRO_BUILD(kSmemLimit, plane_select_kernel<false>),
+};
+
 }  // namespace
 
 // Shared-memory bytes of a launch (kernels/plane_select.py checks its own
@@ -403,14 +411,14 @@ extern "C" long long plane_select_smem_bytes(int R, int chunk, int d,
 // shared memory up to the card's limit for both builds.  Returns a
 // cudaError_t.
 extern "C" int plane_select_init(void) {
-  cudaError_t err = cudaFuncSetAttribute(
-      plane_select_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemLimit);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(plane_select_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemLimit);
-  return static_cast<int>(err);
+  return static_cast<int>(repro::grant(kBuilds));
+}
+
+// One build's attributes (builds.cuh repro::attributes).
+extern "C" int plane_select_attributes(int build, int threads,
+                                       long long dyn_smem, int cluster,
+                                       long long* out) {
+  return repro::attributes(kBuilds, build, threads, dyn_smem, cluster, out);
 }
 
 // Launches on `stream` with the plan's rows per CTA, columns per chunk and

@@ -46,9 +46,11 @@
 
 #include <cstdint>
 
+#include "builds.cuh"
+
 namespace {
 
-constexpr int kSmemLimit = 232448;   // what a block may opt into on H100
+constexpr int kSmemLimit = repro::kSmemLimit;   // what a block may opt into
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -310,13 +312,6 @@ size_t smem_bytes(int L, int C, bool staged) {
   return 4 * words + 4 * ((static_cast<size_t>(L) + 3) / 4);
 }
 
-// Dynamic shared memory above 48 KB for a staged kernel.
-template <typename Kernel>
-cudaError_t allow(Kernel* kernel) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
-}
-
 struct WarpLaunch {
   const float* unary;
   const float* trans;
@@ -343,6 +338,30 @@ constexpr void (*kWarpLaunch[8])(const WarpLaunch&, bool) = {
     warp_launch<1>, warp_launch<2>, warp_launch<3>, warp_launch<4>,
     warp_launch<5>, warp_launch<6>, warp_launch<7>, warp_launch<8>};
 
+// The builds: the staged kernels may take dynamic shared memory above 48
+// KB; the scratch ones hold the table and two score rows (at most 48 KB:
+// kernels/viterbi.py::MAX_LABELS).
+const repro::Build kBuilds[] = {
+    REPRO_BUILD(kSmemLimit, viterbi_block_kernel<true>),
+    REPRO_BUILD(0, viterbi_block_kernel<false>),
+    REPRO_BUILD(kSmemLimit, viterbi_warp_kernel<1, true>),
+    REPRO_BUILD(kSmemLimit, viterbi_warp_kernel<2, true>),
+    REPRO_BUILD(kSmemLimit, viterbi_warp_kernel<3, true>),
+    REPRO_BUILD(kSmemLimit, viterbi_warp_kernel<4, true>),
+    REPRO_BUILD(kSmemLimit, viterbi_warp_kernel<5, true>),
+    REPRO_BUILD(kSmemLimit, viterbi_warp_kernel<6, true>),
+    REPRO_BUILD(kSmemLimit, viterbi_warp_kernel<7, true>),
+    REPRO_BUILD(kSmemLimit, viterbi_warp_kernel<8, true>),
+    REPRO_BUILD(0, viterbi_warp_kernel<1, false>),
+    REPRO_BUILD(0, viterbi_warp_kernel<2, false>),
+    REPRO_BUILD(0, viterbi_warp_kernel<3, false>),
+    REPRO_BUILD(0, viterbi_warp_kernel<4, false>),
+    REPRO_BUILD(0, viterbi_warp_kernel<5, false>),
+    REPRO_BUILD(0, viterbi_warp_kernel<6, false>),
+    REPRO_BUILD(0, viterbi_warp_kernel<7, false>),
+    REPRO_BUILD(0, viterbi_warp_kernel<8, false>),
+};
+
 }  // namespace
 
 // Shared memory one block of the given plan takes.
@@ -354,16 +373,13 @@ extern "C" long long viterbi_smem_bytes(int L, int C, int staged) {
 // variant may take dynamic shared memory above 48 KB.  Returns a
 // cudaError_t.
 extern "C" int viterbi_init(void) {
-  cudaError_t err = allow(viterbi_block_kernel<true>);
-  if (err == cudaSuccess) err = allow(viterbi_warp_kernel<1, true>);
-  if (err == cudaSuccess) err = allow(viterbi_warp_kernel<2, true>);
-  if (err == cudaSuccess) err = allow(viterbi_warp_kernel<3, true>);
-  if (err == cudaSuccess) err = allow(viterbi_warp_kernel<4, true>);
-  if (err == cudaSuccess) err = allow(viterbi_warp_kernel<5, true>);
-  if (err == cudaSuccess) err = allow(viterbi_warp_kernel<6, true>);
-  if (err == cudaSuccess) err = allow(viterbi_warp_kernel<7, true>);
-  if (err == cudaSuccess) err = allow(viterbi_warp_kernel<8, true>);
-  return static_cast<int>(err);
+  return static_cast<int>(repro::grant(kBuilds));
+}
+
+// One build's attributes (builds.cuh repro::attributes).
+extern "C" int viterbi_attributes(int build, int threads, long long dyn_smem,
+                                  int cluster, long long* out) {
+  return repro::attributes(kBuilds, build, threads, dyn_smem, cluster, out);
 }
 
 // Launches one block per row on `stream` and returns cudaGetLastError().

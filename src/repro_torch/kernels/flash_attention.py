@@ -34,6 +34,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from ._build import SMEM_LIMIT  # noqa: F401 (the plans' limit)
 from .ref import mask_of
 
 # Kernel launches since the last reset (repro_torch.kernels.ops), and the
@@ -45,8 +46,6 @@ MAX_HEAD_DIM = 128
 # The MLA build's q/k and v head dims (deepseek-v3: nope 128 + rope 64,
 # v 128).
 MLA_HEAD_DIMS = (192, 128)
-# Shared memory a CTA may use on Hopper (227 KB of the SM's 256 KB).
-SMEM_LIMIT = 232448
 # The masks, by their code in the C entry point.
 MASKS = {"causal": 0, "window": 1, "bidirectional": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -112,10 +111,19 @@ def plan(D: int, Dv: int, S: int, dtype: torch.dtype,
                 build=f"bf16-{dq}x{dv}-{mask}")
 
 
+def fma_smem_bytes(rows: int) -> int:
+    """Dynamic shared memory of the float32 build at ``rows`` query rows
+    (csrc/flash_attention.cu ``smem_bytes``): q, k and v tiles of ``rows``
+    x (:data:`MAX_HEAD_DIM` + 1) floats, the scores and 3 floats a row."""
+    return 4 * (3 * rows * (MAX_HEAD_DIM + 1) + rows * (rows + 1) + 3 * rows)
+
+
 def _lib():
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_launch
     if fn.argtypes is None:
+        lib.flash_attention_init.restype = ctypes.c_int
+        _build.check(lib.flash_attention_init(), "flash_attention (init)")
         fn.argtypes = _SIGNATURE
         fn.restype = ctypes.c_int
     return lib

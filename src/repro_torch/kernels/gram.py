@@ -38,6 +38,8 @@ TILES = (32, 128)  # output tile edges csrc/gram.cu builds
 SMS = 132        # streaming multiprocessors of an H100 SXM
 K_STEP = 32      # columns per staged panel (csrc/gram.cu kK)
 MAX_SPLIT = 16   # the largest cluster H100 places (non-portable)
+STAGES = 3       # cp.async ring depth (csrc/gram.cu kStages)
+THREADS = 256    # threads per CTA at either tile
 
 _SIGNATURE = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -64,6 +66,15 @@ def plan(n: int, d: int) -> Tuple[int, int]:
            and tiles * split < SMS):
         split *= 2
     return 32, split
+
+
+def smem_bytes(tile: int) -> int:
+    """Dynamic shared memory of a CTA (csrc/gram.cu ``Shape<tile>::kSmem``):
+    :data:`STAGES` stages of an A and a B panel, each :data:`K_STEP`
+    columns per thread group (four groups at 32-tiles, one at 128) of
+    ``tile + 4`` floats."""
+    groups = 4 if tile == 32 else 1
+    return 4 * STAGES * 2 * K_STEP * groups * (tile + 4)
 
 
 def k_ranges(d: int, split: int) -> List[Tuple[int, int]]:

@@ -30,6 +30,7 @@ launches = 0
 
 SMS = 132                   # streaming multiprocessors of an H100 SXM
 ROWS_PER_CTA = (1, 2, 4, 8)
+CHUNK = 1024                # columns a ring slot holds (csrc kChunk)
 
 _SIGNATURE = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
@@ -46,6 +47,13 @@ def plan(n: int) -> Tuple[int, int]:
     rows = next((r for r in ROWS_PER_CTA if -(-n // r) <= SMS),
                 ROWS_PER_CTA[-1])
     return rows, 4 if rows <= 2 else 2
+
+
+def smem_bytes(rows: int, stages: int) -> int:
+    """Dynamic shared memory of a launch (csrc/plane_scores.cu
+    ``smem_bytes``): each of ``rows`` warps a ring of ``stages`` slots,
+    each a chunk of p and one of w."""
+    return 4 * rows * stages * 2 * CHUNK
 
 
 def _lib():

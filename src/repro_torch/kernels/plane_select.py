@@ -23,12 +23,11 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from . import _build
+from ._build import SMEM_LIMIT
 
 # Kernel launches since the last reset (repro_torch.kernels.ops).
 launches = 0
 
-# Shared memory a CTA may use on Hopper (227 KB of the SM's 256 KB).
-SMEM_LIMIT = 232448
 SMS = 132              # streaming multiprocessors of an H100 SXM
 MAX_ROWS = 32          # selected rows per CTA (csrc/plane_select.cu kMaxRows)
 MAX_CHUNK = 4096       # columns a ring slot holds; wider rows go in chunks

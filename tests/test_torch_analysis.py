@@ -196,10 +196,13 @@ def test_port_is_lint_clean():
 
 
 def test_rule_table_has_no_hlo_rules():
+    """No rule of XLA's HLO (H001/H002: J001/J002 stand in); H003/H004
+    are the kernels layer's."""
     for rid in ("J001", "J002", "J003", "J004", "J005", "J006", "J007",
-                "J008", "J009", "R001", "R002", "R003", "R004", "R005"):
+                "J008", "J009", "R001", "R002", "R003", "R004", "R005",
+                "H003", "H004"):
         assert rid in RULES
-    assert not [r for r in RULES if r.startswith("H")]
+    assert sorted(r for r in RULES if r.startswith("H")) == ["H003", "H004"]
 
 
 # ---------------------------------------------------------------------------
@@ -589,7 +592,8 @@ def test_cli_json_report(capsys):
     assert main(["--strict", "--device", "cpu", "--json", "--engines",
                  "fw,mpbcfw-shard"]) == 0
     rep = json.loads(capsys.readouterr().out)
-    assert rep["ok"] and rep["layers"] == ["program", "lint"]
+    assert rep["ok"] and rep["layers"] == ["program", "lint", "kernels"]
+    assert rep["facts"]["kernels"]["h004"].startswith("not run")
     assert rep["facts"]["mpbcfw-shard"]["outer_pass"] == 1
     assert "serve:chain" in rep["facts"]
 

@@ -443,7 +443,8 @@ def test_port_never_imports_jax_or_the_reference_package():
             "shard/layout.py", "shard/telemetry.py", "launch/mesh.py",
             "cache/layout.py", "analysis/__init__.py",
             "analysis/__main__.py", "analysis/findings.py",
-            "analysis/lint.py", "analysis/contracts.py", "optim/__init__.py",
+            "analysis/lint.py", "analysis/contracts.py",
+            "analysis/kernels.py", "optim/__init__.py",
             "optim/adamw.py", "optim/schedule.py", "optim/compression.py",
             "data/lm.py", "ft/restart.py", "launch/train.py",
             "examples/__init__.py", "examples/quickstart.py",
