@@ -489,6 +489,12 @@ DRYRUN_REFERENCE_FLOPS = {"qwen2-0.5b": 5.218e13, "olmoe-1b-7b": 9.105e13}
 # host's torch traces the same program within DRYRUN_AGREE of it.
 DRYRUN_CPU_HOST_FLOPS = {"qwen2-0.5b": 1.9986e13, "olmoe-1b-7b": 5.4209e13}
 DRYRUN_AGREE = 0.05
+# The dry-run's temporaries against the card (phase dryrun_memory): one
+# dryrun.make_train_step step of TRAIN's arch at full width and depth on
+# TRAIN's batch, per remat policy, its peak held within
+# DRYRUN_MEMORY_AGREE of the world-size-1 trace's argument + temp bytes.
+DRYRUN_MEMORY_POLICIES = ("none", "nothing")
+DRYRUN_MEMORY_AGREE = 0.15
 
 # The engines the registry added: card vs CPU on SMALL ocr, and three of
 # them at full OCR size (phase, algorithm).
@@ -5299,13 +5305,16 @@ def phase_dryrun():
     """The dry-run's CLI on each of ``DRYRUN_CELLS`` (qwen2-0.5b and
     olmoe-1b-7b train_4k on the (16, 16) mesh of a fake 256-rank group),
     one process each, side by side, on the host (nothing runs on the
-    card); per record: ok, chips, collectives, per-device FLOPs at or
+    card); per record: ok, chips, collectives (static plus one trip of the
+    loops > 0, no trip whose collectives differ from its loop's first,
+    the layer count among the loops' trip counts), per-device FLOPs at or
     under the reference's (``DRYRUN_REFERENCE_FLOPS``) and at least the
     model's, within ``DRYRUN_AGREE`` of a CPU host's torch 2.13 count
     (``DRYRUN_CPU_HOST_FLOPS``); FLOPs by op class and collectives by
     kind, and the seconds [~25-45 each, in parallel]."""
     import tempfile
     import torch
+    from repro_torch import configs
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     env.pop("XLA_FLAGS", None)
     with tempfile.TemporaryDirectory() as out:
@@ -5331,8 +5340,12 @@ def phase_dryrun():
         arch = rec["arch"]
         ref, cpu = DRYRUN_REFERENCE_FLOPS[arch], DRYRUN_CPU_HOST_FLOPS[arch]
         model = rec["model_flops"] / rec["chips"]
+        layers = configs.get_config(arch).num_layers
         check(rec["ok"] and rec["chips"] == 256
-              and rec["collective_bytes_static"] > 0, f"dryrun: {rec}")
+              and rec["collective_bytes_static"]
+              + rec["collective_in_loop_bytes"] > 0
+              and not rec["collective_uneven_trips"]
+              and layers in rec["while_trip_counts"], f"dryrun: {rec}")
         check(model <= rec["flops"] <= ref,
               f"dryrun {arch}: {rec['flops']:.4e} FLOPs per device, the "
               f"model's {model:.4e}, the reference's {ref:.4e}")
@@ -5348,7 +5361,122 @@ def phase_dryrun():
                  "arch", "shape", "mesh", "chips", "params_total", "trace_s",
                  "flops", "flops_source", "flops_by_op", "model_flops",
                  "bytes_accessed", "collective_bytes_static",
-                 "collective_by_kind", "collective_counts", "memory")})
+                 "collective_by_kind", "collective_counts",
+                 "collective_in_loop_bytes", "collective_in_loop_by_kind",
+                 "collective_in_loop_counts", "while_trip_counts",
+                 "collective_bytes_all_trips", "collective_uneven_trips",
+                 "memory_analysis")})
+
+
+_DRYRUN_MEMORY_TRACE = """
+import dataclasses, json, sys
+from repro_torch import configs
+from repro_torch.configs.shapes import ShapeCell
+from repro_torch.launch import dryrun
+arch, batch, seq = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+out = {}
+for policy in sys.argv[4].split(","):
+    cfg = dataclasses.replace(configs.get_config(arch), remat_policy=policy)
+    rec = dryrun.run_cell(arch, "train", False, mesh_shape=(1, 1), cfg=cfg,
+                          cell=ShapeCell("train", seq, batch, "train"))
+    out[policy] = {k: rec[k] for k in ("memory_analysis", "trace_s",
+                                       "while_trip_counts", "chips")}
+print(json.dumps(out))
+"""
+
+
+def phase_dryrun_memory(torch):
+    """The dry-run's per-rank memory against the card: the world-size-1
+    trace (``dryrun.run_cell`` on a 1 x 1 mesh, plain fake CPU tensors, in
+    a host process started first) of one ``dryrun.make_train_step`` step
+    of TRAIN's arch at full width and depth on 8 x 128 tokens, under each
+    of ``DRYRUN_MEMORY_POLICIES``; on the card the same step on bf16
+    weights from seed 0 and fp32 AdamW state, measured after a warm-up
+    step with ``reset_peak_memory_stats`` just before it and
+    ``max_memory_allocated`` just after it, less what the process held
+    besides the step's arguments.  Checks: a finite loss, B5 once per
+    layer per step under "none" and twice under "nothing" (launch counts
+    reset just before the measured step), B6 never, the card's argument
+    bytes the trace's, and the card's peak within DRYRUN_MEMORY_AGREE of
+    the trace's argument + temp bytes [~20-30]."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.optim import AdamWConfig, adamw_init
+    t0 = time.perf_counter()
+    arch, B, S = TRAIN["arch"], TRAIN["batch_size"], TRAIN["seq_len"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("XLA_FLAGS", None)
+    trace = subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN_MEMORY_TRACE, arch, str(B), str(S),
+         ",".join(DRYRUN_MEMORY_POLICIES)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env)
+    try:
+        cfg = configs.get_config(arch)
+        ocfg = AdamWConfig(state_dtype=torch.float32)
+        batch = lm_batch(torch, cfg, B, S)
+        card, paths = {}, {}
+        for policy in DRYRUN_MEMORY_POLICIES:
+            c = dataclasses.replace(cfg, remat_policy=policy)
+            params, _ = lm_init(torch, c)
+            opt = adamw_init(params, ocfg)
+            step = dryrun.make_train_step(c, ocfg)
+            params, opt, loss, _ = step(params, opt, batch)     # warm-up
+            torch.cuda.synchronize()
+            args = sum(t.numel() * t.element_size() for t in
+                       dryrun.tree_leaves((params, opt, batch))
+                       if isinstance(t, torch.Tensor))
+            other = torch.cuda.memory_allocated() - args
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            ts = time.perf_counter()
+            params, opt, loss, _ = step(params, opt, batch)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - ts
+            peak = torch.cuda.max_memory_allocated() - other
+            launches = ops.launch_counts()
+            loss = float(loss)
+            check(math.isfinite(loss), f"dryrun_memory {policy}: loss {loss}")
+            check(launches["flash_attention"]
+                  == remat_launches(c, c.num_layers)
+                  and launches["moe_ffn"] == 0,
+                  f"dryrun_memory {policy}: launches {launches}")
+            paths[f"dryrun_memory_{policy}"] = launches
+            card[policy] = dict(peak_bytes=peak, argument_bytes=args,
+                                other_bytes=other, step_s=step_s, loss=loss)
+            del params, opt, step
+            torch.cuda.empty_cache()
+        del batch
+        out, err = trace.communicate(timeout=600)
+    finally:
+        trace.kill()
+    check(trace.returncode == 0, f"dryrun_memory trace: {err[-2000:]}")
+    traced = json.loads(out.strip().splitlines()[-1])
+    for policy in DRYRUN_MEMORY_POLICIES:
+        mem = traced[policy]["memory_analysis"]
+        want = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        got = card[policy]
+        # The trace's batch is int32 tokens and labels, the trainer's
+        # batch the same; the step counter is a host int in both.
+        check(got["argument_bytes"] == mem["argument_size_in_bytes"],
+              f"dryrun_memory {policy}: card arguments "
+              f"{got['argument_bytes']}, trace {mem}")
+        ratio = got["peak_bytes"] / want
+        check(abs(ratio - 1) <= DRYRUN_MEMORY_AGREE,
+              f"dryrun_memory {policy}: card peak {got['peak_bytes']}, "
+              f"trace argument + temp {want} ({ratio:.4f})")
+        emit("dryrun_memory", arch=arch, batch_size=B, seq_len=S,
+             remat_policy=policy, card_peak_bytes=got["peak_bytes"],
+             trace_argument_plus_temp_bytes=want,
+             card_over_trace=ratio, agree=DRYRUN_MEMORY_AGREE,
+             memory_analysis=mem, card_argument_bytes=got["argument_bytes"],
+             card_other_bytes=got["other_bytes"], step_s=got["step_s"],
+             loss=got["loss"], launches=paths[f"dryrun_memory_{policy}"],
+             trace_s=traced[policy]["trace_s"],
+             while_trip_counts=traced[policy]["while_trip_counts"],
+             seconds=time.perf_counter() - t0)
+    return paths
 
 
 def phase_main_hybrid(torch):
@@ -5653,6 +5781,9 @@ def main() -> int:
                            else 0)
     phase_host_mesh(torch)
     phase_dryrun()
+    torch.cuda.empty_cache()
+    # This slice: the dry-run's temporaries against the card.
+    dryrun_paths = phase_dryrun_memory(torch)
     # Each new case's launches: its build's count on the path it serves.
     for name, path in (("causal_d112", "main_hybrid_prefill"),
                        ("window_4096", "main_hybrid_long"),
@@ -5688,7 +5819,8 @@ def main() -> int:
                "contracts": launches_contracts, **simple_paths,
                "main_gap": launches_gap, **wide_paths,
                **serve_paths, "main_lm": launches_lm, **lm_paths,
-               **train_paths, **mla_paths, **cfg_paths, **family_paths}
+               **train_paths, **mla_paths, **cfg_paths, **family_paths,
+               **dryrun_paths}
     for k in kernels:
         k["launches"] = by_path[path_of[k["name"]]][k["name"]]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}

@@ -22,23 +22,44 @@ What a record counts, per device (rank 0's view; the mesh is uniform):
     ``bmm``, ...);
   * ``bytes_accessed``: the sum of each local op's operand and result
     bytes (views, which move nothing, left out);
-  * ``collective_bytes_static``, ``collective_by_kind``,
-    ``collective_counts``: the ``c10d_functional`` collectives DTensor
-    issues (result bytes, as the reference reads HLO result shapes);
-  * ``memory``: argument bytes (parameters, AdamW state, batch or cache,
-    each rank's shards) and output bytes.  No peak: ``torch.distributed
-    ._tools.mem_tracker.MemTracker`` runs under the fake mode, but it
-    counts the global-shaped fake tensors of DTensor's sharding
-    propagation (2 TB "peaks" at qwen2-0.5b's train_4k), no rank's
-    memory.
+  * the ``c10d_functional`` collectives DTensor issues (result bytes, as
+    the reference reads HLO result shapes), by loop placement as the
+    reference's ``repro/launch/hlo_analysis.py`` splits them
+    (:mod:`.trace_analysis`: the loops that are ``lax.scan`` /
+    ``lax.map`` in the reference are marked, and a collective of a trip's
+    forward or of the backward of a node that trip made is in the loop):
+    ``collective_bytes_static``, ``collective_by_kind`` and
+    ``collective_counts`` hold only the collectives outside every loop;
+    ``collective_in_loop_bytes``, ``collective_in_loop_by_kind`` and
+    ``collective_in_loop_counts`` one trip of each loop;
+    ``while_trip_counts`` each loop site's trips.  The port also records
+    ``collective_bytes_all_trips``, ``collective_all_trips_by_kind`` and
+    ``collective_all_trips_counts`` (every collective of the step, which
+    the roofline reads), ``collective_loops`` (each outermost loop entry's
+    trips and per-trip bytes) and ``collective_uneven_trips`` (a trip
+    whose collectives differ from its loop's first, named; none expected);
+  * ``memory_analysis``: ``argument_size_in_bytes`` (parameters, AdamW
+    state, batch or cache, each rank's shards), ``output_size_in_bytes``
+    and ``temp_size_in_bytes``: the rank's peak of live bytes made inside
+    the step.  Each local op's output storage is counted from the op that
+    made it until it is freed (a weak reference on the storage, so a view
+    holds its base's bytes, and autograd's saved tensors hold the
+    activations); the arguments' storages and the ops DTensor's sharding
+    propagation traces on the global shapes are left out.  It differs from
+    XLA's ``temp_size_in_bytes``: no buffer is reused across ops (each op
+    makes its outputs, as eager PyTorch and its caching allocator do), no
+    argument is donated, and the step's outputs are in it (XLA lists them
+    under ``output_size_in_bytes`` only), so ``argument + temp`` is the
+    step's peak on one card (``chip_smoke.py``'s ``dryrun_memory`` phase
+    holds it against ``torch.cuda.max_memory_allocated``).
 
-An eager step traces every trip of its layer loops, so there are no
-``in_loop`` buckets and no while-loop trip counts; ``trace_s`` takes the
-place of ``lower_s`` and there is no ``compile_s``.  The fake tensors are
-CPU tensors, so the attention and expert FFN trace their plain paths
-(``chunked_causal_attention``, the expert einsums): the program the
-reference lowers, whose models run them in XLA.  A count through the
-kernels needs fake implementations of B5 and B6 (ROADMAP).
+``trace_s`` takes the place of ``lower_s`` and there is no ``compile_s``,
+``hlo_bytes`` or ``cost_analysis``.  The fake tensors are CPU tensors, so
+the attention and expert FFN trace their plain paths
+(``chunked_causal_attention``, the expert einsums), as the reference's
+CPU lowering runs them in XLA.  A count through the kernels needs fake
+implementations of B5 and B6 (ROADMAP).  A mesh of one rank
+(``mesh_shape=(1, 1)``) traces plain tensors, no DTensors and no group.
 
 Records go to ``results/torch/dryrun/``.  One cell per process (the fake
 group's world size is the mesh's); ``--all`` runs one subprocess per cell.
@@ -51,6 +72,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import pathlib
@@ -59,6 +81,7 @@ import sys
 import threading
 import time
 import traceback
+import weakref
 from typing import Any, Callable, Dict, Optional
 
 import torch
@@ -66,6 +89,7 @@ import torch
 from .. import configs
 from ..models import common, registry
 from ..optim import AdamWConfig, adamw_init, adamw_update
+from .trace_analysis import LoopTracer
 
 RESULTS_DIR = (pathlib.Path(__file__).resolve().parents[3] / "results"
                / "torch" / "dryrun")
@@ -282,6 +306,9 @@ _KINDS = {"all_gather_into_tensor": "all-gather",
           "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
           "all_to_all_single": "all-to-all",
           "broadcast": "collective-permute"}
+#: Ops of the collective namespaces that move nothing: a wait hands back
+#: the same buffer, the autograd wrapper wraps one.
+_NOT_COLLECTIVES = ("wait_tensor", "_wrap_tensor_autograd")
 _PROPAGATING = threading.local()
 
 
@@ -315,21 +342,28 @@ def _nbytes(t) -> int:
 class LocalCounter:
     """A dispatch mode that counts the ops each rank runs on its local
     shards: FLOPs (``torch.utils.flop_counter``'s formulas), operand and
-    result bytes, and the ``c10d_functional`` collectives by kind.  An op
-    on DTensors is handed on (DTensor runs it on the local shards, which
-    this mode then sees); an op DTensor's sharding propagation traces on
-    the global shapes is not counted."""
+    result bytes, the ``c10d_functional`` collectives by kind and loop
+    placement (:attr:`loops`, a :class:`.trace_analysis.LoopTracer`), and
+    the peak of live bytes the ops make (:attr:`peak_bytes`).  An op on
+    DTensors is handed on (DTensor runs it on the local shards, which this
+    mode then sees); an op DTensor's sharding propagation traces on the
+    global shapes is not counted.  Active inside ``with counter:``; the
+    storages of :meth:`hold` (the step's arguments) are not counted."""
 
     def __init__(self):
         from torch.utils._python_dispatch import TorchDispatchMode
         from torch.utils.flop_counter import flop_registry
+        from torch.utils.weak import WeakIdKeyDictionary
         from ..analysis.contracts import COLLECTIVE_NAMESPACES
         counter = self
         self.flops = 0
         self.op_flops: Dict[str, int] = {}
         self.bytes = 0
-        self.coll_bytes: Dict[str, int] = {}
-        self.coll_counts: Dict[str, int] = {}
+        self.loops = LoopTracer()
+        self.live_bytes = 0
+        self.peak_bytes = 0
+        # storage -> its weak reference (None for a held storage)
+        self._storages = WeakIdKeyDictionary()
         _guard_propagation()
 
         class _Mode(TorchDispatchMode):
@@ -344,15 +378,13 @@ class LocalCounter:
                 if getattr(_PROPAGATING, "depth", 0):
                     return out
                 ns = func.namespace
+                results = tree_flatten(out)[0]
                 if ns in COLLECTIVE_NAMESPACES:
                     name = func._overloadpacket.__name__
-                    if name != "wait_tensor":
-                        kind = _KINDS.get(name, name)
-                        nb = sum(_nbytes(t) for t in tree_flatten(out)[0])
-                        counter.coll_bytes[kind] = \
-                            counter.coll_bytes.get(kind, 0) + nb
-                        counter.coll_counts[kind] = \
-                            counter.coll_counts.get(kind, 0) + 1
+                    if name not in _NOT_COLLECTIVES:
+                        counter.loops.record(_KINDS.get(name, name), sum(
+                            _nbytes(t) for t in results))
+                        counter._made(results)
                     return out
                 packet = func._overloadpacket
                 if packet in flop_registry:
@@ -365,14 +397,46 @@ class LocalCounter:
                         for r in func._schema.returns):
                     return out      # views and metadata move no bytes
                 counter.bytes += sum(_nbytes(t) for t in flat) + sum(
-                    _nbytes(t) for t in tree_flatten(out)[0])
+                    _nbytes(t) for t in results)
+                counter._made(results)
                 return out
 
         self.mode = _Mode()
 
-    @property
-    def collective_bytes(self) -> int:
-        return sum(self.coll_bytes.values())
+    def __enter__(self) -> "LocalCounter":
+        self.loops.__enter__()
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.mode.__exit__(*exc)
+        self.loops.__exit__(*exc)
+
+    def hold(self, tree) -> None:
+        """Leave the storages of a tree's tensors (each rank's shards) out
+        of the count: the step's arguments."""
+        for t in tree_leaves(tree):
+            if isinstance(t, torch.Tensor):
+                t = t.to_local() if common.is_dtensor(t) else t
+                self._storages[t.untyped_storage()] = None
+
+    def _made(self, results) -> None:
+        """Count the storages of an op's outputs that no earlier op made
+        (a view's, or an input's handed back, is counted already)."""
+        for t in results:
+            if not isinstance(t, torch.Tensor):
+                continue
+            st = t.untyped_storage()
+            if st in self._storages:
+                continue
+            n = st.nbytes()
+            self._storages[st] = weakref.ref(
+                st, functools.partial(self._freed, n))
+            self.live_bytes += n
+            self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+
+    def _freed(self, n: int, _ref) -> None:
+        self.live_bytes -= n
 
 
 def _local_bytes(tree) -> int:
@@ -385,6 +449,61 @@ def _local_bytes(tree) -> int:
 # One cell
 
 
+def cell_step(cfg, cell, mesh=None, psh=None, opt_dtype: str = "float32",
+              seq_shard: bool = True):
+    """``(step, args, tokens)`` of one cell: the step function, its
+    arguments (parameters, AdamW state for a train step, batch or cache
+    and tokens, the decode position) and the tokens it processes.  On
+    ``mesh`` the tensors are DTensors placed by ``psh`` (the parameters'
+    placements) and the reference's batch and cache rules; without one
+    they are plain.  Made under a ``FakeTensorMode``, the tensors are
+    fake; outside one, real CPU tensors of undefined values."""
+    def put(tree, shardings):
+        """``tree`` placed by ``shardings(tree)`` on the mesh, if any."""
+        return tree if mesh is None else place(tree, shardings(tree), mesh)
+
+    params = put(common.abstract_params(registry.param_specs(cfg), "cpu"),
+                 lambda _: psh)
+    if cell.kind in ("train", "prefill"):
+        batch = put(registry.train_input_specs(
+            cfg, cell.global_batch, cell.seq_len, "cpu"),
+            lambda t: batch_shardings(t, mesh))
+        args = [params, batch]
+        tokens = cell.global_batch * cell.seq_len
+    else:
+        tok, _, cache = registry.decode_input_specs(
+            cfg, cell.global_batch, cell.seq_len, "cpu")
+        cache = put(cache, lambda t: cache_shardings(
+            t, cfg, cell.global_batch, mesh, cell.seq_len, seq_shard))
+        tok = put(tok, lambda t: batch_shardings(t, mesh))
+        args = [params, cache, tok]
+        tokens = cell.global_batch
+    if cell.kind == "train":
+        ocfg = AdamWConfig(state_dtype=_DTYPES[opt_dtype])
+        opt = adamw_init(params, ocfg)
+        opt = type(opt)(step=opt.step, m=put(opt.m, lambda _: psh),
+                        v=put(opt.v, lambda _: psh))
+        args.insert(1, opt)
+        step = make_train_step(cfg, ocfg)
+    elif cell.kind == "prefill":
+        step = make_prefill_step(cfg)
+    else:
+        step = make_decode_step(cfg)
+        args.append(cell.seq_len - 1)     # the last position
+    return step, args, tokens
+
+
+def trace_step(step, args) -> tuple:
+    """Run ``step(*args)`` under a :class:`LocalCounter` that holds the
+    arguments' storages: ``(counter, out, seconds)``."""
+    counter = LocalCounter()
+    counter.hold(args)
+    t0 = time.time()
+    with counter:
+        out = step(*args)
+    return counter, out, time.time() - t0
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              overrides: Optional[dict] = None, opt_dtype: str = "float32",
              donate: bool = True, mesh_shape: Optional[tuple] = None,
@@ -392,8 +511,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     """Trace one cell's step on the production mesh (or ``mesh_shape``,
     same chip count) of a fake group; ``cfg`` replaces the arch's config
     (the roofline's probes and the tests' reduced configs), ``cell`` (a
-    ``configs.ShapeCell``) the shape's.  ``donate`` has no counterpart
-    here (an eager step makes new tensors)."""
+    ``configs.ShapeCell``) the shape's.  A ``mesh_shape`` of one rank
+    traces plain tensors.  ``donate`` has no counterpart here (an eager
+    step makes new tensors)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.device_mesh import init_device_mesh
     from .mesh import force_host_platform_device_count, make_production_mesh
@@ -401,7 +521,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     cell = cell or configs.SHAPES[shape_name]
     if cfg is None:
         cfg = build_config(arch, shape_name, overrides or {})
-    if mesh_shape is not None:
+    if mesh_shape is not None and math.prod(mesh_shape) == 1:
+        mesh = None
+    elif mesh_shape is not None:
         # per-arch mesh reshaping: same chip count, another split
         axes = ("pod", "data", "model") if len(mesh_shape) == 3 \
             else ("data", "model")
@@ -411,11 +533,11 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     else:
         force_host_platform_device_count(512 if multi_pod else 256)
         mesh = make_production_mesh(multi_pod=multi_pod)
-    chips = mesh.size()
+    shape = list(mesh_shape if mesh is None else mesh.shape)
     rec: Dict[str, Any] = {
         "arch": arch, "shape": shape_name,
-        "mesh": "multi" if multi_pod else "single", "chips": chips,
-        "mesh_shape": list(mesh.shape), "ok": False}
+        "mesh": "multi" if multi_pod else "single",
+        "chips": math.prod(shape), "mesh_shape": shape, "ok": False}
     specs = registry.param_specs(cfg)
     counts = count_params(specs)
     rec["params_total"] = counts["total"]
@@ -425,55 +547,39 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         # inference sharding profile: no optimizer state, so FSDP weight
         # all-gathers buy nothing -- replicate over data, keep TP/EP only
         rules = dict(common.DEFAULT_RULES, embed=())
-    psh = common.param_shardings(specs, mesh, rules)
-    counter = LocalCounter()
+    psh = None if mesh is None else common.param_shardings(specs, mesh,
+                                                            rules)
     with FakeTensorMode(allow_non_fake_inputs=True):
-        params = place(common.abstract_params(specs, "cpu"), psh, mesh)
-        if cell.kind in ("train", "prefill"):
-            abatch = registry.train_input_specs(cfg, cell.global_batch,
-                                                cell.seq_len, "cpu")
-            batch = place(abatch, batch_shardings(abatch, mesh), mesh)
-            args = [params, batch]
-            tokens = cell.global_batch * cell.seq_len
-        else:
-            tok, _, acache = registry.decode_input_specs(
-                cfg, cell.global_batch, cell.seq_len, "cpu")
-            seq_shard = bool((overrides or {}).get("seq_shard_cache", True))
-            cache = place(acache, cache_shardings(
-                acache, cfg, cell.global_batch, mesh, cell.seq_len,
-                seq_shard), mesh)
-            tok = place(tok, batch_shardings(tok, mesh), mesh)
-            args = [params, cache, tok]
-            tokens = cell.global_batch
-        if cell.kind == "train":
-            ocfg = AdamWConfig(state_dtype=_DTYPES[opt_dtype])
-            opt = adamw_init(params, ocfg)
-            opt = type(opt)(step=opt.step,
-                            m=place(opt.m, psh, mesh),
-                            v=place(opt.v, psh, mesh))
-            args.insert(1, opt)
-            step = make_train_step(cfg, ocfg)
-        elif cell.kind == "prefill":
-            step = make_prefill_step(cfg)
-        else:
-            step = make_decode_step(cfg)
-            args.append(cell.seq_len - 1)     # the last position
+        step, args, tokens = cell_step(
+            cfg, cell, mesh, psh, opt_dtype,
+            bool((overrides or {}).get("seq_shard_cache", True)))
         in_bytes = _local_bytes(args)
-        t0 = time.time()
-        with counter.mode:
-            out = step(*args)
-        rec["trace_s"] = round(time.time() - t0, 2)
+        counter, out, seconds = trace_step(step, args)
+        rec["trace_s"] = round(seconds, 2)
         out_bytes = _local_bytes(out)
-    rec["memory"] = {"argument_size_in_bytes": int(in_bytes),
-                     "output_size_in_bytes": int(out_bytes)}
+    rec["memory_analysis"] = {"argument_size_in_bytes": int(in_bytes),
+                              "output_size_in_bytes": int(out_bytes),
+                              "temp_size_in_bytes": int(counter.peak_bytes)}
     rec["model_flops"] = model_flops(cfg, counts, tokens, cell.kind)
     rec["flops"] = float(counter.flops)
     rec["flops_source"] = "flop_counter"
     rec["flops_by_op"] = dict(counter.op_flops)
     rec["bytes_accessed"] = float(counter.bytes)
-    rec["collective_bytes_static"] = counter.collective_bytes
-    rec["collective_by_kind"] = dict(counter.coll_bytes)
-    rec["collective_counts"] = dict(counter.coll_counts)
+    coll = counter.loops.stats()
+    # Static: outside every loop; in_loop: one trip of each loop (the
+    # reference's meanings); all_trips: every collective the step issued.
+    rec["collective_bytes_static"] = coll.total_bytes
+    rec["collective_by_kind"] = coll.bytes_by_kind
+    rec["collective_counts"] = coll.count_by_kind
+    rec["collective_in_loop_bytes"] = coll.total_in_loop_bytes
+    rec["collective_in_loop_by_kind"] = coll.in_loop_bytes_by_kind
+    rec["collective_in_loop_counts"] = coll.in_loop_count_by_kind
+    rec["while_trip_counts"] = counter.loops.trip_counts()
+    rec["collective_bytes_all_trips"] = coll.total_all_trips_bytes
+    rec["collective_all_trips_by_kind"] = coll.all_trips_bytes_by_kind
+    rec["collective_all_trips_counts"] = coll.all_trips_count_by_kind
+    rec["collective_loops"] = coll.loops
+    rec["collective_uneven_trips"] = coll.uneven
     rec["tokens"] = tokens
     rec["ok"] = True
     return rec

@@ -19,9 +19,12 @@ trip by trip (:func:`analytic_corrections` returns 0).
 The three roofline terms use one card's datasheet figures (NVIDIA H100
 80GB HBM3 SXM at its 700 W limit, dense, no sparsity): 989 TFLOP/s bf16
 (:data:`PEAK_FLOPS`), 3.35 TB/s HBM (:data:`HBM_BW`), 450 GB/s of NVLink
-4 per direction (:data:`LINK_BW`).  A mesh past one host's 8 cards
-crosses the network between hosts, which is slower than NVLink; this
-bound ignores it, so its collective term is a lower bound there.
+4 per direction (:data:`LINK_BW`), kept in :mod:`.trace_analysis` as the
+reference keeps its chip's in ``hlo_analysis``.  A mesh past one host's 8
+cards crosses the network between hosts, which is slower than NVLink;
+this bound ignores it, so its collective term is a lower bound there.
+The collective metrics are the dry-run's all-trips totals (every
+collective the step issued, loop trips included).
 
 Usage:  python -m repro_torch.launch.roofline --arch X --shape Y
         python -m repro_torch.launch.roofline --all     (one subprocess
@@ -42,29 +45,11 @@ from typing import Optional
 import numpy as np
 
 from .. import configs
+from .trace_analysis import (CARD, HBM_BW, LINK_BW, PEAK_FLOPS,
+                             roofline_terms)
 
 RESULTS_DIR = (pathlib.Path(__file__).resolve().parents[3] / "results"
                / "torch" / "roofline")
-
-#: The card the bound is for, and its datasheet peaks.
-CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
-PEAK_FLOPS = 989e12        # bf16 dense FLOP/s per card
-HBM_BW = 3.35e12           # bytes/s per card
-LINK_BW = 450e9            # NVLink 4, bytes/s per direction per card
-
-
-def roofline_terms(flops: float, hbm_bytes: float, coll_bytes: float,
-                   chips: int) -> dict:
-    """The three roofline times in seconds (per step, per card):
-    ``flops`` and ``hbm_bytes`` per card (the dry-run's local ops),
-    ``coll_bytes`` the card's collective traffic over one NVLink
-    direction."""
-    del chips
-    return {
-        "compute_s": flops / PEAK_FLOPS,
-        "memory_s": hbm_bytes / HBM_BW,
-        "collective_s": coll_bytes / LINK_BW,
-    }
 
 
 # ---------------------------------------------------------------------------
@@ -155,11 +140,12 @@ def analytic_corrections(cfg, shape_cell, chips: int) -> dict:
 
 
 def probe_metrics(rec: dict) -> dict:
-    """A dry-run record's probed metrics."""
+    """A dry-run record's probed metrics (the collectives of every loop
+    trip)."""
     m = {"flops": rec["flops"], "bytes": rec["bytes_accessed"]}
-    for k, v in rec["collective_by_kind"].items():
+    for k, v in rec["collective_all_trips_by_kind"].items():
         m[f"coll_{k}"] = v
-    m["coll_total"] = rec["collective_bytes_static"]
+    m["coll_total"] = rec["collective_bytes_all_trips"]
     return m
 
 

@@ -26,6 +26,7 @@ import torch
 
 from ..kernels import ops as kops
 from ..kernels.ref import INVALID_SCORE
+from ..launch.trace_analysis import loop
 from .common import (ModelConfig, ParamSpec, cache_write, is_dtensor,
                      merge_heads, per_shard, replicate_dims, row_input,
                      split_heads)
@@ -104,7 +105,8 @@ def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
     vT = v.permute(0, 2, 1, 3).to(sdt)       # (B, H, S, vd)
     col = torch.arange(S, device=q.device)
     outs = []
-    for start in range(0, S, chunk):
+    for ci in loop("attention.q_chunks", -(-S // chunk)):
+        start = ci * chunk
         qb = q[:, start:start + chunk]        # (B, c, H, hd)
         row = torch.arange(start, start + qb.shape[1], device=q.device)
         s = torch.einsum("bqhd,bhdk->bhqk", qb.to(sdt), kT) * scale

@@ -29,7 +29,10 @@ the helpers here (:func:`replicate_dims`, :func:`as_replicated`,
 (``use_reentrant=False``) by ``cfg.remat_policy``.  ``scan_layers`` /
 ``layer_scan`` / ``set_probe_unroll`` keep the reference's API as Python
 loops: the port's eager loops run (and a trace counts) every trip, so
-the unrolled and the rolled form are one program here.
+the unrolled and the rolled form are one program here.  The layer loops
+(:func:`layer_loop`) are marked for the dry-run's loop tracer
+(``launch.trace_analysis``) as the reference's layer scans are while
+loops, unless the probe switch unrolls them.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.oracles.chain import resolve_device
+from ..launch.trace_analysis import loop
 
 
 @dataclass(frozen=True)
@@ -694,12 +698,12 @@ def scan_layers(body, init, xs, unroll: bool = False):
     loop: ``body(carry, x_l)`` for each slice ``l`` of the leading axis of
     ``xs`` (a tensor or a nested dict of them), ``(carry, ys stacked)``,
     ys None when every ``y`` is.  ``unroll`` is the reference's probe
-    switch; an eager loop runs every trip either way, so it changes
-    nothing here."""
+    switch; an eager loop runs every trip either way, so it only leaves
+    the loop unmarked for the dry-run's tracer."""
     first = leaves(xs)[0] if leaves(xs) else None
     L = first.shape[0] if first is not None else 0
     carry, ys = init, []
-    for i in range(L):
+    for i in loop("common.scan_layers", L, marked=not unroll):
         carry, y = body(carry, tree_map(lambda a: a[i], xs))
         ys.append(y)
     if not ys or all(y is None for y in ys):
@@ -726,6 +730,13 @@ def set_probe_unroll(value: bool) -> None:
 def layer_scan(body, init, xs):
     """Module-internal alias of :func:`scan_layers` at the probe switch."""
     return scan_layers(body, init, xs, _PROBE_UNROLL)
+
+
+def layer_loop(name: str, n: int):
+    """``range(n)`` for a layer loop (a ``lax.scan`` over layers in the
+    reference), marked ``name`` for the dry-run's loop tracer unless the
+    probe switch unrolls the layers."""
+    return loop(name, n, marked=not _PROBE_UNROLL)
 
 
 REMAT_POLICIES = ("nothing", "dots", "selective", "none")

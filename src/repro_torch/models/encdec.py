@@ -23,8 +23,8 @@ from ..core.oracles.chain import resolve_device
 from ..kernels import ops as kops
 from . import attention as attn
 from .common import (ModelConfig, ParamSpec, cache_at, layer_input,
-                     merge_heads, remat_wrap, residual_add, row_input,
-                     split_heads, unstack)
+                     layer_loop, merge_heads, remat_wrap, residual_add,
+                     row_input, split_heads, unstack)
 from .layers import (cross_entropy, embed_specs, embed_tokens, lm_logits,
                      mlp_specs, rms_norm, swiglu)
 from .transformer import _layer
@@ -110,7 +110,7 @@ def encode(params: dict, cfg: ModelConfig,
     x = frames.to(cfg.dtype)
     eps = cfg.norm_eps
     layers = unstack(params["enc_layers"])
-    for l in range(cfg.encoder_layers):
+    for l in layer_loop("encdec.encoder", cfg.encoder_layers):
         lp = _layer(layers, l)
         x = layer_input(x)
         x = residual_add(x, _bidir_attention(
@@ -137,7 +137,7 @@ def _decoder(params: dict, cfg: ModelConfig, x: torch.Tensor,
 
     body = remat_wrap(cfg, body)      # the decoder's layers, as the reference
     layers = unstack(params["dec_layers"])
-    for l in range(cfg.num_layers):
+    for l in layer_loop("encdec.decoder", cfg.num_layers):
         x = body(_layer(layers, l), x)
     return rms_norm(layer_input(x), params["final_norm"], eps)
 
@@ -187,7 +187,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     x = embed_tokens(params, tokens, cfg)
     B, eps = x.shape[0], cfg.norm_eps
     ck, cv = cache["self"]
-    for l in range(cfg.num_layers):
+    for l in layer_loop("encdec.decode", cfg.num_layers):
         lp = _layer(params["dec_layers"], l)
         a, _ = attn.gqa_decode(lp["self_attn"], rms_norm(x, lp["ln1"], eps),
                                (cache_at(ck, l), cache_at(cv, l)), pos, cfg)

@@ -21,8 +21,8 @@ from ..core.oracles.chain import resolve_device
 from . import attention as attn
 from . import ssm
 from .common import (ModelConfig, ParamSpec, cache_at, cache_write,
-                     gather_fsdp, layer_input, remat_wrap, residual_add,
-                     unstack)
+                     gather_fsdp, layer_input, layer_loop, remat_wrap,
+                     residual_add, unstack)
 from .layers import (cross_entropy, embed_specs, embed_tokens, lm_logits,
                      mlp_specs, rms_norm, swiglu)
 from .transformer import _layer
@@ -80,15 +80,15 @@ def _forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
             lp, rms_norm(x, nrm, cfg.norm_eps), cfg))
 
     def group(x, g):
-        for l in range(k):
+        for l in layer_loop("hybrid.group_layers", k):
             x = mamba(x, _layer(groups, g * k + l), norms[g * k + l])
         return _shared_attn(cfg, gather_fsdp(params["shared_attn"]),
                             layer_input(x), positions)
 
     group = remat_wrap(cfg, group)    # the groups, not the tail
-    for g in range(n_groups):
+    for g in layer_loop("hybrid.groups", n_groups):
         x = group(x, g)
-    for t in range(tail):
+    for t in layer_loop("hybrid.tail", tail):
         x = mamba(x, _layer(tail_layers, t), norms[n_groups * k + t])
     return rms_norm(layer_input(x), params["final_norm"], cfg.norm_eps)
 
@@ -146,8 +146,8 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     x = embed_tokens(params, tokens, cfg)
     n_groups, k, tail = _groups(cfg)
     p = gather_fsdp(params["shared_attn"])
-    for g in range(n_groups):
-        for l in range(k):
+    for g in layer_loop("hybrid.decode.groups", n_groups):
+        for l in layer_loop("hybrid.decode.group_layers", k):
             x = _ssd_step(cfg, _layer(params["mamba_groups"], (g, l)),
                           params["norm_in"][g * k + l], x,
                           cache["ssm_groups"], (g, l))
@@ -159,7 +159,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         x = residual_add(x, swiglu(h, p["mlp"]["gate"], p["mlp"]["up"],
                                    p["mlp"]["down"]))
-    for t in range(tail):
+    for t in layer_loop("hybrid.decode.tail", tail):
         x = _ssd_step(cfg, _layer(params["mamba_tail"], t),
                       params["norm_in"][n_groups * k + t], x,
                       cache["ssm_tail"], t)

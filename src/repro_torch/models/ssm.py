@@ -19,6 +19,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..launch.trace_analysis import loop
 from .common import ModelConfig, ParamSpec, batch_local, merge_heads
 
 HEADDIM = 64
@@ -138,7 +139,7 @@ def ssd_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     state = torch.zeros((Bsz, H, N, pdim), dtype=torch.float32,
                         device=x.device)
     states = []
-    for c in range(nc):
+    for c in loop("ssm.ssd_chunks", nc):
         states.append(state)
         state = state * chunk_decay[:, c, :, None, None] + sc[:, c]
     states = torch.stack(states, dim=1)                       # (B,nc,H,N,p)

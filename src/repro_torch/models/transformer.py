@@ -32,8 +32,8 @@ from ..core.oracles.chain import resolve_device
 from . import attention as attn
 from . import moe as moe_mod
 from .common import (ModelConfig, ParamSpec, cache_at, gather_fsdp,
-                     layer_input, remat_half, remat_wrap, residual_add,
-                     unstack)
+                     layer_input, layer_loop, remat_half, remat_wrap,
+                     residual_add, unstack)
 from .layers import cross_entropy, embed_specs, embed_tokens, lm_logits, \
     mlp_specs, rms_norm, swiglu
 
@@ -130,7 +130,7 @@ def backbone(params: dict, cfg: ModelConfig, x: torch.Tensor,
         body = remat_wrap(cfg, functools.partial(_block, cfg, kind,
                                                  remat=True), halves=True)
         layers = unstack(params[name])
-        for l in range(n):
+        for l in layer_loop(f"transformer.{name}", n):
             x = body(_layer(layers, l), layer_input(x), positions)
     return rms_norm(layer_input(x), params["final_norm"], cfg.norm_eps)
 
@@ -210,7 +210,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     x = embed_tokens(params, tokens, cfg)
     for name, kind, n in _layer_groups(cfg):
         c0, c1 = cache[name]
-        for l in range(n):
+        for l in layer_loop(f"transformer.decode.{name}", n):
             x, _ = _decode_block(cfg, kind, _layer(params[name], l), x,
                                  (cache_at(c0, l), cache_at(c1, l)), pos)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)

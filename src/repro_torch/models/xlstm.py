@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..launch.trace_analysis import loop
 from .common import (ModelConfig, ParamSpec, batch_local, is_dtensor,
                      merge_heads, per_shard, row_input, split_heads)
 from .layers import rms_norm
@@ -119,7 +120,7 @@ def _mlstm_heads(q, k, v, i_g, f_g, chunk: int) -> torch.Tensor:
     state = torch.zeros((B, H, hd, hd), dtype=torch.float32,
                         device=q.device)
     states = []
-    for c in range(nc):
+    for c in loop("xlstm.mlstm_chunks", nc):
         states.append(state)
         state = state * cdec[:, c, :, None, None] + sc[:, c]
     states = torch.stack(states, dim=1)                    # (B,nc,H,hd,hd)
@@ -197,7 +198,7 @@ def slstm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     c = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
     n = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
     hs = []
-    for t in range(S):
+    for t in loop("xlstm.slstm_steps", S):
         g = gx[:, t] + torch.einsum("bhd,hdk->bhk", h, p["rh"])
         h, c, n = _slstm_cell(g, c, n, x.dtype)
         hs.append(h)

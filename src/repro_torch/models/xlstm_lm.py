@@ -16,7 +16,8 @@ import torch
 from ..core.oracles.chain import resolve_device
 from . import xlstm
 from .common import (ModelConfig, ParamSpec, cache_at, cache_write,
-                     layer_input, remat_wrap, residual_add, unstack)
+                     layer_input, layer_loop, remat_wrap, residual_add,
+                     unstack)
 from .layers import cross_entropy, embed_specs, embed_tokens, lm_logits, \
     rms_norm
 from .transformer import _layer
@@ -63,7 +64,7 @@ def _forward(params: dict, cfg: ModelConfig, x: torch.Tensor):
             lp, rms_norm(x, nrm, eps), cfg))
 
     def group(x, g):
-        for l in range(k - 1):
+        for l in layer_loop("xlstm.group_layers", k - 1):
             i = g * (k - 1) + l
             x = mlstm(x, _layer(m_layers, i), m_norms[i])
         x = layer_input(x)
@@ -71,9 +72,9 @@ def _forward(params: dict, cfg: ModelConfig, x: torch.Tensor):
             _layer(s_layers, g), rms_norm(x, s_norms[g], eps), cfg))
 
     group = remat_wrap(cfg, group)    # the groups, not the tail
-    for g in range(n_groups):
+    for g in layer_loop("xlstm.groups", n_groups):
         x = group(x, g)
-    for t in range(tail):
+    for t in layer_loop("xlstm.tail", tail):
         x = mlstm(x, _layer(t_layers, t), t_norms[t])
     return rms_norm(layer_input(x), params["final_norm"], eps)
 
@@ -123,8 +124,8 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
         cache_write(state, new)
         return residual_add(x, out)
 
-    for g in range(n_groups):
-        for l in range(k - 1):
+    for g in layer_loop("xlstm.decode.groups", n_groups):
+        for l in layer_loop("xlstm.decode.group_layers", k - 1):
             x = mlstm_step(x, _layer(params["mlstm"], (g, l)),
                            params["m_norm"][g, l],
                            cache_at(cache["mlstm"], g, l))
@@ -135,7 +136,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
         for name, t in sc.items():
             cache_write(t, new[name])
         x = residual_add(x, out)
-    for t in range(tail):
+    for t in layer_loop("xlstm.decode.tail", tail):
         x = mlstm_step(x, _layer(params["mlstm_tail"], t),
                        params["tail_norm"][t],
                        cache_at(cache["mlstm_tail"], t))

@@ -459,7 +459,7 @@ def test_port_never_imports_jax_or_the_reference_package():
             "models/xlstm_lm.py", "models/encdec.py",
             "configs/zamba2_7b.py", "configs/xlstm_125m.py",
             "configs/whisper_base.py", "launch/dryrun.py",
-            "launch/roofline.py"} <= names
+            "launch/roofline.py", "launch/trace_analysis.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

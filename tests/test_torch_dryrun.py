@@ -39,8 +39,10 @@ def test_dryrun_cli_runs_the_reference_cells(tmp_path, arch, shape, mesh):
     assert rec["ok"], rec
     assert rec["chips"] == (512 if mesh == "multi" else 256)
     assert rec["mesh"] == mesh
-    assert rec["collective_bytes_static"] > 0
-    assert sum(rec["collective_counts"].values()) > 0
+    assert rec["collective_bytes_static"] \
+        + rec["collective_in_loop_bytes"] > 0
+    assert sum(rec["collective_counts"].values()) \
+        + sum(rec["collective_in_loop_counts"].values()) > 0
     assert rec["flops_source"] == "flop_counter"
     assert 0 < rec["flops"] < rec["model_flops"]
     assert rec["bytes_accessed"] > 0
@@ -48,4 +50,4 @@ def test_dryrun_cli_runs_the_reference_cells(tmp_path, arch, shape, mesh):
     cell = jconfigs.SHAPES[shape]
     assert rec["tokens"] == cell.global_batch * (
         cell.seq_len if cell.kind != "decode" else 1)
-    assert rec["memory"]["argument_size_in_bytes"] > 0
+    assert rec["memory_analysis"]["argument_size_in_bytes"] > 0

@@ -69,7 +69,8 @@ def test_reduced_cell_traces_on_a_4x4_mesh(records, cell):
     rec = records[cell]
     arch = cell.split("/")[0]
     assert rec["ok"] and rec["chips"] == 16 and rec["mesh_shape"] == [4, 4]
-    assert rec["collective_bytes_static"] > 0
+    assert rec["collective_bytes_static"] \
+        + rec["collective_in_loop_bytes"] > 0
     assert rec["flops"] > 0 and rec["bytes_accessed"] > 0
     assert rec["flops_source"] == "flop_counter"
     assert rec["params_total"] == \

@@ -2236,3 +2236,49 @@ def test_kernel_wrappers_refuse_cuda_dtensors(cuda):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ops.moe_ffn(xs, w, w, wd)
     assert float((x + 1).sum().full_tensor()) == 128.0
+
+
+@pytest.mark.parametrize("policy", ["none", "nothing"])
+def test_dryrun_temporaries_match_the_card_peak(cuda, policy):
+    """One ``dryrun.make_train_step`` step of qwen2-0.5b at full width and
+    2 layers on 8 x 128 tokens, bf16 weights from seed 0 and fp32 AdamW
+    state, after a warm-up step: the card's peak, less what the process
+    holds besides the step's arguments, within 15 % of the world-size-1
+    trace's argument + temp bytes (the trace's arguments the card's);
+    B5 once per layer under remat "none", twice under "nothing"."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.models import common, registry
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = dataclasses.replace(configs.get_config("qwen2-0.5b"),
+                              num_layers=2, remat_policy=policy)
+    B, S = 8, 128
+    mem = dryrun.run_cell(cfg.name, "train", False, mesh_shape=(1, 1),
+                          cfg=cfg, cell=ShapeCell("train", S, B, "train")
+                          )["memory_analysis"]
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = common.init_params(registry.param_specs(cfg), gen, cuda)
+    ocfg = AdamWConfig(state_dtype=torch.float32)
+    opt = adamw_init(params, ocfg)
+    batch = {k: torch.randint(0, cfg.vocab_size, (B, S), dtype=torch.int32,
+                              device=cuda, generator=gen)
+             for k in ("tokens", "labels")}
+    step = dryrun.make_train_step(cfg, ocfg)
+    params, opt, _, _ = step(params, opt, batch)            # warm-up
+    torch.cuda.synchronize()
+    args = sum(t.numel() * t.element_size() for t in dryrun.tree_leaves(
+        (params, opt.m, opt.v, batch)))
+    assert args == mem["argument_size_in_bytes"]
+    other = torch.cuda.memory_allocated() - args
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.launch_counts()["flash_attention"]
+    params, opt, loss, _ = step(params, opt, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - other
+    assert torch.isfinite(loss).item()
+    assert ops.launch_counts()["flash_attention"] - before == (
+        cfg.num_layers * (1 if policy == "none" else 2))
+    want = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    assert abs(peak / want - 1) <= 0.15, (peak, want)
