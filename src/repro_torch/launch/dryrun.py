@@ -310,6 +310,10 @@ _KINDS = {"all_gather_into_tensor": "all-gather",
 #: the same buffer, the autograd wrapper wraps one.
 _NOT_COLLECTIVES = ("wait_tensor", "_wrap_tensor_autograd")
 _PROPAGATING = threading.local()
+#: The device query, answered by the tensor subclass itself (a fake
+#: tensor's, or DTensor's): it moves nothing, and the autograd engine
+#: asks it of every tensor it handles.
+_DEVICE = torch.ops.prim.device.default
 
 
 def _guard_propagation() -> None:
@@ -339,6 +343,25 @@ def _nbytes(t) -> int:
     return t.numel() * t.element_size() if isinstance(t, torch.Tensor) else 0
 
 
+def _tensors(tree) -> list:
+    """The tensors of an op's arguments or results: nested tuples, lists
+    and dicts (an op's arguments nest no deeper than a list of tensors
+    in a tuple), other leaves dropped."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = tree.values()
+    elif not isinstance(tree, (tuple, list)):
+        return []
+    out = []
+    for t in tree:
+        if isinstance(t, torch.Tensor):
+            out.append(t)
+        elif isinstance(t, (tuple, list, dict)):
+            out.extend(_tensors(t))
+    return out
+
+
 class LocalCounter:
     """A dispatch mode that counts the ops each rank runs on its local
     shards: FLOPs (``torch.utils.flop_counter``'s formulas), operand and
@@ -366,38 +389,54 @@ class LocalCounter:
         self._storages = WeakIdKeyDictionary()
         _guard_propagation()
 
+        from torch.distributed.tensor import DTensor
+        plans: Dict[Any, tuple] = {}
+
+        def plan(func) -> tuple:
+            """``(kind, flop formula or None, collective kind)`` of an op:
+            kind 0 moves no bytes (a view, metadata, a ``prim`` op), 1
+            counts bytes, 2 is a collective, 3 is not counted at all."""
+            ns = func.namespace
+            name = func._overloadpacket.__name__
+            if ns in COLLECTIVE_NAMESPACES:
+                if name in _NOT_COLLECTIVES:
+                    return 3, None, None
+                return 2, None, _KINDS.get(name, name)
+            flop = flop_registry.get(func._overloadpacket)
+            if ns == "prim" or not func._schema.returns or any(
+                    r.alias_info is not None for r in func._schema.returns):
+                return 0, flop, None
+            return 1, flop, None
+
         class _Mode(TorchDispatchMode):
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-                from torch.distributed.tensor import DTensor
-                from torch.utils._pytree import tree_flatten
-                kwargs = kwargs or {}
-                flat, _ = tree_flatten((args, kwargs))
-                if any(isinstance(a, DTensor) for a in flat):
+                if DTensor in types or func is _DEVICE:
                     return NotImplemented
+                kwargs = kwargs or {}
                 out = func(*args, **kwargs)
                 if getattr(_PROPAGATING, "depth", 0):
                     return out
-                ns = func.namespace
-                results = tree_flatten(out)[0]
-                if ns in COLLECTIVE_NAMESPACES:
-                    name = func._overloadpacket.__name__
-                    if name not in _NOT_COLLECTIVES:
-                        counter.loops.record(_KINDS.get(name, name), sum(
-                            _nbytes(t) for t in results))
-                        counter._made(results)
+                p = plans.get(func)
+                if p is None:
+                    p = plans[func] = plan(func)
+                kind, flop, coll = p
+                if kind == 3:
                     return out
-                packet = func._overloadpacket
-                if packet in flop_registry:
-                    n = flop_registry[packet](*args, **kwargs, out_val=out)
+                results = _tensors(out)
+                if kind == 2:
+                    counter.loops.record(coll, sum(_nbytes(t)
+                                                   for t in results))
+                    counter._made(results)
+                    return out
+                if flop is not None:
+                    n = flop(*args, **kwargs, out_val=out)
                     counter.flops += n
-                    counter.op_flops[packet.__name__] = \
-                        counter.op_flops.get(packet.__name__, 0) + n
-                if ns == "prim" or not func._schema.returns or any(
-                        r.alias_info is not None
-                        for r in func._schema.returns):
+                    name = func._overloadpacket.__name__
+                    counter.op_flops[name] = counter.op_flops.get(name, 0) + n
+                if kind == 0:
                     return out      # views and metadata move no bytes
-                counter.bytes += sum(_nbytes(t) for t in flat) + sum(
-                    _nbytes(t) for t in results)
+                counter.bytes += sum(_nbytes(t) for t in _tensors(
+                    (args, kwargs))) + sum(_nbytes(t) for t in results)
                 counter._made(results)
                 return out
 

@@ -427,6 +427,13 @@ class _GradPlacedAsInput(torch.autograd.Function):
         return grad
 
 
+def grad_placed_as_input(x: torch.Tensor) -> torch.Tensor:
+    """``x``, whose (DTensor) gradient comes back placed as ``x`` is, a
+    partial sum reduced (:class:`_GradPlacedAsInput`); a plain tensor as
+    it is."""
+    return _GradPlacedAsInput.apply(x) if is_dtensor(x) else x
+
+
 def merge_heads(o: torch.Tensor) -> torch.Tensor:
     """``o (..., H, hd)`` -> ``(..., H hd)``; on a DTensor, its gradient
     comes back placed as the merge's output was (a gradient sharded over
@@ -557,7 +564,9 @@ def _pair_shard(fn: Callable, ref: torch.Tensor, m: int, *args):
         b, h = pair // H, pair % H
         o = fn(*(t[b, :, h][:, :, None] for t in ts))    # (n, S, 1, d)
         o = F.pad(o[:, :, 0], (0, 0, 0, 0, lo, P - hi))   # (P, S, d)
-        return o.reshape(B, H, S, o.shape[-1]).transpose(1, 2)
+        # contiguous, as DTensor takes a local shard to be: merging the
+        # heads must view it, not let DTensor move it onto the sequence
+        return o.reshape(B, H, S, o.shape[-1]).transpose(1, 2).contiguous()
 
     return local_map(local_fn(run), out_placements=part,
                      in_placements=tuple(plc for _ in args),

@@ -15,12 +15,15 @@ head's ``4 hd``.  No kernel: the reference computes both with einsums and
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from ..launch.trace_analysis import loop
-from .common import (ModelConfig, ParamSpec, batch_local, is_dtensor,
-                     merge_heads, per_shard, row_input, split_heads)
+from .common import (ModelConfig, ParamSpec, batch_local,
+                     grad_placed_as_input, is_dtensor, merge_heads,
+                     per_shard, row_input, split_heads)
 from .layers import rms_norm
 from .ssm import _masked_exp
 
@@ -58,12 +61,16 @@ def _mlstm_proj(p: dict, x: torch.Tensor, cfg: ModelConfig):
     """(q, k / sqrt(hd), v) as (B, S, H, hd), the gates (i, f) (B, S, H)
     in float32, and the output gate's input z."""
     d_inner, H, hd = mlstm_dims(cfg)
-    up = torch.matmul(x, p["up"])
+    # On DTensors the gradients of ``up`` and of the gates come back
+    # placed as these products' outputs were: left to DTensor, they can
+    # arrive reduce-scattered onto the sequence, whose shards the weight
+    # gradients' products cannot contract (xlstm-125m on 512 ranks).
+    up = grad_placed_as_input(torch.matmul(x, p["up"]))
     u, z = up[..., :d_inner], up[..., d_inner:]
     q = split_heads(torch.matmul(u, p["wq"]), H, hd)
     k = split_heads(torch.matmul(u, p["wk"]), H, hd) / hd ** 0.5
     v = split_heads(torch.matmul(u, p["wv"]), H, hd)
-    gif = torch.matmul(u, p["wif"]).float()
+    gif = grad_placed_as_input(torch.matmul(u, p["wif"])).float()
     i_g = torch.sigmoid(gif[..., :H])
     f_g = torch.sigmoid(gif[..., H:] + 2.0)
     return q, k, v, i_g, f_g, z
@@ -189,22 +196,37 @@ def _slstm_cell(g: torch.Tensor, c: torch.Tensor, n: torch.Tensor,
 
 
 def slstm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The recurrent sLSTM over the sequence, a loop over time."""
-    B, S, D = x.shape
+    """The recurrent sLSTM over the sequence, a loop over time.  On
+    DTensors the loop runs on each rank's local batch rows
+    (:func:`batch_local`: the gate pre-activations' columns gathered once,
+    the recurrent weight whole on every rank), so each step is a few
+    local ops, not DTensor dispatches."""
     H = cfg.num_heads
-    hd = D // H
+    hd = x.shape[-1] // H
     gx = split_heads(torch.matmul(x, p["wx"]), H, 4 * hd)
-    h = torch.zeros((B, H, hd), dtype=x.dtype, device=x.device)
-    c = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
-    n = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
-    hs = []
-    for t in loop("xlstm.slstm_steps", S):
-        g = gx[:, t] + torch.einsum("bhd,hdk->bhk", h, p["rh"])
-        h, c, n = _slstm_cell(g, c, n, x.dtype)
-        hs.append(h)
-    y = merge_heads(torch.stack(hs, dim=1))
+    hs = batch_local(functools.partial(_slstm_steps, dtype=x.dtype), gx,
+                     p["rh"])
+    y = merge_heads(hs)
     y = rms_norm(y, p["norm"], cfg.norm_eps)
     return torch.matmul(y, p["down"])
+
+
+def _slstm_steps(gx: torch.Tensor, rh: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The sLSTM's time loop from the gate pre-activations ``gx (B, S, H,
+    4 hd)`` and the recurrent weight ``rh (H, hd, 4 hd)``: every step's
+    ``h`` stacked, (B, S, H, hd) in ``dtype``."""
+    B, S, H = gx.shape[:3]
+    hd = rh.shape[1]
+    h = torch.zeros((B, H, hd), dtype=dtype, device=gx.device)
+    c = torch.zeros((B, H, hd), dtype=torch.float32, device=gx.device)
+    n = torch.zeros((B, H, hd), dtype=torch.float32, device=gx.device)
+    hs = []
+    for t in loop("xlstm.slstm_steps", S):
+        g = gx[:, t] + torch.einsum("bhd,hdk->bhk", h, rh)
+        h, c, n = _slstm_cell(g, c, n, dtype)
+        hs.append(h)
+    return torch.stack(hs, dim=1)
 
 
 def init_slstm_cache(cfg: ModelConfig, batch: int, layers: int,
