@@ -214,6 +214,17 @@ class FlashAttention(torch.autograd.Function):
             grad_out) + (None, None, None, None)
 
 
+def contiguous_stride(shape) -> Tuple[int, ...]:
+    """The stride of a contiguous tensor of ``shape``, as ``torch.empty``
+    gives it (a dim of size 0 strides as one of size 1), read from the
+    shape alone: no tensor is made for it."""
+    stride, step = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(step)
+        step *= max(int(n), 1)
+    return tuple(reversed(stride))
+
+
 def _is_dtensor(t) -> bool:
     from torch.distributed.tensor import DTensor
     return isinstance(t, DTensor)
@@ -288,8 +299,7 @@ def _experts_on_shards(xs: torch.Tensor, wg: torch.Tensor,
                  (x_plc,) + (g_plc,) * 3)]
     return DTensor.from_local(ref.moe_ffn_ref(*local), mesh, x_plc,
                               run_check=False, shape=xs.shape,
-                              stride=torch.empty(xs.shape,
-                                                 device="meta").stride())
+                              stride=contiguous_stride(xs.shape))
 
 
 def moe_ffn(xs: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,

@@ -39,13 +39,19 @@ What a record counts, per device (rank 0's view; the mesh is uniform):
     trips and per-trip bytes) and ``collective_uneven_trips`` (a trip
     whose collectives differ from its loop's first, named; none expected);
   * ``memory_analysis``: ``argument_size_in_bytes`` (parameters, AdamW
-    state, batch or cache, each rank's shards), ``output_size_in_bytes``
+    state, batch or cache, each rank's shards of those an op of the step
+    reads: a prefill's labels, or the MTP and vision weights outside
+    training, are left out, as XLA's executable drops an argument its
+    program does not use), ``output_size_in_bytes``
     and ``temp_size_in_bytes``: the rank's peak of live bytes made inside
     the step.  Each local op's output storage is counted from the op that
     made it until it is freed (a weak reference on the storage, so a view
     holds its base's bytes, and autograd's saved tensors hold the
     activations); the arguments' storages and the ops DTensor's sharding
-    propagation traces on the global shapes are left out.  It differs from
+    propagation traces on the global shapes are left out, and so is an
+    op's output on the meta device (shape without storage, no rank holds
+    it: it adds nothing to ``bytes_accessed`` or the temporaries, its
+    FLOPs are counted as any op's).  It differs from
     XLA's ``temp_size_in_bytes``: no buffer is reused across ops (each op
     makes its outputs, as eager PyTorch and its caching allocator do), no
     argument is donated, and the step's outputs are in it (XLA lists them
@@ -87,6 +93,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from .. import configs
+from ..kernels.ops import contiguous_stride
 from ..models import common, registry
 from ..optim import AdamWConfig, adamw_init, adamw_update
 from .trace_analysis import LoopTracer
@@ -212,8 +219,7 @@ def as_dtensor(t: torch.Tensor, mesh, placements):
     local = torch.empty(shape, dtype=t.dtype, device="cpu")
     return DTensor.from_local(local, mesh, placements, run_check=False,
                               shape=t.shape,
-                              stride=torch.empty(t.shape, device="meta")
-                              .stride())
+                              stride=contiguous_stride(t.shape))
 
 
 def place(tree, shardings, mesh):
@@ -339,8 +345,15 @@ def _guard_propagation() -> None:
     setattr(cls, name, guarded)
 
 
+def _held(t) -> bool:
+    """Whether a rank holds ``t``'s bytes: a tensor on the meta device
+    (its device as the tensor reports it, a fake tensor's fake device)
+    has shape and no storage."""
+    return isinstance(t, torch.Tensor) and t.device.type != "meta"
+
+
 def _nbytes(t) -> int:
-    return t.numel() * t.element_size() if isinstance(t, torch.Tensor) else 0
+    return t.numel() * t.element_size() if _held(t) else 0
 
 
 def _tensors(tree) -> list:
@@ -371,7 +384,9 @@ class LocalCounter:
     DTensors is handed on (DTensor runs it on the local shards, which this
     mode then sees); an op DTensor's sharding propagation traces on the
     global shapes is not counted.  Active inside ``with counter:``; the
-    storages of :meth:`hold` (the step's arguments) are not counted."""
+    storages of :meth:`hold` (the step's arguments) are not counted, and
+    :attr:`argument_bytes` sums those an op reads (as XLA's executable
+    takes only the arguments its program uses)."""
 
     def __init__(self):
         from torch.utils._python_dispatch import TorchDispatchMode
@@ -385,8 +400,11 @@ class LocalCounter:
         self.loops = LoopTracer()
         self.live_bytes = 0
         self.peak_bytes = 0
+        self.argument_bytes = 0
         # storage -> its weak reference (None for a held storage)
         self._storages = WeakIdKeyDictionary()
+        # held storage no op has read yet -> its bytes
+        self._unread = WeakIdKeyDictionary()
         _guard_propagation()
 
         from torch.distributed.tensor import DTensor
@@ -422,6 +440,9 @@ class LocalCounter:
                 kind, flop, coll = p
                 if kind == 3:
                     return out
+                operands = _tensors((args, kwargs))
+                if counter._unread:
+                    counter._read(operands)
                 results = _tensors(out)
                 if kind == 2:
                     counter.loops.record(coll, sum(_nbytes(t)
@@ -435,8 +456,8 @@ class LocalCounter:
                     counter.op_flops[name] = counter.op_flops.get(name, 0) + n
                 if kind == 0:
                     return out      # views and metadata move no bytes
-                counter.bytes += sum(_nbytes(t) for t in _tensors(
-                    (args, kwargs))) + sum(_nbytes(t) for t in results)
+                counter.bytes += sum(_nbytes(t) for t in operands) \
+                    + sum(_nbytes(t) for t in results)
                 counter._made(results)
                 return out
 
@@ -453,17 +474,30 @@ class LocalCounter:
 
     def hold(self, tree) -> None:
         """Leave the storages of a tree's tensors (each rank's shards) out
-        of the count: the step's arguments."""
+        of the count: the step's arguments (two leaves of one storage,
+        a plain step's tokens and labels, are two arguments)."""
         for t in tree_leaves(tree):
             if isinstance(t, torch.Tensor):
                 t = t.to_local() if common.is_dtensor(t) else t
-                self._storages[t.untyped_storage()] = None
+                st = t.untyped_storage()
+                self._storages[st] = None
+                self._unread[st] = self._unread.get(st, 0) + _nbytes(t)
+
+    def _read(self, operands) -> None:
+        """Count the held storages among an op's operands (a view of an
+        argument reads its storage) that no earlier op read."""
+        for t in operands:
+            if _held(t):
+                n = self._unread.pop(t.untyped_storage(), None)
+                if n is not None:
+                    self.argument_bytes += n
 
     def _made(self, results) -> None:
         """Count the storages of an op's outputs that no earlier op made
-        (a view's, or an input's handed back, is counted already)."""
+        (a view's, or an input's handed back, is counted already) and
+        that a rank holds (not a meta tensor's)."""
         for t in results:
-            if not isinstance(t, torch.Tensor):
+            if not _held(t):
                 continue
             st = t.untyped_storage()
             if st in self._storages:
@@ -592,11 +626,11 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         step, args, tokens = cell_step(
             cfg, cell, mesh, psh, opt_dtype,
             bool((overrides or {}).get("seq_shard_cache", True)))
-        in_bytes = _local_bytes(args)
         counter, out, seconds = trace_step(step, args)
         rec["trace_s"] = round(seconds, 2)
         out_bytes = _local_bytes(out)
-    rec["memory_analysis"] = {"argument_size_in_bytes": int(in_bytes),
+    rec["memory_analysis"] = {"argument_size_in_bytes":
+                              int(counter.argument_bytes),
                               "output_size_in_bytes": int(out_bytes),
                               "temp_size_in_bytes": int(counter.peak_bytes)}
     rec["model_flops"] = model_flops(cfg, counts, tokens, cell.kind)

@@ -639,9 +639,15 @@ def cache_write(c: torch.Tensor, val: torch.Tensor, dim: Optional[int] = None,
     """A decode cache written in place: ``c.select(dim, index)`` (every
     other dim whole) takes ``val``, or all of ``c`` with ``dim`` None.  A
     DTensor cache (placed by the dry-run's ``cache_shardings``) has each
-    rank write the part it holds, from ``val`` gathered whole; a plain
+    rank write the part it holds: all of it from a DTensor ``val``
+    redistributed to the cache's placements (no rank gathers a recurrent
+    state whole), one position from ``val`` gathered whole; a plain
     cache on DTensor parameters (each rank a whole copy) takes ``val``
     gathered whole."""
+    if dim is None and is_dtensor(c) and is_dtensor(val):
+        c.to_local().copy_(
+            val.redistribute(c.device_mesh, c.placements).to_local())
+        return
     if is_dtensor(val):
         val = full_replicate(val).to_local()
     if not is_dtensor(c):

@@ -187,8 +187,13 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     x = embed_tokens(params, tokens, cfg)
     B, eps = x.shape[0], cfg.norm_eps
     ck, cv = cache["self"]
+    # The cross-attention's k and v come from the cache: its wk and wv
+    # are left out of each layer's weights, so no rank gathers them.
+    dec = params["dec_layers"]
+    dec = dict(dec, cross_attn={k: dec["cross_attn"][k] for k in ("wq",
+                                                                 "wo")})
     for l in layer_loop("encdec.decode", cfg.num_layers):
-        lp = _layer(params["dec_layers"], l)
+        lp = _layer(dec, l)
         a, _ = attn.gqa_decode(lp["self_attn"], rms_norm(x, lp["ln1"], eps),
                                (cache_at(ck, l), cache_at(cv, l)), pos, cfg)
         x = residual_add(x, a)
