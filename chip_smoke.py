@@ -311,16 +311,16 @@ Phases, one JSON line each (seconds on an H100 in brackets):
                  fp32-score build, the bound and SDPA [~8].
  14n. host_mesh -- make_host_mesh() on the card: 1 x 1 ('data', 'model')
                  [~1].
- 14o. dryrun -- python -m repro_torch.launch.dryrun on qwen2-0.5b and
-                 olmoe-1b-7b train_4k over a fake 256-rank (16, 16)
-                 mesh, one process each, side by side, on the host: ok,
+ 14o. dryrun -- python -m repro_torch.launch.dryrun on qwen2-0.5b,
+                 olmoe-1b-7b and xlstm-125m train_4k and zamba2-7b
+                 prefill_32k over a fake 256-rank (16, 16) mesh, one
+                 process each, side by side, on the host: ok,
                  collectives counted, per-device FLOPs between the
                  model's and the reference's, within 5 % of a CPU
                  host's torch 2.13 count, by op class and collectives by
-                 kind; qwen2-0.5b's and olmoe-1b-7b's temporaries at or
-                 under the reference compile's, bytes accessed and
-                 temporaries printed
-                 [~25-45].
+                 kind; every cell's temporaries at or under the
+                 reference compile's, bytes accessed and temporaries
+                 printed [~0-60 of waiting on xlstm-125m's trace].
  15. sync_debug line (the paths whose every engine dispatch ran under
      sync-debug "error": main, main_async (both programs), main_gram,
      main_shard, main_shard_tau, main_gap, one train_lm step, and the
@@ -490,22 +490,27 @@ REMAT_POLICIES = ("nothing", "dots", "selective", "none")
 # phases: (arch, shape, mesh).
 DRYRUN_CELLS = (("qwen2-0.5b", "train_4k", "single"),
                 ("olmoe-1b-7b", "train_4k", "single"),
-                ("xlstm-125m", "train_4k", "single"))
+                ("xlstm-125m", "train_4k", "single"),
+                ("zamba2-7b", "prefill_32k", "single"))
 # Per-device FLOPs of the same cells in the JAX reference's compiled
 # program: the reference roofline's counts on a CPU host (``python -m
-# repro.launch.roofline --arch A --shape train_4k``, jax 0.9.0 on the
-# CPU, the layers unrolled); the port's count is held at or under them.
+# repro.launch.roofline --arch A --shape S``, jax 0.9.0 on the CPU, the
+# layers unrolled; the baseline compile's record counts a loop's body
+# once, zamba2-7b prefill_32k's 6.3476e12); the port's count is held at
+# or under them.
 DRYRUN_REFERENCE_FLOPS = {"qwen2-0.5b": 5.218e13, "olmoe-1b-7b": 9.105e13,
-                          "xlstm-125m": 6.499e12}
+                          "xlstm-125m": 6.499e12, "zamba2-7b": 5.7724e14}
 # The port's own count of each cell on a CPU host (torch 2.13); the GPU
 # host's torch traces the same program within DRYRUN_AGREE of it.
 DRYRUN_CPU_HOST_FLOPS = {"qwen2-0.5b": 1.9986e13, "olmoe-1b-7b": 5.4209e13,
-                         "xlstm-125m": 6.0228e12}
+                         "xlstm-125m": 6.0228e12, "zamba2-7b": 1.2801e14}
 DRYRUN_AGREE = 0.05
-# The loops each record's while_trip_counts holds: the layer loop, and
-# xlstm-125m's groups of 3 mLSTM + 1 sLSTM and the sLSTM's time steps.
+# The loops each record's while_trip_counts holds: the layer loop;
+# xlstm-125m's groups of 3 mLSTM + 1 sLSTM and the sLSTM's time steps;
+# zamba2-7b's 13 groups of 6 Mamba2 layers, its tail of 3 and the SSD's
+# chunk loop (32,768 tokens in chunks of 256).
 DRYRUN_TRIPS = {"qwen2-0.5b": (24,), "olmoe-1b-7b": (16,),
-                "xlstm-125m": (3, 4096)}
+                "xlstm-125m": (3, 4096), "zamba2-7b": (13, 6, 3, 128)}
 # qwen2-0.5b train_4k with the vocab on its shards at both ends of the
 # step (the loss and the lookup, ROADMAP C11): each rank's temporaries at
 # or under the reference compile's (3.6980e11 B, the reference's
@@ -515,7 +520,13 @@ DRYRUN_TRIPS = {"qwen2-0.5b": (24,), "olmoe-1b-7b": (16,),
 # under the reference compile's (6.8220e10 B): the counter leaves out the
 # storage a meta tensor does not hold (it counted the experts' whole
 # (E, C, D) slab, made on the meta device to read its stride, 1.0137e11).
-DRYRUN_TEMP_MAX = {"qwen2-0.5b": 3.6980e11, "olmoe-1b-7b": 6.8220e10}
+# xlstm-125m train_4k's at or under the reference compile's (5.6164e10).
+# zamba2-7b prefill_32k's at or under the reference compile's (2.9065e10):
+# each (2, 128, 256, 256, 112) fp32 slab of the SSD's intra-chunk step is
+# dropped after its last use (4.0323e10 when three stayed live to the end
+# of ssd_forward).
+DRYRUN_TEMP_MAX = {"qwen2-0.5b": 3.6980e11, "olmoe-1b-7b": 6.8220e10,
+                   "xlstm-125m": 5.6164e10, "zamba2-7b": 2.9065e10}
 DRYRUN_STATIC_ALL_GATHER_MAX = {"qwen2-0.5b": 1e9}
 # The dry-run's temporaries against the card (phase dryrun_memory): one
 # dryrun.make_train_step step of TRAIN's arch at full width and depth on
@@ -5393,23 +5404,26 @@ def stop_dryrun(runs: dict) -> None:
 
 def phase_dryrun(runs: dict):
     """The dry-run's records of ``DRYRUN_CELLS`` (qwen2-0.5b, olmoe-1b-7b
-    and xlstm-125m train_4k on the (16, 16) mesh of a fake 256-rank
-    group), started by :func:`start_dryrun`; per record: ok, chips,
+    and xlstm-125m train_4k, zamba2-7b prefill_32k, on the (16, 16) mesh
+    of a fake 256-rank group), started by :func:`start_dryrun`; per
+    record: ok, chips,
     collectives (static plus one trip of the loops > 0, no trip whose
     collectives differ from its loop's first, ``DRYRUN_TRIPS`` among the
     loops' trip counts), per-device FLOPs at or under the reference's
     (``DRYRUN_REFERENCE_FLOPS``) and at least the model's, within
     ``DRYRUN_AGREE`` of a CPU host's torch 2.13 count
-    (``DRYRUN_CPU_HOST_FLOPS``); qwen2-0.5b's and olmoe-1b-7b's
-    temporaries under ``DRYRUN_TEMP_MAX``, qwen2-0.5b's static all-gather
+    (``DRYRUN_CPU_HOST_FLOPS``); every cell's temporaries at or under
+    ``DRYRUN_TEMP_MAX``, qwen2-0.5b's static all-gather
     under ``DRYRUN_STATIC_ALL_GATHER_MAX``; FLOPs by op class and
     collectives by kind, each cell's bytes accessed and
     ``memory_analysis`` (its temporaries), its trace seconds, the seconds
     from the start to the
     last record and the seconds the profiler's traces held the processes
-    stopped (``paused_s``, within both) [qwen2 and olmoe ~30 s, xlstm ~440-520 s: 442 s on the
-    GPU host beside the other two, 514 s on an 8-core CPU host among
-    6 traces; read here, ~8 min after the build, ~0-60 s of waiting]."""
+    stopped (``paused_s``, within both) [qwen2 and olmoe ~30 s, zamba2
+    ~40-60 s (40-57 s on an 8-core CPU host alone), xlstm ~440-540 s:
+    476.5 s on the GPU host beside qwen2 and olmoe, 795 s on an 8-core CPU
+    host beside the tests; read here, ~8 min after the build, ~0-60 s of
+    waiting]."""
     import torch
     try:
         rcs = [p.wait(timeout=900) for p in runs["procs"]]
@@ -5442,9 +5456,9 @@ def phase_dryrun(runs: dict):
               f"CPU host's torch 2.13 {cpu:.4e}")
         temp = rec["memory_analysis"]["temp_size_in_bytes"]
         gather = rec["collective_by_kind"].get("all-gather", 0)
-        check(temp <= DRYRUN_TEMP_MAX.get(arch, math.inf),
+        check(temp <= DRYRUN_TEMP_MAX[arch],
               f"dryrun {arch}: {temp:.4e} B of temporaries per rank, the "
-              f"reference's {DRYRUN_TEMP_MAX.get(arch)}")
+              f"reference's {DRYRUN_TEMP_MAX[arch]}")
         check(gather < DRYRUN_STATIC_ALL_GATHER_MAX.get(arch, math.inf),
               f"dryrun {arch}: {gather:.4e} B of static all-gather")
         emit("dryrun", seconds=seconds,
@@ -5454,7 +5468,7 @@ def phase_dryrun(runs: dict):
              flops_over_reference=rec["flops"] / ref,
              flops_over_cpu_host=rec["flops"] / cpu,
              model_flops_per_device=model,
-             temp_max=DRYRUN_TEMP_MAX.get(arch),
+             temp_max=DRYRUN_TEMP_MAX[arch],
              static_all_gather_max=DRYRUN_STATIC_ALL_GATHER_MAX.get(arch),
              **{k: rec[k] for k in (
                  "arch", "shape", "mesh", "chips", "params_total", "trace_s",

@@ -11,6 +11,17 @@ products, the chunk loop); the einsums are torch's.  The intra-chunk decay
 masks before its exp (:func:`_masked_exp`): the reference's values, with a
 finite gradient where the reference's is NaN.  No kernel: the reference
 computes SSD with einsums and a scan, outside any Pallas kernel.
+
+The intra-chunk step makes (B, nc, Q, Q, H) float32 slabs: the segment
+sums, their masked copy, the decay L, the scores and the einsum's
+permuted copy of them; at zamba2-7b's prefill_32k one is 7.5 GB a rank.
+An eager step frees a tensor only when its last reference goes, whereas
+the reference's XLA program frees each buffer after its last use, so each
+slab here is dropped right after its last use and no op of a no-grad step
+sees more than two live.  Under autograd each op still saves what its
+backward needs.  Only lifetimes differ from a step that keeps every slab
+as a local to its end: the same ops on the same operands in the same
+order, so the values are its values, bit for bit.
 """
 from __future__ import annotations
 
@@ -94,14 +105,28 @@ def _masked_exp(seg: torch.Tensor, Q: int) -> torch.Tensor:
     to inf over a long chunk, and the gradient through the discarded inf
     is 0 * inf = NaN (reduced zamba2 at a 32-token chunk; ROADMAP's
     quirks).  Here those entries are exp(-inf) = 0 with a zero gradient,
-    so the gradient equals the reference's wherever that is finite."""
+    so the gradient equals the reference's wherever that is finite.
+
+    ``seg`` is dropped once its masked copy exists, so the ``exp`` sees two
+    slabs live (the masked copy and its output) where the caller passes
+    ``seg`` unnamed (:func:`ssd_forward`); a caller that keeps ``seg``
+    named keeps it live."""
     qi = torch.arange(Q, device=seg.device)
     causal = (qi[:, None] >= qi[None, :])[None, None, :, :, None]
-    return torch.exp(seg.masked_fill(~causal, float("-inf")))
+    masked = seg.masked_fill(~causal, float("-inf"))
+    del seg
+    return torch.exp(masked)
 
 
 def ssd_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x: (B, S, D) -> (B, S, D) via chunked SSD."""
+    """x: (B, S, D) -> (B, S, D) via chunked SSD.
+
+    The intra-chunk slabs (B, nc, Q, Q, H) live no longer than they are
+    used: the segment sums go to :func:`_masked_exp` unnamed, L is dropped
+    once ``cb * L`` exists, that product once ``* dt`` exists, the scores
+    after the ``y_intra`` einsum.  So at most two are live at any op of a
+    no-grad step (the module docstring says why); the values are those of
+    the same ops with the slabs kept to the end, bit for bit."""
     Bsz, S, _ = x.shape
     d_inner, H, N = ssm_dims(cfg)
     pdim = HEADDIM
@@ -122,12 +147,15 @@ def ssd_forward(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     a = dt * A                                                # (B,nc,Q,H)
     cum = batch_local(lambda t: torch.cumsum(t, dim=2), a)    # (B,nc,Q,H)
 
-    # intra-chunk: L[q,s] = exp(cum_q - cum_s) for s <= q, else 0
-    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]       # (B,nc,Q,Q,H)
-    L = _masked_exp(seg, Q)
+    # intra-chunk: L[q,s] = exp(cum_q - cum_s) for s <= q, else 0; each
+    # (B,nc,Q,Q,H) slab dropped after its last use
+    L = _masked_exp(cum[:, :, :, None, :] - cum[:, :, None, :, :], Q)
     cb = torch.einsum("bcqn,bcsn->bcqs", Cm, Bm)
-    scores = cb[..., None] * L * dt[:, :, None, :, :]         # (B,nc,Q,Q,H)
+    scores = cb[..., None] * L
+    del L
+    scores = scores * dt[:, :, None, :, :]
     y_intra = torch.einsum("bcqsh,bcshp->bcqhp", scores, xs)
+    del scores
 
     # chunk summaries: S_c = sum_s exp(cum_Q - cum_s) dt_s B_s x_s^T
     decay_out = torch.exp(cum[:, :, -1:, :] - cum)            # (B,nc,Q,H)
